@@ -1,0 +1,111 @@
+"""Build the CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C entry
+point, compiled for Hopper (``sm_90a``) into ``build/kernels/`` at the repo
+root on first use.  The file name carries a digest of the sources, so an
+edited kernel is rebuilt and a stale library is never loaded.  All missing
+libraries are compiled together, one ``nvcc`` process per source.
+
+Every entry point returns ``cudaGetLastError()`` after its launches; the
+wrappers raise when it is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("exemplar_gains", "greedy_select")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signatures: every pointer and the stream as c_void_p (a plain int would
+# be cut to 32 bits), sizes as long long, the rest as int
+ARGTYPES = {
+    "exemplar_gains_launch": [_P, _P, _P, _P, _LL, _LL, _I, _I, _P],
+    "greedy_select_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I,
+                             _I, _P],
+}
+
+#: kernel launches per kernel name, counted by the wrappers where they
+#: launch (re-exported as ``ops.launch_counts``)
+launch_counts: dict[str, int] = {name: 0 for name in SOURCES}
+#: ptxas register/shared-memory report of each library built in this process
+build_log: dict[str, str] = {}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    found = str(path) if path.exists() else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                           "are built from source at first use")
+    return found
+
+
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names=SOURCES) -> float:
+    """Compile every library in ``names`` that is missing, all at once;
+    returns the wall seconds spent."""
+    todo = [n for n in names if not lib_path(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for name in todo:
+        tmp = lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        build_log[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+        else:
+            os.replace(tmp, lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all((name,))
+            lib = ctypes.CDLL(str(lib_path(name)))
+            for fn, argtypes in ARGTYPES.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,194 @@
+"""The port's kernels: plain versions against the JAX package's ``ref`` and
+``ops`` on the CPU, dispatch rules, and the CUDA kernels against their plain
+versions on a card."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch import testing
+from repro_torch.kernels import exemplar_gains as eg_mod
+from repro_torch.kernels import greedy_select as gs_mod
+from repro_torch.kernels import ops, ref
+
+from _torch_parity import cuda, make_inputs  # noqa: F401
+
+SHAPES = [(1, 37, 13, 5), (3, 61, 29, 17), (3, 45, 130, 3)]
+
+
+@pytest.mark.parametrize("M,n,m,d", SHAPES)
+def test_pairwise_sqdist_matches_jax(M, n, m, d):
+    X, E, _ = make_inputs(M, n, m, d, seed=n)
+    got = ref.pairwise_sqdist(torch.from_numpy(X), torch.from_numpy(E))
+    for i in range(M):
+        testing.assert_close(got[i], jref.pairwise_sqdist(jnp.asarray(X[i]),
+                                                          jnp.asarray(E)))
+
+
+@pytest.mark.parametrize("M,n,m,d", SHAPES)
+def test_exemplar_gains_matches_jax(M, n, m, d):
+    X, E, _ = make_inputs(M, n, m, d, seed=n + 1)
+    cm = np.random.default_rng(m).random((M, m)).astype(np.float32) * d
+    got = ops.exemplar_gains(torch.from_numpy(X), torch.from_numpy(E),
+                             torch.from_numpy(cm))
+    for i in range(M):
+        want = jops.exemplar_gains(jnp.asarray(X[i]), jnp.asarray(E),
+                                   jnp.asarray(cm[i]))
+        testing.assert_close(got[i], want, f"machine {i}")
+    # the unbatched form is the same function
+    testing.assert_close(
+        ops.exemplar_gains(torch.from_numpy(X[0]), torch.from_numpy(E),
+                           torch.from_numpy(cm[0])), got[0])
+
+
+@pytest.mark.parametrize("M,n,m,d", SHAPES)
+@pytest.mark.parametrize("k", [7, 50])
+def test_greedy_select_matches_jax(M, n, m, d, k):
+    """k=50 exceeds the available rows of the smallest block: the −1 tail."""
+    X, E, mask = make_inputs(M, n, m, d, seed=n + k)
+    cm0 = np.sum(E * E, axis=-1)
+    sel, cm = ops.greedy_select(torch.from_numpy(X), torch.from_numpy(E),
+                                torch.from_numpy(cm0), torch.from_numpy(mask),
+                                k)
+    assert sel.shape == (M, k) and cm.shape == (M, m)
+    for i in range(M):
+        jsel, jcm = jops.greedy_select(jnp.asarray(X[i]), jnp.asarray(E),
+                                       jnp.asarray(cm0), jnp.asarray(mask[i]),
+                                       k)
+        np.testing.assert_array_equal(sel[i].numpy(), np.asarray(jsel))
+        testing.assert_close(cm[i], jcm, f"machine {i}")
+
+
+def test_greedy_select_matches_pallas_interpret():
+    """One tiny case against the JAX Pallas kernel in interpret mode."""
+    X, E, mask = make_inputs(1, 40, 21, 5, seed=7)
+    cm0 = np.sum(E * E, axis=-1)
+    jsel, jcm = jops.greedy_select(jnp.asarray(X[0]), jnp.asarray(E),
+                                   jnp.asarray(cm0), jnp.asarray(mask[0]), 6,
+                                   impl="pallas", bn=16)
+    sel, cm = ops.greedy_select(torch.from_numpy(X[0]), torch.from_numpy(E),
+                                torch.from_numpy(cm0),
+                                torch.from_numpy(mask[0]), 6)
+    np.testing.assert_array_equal(sel.numpy(), np.asarray(jsel))
+    testing.assert_close(cm, jcm)
+
+
+def test_trace_matches_greedy_select():
+    X, E, mask = make_inputs(2, 30, 11, 4, seed=3)
+    Xt, Et, mt = map(torch.from_numpy, (X, E, mask))
+    e0 = torch.sum(Et * Et, dim=-1)
+    sel, cm, gap, best = ref.greedy_select_trace(Xt, Et, e0, mt, 6)
+    sel2, cm2 = ref.greedy_select(Xt, Et, e0, mt, 6)
+    assert torch.equal(sel, sel2) and torch.equal(cm, cm2)
+    assert bool(torch.all(gap >= 0))
+    g0 = ref.exemplar_gains(Xt, Et, e0).masked_fill(~mt, ref.NEG_INF)
+    testing.assert_close(best[:, 0], g0.max(dim=1).values)
+
+
+@pytest.mark.parametrize("M,n,m,d,k", [(1, 70, 9, 4, 8), (2, 41, 13, 6, 8),
+                                       (1, 6, 5, 3, 8)])
+def test_row_chunked_trace_matches_machine_chunks(monkeypatch, M, n, m, d, k):
+    """The plain greedy over a machine too large for its distance tensor
+    (chunked over rows, as at n = 45M on the card) selects as the whole-
+    machine version does, −1 past the last candidate included."""
+    X, E, mask = make_inputs(M, n, m, d, seed=n)
+    Xt, Et, mt = map(torch.from_numpy, (X, E, mask))
+    e0 = torch.sum(Et * Et, dim=-1)
+    want = ref.greedy_select_trace(Xt, Et, e0, mt, k)
+    monkeypatch.setattr(ref, "_CHUNK_ELEMS", 4 * m)       # 4 rows a chunk
+    got = ref.greedy_select_trace(Xt, Et, e0, mt, k)
+    assert torch.equal(got[0], want[0])
+    for a, b, what in zip(got[1:], want[1:], ("cur_min", "gap", "best")):
+        testing.assert_close(a, b, what)
+
+
+def test_refresh_cur_min_replays_the_selection():
+    X, E, mask = make_inputs(3, 25, 11, 5, seed=4)
+    Xt, Et, mt = map(torch.from_numpy, (X, E, mask))
+    e0 = torch.sum(Et * Et, dim=-1)
+    sel, cm = ref.greedy_select(Xt, Et, e0, mt, 30)       # −1 at the end
+    assert bool(torch.any(sel < 0))
+    assert torch.equal(ref.refresh_cur_min(Xt, Et, e0, sel), cm)
+    assert torch.equal(ref.refresh_cur_min(Xt[1], Et, e0, sel[1]), cm[1])
+
+
+def test_near_tie_rule():
+    """Selections must agree up to the first near-tie step, and may part
+    after it."""
+    ref_sel = np.array([[1, 2, 3]])
+    gaps = np.array([[1.0, 1e-9, 1.0]])
+    best = np.ones((1, 3))
+    assert testing.selections_agree(np.array([[1, 2, 4]]), ref_sel, gaps,
+                                    best) == (True, 1)
+    assert testing.selections_agree(np.array([[1, 5, 4]]), ref_sel, gaps,
+                                    best) == (True, 1)
+    assert not testing.selections_agree(np.array([[0, 2, 3]]), ref_sel, gaps,
+                                        best)[0]
+
+
+@pytest.mark.parametrize("kw,item", [({"compute_dtype": torch.bfloat16}, "10"),
+                                     ({"x_scale": 1}, "10"),
+                                     ({"eval_weights": 1}, "9"),
+                                     ({"weights": 1, "budget": 1.0}, "7"),
+                                     ({"group_ids": 1, "caps": (1,)}, "7")])
+def test_unported_arguments_name_their_roadmap_item(kw, item):
+    X, E, mask = make_inputs(1, 9, 5, 3, seed=0)
+    args = (torch.from_numpy(X[0]), torch.from_numpy(E),
+            torch.ones(5), torch.from_numpy(mask[0]), 2)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
+        ops.greedy_select(*args, **kw)
+    if not {"weights", "budget", "group_ids", "caps"} & set(kw):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ops.exemplar_gains(*args[:3], **kw)
+
+
+def test_non_cpu_tensor_never_falls_back_to_plain():
+    """A tensor that is neither on the CPU nor on a card raises."""
+    X = torch.empty((4, 3), device="meta")
+    E = torch.empty((2, 3), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.exemplar_gains(X, E, torch.empty((2,), device="meta"))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.greedy_select(X, E, torch.empty((2,), device="meta"),
+                          torch.empty((4,), dtype=torch.bool, device="meta"),
+                          1)
+
+
+def test_kernel_launchers_refuse_cpu_tensors():
+    """The kernel wrappers launch on CUDA tensors only: a CPU tensor is an
+    error, not a quiet run of the plain version."""
+    X = torch.zeros((1, 8, 3))
+    E = torch.zeros((64, 3))
+    cm = torch.zeros((1, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        eg_mod.launch(X, E, cm)
+    with pytest.raises(ValueError, match="CUDA"):
+        gs_mod.launch(X, E, cm, torch.ones((1, 8), dtype=torch.uint8), 2, 64)
+
+
+def test_launch_counts_untouched_by_plain_path():
+    ops.reset_launch_counts()
+    X, E, mask = make_inputs(2, 20, 7, 3, seed=1)
+    ops.greedy_select(torch.from_numpy(X), torch.from_numpy(E),
+                      torch.ones(7), torch.from_numpy(mask), 3)
+    assert ops.launch_counts == {"exemplar_gains": 0, "greedy_select": 0}
+
+
+@pytest.mark.parametrize("M,n,m,d", [(1, 300, 70, 6), (7, 333, 130, 17),
+                                     (2, 129, 65, 3072)])
+def test_kernels_match_plain_on_card(cuda, M, n, m, d):  # noqa: F811
+    X, E, mask = make_inputs(M, n, m, d, seed=M + n)
+    X /= np.sqrt(d)
+    E /= np.sqrt(d)
+    Xt, Et, mt = (torch.as_tensor(a, device=cuda) for a in (X, E, mask))
+    e0 = torch.sum(Et * Et, dim=-1)
+    testing.assert_close(ops.exemplar_gains(Xt, Et, e0),
+                         ref.exemplar_gains(Xt, Et, e0))
+    sel, cm = ops.greedy_select(Xt, Et, e0, mt, 9)
+    sel_p, cm_p, gap, best = ref.greedy_select_trace(Xt, Et, e0, mt, 9)
+    ok, _ = testing.selections_agree(sel, sel_p, gap, best)
+    assert ok
+    same = torch.all(sel == sel_p, dim=1)
+    testing.assert_close(cm[same], cm_p[same])
