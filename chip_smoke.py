@@ -11,6 +11,12 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
 2. kernels — ``exemplar_gains`` and ``greedy_select`` against their plain
    PyTorch versions on the card, d ∈ {6, 17, 64, 3072}, ragged n and m,
    M ∈ {1, 7}, and one M = 1 machine of more than 512 candidate tiles;
+   ``greedy_select`` under knapsack, partition and both (d ∈ {6, 17},
+   M ∈ {1, 7}, G ∈ {1, 8}, budgets that bind); ``threshold_select``
+   unconstrained and under knapsack ∩ partition at bn ∈ {16, 256}, ragged
+   n and n < 256, mid-ladder state, a stop flag raised in an early block,
+   M = 1 over more than 100 blocks, and the most partition groups a
+   launch takes (one more raises);
 3. scan path — ``run_algorithm("greedy", fused=False)`` on one 22,500-row
    block, launching ``exemplar_gains``; its selections and the fused
    path's against the plain greedy under the near-tie rule;
@@ -18,7 +24,14 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    §4.4: n = 45M, d = 6, μ = 22,500 = 0.05% of n, k = 50) and centralized
    greedy over the same ground set, on the card; the centralized
    selections against the plain greedy over all 45M rows;
-5. times — each kernel at its path's shapes, held against its plain
+5. constrained — the same deployment with per-row attributes (a weight
+   ~ U(0.2, 1.0) and one of 8 groups) under Knapsack(0.45k) ∩
+   PartitionMatroid(k/4 per group): GREEDY TREE against the constrained
+   centralized greedy (ratio ≥ 0.9), THRESHOLD-BATCH TREE at ε = 0.5
+   unconstrained and constrained (gap ≤ ε), every coreset feasible and
+   re-scored, τ-ladder depth ≤ 1 + ⌈log(2k/ε)/ε⌉; the constrained
+   centralized selections against the plain constrained greedy;
+6. times — each kernel at its path's shapes, held against its plain
    version there, timed beside it and beside its bound (fp32 FMA rate,
    memory rate).
 
@@ -44,6 +57,11 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 SEED = 0
 WEBSCOPE = dict(n=45_000_000, d=6, k=50, mu=22_500, n_eval=512)
+N_GROUPS = 8
+EPS = 0.5
+# share of machines whose accept sets must match the plain version's in
+# full under the near-threshold rule
+FULL_SHARE = 0.9
 
 
 def fail(msg: str) -> None:
@@ -186,6 +204,485 @@ def phase_kernels() -> None:
         f"{testing.RTOL} atol={testing.ATOL}; near-tie steps {ties}")
 
 
+def make_attrs(n: int, seed: int):
+    """Per-row attributes as the repo's benchmarks draw them
+    (``benchmarks/adaptive_depth.py``): a weight ~ U(0.2, 1.0) and a group
+    id uniform over ``N_GROUPS``, as two fp32 columns."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    w = r.uniform(0.2, 1.0, n).astype(np.float32)
+    g = r.integers(0, N_GROUPS, n).astype(np.float32)
+    return np.stack([w, g], axis=1)
+
+
+def webscope_constraint(k: int):
+    """``benchmarks/constrained_tree.py``'s intersection: a knapsack of
+    0.45k over column 0 and k/4 items per group of column 1."""
+    from repro_torch.core import Intersection, Knapsack, PartitionMatroid
+    return Intersection((Knapsack(budget=0.45 * k, col=0),
+                         PartitionMatroid(caps=(k // 4,) * N_GROUPS, col=1)))
+
+
+def fold_cur_min(X, E, cm_in, acc, kmax: int):
+    """The plain fold of each machine's own accept set (at most ``kmax``
+    rows) into ``cm_in``: the contraction-form distances' row-min."""
+    import torch
+    from repro_torch.kernels import ref
+    idx = torch.argsort(acc.to(torch.int8), dim=1, descending=True,
+                        stable=True)[:, :kmax]
+    ok = torch.take_along_dim(acc, idx, dim=1)
+    d2 = ref.pairwise_sqdist(torch.take_along_dim(X, idx[..., None], dim=1),
+                             E)
+    d2 = torch.where(ok[..., None], d2, torch.full_like(d2, float("inf")))
+    return torch.minimum(cm_in, torch.amin(d2, dim=1))
+
+
+def check_threshold(acc, cm, trace, X, E, cm_in, tau, avail, kmax, limit,
+                    what: str) -> tuple[int, int, float]:
+    """threshold_select's output against the plain trace under the
+    near-threshold rule; every machine's cur_min against the plain fold of
+    its own accept set.  Returns (machines matching in full, near rows,
+    max |Δ cur_min|)."""
+    import torch
+    from repro_torch import testing
+    acc_p, cm_p, gains, load = trace
+    ok, full, near = testing.accepts_agree(acc, acc_p, gains, tau, load=load,
+                                           limit=limit, avail=avail)
+    if not ok:
+        fail(f"{what}: accept set differs from the plain version before any "
+             f"near-threshold or near-budget row")
+    want = fold_cur_min(X, E, cm_in, acc, kmax)
+    testing.assert_close(cm, want, f"{what}: cur_min, every machine")
+    same = torch.all(acc == acc_p, dim=-1)
+    testing.assert_close(cm[same], cm_p[same],
+                         f"{what}: cur_min, machines accepting as plain")
+    return full, near, max(testing.max_abs_err(cm, want),
+                           testing.max_abs_err(cm[same], cm_p[same]))
+
+
+def phase_kernels_constrained() -> None:
+    """Constrained greedy_select and threshold_select against their plain
+    versions at ragged shapes."""
+    import numpy as np
+    import torch
+    from repro_torch import testing
+    from repro_torch.core import (Intersection, Knapsack, PartitionMatroid,
+                                  check_feasible)
+    from repro_torch.core.algorithms import _fused_constraint_kwargs
+    from repro_torch.kernels import ops, ref
+    k = 10
+    cases = [(M, n, m, d, G, "both") for d, n, m in ((6, 1000, 300),
+                                                      (17, 777, 130))
+             for M in (1, 7) for G in (1, 8)]
+    cases += [(7, 1000, 300, 6, 8, "knapsack"),
+              (7, 777, 130, 17, 8, "partition")]
+    ties = 0
+    for M, n, m, d, G, kind in cases:
+        X = _dataset(d, M * n + m, seed=200 + d)
+        E = torch.as_tensor(X[M * n:], device="cuda")
+        T = torch.as_tensor(X[:M * n].reshape(M, n, d), device="cuda")
+        mask = torch.as_tensor(
+            np.random.default_rng(d + M).random((M, n)) < 0.85,
+            device="cuda")
+        a = make_attrs(M * n, seed=d * M + G).reshape(M, n, 2)
+        a[..., 1] %= G
+        kn = Knapsack(budget=0.35 * k, col=0) if kind != "partition" else None
+        caps = (k // 2,) if G == 1 else (max(1, k // N_GROUPS),) * G
+        pm = PartitionMatroid(caps=caps, col=1) if kind != "knapsack" else None
+        cons = Intersection(tuple(p for p in (kn, pm) if p is not None))
+        kw = _fused_constraint_kwargs(cons,
+                                      torch.as_tensor(a, device="cuda"))
+        e0 = torch.sum(E * E, dim=-1)
+        trace = ref.greedy_select_trace(T, E, e0, mask, k, **kw)
+        sel, cm_out = ops.greedy_select(T, E, e0, mask, k, **kw)
+        torch.cuda.synchronize()
+        what = f"greedy_select {kind} M={M} n={n} m={m} d={d} G={G}"
+        n_tie, same, err = check_greedy(sel, cm_out, T, E, e0, trace, what)
+        ties += n_tie
+        sel_np = sel.cpu().numpy()
+        for i in range(M):
+            ok, detail = check_feasible(cons, a[i][np.maximum(sel_np[i], 0)],
+                                        sel_np[i] >= 0)
+            if not ok:
+                fail(f"{what}: machine {i} infeasible: {detail}")
+        log(f"  constrained kernels {kind} M={M} n={n} m={m} d={d} G={G} "
+            f"k={k}: sel, cur_min agree ({same}/{M} machines select as "
+            f"plain, {int((sel >= 0).sum())} of {M * k} slots filled: the "
+            f"constraint binds; max|dcm| {err:.3g}, near-tie steps {n_tie})")
+    log(f"constrained greedy_select vs plain: {len(cases)} shapes agree, "
+        f"every selection feasible; near-tie steps {ties}")
+
+    # threshold_select: (M, n, m, d, bn, state, constrained); n = 201 < 256
+    # gives bn = 201, n = 30,000 at bn = 256 runs 118 blocks on one
+    # machine.  Unconstrained, the kernel runs with no weights and no group
+    # ids (the unconstrained THRESHOLD-BATCH TREE's launch): only k stops it.
+    k = 12
+    cons = webscope_constraint(k)
+    tcases = [(3, 1000, 300, 6, 256, "fresh", True),
+              (3, 1000, 300, 6, 16, "mid", True),
+              (7, 201, 130, 17, 256, "mid", True),
+              (7, 777, 130, 17, 16, "stop", True),
+              (1, 30_000, 300, 6, 256, "mid", True),
+              (2, 5_003, 64, 6, 16, "mid", True),
+              (3, 1000, 300, 6, 256, "fresh", False),
+              (7, 201, 130, 17, 256, "mid", False),
+              (7, 777, 130, 17, 16, "stop", False),
+              (1, 30_000, 300, 6, 256, "mid", False)]
+    full_all = m_all = near_all = 0
+    for M, n, m, d, bn, state, constrained in tcases:
+        X = _dataset(d, M * n + m, seed=300 + d)
+        E = torch.as_tensor(X[M * n:], device="cuda")
+        T = torch.as_tensor(X[:M * n].reshape(M, n, d), device="cuda")
+        r = np.random.default_rng(n + bn)
+        mask = torch.as_tensor(r.random((M, n)) < 0.85, device="cuda")
+        a = torch.as_tensor(make_attrs(M * n, seed=n).reshape(M, n, 2),
+                            device="cuda")
+        kw = _fused_constraint_kwargs(cons, a) if constrained else {}
+        limit = ref.knapsack_limit(kw["budget"]) if constrained else None
+        e0 = torch.sum(E * E, dim=-1)
+        cm_in = (e0 * torch.as_tensor(0.6 + 0.4 * r.random((M, m)),
+                                      dtype=torch.float32, device="cuda"))
+        g = ref.exemplar_gains(T, E, cm_in).masked_fill(~mask, 0.0)
+        tau = g.amax(dim=1) * (0.2 if state == "stop" else 0.4)
+        st = {}
+        if state in ("mid", "stop"):
+            st["count"] = torch.full((M,), k - 1 if state == "stop" else 3,
+                                     dtype=torch.int32, device="cuda")
+        if state in ("mid", "stop") and constrained:
+            st["used"] = torch.full((M,), 0.2 * limit, device="cuda")
+            st["counts"] = torch.as_tensor(
+                r.integers(0, 2, (M, N_GROUPS)), dtype=torch.int32,
+                device="cuda")
+        acc, cm = ops.threshold_select(T, E, cm_in, mask, tau, k, bn=bn,
+                                       **st, **kw)
+        torch.cuda.synchronize()
+        trace = ref.threshold_select_trace(T, E, cm_in, mask, tau, k,
+                                           bn=min(bn, max(8, n)), **st, **kw)
+        what = (f"threshold_select {state} "
+                f"{'knapsack ∩ partition' if constrained else 'unconstrained'}"
+                f" M={M} n={n} m={m} d={d} bn={bn}")
+        full, near, _ = check_threshold(acc, cm, trace, T, E, cm_in, tau,
+                                        mask, k, limit, what)
+        n_acc = acc.sum(dim=1)
+        count0 = st.get("count", torch.zeros((M,), device="cuda")).long()
+        if bool(torch.any(count0 + n_acc > k)):
+            fail(f"{what}: accepted past k")
+        if state == "stop" and bool(torch.any(n_acc > 1)):
+            fail(f"{what}: accepted past the stop flag")
+        full_all, m_all, near_all = full_all + full, m_all + M, \
+            near_all + near
+        log(f"  {what} ({-(-n // min(bn, max(8, n)))} blocks): {full}/{M} "
+            f"machines accept as plain, {int(n_acc.sum())} rows accepted, "
+            f"near rows {near}")
+    if full_all < FULL_SHARE * m_all:
+        fail(f"threshold_select: only {full_all}/{m_all} machines compared "
+             f"in full")
+    log(f"threshold_select vs plain: {len(tcases)} shapes agree under the "
+        f"near-threshold rule; {full_all}/{m_all} machines in full, near "
+        f"rows {near_all}")
+    threshold_group_limit()
+
+
+def threshold_group_limit() -> None:
+    """threshold_select at the most partition groups one launch takes (the
+    group counts fill the block's shared memory): it runs and agrees with
+    the plain version, which runs on the CPU here because it loops over
+    the groups; one group more raises."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import threshold_select as _ts
+    G = _ts.max_groups(torch.device("cuda"))
+    M, n, m, d, k = 2, 64, 64, 6, 12
+    X = _dataset(d, M * n + m, seed=400)
+    E = torch.as_tensor(X[M * n:], device="cuda")
+    T = torch.as_tensor(X[:M * n].reshape(M, n, d), device="cuda")
+    r = np.random.default_rng(G)
+    mask = torch.ones((M, n), dtype=torch.bool, device="cuda")
+    gid = torch.as_tensor(r.integers(0, G, (M, n)), dtype=torch.int32,
+                          device="cuda")
+    e0 = torch.sum(E * E, dim=-1)
+    tau = ref.exemplar_gains(T, E, e0).amax(dim=1) * 0.3
+    caps = (1,) * G
+    acc, cm = ops.threshold_select(T, E, e0, mask, tau, k, group_ids=gid,
+                                   caps=caps)
+    torch.cuda.synchronize()
+    cpu = [t.cpu() for t in (T, E, e0, mask, tau, gid)]
+    trace = ref.threshold_select_trace(*cpu[:5], k, group_ids=cpu[5],
+                                       caps=caps)
+    full, near, _ = check_threshold(
+        acc.cpu(), cm.cpu(), trace, cpu[0], cpu[1], cpu[2].expand(M, m),
+        cpu[4], cpu[3], k, None, f"threshold_select at G = {G}")
+    try:
+        ops.threshold_select(T, E, e0, mask, tau, k, group_ids=gid,
+                             caps=caps + (1,))
+    except ValueError:
+        pass
+    else:
+        fail(f"threshold_select took G = {G + 1}, past its shared memory")
+    log(f"threshold_select at its group limit G = {G}: {full}/{M} machines "
+        f"accept as plain ({int(acc.sum())} rows, near rows {near}); "
+        f"G = {G + 1} raises")
+
+
+def phase_constrained(main: dict) -> dict:
+    """Constrained GREEDY and THRESHOLD-BATCH TREE at the Webscope
+    deployment, against the centralized greedy under the same
+    constraint."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.core import (TorchPlan, TreeConfig, centralized_greedy,
+                                  check_feasible, tree_maximize)
+    from repro_torch.core.algorithms import _fused_constraint_kwargs
+    from repro_torch.kernels import ops, ref
+    X, obj, cfg = main["X"], main["obj"], main["cfg"]
+    n, d = X.shape
+    k, mu = cfg.k, cfg.capacity
+    t0 = time.perf_counter()
+    attrs = torch.as_tensor(make_attrs(n, SEED), device="cuda")
+    cons = webscope_constraint(k)
+    log(f"constrained data: attrs (n, 2) from seed {SEED}, wide rows "
+        f"{n * (d + 2) * 4 / 1e9:.2f} GB on the card, constraint "
+        f"{cons} ({time.perf_counter() - t0:.1f} s)")
+
+    def check_run(name, res, counts, constraint):
+        if constraint is not None:
+            ok, detail = check_feasible(constraint, res.sel_attrs,
+                                        res.sel_mask)
+            if not ok:
+                fail(f"{name}: coreset infeasible: {detail}")
+        if not math.isfinite(res.value) or res.sel_rows.shape != (k, d):
+            fail(f"{name}: non-finite value or wrong shape")
+        rescore = obj.evaluate(torch.as_tensor(res.sel_rows, device="cuda"),
+                               torch.as_tensor(res.sel_mask, device="cuda"))
+        testing.assert_close(float(rescore), res.value, f"{name} re-scored")
+        log(f"{name}: rounds {res.rounds}, machines/round "
+            f"{res.machines_per_round}, oracle calls {res.oracle_calls}, "
+            f"depth/round {res.depth_per_round} (solve depth "
+            f"{res.solve_depth}), value {res.value!r}, selected "
+            f"{int(res.sel_mask.sum())}")
+        log(f"{name} round walls (CUDA events, s): {res.round_walls}; "
+            f"total {res.total_wall_s:.3f} s; launches {counts}")
+
+    def tree(name, cfg_r, constraint):
+        ops.reset_launch_counts()
+        res = tree_maximize(obj, X, cfg_r, device="cuda",
+                            plan=TorchPlan(SEED), constraint=constraint,
+                            attrs=None if constraint is None else attrs)
+        torch.cuda.synchronize()
+        counts = dict(ops.launch_counts)
+        check_run(name, res, counts, constraint)
+        return res, counts
+
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    cent = centralized_greedy(obj, X, k, constraint=cons, attrs=attrs,
+                              device="cuda")
+    cent_value = float(cent.value)
+    torch.cuda.synchronize()
+    log(f"constrained centralized greedy: value {cent_value!r}, wall "
+        f"{time.perf_counter() - t1:.3f} s, launches "
+        f"{dict(ops.launch_counts)}")
+    ok, detail = check_feasible(cons, cent.sel_attrs.cpu().numpy(),
+                                cent.sel_mask.cpu().numpy())
+    if not ok:
+        fail(f"constrained centralized greedy infeasible: {detail}")
+    testing.assert_close(cent_value, float(obj.evaluate(cent.sel_rows,
+                                                        cent.sel_mask)),
+                         "constrained centralized value re-scored")
+
+    tree_g, cnt_g = tree("GREEDY TREE, knapsack ∩ partition", cfg, cons)
+    if cnt_g["greedy_select_constrained"] == 0:
+        fail("constrained GREEDY TREE launched the constrained "
+             "greedy_select no time")
+    ratio = tree_g.value / cent_value
+    log(f"GREEDY TREE / centralized, both constrained: {ratio!r}")
+    if ratio < 0.9:
+        fail(f"constrained TREE/centralized ratio {ratio} below 0.9")
+
+    cfg_t = TreeConfig(k=k, capacity=mu, seed=SEED,
+                       algorithm="threshold_batch", eps=EPS)
+    depth_cap = 1 + math.ceil(math.log(2 * k / EPS) / EPS)
+    gaps = {}
+    runs = {}
+    for label, constraint, central in (
+            ("unconstrained", None, main["cent_value"]),
+            ("knapsack ∩ partition", cons, cent_value)):
+        name = f"THRESHOLD-BATCH TREE eps={EPS}, {label}"
+        res, counts = tree(name, cfg_t, constraint)
+        for kern in ("threshold_select", "exemplar_gains"):
+            if counts[kern] == 0:
+                fail(f"{name} launched {kern} no time")
+        if max(res.depth_per_round) > depth_cap:
+            fail(f"{name}: depth/round {res.depth_per_round} above "
+                 f"{depth_cap}")
+        gaps[label] = 1.0 - res.value / central
+        log(f"{name}: gap 1 - tree/central = {gaps[label]!r} (ε = {EPS}); "
+            f"depth {res.solve_depth} against GREEDY's k·rounds = "
+            f"{k * res.rounds}")
+        if gaps[label] > EPS:
+            fail(f"{name}: gap {gaps[label]} above ε = {EPS}")
+        runs[label] = counts
+
+    # the constrained centralized run against the plain constrained greedy
+    # over all n rows (chunked over rows), as phase_main does unconstrained
+    t2 = time.perf_counter()
+    E = obj.eval_set
+    sel_p, _, gap, best = ref.greedy_select_trace(
+        X, E, torch.sum(E * E, dim=-1),
+        torch.ones((n,), dtype=torch.bool, device="cuda"), k,
+        **_fused_constraint_kwargs(cons, attrs))
+    torch.cuda.synchronize()
+    rows_p = X[torch.clamp_min(sel_p, 0)]
+    same = torch.where(sel_p >= 0, torch.all(cent.sel_rows == rows_p, dim=-1)
+                       & cent.sel_mask, ~cent.sel_mask)
+    ok, n_tie = testing.selections_agree(torch.where(same, sel_p, -2), sel_p,
+                                         gap, best)
+    if not ok:
+        fail("constrained centralized greedy selects apart from the plain "
+             "constrained greedy before any near tie")
+    log(f"constrained centralized vs plain over {n} rows: "
+        f"{int(same.sum())}/{k} steps select the same row, near-tie steps "
+        f"{n_tie} (plain {time.perf_counter() - t2:.1f} s)")
+    return {"attrs": attrs, "cons": cons, "launches": {
+        "greedy_select_constrained": cnt_g["greedy_select_constrained"],
+        "threshold_select": runs["knapsack ∩ partition"]["threshold_select"],
+        "threshold_select_unconstrained":
+            runs["unconstrained"]["threshold_select"]}}
+
+
+def times_constrained(main: dict, constrained: dict, blocks, bmask, part
+                      ) -> list[dict]:
+    """The constrained greedy_select and one threshold_select level at
+    round 0 of the constrained path: time, plain time, bound."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.core import partition as part_lib
+    from repro_torch.core.algorithms import _fused_constraint_kwargs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import threshold_select as _ts
+    obj, cfg = main["obj"], main["cfg"]
+    cons, attrs = constrained["cons"], constrained["attrs"]
+    E = obj.eval_set
+    M, mu, d = blocks.shape
+    m, k = E.shape[0], cfg.k
+    ablocks, _ = part_lib.gather_partition(attrs, part)
+    kw = _fused_constraint_kwargs(cons, ablocks)
+    seed = torch.sum(E * E, dim=-1)
+    rows = []
+
+    sel, cm_out = ops.greedy_select(blocks, E, seed, bmask, k, **kw)
+    t0 = time.perf_counter()
+    trace = ref.greedy_select_trace(blocks, E, seed, bmask, k, **kw)
+    torch.cuda.synchronize()
+    log(f"plain constrained greedy at round 0 (M={M}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_tie, same, err = check_greedy(sel, cm_out, blocks, E, seed, trace,
+                                    "constrained greedy_select at round 0")
+    log(f"constrained greedy_select round 0 vs plain: {same}/{M} machines "
+        f"select as plain, near-tie steps {n_tie}, max|dcm| {err:.3g}, "
+        f"{int((sel >= 0).sum())} of {M * k} slots filled")
+    ms = cuda_ms(lambda: ops.greedy_select(blocks, E, seed, bmask, k, **kw),
+                 runs=5)
+    plain = cuda_ms(lambda: ref.greedy_select(blocks, E, seed, bmask, k,
+                                              **kw), runs=1, warmup=0)
+    calls = int(torch.sum(obj.fused_select(blocks, bmask, k, **kw)[3]))
+    b, by = bound_ms(calls * m * (2 * d + 3),
+                     4 * M * mu * d + 4 * m * d + 4 * m + M * mu
+                     + 8 * M * mu + 4 * M * k + 4 * M * m)
+    rows.append({"name": "greedy_select (knapsack ∩ partition)",
+                 "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/greedy_select.cu",
+                 "replaces": "src/repro/kernels/greedy_select.py:265",
+                 "launches": constrained["launches"][
+                     "greedy_select_constrained"],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": b, "bound_by": by, "library_ms": None})
+
+    # one τ-level under the intersection at round 0, at the first level's
+    # τ = d_max, and the next level; the same two levels unconstrained (the
+    # unconstrained THRESHOLD-BATCH TREE's launch: no weights, no group
+    # ids).  d_max is itself a gain, and the kernel's and the plain
+    # version's gains of that row round apart, so each side's own d_max
+    # admits its top row and may refuse the other's by an ulp: the level
+    # is held at the smaller of the two per machine, which both reach.
+    enc = ref.Encoding(M, mu, blocks.device, **kw)
+    cand = enc.feasible(bmask, torch.zeros((M,), device="cuda"),
+                        torch.zeros((M, enc.G), dtype=torch.int32,
+                                    device="cuda"))
+    gains = (ops.exemplar_gains(blocks, E, seed),
+             ref.exemplar_gains(blocks, E, seed))
+
+    def first_tau(ok):
+        dmax = [torch.clamp_min(torch.amax(torch.where(ok, g, 0.0), dim=1),
+                                1e-12) for g in gains]
+        return torch.minimum(*dmax), testing.max_abs_err(*dmax)
+
+    tau0, dmax_err = first_tau(cand)
+    tau0_u, _ = first_tau(bmask)
+    log(f"threshold level 0 at round 0: max |d_max kernel - d_max plain| "
+        f"{dmax_err:.3g}")
+    limit = ref.knapsack_limit(kw["budget"])
+    errs = []
+    for label, lkw, lim, t0_ in (("knapsack ∩ partition", kw, limit, tau0),
+                                 ("unconstrained", {}, None, tau0_u)):
+        for level, tau in ((0, t0_), (1, t0_ * (1.0 - EPS))):
+            acc, cm = ops.threshold_select(blocks, E, seed, bmask, tau, k,
+                                           **lkw)
+            t0 = time.perf_counter()
+            trace = ref.threshold_select_trace(blocks, E, seed, bmask, tau,
+                                               k, **lkw)
+            torch.cuda.synchronize()
+            what = f"threshold_select {label} at round 0, level {level}"
+            full, near, err = check_threshold(acc, cm, trace, blocks, E,
+                                              seed.expand(M, m), tau, bmask,
+                                              k, lim, what)
+            errs.append(err)
+            log(f"{what} vs plain: {full}/{M} machines accept as plain, "
+                f"near rows {near}, {int(acc.sum())} rows accepted (plain "
+                f"{time.perf_counter() - t0:.1f} s)")
+            if full < FULL_SHARE * M:
+                fail(f"{what}: only {full}/{M} machines compared in full")
+    # the kernel alone on operands prepared once (cur_min restored before
+    # each launch); the whole ops call beside it
+    Xb = blocks.contiguous()
+    Ep, cmp_ = ops._pad_eval(E, seed.expand(M, m))
+    cm_run = cmp_.clone()
+    ops_kw = ops._card_encoding(enc)
+    args = (bmask.to(torch.uint8), tau0.contiguous(),
+            torch.zeros((M,), device="cuda"),
+            torch.zeros((M,), dtype=torch.int32, device="cuda"),
+            torch.zeros((M, enc.G), dtype=torch.int32, device="cuda"),
+            torch.ones((M,), dtype=torch.uint8, device="cuda"))
+
+    def kernel_alone():
+        cm_run.copy_(cmp_)
+        _ts.launch(Xb, Ep, cm_run, *args, k, 256, m, **ops_kw)
+
+    ms = cuda_ms(kernel_alone, runs=10)
+    ms_ops = cuda_ms(lambda: ops.threshold_select(blocks, E, seed, bmask,
+                                                  tau0, k, **kw), runs=10)
+    plain = cuda_ms(lambda: ref.threshold_select(blocks, E, seed, bmask,
+                                                 tau0, k, **kw),
+                    runs=1, warmup=0)
+    ms_u = cuda_ms(lambda: ops.threshold_select(blocks, E, seed, bmask,
+                                                tau0_u, k), runs=10)
+    log(f"threshold_select level 0 at round 0: kernel {ms:.4f} ms, whole "
+        f"ops call {ms_ops:.4f} ms; unconstrained, whole ops call "
+        f"{ms_u:.4f} ms")
+    n_rows = int(bmask.sum())
+    b, by = bound_ms(n_rows * m * (2 * d + 3),
+                     M * mu * (4 * d + 4 + 4 + 1 + 1) + 4 * m * d
+                     + 8 * M * m + 16 * M)
+    rows.append({"name": "threshold_select", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/threshold_select.cu",
+                 "replaces": "src/repro/kernels/threshold_select.py:238",
+                 "launches": constrained["launches"]["threshold_select"],
+                 "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
+                 "bound_ms": b, "bound_by": by, "library_ms": None})
+    return rows
+
+
 def phase_scan() -> dict:
     """Scan path through exemplar_gains on one 22,500-row block."""
     import torch
@@ -306,10 +803,11 @@ def phase_main() -> dict:
     log(f"centralized vs plain greedy over {n} rows: {int(same.sum())}/{k} "
         f"steps select the same row, near-tie steps {n_tie} (plain "
         f"{time.perf_counter() - t2:.1f} s)")
-    return {"X": X, "obj": obj, "cfg": cfg, "launches": counts}
+    return {"X": X, "obj": obj, "cfg": cfg, "launches": counts,
+            "cent_value": cent_value}
 
 
-def phase_times(scan: dict, main: dict) -> list[dict]:
+def phase_times(scan: dict, main: dict, constrained: dict) -> list[dict]:
     """Each kernel at its path's shapes: time, plain time, bound."""
     import torch
     from repro_torch import testing
@@ -378,6 +876,7 @@ def phase_times(scan: dict, main: dict) -> list[dict]:
                  "launches": main["launches"]["greedy_select"],
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
                  "bound_ms": b, "bound_by": by, "library_ms": None})
+    rows += times_constrained(main, constrained, blocks, bmask, part)
     for r in rows:
         log(f"time {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
@@ -394,9 +893,11 @@ def main() -> None:
         fail("no CUDA device")
     phase_setup()
     phase_kernels()
+    phase_kernels_constrained()
     scan = phase_scan()
     main_path = phase_main()
-    rows = phase_times(scan, main_path)
+    constrained = phase_constrained(main_path)
+    rows = phase_times(scan, main_path, constrained)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

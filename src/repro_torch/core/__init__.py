@@ -1,9 +1,13 @@
-"""repro_torch.core — tree-based compression with GREEDY on each machine,
-on a resident ground set (the port's first slice)."""
-from repro_torch.core.algorithms import SelectResult, greedy, run_algorithm
+"""repro_torch.core — tree-based compression on a resident ground set, with
+GREEDY or THRESHOLD-BATCH on each machine, under hereditary constraints."""
+from repro_torch.core.algorithms import (SelectResult, greedy, run_algorithm,
+                                         threshold_batch)
 from repro_torch.core.baselines import (BaselineResult, centralized_greedy,
                                         random_subset)
-from repro_torch.core.constraints import Unconstrained
+from repro_torch.core.constraints import (Intersection, Knapsack,
+                                          PartitionMatroid, Unconstrained,
+                                          attr_dim, check_feasible,
+                                          constraint_from_spec, from_spec)
 from repro_torch.core.distributed import RoundResult, run_round
 from repro_torch.core.objectives import ExemplarClustering
 from repro_torch.core.partition import (balanced_partition, gather_partition,
@@ -12,9 +16,11 @@ from repro_torch.core.plan import ArrayPlan, TorchPlan
 from repro_torch.core.tree import TreeConfig, TreeResult, tree_maximize
 
 __all__ = [
-    "SelectResult", "greedy", "run_algorithm",
+    "SelectResult", "greedy", "run_algorithm", "threshold_batch",
     "BaselineResult", "centralized_greedy", "random_subset",
-    "Unconstrained", "RoundResult", "run_round", "ExemplarClustering",
+    "Intersection", "Knapsack", "PartitionMatroid", "Unconstrained",
+    "attr_dim", "check_feasible", "constraint_from_spec", "from_spec",
+    "RoundResult", "run_round", "ExemplarClustering",
     "balanced_partition", "gather_partition", "n_parts", "repartition_rows",
     "ArrayPlan", "TorchPlan", "TreeConfig", "TreeResult", "tree_maximize",
 ]

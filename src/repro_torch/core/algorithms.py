@@ -5,9 +5,11 @@ machine blocks with a matching validity mask, and returns at most ``k``
 selected block positions per machine.  The leading machine axis is JAX's
 ``vmap`` written out: one call solves every machine of a round.
 
-This slice ports :func:`greedy` (1-nice, lowest-index tie-breaking), with
-both the step-wise scan and the fused single-call path.  The other three
-names of :data:`ALGORITHM_KWARGS` raise until ROADMAP queue 1 item 8.
+Ported: :func:`greedy` (1-nice, lowest-index tie-breaking; the step-wise
+scan under any hereditary constraint and the fused path under the
+knapsack / partition-matroid encodings) and :func:`threshold_batch` (the
+low-adaptivity τ-ladder).  ``stochastic_greedy`` and ``threshold_greedy``
+raise until ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.constraints import Unconstrained
+from repro_torch.core.constraints import (Intersection, Knapsack,
+                                          PartitionMatroid, Unconstrained)
 
 NEG_INF = -1e30
 
@@ -28,27 +31,75 @@ class SelectResult(NamedTuple):
     value: torch.Tensor         # (...,) f(selected)
     oracle_calls: torch.Tensor  # (...,) int64 marginal-gain evaluations
     depth: torch.Tensor         # (...,) int64 sequential solve depth: the
-    #   dependent argmax steps the solve cannot parallelise away (k here)
+    #   dependent launches the solve cannot parallelise away: k for greedy,
+    #   1 + τ-levels run for threshold_batch
+
+
+def _fused_parts(constraint) -> tuple | None:
+    """Decompose a constraint into fused-encodable parts, or None.
+
+    Fused encodings exist for :class:`Knapsack` (one running used weight)
+    and :class:`PartitionMatroid` (one running count per group); an
+    :class:`Intersection` of at most one of each composes (masks AND = the
+    scan's conjunction).  Anything else — two of a kind, nested
+    intersections, custom constraints — returns None.
+    """
+    parts = (constraint.parts if isinstance(constraint, Intersection)
+             else (constraint,))
+    n_knap = sum(isinstance(p, Knapsack) for p in parts)
+    n_part = sum(isinstance(p, PartitionMatroid) for p in parts)
+    if n_knap + n_part != len(parts) or n_knap > 1 or n_part > 1:
+        return None
+    return parts
+
+
+def _fused_constraint_kwargs(constraint, attrs) -> dict:
+    """Fused-hook operands of a fused-encodable constraint."""
+    kw = {}
+    for p in _fused_parts(constraint):
+        if isinstance(p, Knapsack):
+            kw["weights"] = attrs[..., p.col]
+            kw["budget"] = p.budget
+        else:
+            kw["group_ids"] = attrs[..., p.col]
+            kw["caps"] = p.caps
+    return kw
+
+
+def _constrained(constraint) -> bool:
+    return constraint is not None and not isinstance(constraint,
+                                                     Unconstrained)
 
 
 def _fusable(obj, constraint, attrs) -> bool:
-    """May the fused selection replace the step-wise scan?  Unconstrained
-    selection fuses whenever the objective exposes ``fused_select``; the
-    fused constraint encodings come with ROADMAP queue 1 item 7."""
+    """May the fused selection replace the step-wise scan?
+
+    Unconstrained selection fuses whenever the objective exposes
+    ``fused_select``.  Knapsack (``fused_knapsack`` on the objective),
+    partition matroid (``fused_partition``) and an intersection of at most
+    one of each fuse too; everything else takes the feasibility-masked
+    step-wise scan.
+    """
     if not (getattr(obj, "rowwise_gains", False)
             and hasattr(obj, "fused_select")):
         return False
-    if constraint is None or isinstance(constraint, Unconstrained):
+    if not _constrained(constraint):
         return attrs is None
-    return False
+    parts = _fused_parts(constraint)
+    if parts is None or attrs is None:
+        return False
+    return all(getattr(obj, "fused_knapsack" if isinstance(p, Knapsack)
+                       else "fused_partition", False) for p in parts)
 
 
-def _reject_constraint(constraint, attrs) -> None:
-    if (constraint is not None and not isinstance(constraint, Unconstrained)
-            or attrs is not None):
-        raise NotImplementedError(
-            "constrained selection is not ported yet: ROADMAP queue 1 item 7 "
-            "(constraints)")
+def _where_state(ok: torch.Tensor, new, old):
+    """Per-machine select over a (possibly nested) tuple of state tensors."""
+    if isinstance(new, tuple):
+        return tuple(_where_state(ok, a, b) for a, b in zip(new, old))
+    if isinstance(new, dict):
+        return {key: _where_state(ok, new[key], old[key]) for key in new}
+    return torch.where(ok.reshape(ok.shape + (1,) * (new.dim() - ok.dim())),
+                       new, old)
 
 
 def greedy(obj, T: torch.Tensor, mask: torch.Tensor, k: int, *,
@@ -56,12 +107,14 @@ def greedy(obj, T: torch.Tensor, mask: torch.Tensor, k: int, *,
            qmeta=None) -> SelectResult:
     """Classic greedy with consistent (lowest-index) tie-breaking.
 
-    ``fused=None`` (auto) routes unconstrained selection through the
-    objective's ``fused_select`` hook (``ops.greedy_select``: one call for
-    the whole k-step loop on every machine); ``fused=False`` forces the
-    step-wise scan, ``fused=True`` asserts the fast path.
+    Supports any hereditary constraint over per-item ``attrs``
+    ``(..., cap, a)``; the cardinality bound is the loop bound ``k``.
+    ``fused=None`` (auto) routes unconstrained, knapsack-, partition- and
+    knapsack∩partition-constrained selection through the objective's
+    ``fused_select`` hook (``ops.greedy_select``: one call for the whole
+    k-step loop on every machine); ``fused=False`` forces the step-wise
+    scan, ``fused=True`` asserts the fast path.
     """
-    _reject_constraint(constraint, attrs)
     if qmeta is not None:
         raise NotImplementedError("quantized blocks are not ported yet: "
                                   "ROADMAP queue 1 item 10 (narrow operands)")
@@ -72,23 +125,31 @@ def greedy(obj, T: torch.Tensor, mask: torch.Tensor, k: int, *,
     if fused:
         assert _fusable(obj, constraint, attrs), (
             "fused=True needs a rowwise objective with a fused_select hook "
-            "and an unconstrained selection")
-        sel_idx, sel_mask, value, calls = obj.fused_select(T, mask, k)
+            "and an unconstrained, fused-knapsack or fused-partition "
+            "selection")
+        ckw = (_fused_constraint_kwargs(constraint, attrs)
+               if _constrained(constraint) else {})
+        sel_idx, sel_mask, value, calls = obj.fused_select(T, mask, k, **ckw)
         return SelectResult(sel_idx, sel_mask, value, calls, depth)
 
+    constraint = constraint or Unconstrained()
+    if attrs is None:
+        attrs = torch.zeros(T.shape[:-1] + (1,), dtype=torch.float32,
+                            device=T.device)
     state = obj.init_state(T, mask)
+    cstate = constraint.init_state(batch, T.device)
     avail = mask.bool()
     calls = torch.zeros(batch, dtype=torch.long, device=T.device)
     sel_idx, sel_mask = [], []
     for _ in range(k):
-        cand = avail
+        cand = avail & constraint.feasible(cstate, attrs)
         gains = obj.gains(state, T, cand)
         best = torch.argmax(gains, dim=-1)              # lowest index on ties
         ok = torch.take_along_dim(gains, best[..., None], dim=-1)[..., 0] \
             > NEG_INF / 2                               # any candidate at all?
-        new = obj.update(state, T, best)
-        state = {key: torch.where(ok.reshape(ok.shape + (1,) * (
-            new[key].dim() - ok.dim())), new[key], state[key]) for key in state}
+        state = _where_state(ok, obj.update(state, T, best), state)
+        cstate = _where_state(ok, constraint.update(cstate, attrs, best),
+                              cstate)
         hit = torch.nn.functional.one_hot(best, T.shape[-2]).bool()
         avail = avail & ~(ok[..., None] & hit)
         calls = calls + torch.sum(cand.long(), dim=-1)
@@ -97,6 +158,47 @@ def greedy(obj, T: torch.Tensor, mask: torch.Tensor, k: int, *,
     return SelectResult(torch.stack(sel_idx, dim=-1),
                         torch.stack(sel_mask, dim=-1), obj.value(state),
                         calls, depth)
+
+
+def threshold_batch(obj, T: torch.Tensor, mask: torch.Tensor, k: int, *,
+                    eps: float = 0.5, constraint=None, attrs=None,
+                    qmeta=None) -> SelectResult:
+    """Batch-accepting descending-threshold selection (adaptive sequencing).
+
+    One ``threshold_select`` launch per τ-level scores every candidate
+    against τ and accepts the prefix-feasible batch of qualifying items;
+    the ladder lowers τ ← τ(1−ε) between launches.  Sequential solve depth
+    is ``1 + launches ≤ 1 + ⌈log(2k/ε)/ε⌉`` per machine instead of
+    greedy's k.
+
+    Needs a row-wise objective with the ``fused_threshold_select`` hook,
+    and a fused-encodable constraint (knapsack, partition matroid, one of
+    each); anything else raises rather than degrading to a sequential path.
+    """
+    if qmeta is not None:
+        raise NotImplementedError("quantized blocks are not ported yet: "
+                                  "ROADMAP queue 1 item 10 (narrow operands)")
+    if not (getattr(obj, "rowwise_gains", False)
+            and hasattr(obj, "fused_threshold_select")):
+        raise ValueError(
+            "threshold_batch needs a row-wise objective with a "
+            f"fused_threshold_select hook; {type(obj).__name__} has none "
+            "(use algorithm='threshold_greedy' for the sequential ladder)")
+    ckw = {}
+    if _constrained(constraint):
+        if _fused_parts(constraint) is None:
+            raise ValueError(
+                "threshold_batch supports knapsack, partition-matroid, and "
+                "one-of-each intersection constraints; "
+                f"{type(constraint).__name__} has no fused encoding")
+        if attrs is None:
+            raise ValueError(
+                "constrained threshold_batch needs per-item attrs")
+        ckw = _fused_constraint_kwargs(constraint, attrs)
+    sel_idx, sel_mask, value, calls, launches = obj.fused_threshold_select(
+        T, mask, k, eps=eps, **ckw)
+    # depth: the d_max init pass plus the launches the ladder ran
+    return SelectResult(sel_idx, sel_mask, value, calls, 1 + launches)
 
 
 #: kwargs each algorithm consumes; anything else passed explicitly to
@@ -146,6 +248,10 @@ def run_algorithm(name: str, obj, T, mask, k, *, key=None, eps=None,
     if name == "greedy":
         return greedy(obj, T, mask, k, constraint=constraint, attrs=attrs,
                       fused=fused, qmeta=qmeta)
+    if name == "threshold_batch":
+        return threshold_batch(obj, T, mask, k, constraint=constraint,
+                               attrs=attrs, qmeta=qmeta,
+                               **({} if eps is None else {"eps": eps}))
     raise NotImplementedError(
         f"algorithm {name!r} is not ported yet: ROADMAP queue 1 item 8 "
         "(remaining algorithms)")

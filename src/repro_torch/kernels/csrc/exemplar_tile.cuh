@@ -1,5 +1,5 @@
 // Shared gain tile of the exemplar-clustering kernels (exemplar_gains.cu,
-// greedy_select.cu).
+// greedy_select.cu, threshold_select.cu).
 //
 // For the BN candidate rows [row0, row0 + BN) of one machine block it
 // computes, against the whole (zero-padded) eval set,
@@ -48,6 +48,13 @@ struct __align__(16) TileSmem {
 
 // Raw gain sums of rows row0 + ty*TR + r, r < TR.  On return every thread
 // of a row group holds the same sums (the butterfly is symmetric).
+//
+// kCmRewritten: the calling kernel rewrites cm between calls within one
+// launch (threshold_select), so cm is read by a volatile load, which the
+// compiler neither hoists out of the caller's block loop nor sends down the
+// non-coherent read-only path; otherwise (exemplar_gains, greedy_select) cm
+// is read-only for the launch and loaded as any other operand.
+template <bool kCmRewritten = false>
 __device__ __forceinline__ void row_gain_sums(
     const float* __restrict__ X,   // this machine's (n, d) block
     const float* __restrict__ E,   // (mp, d), mp % BM == 0, zero-padded
@@ -112,7 +119,11 @@ __device__ __forceinline__ void row_gain_sums(
     if (j0 == 0 && tid < BN) sm.x2[tid] = x2acc;
     if (tid >= BN && tid < BN + BM) {
       sm.e2[tid - BN] = e2acc;
-      sm.cm[tid - BN] = cm[j0 + tid - BN];
+      if constexpr (kCmRewritten) {
+        sm.cm[tid - BN] = *(const volatile float*)(cm + j0 + tid - BN);
+      } else {
+        sm.cm[tid - BN] = cm[j0 + tid - BN];
+      }
     }
     __syncthreads();
 #pragma unroll

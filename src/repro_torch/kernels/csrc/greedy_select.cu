@@ -17,6 +17,16 @@
 //                        form sum_c (e_c - x_c)^2, clears the winner's
 //                        availability and writes sel; else writes -1.
 //
+// Constrained variant (the knapsack and partition-matroid encodings of
+// the JAX kernel, either or both): the step kernel masks a row unless it
+// is available and feasible, used[mach] + w <= limit and
+// counts[mach][gid] < caps[gid]; the commit adds w[best] to used (one
+// fp32 add per step, the reference's order) and increments
+// counts[gid[best]].  limit = float32(budget + KNAPSACK_TOL) comes from
+// the host.  A group id outside [0, G) belongs to no open group.  Null
+// weight and group-id pointers select the unconstrained instantiation
+// (kConstrained = false), which compiles no feasibility code at all.
+//
 // 2k launches per call, each over all M machines, so one tree round is one
 // call.  The step kernel fills the card even at M = 1 (the centralized
 // baseline over the whole ground set), where a block-per-machine kernel
@@ -36,12 +46,37 @@ using namespace exemplar;
 
 constexpr int COMMIT_THREADS = 512;
 
+// The fused constraint encodings; null pointers switch a part off.
+struct Constraint {
+  const float* w;    // (M, n) knapsack weights, or null
+  const int* gid;    // (M, n) partition group ids, or null
+  const int* caps;   // (G,) per-group caps
+  float* used;       // (M,) running knapsack weight (device scratch)
+  int* counts;       // (M, G) running group counts (device scratch)
+  float limit;       // float32(budget + KNAPSACK_TOL)
+  int G;
+};
+
+__device__ __forceinline__ bool feasible(const Constraint& c, long long mach,
+                                         long long n, long long row) {
+  const long long at = mach * n + row;
+  if (c.w != nullptr && !(c.used[mach] + c.w[at] <= c.limit)) return false;
+  if (c.gid != nullptr) {
+    const int g = c.gid[at];
+    if (g < 0 || g >= c.G || c.counts[mach * c.G + g] >= c.caps[g])
+      return false;
+  }
+  return true;
+}
+
+template <bool kConstrained>
 __global__ void __launch_bounds__(THREADS)
 greedy_step_kernel(const float* __restrict__ X, const float* __restrict__ E,
                    const float* __restrict__ cm,
                    const unsigned char* __restrict__ avail,
                    float* __restrict__ win_v, int* __restrict__ win_i,
-                   long long n, int d, int mp, int m_true, int ntiles) {
+                   long long n, int d, int mp, int m_true, int ntiles,
+                   Constraint con) {
   __shared__ TileSmem sm;
   __shared__ float tv[BN];
   const long long mach = blockIdx.y;
@@ -53,7 +88,8 @@ greedy_step_kernel(const float* __restrict__ X, const float* __restrict__ E,
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
       const long long row = row0 + ty * TR + r;
-      const bool ok = row < n && avail[mach * n + row];
+      bool ok = row < n && avail[mach * n + row];
+      if constexpr (kConstrained) ok = ok && feasible(con, mach, n, row);
       tv[ty * TR + r] = ok ? sums[r] / (float)m_true : NEG_INF;
     }
   }
@@ -84,12 +120,14 @@ greedy_step_kernel(const float* __restrict__ X, const float* __restrict__ E,
   }
 }
 
+template <bool kConstrained>
 __global__ void __launch_bounds__(COMMIT_THREADS)
 greedy_commit_kernel(const float* __restrict__ X, const float* __restrict__ E,
                      float* __restrict__ cm, unsigned char* __restrict__ avail,
                      const float* __restrict__ win_v,
                      const int* __restrict__ win_i, int* __restrict__ sel,
-                     long long n, int d, int mp, int ntiles, int k, int step) {
+                     long long n, int d, int mp, int ntiles, int k, int step,
+                     Constraint con) {
   __shared__ float rv[COMMIT_THREADS / 32];
   __shared__ int ri[COMMIT_THREADS / 32];
   const long long mach = blockIdx.x;
@@ -142,32 +180,57 @@ greedy_commit_kernel(const float* __restrict__ X, const float* __restrict__ E,
   if (tid == 0) {
     avail[mach * n + i] = 0;
     sel[mach * k + step] = i;
+    if constexpr (kConstrained) {
+      const long long at = mach * n + i;
+      if (con.w != nullptr) con.used[mach] = con.used[mach] + con.w[at];
+      if (con.gid != nullptr) con.counts[mach * con.G + con.gid[at]] += 1;
+    }
   }
 }
 
-// X (M, n, d), E (mp, d) fp32; cm (M, mp) fp32 and avail (M, n) uint8 are
-// the running state, updated in place; win_v/win_i (M, ceil(n / BN)) are
-// scratch; sel (M, k) int32.  Launches 2k kernels on `stream`.
-extern "C" int greedy_select_launch(const void* X, const void* E, void* cm,
-                                    void* avail, void* win_v, void* win_i,
-                                    void* sel, long long M, long long n, int d,
-                                    int mp, int m_true, int k, void* stream) {
+template <bool kConstrained>
+static int run_steps(const void* X, const void* E, void* cm, void* avail,
+                     void* win_v, void* win_i, void* sel, long long M,
+                     long long n, int d, int mp, int m_true, int k,
+                     const Constraint& con, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int ntiles = (int)((n + BN - 1) / BN);
   const dim3 grid((unsigned)ntiles, (unsigned)M);
   for (int t = 0; t < k; ++t) {
-    greedy_step_kernel<<<grid, THREADS, 0, s>>>(
+    greedy_step_kernel<kConstrained><<<grid, THREADS, 0, s>>>(
         (const float*)X, (const float*)E, (const float*)cm,
         (const unsigned char*)avail, (float*)win_v, (int*)win_i, n, d, mp,
-        m_true, ntiles);
+        m_true, ntiles, con);
     int err = (int)cudaGetLastError();
     if (err != 0) return err;
-    greedy_commit_kernel<<<(unsigned)M, COMMIT_THREADS, 0, s>>>(
+    greedy_commit_kernel<kConstrained><<<(unsigned)M, COMMIT_THREADS, 0, s>>>(
         (const float*)X, (const float*)E, (float*)cm, (unsigned char*)avail,
         (const float*)win_v, (const int*)win_i, (int*)sel, n, d, mp, ntiles, k,
-        t);
+        t, con);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
   return 0;
+}
+
+// X (M, n, d), E (mp, d) fp32; cm (M, mp) fp32 and avail (M, n) uint8 are
+// the running state, updated in place; win_v/win_i (M, ceil(n / BN)) are
+// scratch; sel (M, k) int32.  Constraint operands: w (M, n) fp32 with used
+// (M,) fp32 scratch and limit, gid (M, n) int32 with caps (G,) int32 and
+// counts (M, G) int32 scratch; null w / gid switch a part off.  Launches
+// 2k kernels on `stream`.
+extern "C" int greedy_select_launch(const void* X, const void* E, void* cm,
+                                    void* avail, void* win_v, void* win_i,
+                                    void* sel, long long M, long long n, int d,
+                                    int mp, int m_true, int k, const void* w,
+                                    void* used, float limit, const void* gid,
+                                    const void* caps, void* counts, int G,
+                                    void* stream) {
+  const Constraint con{(const float*)w, (const int*)gid, (const int*)caps,
+                       (float*)used, (int*)counts, limit, G};
+  return w == nullptr && gid == nullptr
+             ? run_steps<false>(X, E, cm, avail, win_v, win_i, sel, M, n, d,
+                                mp, m_true, k, con, stream)
+             : run_steps<true>(X, E, cm, avail, win_v, win_i, sel, M, n, d,
+                               mp, m_true, k, con, stream);
 }

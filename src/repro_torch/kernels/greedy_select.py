@@ -18,6 +18,15 @@ What bounds it on the H100: fp32 FMA issue of the gains, k·M·n·m·(2d + 3)
 operations per call; the commit is O(k·M·m·d).  The step kernel fills the
 card at M = 1 too (the centralized baseline over the whole ground set).
 
+Constrained variant: the knapsack (``w``, ``limit``) and partition-matroid
+(``gid``, ``caps``) encodings, either or both.  The step kernel masks rows
+that are not feasible against the running per-machine ``used`` (M,) fp32
+and ``counts`` (M, G) int32, which live in device scratch allocated here;
+the commit adds the winner's weight (one fp32 add per step, the
+reference's order) and increments its group.  ``limit`` is the host's
+``float32(budget + KNAPSACK_TOL)``.  A group id outside ``[0, G)`` belongs
+to no open group, so such a row is never selected.
+
 The plain version is :func:`repro_torch.kernels.ref.greedy_select`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
 """
@@ -31,41 +40,61 @@ from repro_torch.kernels.ref import greedy_select as plain  # noqa: F401
 
 
 def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
-           avail: torch.Tensor, k: int, m_true: int
+           avail: torch.Tensor, k: int, m_true: int, *,
+           w: torch.Tensor | None = None, limit: float = 0.0,
+           gid: torch.Tensor | None = None, caps: torch.Tensor | None = None
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run k greedy steps on the card; returns ``(sel (M, k) int32,
     cur_min (M, mp))``.
 
     X ``(M, n, d)`` and E ``(mp, d)`` fp32 with ``mp % BM == 0`` (zero
     rows past ``m_true``); cur_min ``(M, mp)`` fp32 and avail ``(M, n)``
-    uint8 are the running state and are updated in place.
+    uint8 are the running state and are updated in place.  ``w`` ``(M, n)``
+    fp32 with ``limit``, and ``gid`` ``(M, n)`` int32 with ``caps`` ``(G,)``
+    int32, encode the constraint (``None`` switches a part off).
     """
     M, n, d = X.shape
     mp = E.shape[0]
-    for t, shape, dtype in ((X, (M, n, d), torch.float32),
-                            (E, (mp, d), torch.float32),
-                            (cur_min, (M, mp), torch.float32),
-                            (avail, (M, n), torch.uint8)):
+    G = 0 if caps is None else caps.shape[0]
+    checks = [(X, (M, n, d), torch.float32), (E, (mp, d), torch.float32),
+              (cur_min, (M, mp), torch.float32), (avail, (M, n), torch.uint8)]
+    if w is not None:
+        checks.append((w, (M, n), torch.float32))
+    if gid is not None:
+        checks += [(gid, (M, n), torch.int32), (caps, (G,), torch.int32)]
+    for t, shape, dtype in checks:
         if (t.device.type != "cuda" or t.device != X.device
                 or t.dtype != dtype or not t.is_contiguous()
                 or tuple(t.shape) != shape):
             raise ValueError(f"greedy_select kernel takes contiguous {dtype} "
                              f"CUDA tensors of shape {shape}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if mp % BM or not 0 < M < 65536 or not 0 < n < 2 ** 31 or k < 0:
+    if (mp % BM or not 0 < M < 65536 or not 0 < n < 2 ** 31 or k < 0
+            or (gid is not None and G == 0)):
         raise ValueError(f"greedy_select kernel: unsupported shape "
-                         f"M={M} n={n} mp={mp} k={k}")
+                         f"M={M} n={n} mp={mp} k={k} G={G}")
     ntiles = -(-n // BN)
     win_v = torch.empty((M, ntiles), dtype=torch.float32, device=X.device)
     win_i = torch.empty((M, ntiles), dtype=torch.int32, device=X.device)
     sel = torch.empty((M, k), dtype=torch.int32, device=X.device)
     if k == 0:
         return sel, cur_min
+    constrained = w is not None or gid is not None
+    if constrained:  # the running constraint state, device scratch
+        used = torch.zeros((M,), dtype=torch.float32, device=X.device)
+        counts = torch.zeros((M, max(G, 1)), dtype=torch.int32,
+                             device=X.device)
     fn = _build.load("greedy_select").greedy_select_launch
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _build.check(fn(X.data_ptr(), E.data_ptr(), cur_min.data_ptr(),
                     avail.data_ptr(), win_v.data_ptr(), win_i.data_ptr(),
-                    sel.data_ptr(), M, n, d, mp, m_true, k, stream),
+                    sel.data_ptr(), M, n, d, mp, m_true, k,
+                    None if w is None else w.data_ptr(),
+                    used.data_ptr() if constrained else None, limit,
+                    None if gid is None else gid.data_ptr(),
+                    None if caps is None else caps.data_ptr(),
+                    counts.data_ptr() if constrained else None, G, stream),
                  "greedy_select")
-    _build.launch_counts["greedy_select"] += 2 * k
+    name = "greedy_select_constrained" if constrained else "greedy_select"
+    _build.launch_counts[name] += 2 * k
     return sel, cur_min

@@ -13,7 +13,15 @@ zero-padded to the kernels' eval tile, so padded columns contribute
 the kernels, so ``X`` is never copied.  Raw gain sums are divided by the
 *unpadded* eval-set size, as in ``repro.kernels.ops``.
 
-Every argument of the JAX signatures that this slice does not port raises
+Constraint operands (``weights``/``budget``, ``group_ids``/``caps``, or
+the same as one :class:`repro_torch.kernels.ref.Encoding` passed as
+``enc=``) go to the kernels as contiguous ``(M, n)`` fp32 weights,
+``(M, n)`` int32 group ids, a ``(G,)`` int32 caps array on the card and the
+host's fp32 constant ``float32(budget + KNAPSACK_TOL)``.  A caller that
+launches many times on one set of operands (the τ-ladder) builds the
+``Encoding`` once and passes it on, so no level uploads ``caps`` again.
+
+Every argument of the JAX signatures that the port lacks raises
 :class:`NotImplementedError` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -24,10 +32,11 @@ import torch.nn.functional as F
 from repro_torch.kernels import exemplar_gains as _eg
 from repro_torch.kernels import greedy_select as _gs
 from repro_torch.kernels import ref
+from repro_torch.kernels import threshold_select as _ts
 from repro_torch.kernels._build import launch_counts  # noqa: F401
 
 __all__ = ["exemplar_gains", "greedy_select", "launch_counts",
-           "pairwise_sqdist", "reset_launch_counts"]
+           "pairwise_sqdist", "reset_launch_counts", "threshold_select"]
 
 
 def reset_launch_counts() -> None:
@@ -83,31 +92,99 @@ def exemplar_gains(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     return g if batched else g[0]
 
 
+def _card_encoding(enc: ref.Encoding) -> dict:
+    """The kernels' constraint operands (see the module docstring)."""
+    kw = {}
+    if enc.w is not None:
+        kw.update(w=enc.w, limit=enc.limit)
+    if enc.gid is not None:
+        kw.update(gid=enc.gid, caps=enc.caps)
+    return kw
+
+
 def greedy_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                   mask: torch.Tensor, k: int, *, compute_dtype=None,
                   weights=None, budget=None, group_ids=None, caps=None,
-                  x_scale=None, x_zp=None, eval_weights=None):
+                  x_scale=None, x_zp=None, eval_weights=None, enc=None):
     """Fused k-step exemplar greedy; returns ``(sel_idx, cur_min_out)``.
 
     ``X`` is ``(n, d)`` or ``(M, n, d)`` with ``mask`` ``(n,)`` or
     ``(M, n)``; ``cur_min`` ``(m,)`` seeds every machine.  ``sel_idx`` is
-    int64, −1 from the first step with no available candidate on.  Ties
-    go to the lowest index.  On the CPU the result is bit-identical to the
-    step-wise greedy with ``ExemplarClustering``; on the card both score a
-    row with the same kernel tile, and only the difference-form
-    ``cur_min`` refresh may round apart (fma in the kernel).
+    int64, −1 from the first step with no feasible candidate on.  Ties
+    go to the lowest index.  ``weights``/``budget`` (a knapsack) and
+    ``group_ids``/``caps`` (a partition matroid) constrain every step, as
+    :func:`repro_torch.kernels.ref.greedy_select` says.  On the CPU the
+    result is bit-identical to the step-wise greedy with
+    ``ExemplarClustering``; on the card both score a row with the same
+    kernel tile, and only the difference-form ``cur_min`` refresh may round
+    apart (fma in the kernel).
     """
-    ref.reject_unported(compute_dtype=compute_dtype, weights=weights,
-                        budget=budget, group_ids=group_ids, caps=caps,
-                        x_scale=x_scale, x_zp=x_zp, eval_weights=eval_weights)
+    ref.reject_unported(compute_dtype=compute_dtype, x_scale=x_scale,
+                        x_zp=x_zp, eval_weights=eval_weights)
     if not _on_card(X):
-        return ref.greedy_select(X, E, cur_min, mask, k)
+        return ref.greedy_select(X, E, cur_min, mask, k, weights=weights,
+                                 budget=budget, group_ids=group_ids,
+                                 caps=caps, enc=enc)
     batched = X.dim() == 3
     Xb = (X if batched else X.unsqueeze(0)).float().contiguous()
-    M, m = Xb.shape[0], E.shape[0]
+    M, n, m = Xb.shape[0], Xb.shape[1], E.shape[0]
     avail = mask.reshape(M, -1).to(torch.uint8, copy=True)  # kernel state
     cm = cur_min.reshape(-1, m).expand(M, m)
     Ep, cmp_ = _pad_eval(E.float(), cm)
-    sel, cm_out = _gs.launch(Xb, Ep, cmp_, avail, k, m)
+    enc = ref.encoding(M, n, X.device, enc, weights, budget, group_ids, caps)
+    sel, cm_out = _gs.launch(Xb, Ep, cmp_, avail, k, m, **_card_encoding(enc))
     sel, cm_out = sel.long(), cm_out[:, :m]
     return (sel, cm_out) if batched else (sel[0], cm_out[0])
+
+
+def threshold_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
+                     mask: torch.Tensor, tau, k: int, *, used=None,
+                     counts=None, count=None, bn: int = 256,
+                     compute_dtype=None, weights=None, budget=None,
+                     group_ids=None, caps=None, x_scale=None, x_zp=None,
+                     eval_weights=None, active=None, enc=None):
+    """One τ-level of threshold-batch selection; returns ``(accept,
+    cur_min_out)`` with ``accept`` a bool mask of the rows committed.
+
+    ``X`` is ``(n, d)`` or ``(M, n, d)`` with ``mask`` and ``cur_min``
+    following it; ``tau``, ``used``, ``count`` per machine, ``counts``
+    ``(M, G)``; ``active`` ``(M,)`` marks the machines whose ladder still
+    runs (the others accept nothing and keep ``cur_min``).  The semantics
+    are block-sequential at ``bn``, which is part of the function's
+    meaning: as in ``repro.kernels.ops``, ``bn = min(bn, max(8, n))``.
+    """
+    ref.reject_unported(compute_dtype=compute_dtype, x_scale=x_scale,
+                        x_zp=x_zp, eval_weights=eval_weights)
+    n = X.shape[-2]
+    bn = min(bn, max(8, n))
+    if not _on_card(X):
+        return ref.threshold_select(
+            X, E, cur_min, mask, tau, k, used=used, counts=counts,
+            count=count, bn=bn, weights=weights, budget=budget,
+            group_ids=group_ids, caps=caps, active=active, enc=enc)
+    batched = X.dim() == 3
+    Xb = (X if batched else X.unsqueeze(0)).float().contiguous()
+    M, m = Xb.shape[0], E.shape[0]
+    dev = X.device
+    enc = ref.encoding(M, n, dev, enc, weights, budget, group_ids, caps)
+
+    def per_machine(v, dtype, shape):
+        """A scalar or per-machine operand as a contiguous (M, ...) tensor
+        (zeros where the caller passed none)."""
+        if v is None:
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        v = torch.as_tensor(v, dtype=dtype, device=dev)
+        return v.reshape((-1,) + shape[1:]).expand(shape).contiguous()
+
+    cm = cur_min.reshape(-1, m).expand(M, m)
+    Ep, cmp_ = _pad_eval(E.float(), cm)
+    acc = _ts.launch(
+        Xb, Ep, cmp_, mask.reshape(M, n).to(torch.uint8),
+        per_machine(tau, torch.float32, (M,)),
+        per_machine(used, torch.float32, (M,)),
+        per_machine(count, torch.int32, (M,)),
+        per_machine(counts, torch.int32, (M, enc.G)),
+        per_machine(True if active is None else active, torch.uint8, (M,)),
+        k, bn, m, **_card_encoding(enc))
+    acc, cm_out = acc.bool(), cmp_[:, :m]
+    return (acc, cm_out) if batched else (acc[0], cm_out[0])

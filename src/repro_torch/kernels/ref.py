@@ -6,20 +6,30 @@ against the JAX package's ``ref`` functions, and ``chip_smoke.py`` holds the
 CUDA kernels against them on the card.  On a CPU tensor the dispatch in
 :mod:`repro_torch.kernels.ops` runs them as the production path.
 
-Scope of this slice: fp32, unconstrained, no ``compute_dtype``, no
-``x_scale``/``x_zp`` dequant and no ``eval_weights``.  Each of those raises
-:class:`NotImplementedError` naming the ROADMAP item that brings it.
+Scope: fp32, no ``compute_dtype``, no ``x_scale``/``x_zp`` dequant and no
+``eval_weights``.  Each of those raises :class:`NotImplementedError` naming
+the ROADMAP item that brings it.
 
 Every function takes an optional leading machine axis: ``X`` is ``(n, d)``
-or ``(M, n, d)``; per-machine state (``cur_min``, ``mask``) follows it.
+or ``(M, n, d)``; per-machine state (``cur_min``, ``mask``, constraint
+operands and state) follows it.
+
+Constraint encodings (``greedy_select``, ``threshold_select``):
+``weights``/``budget`` a knapsack, compared as ``used + w <= limit`` with
+the one fp32 constant ``limit = float32(budget + KNAPSACK_TOL)``;
+``group_ids``/``caps`` a partition matroid.  A row whose group id lies
+outside ``[0, len(caps))`` belongs to no open group and is never feasible
+(the JAX ``ref.greedy_select`` clamps such ids instead; its
+``ref.threshold_select`` and both Pallas kernels refuse them, as here).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
 
-# the (M, n, m) distance tensor of the plain greedy is built this many
+# the (M, n, m) distance tensor of the plain versions is built this many
 # elements at a time (machine chunks), so a full tree round fits the card
 _CHUNK_ELEMS = 1 << 28
 
@@ -28,19 +38,23 @@ _ROADMAP_ITEM = {
     "x_scale": "ROADMAP queue 1 item 10 (narrow operands)",
     "x_zp": "ROADMAP queue 1 item 10 (narrow operands)",
     "eval_weights": "ROADMAP queue 1 item 9 (WeightedExemplarClustering)",
-    "weights": "ROADMAP queue 1 item 7 (constraints)",
-    "budget": "ROADMAP queue 1 item 7 (constraints)",
-    "group_ids": "ROADMAP queue 1 item 7 (constraints)",
-    "caps": "ROADMAP queue 1 item 7 (constraints)",
 }
 
 
 def reject_unported(**kwargs) -> None:
-    """Raise for any argument of the JAX signature this slice does not port."""
+    """Raise for any argument of the JAX signature the port lacks."""
     for name, value in kwargs.items():
         if value is not None:
             raise NotImplementedError(
                 f"{name}= is not ported yet: {_ROADMAP_ITEM[name]}")
+
+
+def knapsack_limit(budget) -> float:
+    """``float32(budget + KNAPSACK_TOL)``: the two Python floats add in
+    double and round once to fp32, as the JAX package compares them with
+    the fp32 ``used + w``.  The kernels take this constant from the host."""
+    from repro_torch.core.constraints import KNAPSACK_TOL
+    return float(np.float32(float(budget) + KNAPSACK_TOL))
 
 
 def _exact_fp32(t: torch.Tensor) -> None:
@@ -61,8 +75,7 @@ def pairwise_sqdist(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
 
 def _sqdist(X: torch.Tensor, E: torch.Tensor,
             compute_dtype=None) -> torch.Tensor:
-    """The contraction shared by :func:`exemplar_gains` and
-    :func:`greedy_select` (fp32 only in this slice)."""
+    """The contraction shared by every gain here (fp32 only)."""
     reject_unported(compute_dtype=compute_dtype)
     return pairwise_sqdist(X, E)
 
@@ -72,15 +85,108 @@ def exemplar_gains(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                    eval_weights=None) -> torch.Tensor:
     """gains[..., i] = (1/m) Σ_j max(0, cur_min[..., j] − ‖X[..., i] − E[j]‖²).
 
-    ``cur_min`` is ``(m,)`` or carries the machine axis of ``X``.
+    ``cur_min`` is ``(m,)`` or carries the machine axis of ``X``.  A
+    ``(M, n, d)`` stack whose ``(M, n, m)`` distances exceed the chunk
+    size is scored a machine chunk at a time (a row's gain does not depend
+    on the chunk).
     """
     reject_unported(x_scale=x_scale, x_zp=x_zp, eval_weights=eval_weights)
+    m = E.shape[0]
+    if (X.dim() == 3 and X.shape[0] > 1
+            and X.shape[0] * X.shape[1] * m > _CHUNK_ELEMS):
+        step = max(1, _CHUNK_ELEMS // (X.shape[1] * m))
+        cm = cur_min.reshape(-1, m).expand(X.shape[0], m)
+        return torch.cat([exemplar_gains(X[i:i + step], E, cm[i:i + step],
+                                         compute_dtype)
+                          for i in range(0, X.shape[0], step)])
     d2 = _sqdist(X, E, compute_dtype)                      # (..., n, m)
     contrib = torch.clamp_min(cur_min.unsqueeze(-2) - d2, 0.0)
-    return torch.sum(contrib, dim=-1) / E.shape[0]
+    return torch.sum(contrib, dim=-1) / m
 
 
-def _greedy_chunk(X, E, cm, avail, k):
+# -- constraint encodings ---------------------------------------------------
+
+
+class Encoding:
+    """The fused constraint operands of one call, batched over machines:
+    ``w`` ``(M, n)`` fp32 with ``limit``, ``gid`` ``(M, n)`` int32 with
+    ``caps`` ``(G,)`` int32; either pair may be absent.  Built once per
+    call (or once per ladder, passed on as ``enc=``), contiguous, so the
+    kernels take these operands as they are."""
+
+    def __init__(self, M, n, device, weights=None, budget=None,
+                 group_ids=None, caps=None):
+        if (weights is None) != (budget is None):
+            raise ValueError("weights and budget pair up")
+        if (group_ids is None) != (caps is None):
+            raise ValueError("group_ids and caps pair up")
+        self.w = self.limit = self.gid = self.caps = None
+        if weights is not None:
+            self.w = torch.as_tensor(weights, dtype=torch.float32,
+                                     device=device).reshape(M, n).contiguous()
+            self.limit = knapsack_limit(budget)
+        if caps is not None:
+            self.gid = torch.as_tensor(group_ids, device=device).reshape(
+                M, n).to(torch.int32).contiguous()
+            self.caps = torch.as_tensor(tuple(int(c) for c in caps),
+                                        dtype=torch.int32, device=device)
+        self.G = 1 if self.caps is None else int(self.caps.shape[0])
+
+    def rows(self, sl) -> "Encoding":
+        """The same encoding over machines/rows ``sl`` of ``(M, n)``."""
+        out = Encoding.__new__(Encoding)
+        out.limit, out.caps, out.G = self.limit, self.caps, self.G
+        out.w = None if self.w is None else self.w[sl]
+        out.gid = None if self.gid is None else self.gid[sl]
+        return out
+
+    def feasible(self, avail, used, counts):
+        """Candidates that are available and singly feasible against the
+        running ``used`` (...,) and ``counts`` (..., G)."""
+        cand = avail
+        if self.w is not None:
+            cand = cand & (used.unsqueeze(-1) + self.w <= self.limit)
+        if self.gid is not None:
+            cand = cand & group_open(counts, self.gid, self.caps)
+        return cand
+
+
+def encoding(M, n, device, enc=None, weights=None, budget=None,
+             group_ids=None, caps=None) -> Encoding:
+    """``enc`` where the caller built it once for many calls, else the
+    encoding of the raw operands (never both)."""
+    if enc is None:
+        return Encoding(M, n, device, weights, budget, group_ids, caps)
+    if any(v is not None for v in (weights, budget, group_ids, caps)):
+        raise ValueError("pass enc or the raw constraint operands, not both")
+    return enc
+
+
+def group_open(counts: torch.Tensor, gid: torch.Tensor, caps: torch.Tensor
+               ) -> torch.Tensor:
+    """Rows whose group is in ``[0, G)`` and below its cap: ``counts``
+    ``(..., G)``, ``gid`` ``(..., n)`` → ``(..., n)`` bool."""
+    inr = (gid >= 0) & (gid < caps.shape[0])
+    safe = torch.where(inr, gid, torch.zeros_like(gid)).long()
+    return inr & (torch.gather(counts, -1, safe) < caps[safe])
+
+
+def commit_state(enc: Encoding, used, counts, best, ok):
+    """Add the selected rows ``best`` (where ``ok``) to the state."""
+    rows = torch.arange(best.shape[0], device=best.device)
+    if enc.w is not None:
+        used = torch.where(ok, used + enc.w[rows, best], used)
+    if enc.gid is not None:
+        hit = torch.arange(enc.G, device=best.device) == \
+            enc.gid[rows, best].unsqueeze(-1)
+        counts = counts + (hit & ok.unsqueeze(-1)).to(counts.dtype)
+    return used, counts
+
+
+# -- greedy -------------------------------------------------------------------
+
+
+def _greedy_chunk(X, E, cm, avail, k, enc: Encoding):
     """Plain k-step greedy over a (C, n, d) machine chunk; returns
     (sel (C, k), cur_min (C, m), top-2 gain gap (C, k), best gain (C, k))."""
     C, n, _ = X.shape
@@ -92,10 +198,13 @@ def _greedy_chunk(X, E, cm, avail, k):
                       device=X.device)
     tops = torch.empty((C, k), dtype=torch.float32, device=X.device)
     avail = avail.clone()
+    used = torch.zeros((C,), dtype=torch.float32, device=X.device)
+    counts = torch.zeros((C, enc.G), dtype=torch.int32, device=X.device)
     for t in range(k):
         contrib = torch.clamp_min(cm.unsqueeze(1) - d2, 0.0)
         g = torch.sum(contrib, dim=-1) / m
-        g = torch.where(avail, g, torch.full_like(g, NEG_INF))
+        g = torch.where(enc.feasible(avail, used, counts), g,
+                        torch.full_like(g, NEG_INF))
         best = torch.argmax(g, dim=-1)                     # lowest index on ties
         gbest = g[rows, best]
         ok = gbest > NEG_INF / 2
@@ -108,30 +217,34 @@ def _greedy_chunk(X, E, cm, avail, k):
         x = X[rows, best]                                  # (C, d)
         d2b = torch.sum((E.unsqueeze(0) - x.unsqueeze(1)) ** 2, dim=-1)
         cm = torch.where(ok.unsqueeze(1), torch.minimum(cm, d2b), cm)
+        used, counts = commit_state(enc, used, counts, best, ok)
         avail[rows, best] = avail[rows, best] & ~ok
         sel[:, t] = torch.where(ok, best, torch.full_like(best, -1))
     return sel, cm, gaps, tops
 
 
-def _greedy_rows(X, E, cm, avail, k):
-    """:func:`_greedy_chunk` for one machine ``(n, d)`` whose ``(n, m)``
+def _greedy_rows(X, E, cm, avail, k, enc: Encoding):
+    """:func:`_greedy_chunk` for one machine ``(1, n, d)`` whose ``(n, m)``
     distance tensor is too large to hold: each step recomputes the gains
     in row chunks and merges the chunks' winners (lowest index on ties)."""
-    n = X.shape[0]
+    n = X.shape[1]
     m = E.shape[0]
     rows = max(1, _CHUNK_ELEMS // m)
-    sel = torch.full((k,), -1, dtype=torch.long, device=X.device)
-    gaps = torch.full((k,), float("inf"), dtype=torch.float32,
+    sel = torch.full((1, k), -1, dtype=torch.long, device=X.device)
+    gaps = torch.full((1, k), float("inf"), dtype=torch.float32,
                       device=X.device)
-    tops = torch.empty((k,), dtype=torch.float32, device=X.device)
+    tops = torch.empty((1, k), dtype=torch.float32, device=X.device)
     avail = avail.clone()
+    used = torch.zeros((1,), dtype=torch.float32, device=X.device)
+    counts = torch.zeros((1, enc.G), dtype=torch.int32, device=X.device)
     for t in range(k):
         best_v, best_i, top = [], [], []
         for r0 in range(0, n, rows):
-            contrib = torch.clamp_min(cm - _sqdist(X[r0:r0 + rows], E), 0.0)
-            g = torch.sum(contrib, dim=-1) / m
-            g = torch.where(avail[r0:r0 + rows], g,
-                            torch.full_like(g, NEG_INF))
+            sl = (slice(None), slice(r0, r0 + rows))
+            contrib = torch.clamp_min(cm - _sqdist(X[sl], E), 0.0)
+            g = torch.sum(contrib, dim=-1)[0] / m
+            cand = enc.rows(sl).feasible(avail[sl], used, counts)[0]
+            g = torch.where(cand, g, torch.full_like(g, NEG_INF))
             i = torch.argmax(g)                            # lowest in chunk
             best_v.append(g[i])
             best_i.append(i + r0)
@@ -140,40 +253,51 @@ def _greedy_rows(X, E, cm, avail, k):
         c = torch.argmax(best_v)                           # lowest chunk
         best, gbest = torch.stack(best_i)[c], best_v[c]
         ok = gbest > NEG_INF / 2
-        tops[t] = gbest
+        tops[0, t] = gbest
         top = torch.cat(top)
         if top.shape[0] >= 2:
             top2 = torch.topk(top, 2).values
-            gaps[t] = torch.where(top2[1] > NEG_INF / 2, top2[0] - top2[1],
-                                  torch.full_like(top2[0], float("inf")))
-        d2b = torch.sum((E - X[best]) ** 2, dim=-1)
+            gaps[0, t] = torch.where(top2[1] > NEG_INF / 2,
+                                     top2[0] - top2[1],
+                                     torch.full_like(top2[0], float("inf")))
+        d2b = torch.sum((E - X[0, best]) ** 2, dim=-1)
         cm = torch.where(ok, torch.minimum(cm, d2b), cm)
-        avail[best] = avail[best] & ~ok
-        sel[t] = torch.where(ok, best, torch.full_like(best, -1))
+        used, counts = commit_state(enc, used, counts, best[None], ok[None])
+        avail[0, best] = avail[0, best] & ~ok
+        sel[0, t] = torch.where(ok, best, torch.full_like(best, -1))
     return sel, cm, gaps, tops
 
 
-def greedy_select_trace(X: torch.Tensor, E: torch.Tensor,
-                        cur_min: torch.Tensor, mask: torch.Tensor, k: int):
-    """:func:`greedy_select` plus, per step, the top-2 gain gap (inf where
-    at most one candidate remained) and the best gain — what the near-tie
-    rule of :mod:`repro_torch.testing` needs.  Returns
-    ``(sel, cur_min, gap, best)``."""
+def _batched(X, mask, cur_min, m):
+    """(X, mask, cm) with the machine axis, and whether it was there."""
     batched = X.dim() == 3
     if not batched:
         X, mask = X.unsqueeze(0), mask.unsqueeze(0)
-        cur_min = cur_min.unsqueeze(0) if cur_min.dim() == 1 else cur_min
-    M, n, _ = X.shape
+    cm = cur_min.reshape(-1, m).expand(X.shape[0], m)
+    return batched, X, mask.bool(), cm
+
+
+def greedy_select_trace(X: torch.Tensor, E: torch.Tensor,
+                        cur_min: torch.Tensor, mask: torch.Tensor, k: int,
+                        *, weights=None, budget=None, group_ids=None,
+                        caps=None, enc=None):
+    """:func:`greedy_select` plus, per step, the top-2 gain gap among the
+    step's candidates (inf where at most one remained) and the best gain —
+    what the near-tie rule of :mod:`repro_torch.testing` needs.  Returns
+    ``(sel, cur_min, gap, best)``."""
     m = E.shape[0]
-    cm = cur_min.expand(M, m) if cur_min.dim() == 1 else cur_min
+    batched, X, mask, cm = _batched(X, mask, cur_min, m)
+    M, n, _ = X.shape
+    enc = encoding(M, n, X.device, enc, weights, budget, group_ids, caps)
     if n * m > _CHUNK_ELEMS:            # one machine's distances do not fit
-        parts = [tuple(o.unsqueeze(0) for o in
-                       _greedy_rows(X[i], E, cm[i], mask[i].bool(), k))
+        parts = [_greedy_rows(X[i:i + 1], E, cm[i:i + 1], mask[i:i + 1], k,
+                              enc.rows(slice(i, i + 1)))
                  for i in range(M)]
     else:
         step = _CHUNK_ELEMS // max(1, n * m)
         parts = [_greedy_chunk(X[i:i + step], E, cm[i:i + step],
-                               mask[i:i + step].bool(), k)
+                               mask[i:i + step], k,
+                               enc.rows(slice(i, i + step)))
                  for i in range(0, M, step)]
     out = tuple(torch.cat([p[j] for p in parts]) for j in range(4))
     return out if batched else tuple(o[0] for o in out)
@@ -203,17 +327,161 @@ def refresh_cur_min(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
 def greedy_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                   mask: torch.Tensor, k: int, compute_dtype=None,
                   weights=None, budget=None, group_ids=None, caps=None,
-                  x_scale=None, x_zp=None, eval_weights=None):
+                  x_scale=None, x_zp=None, eval_weights=None, enc=None):
     """Fused k-step exemplar greedy (plain version).
 
     Returns ``(sel_idx, cur_min_out)``: the block position chosen at each
-    step (−1 from the first step with no available candidate on) and the
+    step (−1 from the first step with no feasible candidate on) and the
     running minimum after all selections.  Gains use the contraction form
     of :func:`exemplar_gains`; the ``cur_min`` refresh uses the objective's
     difference form ``Σ(E − x)²`` — the mix the step-wise scan runs.
+
+    ``weights``/``budget`` add a knapsack (candidates with
+    ``used + w <= limit`` under the sequentially accumulated fp32
+    ``used``), ``group_ids``/``caps`` a partition matroid (candidates whose
+    group count is below its cap); they compose, as the step-wise
+    ``Intersection`` does.  ``weights`` and ``group_ids`` follow ``X``'s
+    machine axis; ``budget`` and ``caps`` are shared.  ``enc`` is the
+    same operands as an :class:`Encoding` already built.
     """
-    reject_unported(compute_dtype=compute_dtype, weights=weights,
-                    budget=budget, group_ids=group_ids, caps=caps,
-                    x_scale=x_scale, x_zp=x_zp, eval_weights=eval_weights)
-    sel, cm, _, _ = greedy_select_trace(X, E, cur_min, mask, k)
+    reject_unported(compute_dtype=compute_dtype, x_scale=x_scale, x_zp=x_zp,
+                    eval_weights=eval_weights)
+    sel, cm, _, _ = greedy_select_trace(X, E, cur_min, mask, k,
+                                        weights=weights, budget=budget,
+                                        group_ids=group_ids, caps=caps,
+                                        enc=enc)
     return sel, cm
+
+
+# -- threshold batch --------------------------------------------------------
+
+
+def _threshold_chunk(X, E, cm, avail, tau, k, used, counts, count, bn,
+                     enc: Encoding, active):
+    """One τ-level over a (C, n, d) machine chunk, block-sequential at
+    ``bn``.  Returns (accept, cur_min, gains as scored, knapsack load
+    ``used + cumw`` per row)."""
+    C, n, _ = X.shape
+    m = E.shape[0]
+    d2 = _sqdist(X, E) if n * m <= _CHUNK_ELEMS else None
+    cm = cm.clone()
+    used, counts, count = used.clone(), counts.clone(), count.clone().long()
+    stopped = torch.zeros((C,), dtype=torch.bool, device=X.device)
+    inf = torch.tensor(float("inf"), device=X.device)
+    accepts, gains, loads = [], [], []
+    for b0 in range(0, n, bn):
+        b1 = min(b0 + bn, n)
+        d2b = d2[:, b0:b1] if d2 is not None else _sqdist(X[:, b0:b1], E)
+        g = torch.sum(torch.clamp_min(cm.unsqueeze(1) - d2b, 0.0),
+                      dim=-1) / m
+        q = avail[:, b0:b1] & (g >= tau.unsqueeze(1)) & active.unsqueeze(1)
+        blk = enc.rows((slice(None), slice(b0, b1)))
+        q = blk.feasible(q, used, counts)
+        cumn = torch.cumsum(q.long(), dim=-1)
+        violate = (count.unsqueeze(1) + cumn) > k
+        if blk.w is not None:
+            cumw = torch.cumsum(torch.where(q, blk.w, 0.0), dim=-1)
+            load = used.unsqueeze(1) + cumw
+            violate = violate | (load > blk.limit)
+            loads.append(load)
+        if blk.gid is not None:
+            for grp in range(enc.G):
+                cg = torch.cumsum((q & (blk.gid == grp)).long(), dim=-1)
+                violate = violate | ((counts[:, grp:grp + 1] + cg)
+                                     > enc.caps[grp])
+        acc = q & (torch.cumsum(violate.long(), dim=-1) == 0) \
+            & ~stopped.unsqueeze(1)
+        stopped = stopped | torch.any(violate & q, dim=-1)
+        count = count + torch.sum(acc.long(), dim=-1)
+        if blk.w is not None:
+            used = used + torch.sum(torch.where(acc, blk.w, 0.0), dim=-1)
+        if blk.gid is not None:
+            for grp in range(enc.G):
+                counts[:, grp] += torch.sum((acc & (blk.gid == grp)).int(),
+                                            dim=-1)
+        cm = torch.minimum(cm, torch.amin(
+            torch.where(acc.unsqueeze(-1), d2b, inf), dim=1))
+        accepts.append(acc)
+        gains.append(g)
+    load = torch.cat(loads, dim=1) if loads else None
+    return torch.cat(accepts, dim=1), cm, torch.cat(gains, dim=1), load
+
+
+def threshold_select_trace(X: torch.Tensor, E: torch.Tensor,
+                           cur_min: torch.Tensor, mask: torch.Tensor, tau,
+                           k: int, *, used=None, counts=None, count=None,
+                           bn: int = 256, weights=None, budget=None,
+                           group_ids=None, caps=None, active=None,
+                           enc=None):
+    """:func:`threshold_select` plus what the near-threshold rule of
+    :mod:`repro_torch.testing` needs: each row's gain as its block scored
+    it, and its knapsack load ``used + cumw`` (``None`` without a
+    knapsack).  Returns ``(accept, cur_min, gains, load)``."""
+    m = E.shape[0]
+    batched, X, mask, cm = _batched(X, mask, cur_min, m)
+    M, n, _ = X.shape
+    dev = X.device
+    enc = encoding(M, n, dev, enc, weights, budget, group_ids, caps)
+    tau = torch.as_tensor(tau, dtype=torch.float32, device=dev).reshape(
+        -1).expand(M)
+    used = (torch.zeros((M,), dtype=torch.float32, device=dev) if used is None
+            else torch.as_tensor(used, dtype=torch.float32,
+                                 device=dev).reshape(-1).expand(M))
+    count = (torch.zeros((M,), dtype=torch.int32, device=dev) if count is None
+             else torch.as_tensor(count, device=dev).reshape(-1).expand(M))
+    counts = (torch.zeros((M, enc.G), dtype=torch.int32, device=dev)
+              if counts is None else torch.as_tensor(
+                  counts, dtype=torch.int32, device=dev).reshape(
+                      -1, enc.G).expand(M, enc.G))
+    active = (torch.ones((M,), dtype=torch.bool, device=dev) if active is None
+              else torch.as_tensor(active, device=dev).bool().reshape(M))
+    step = max(1, _CHUNK_ELEMS // max(1, n * m))
+    parts = []
+    for i in range(0, M, step):
+        sl = slice(i, i + step)
+        parts.append(_threshold_chunk(
+            X[sl], E, cm[sl], mask[sl], tau[sl], k, used[sl], counts[sl],
+            count[sl], bn, enc.rows(sl), active[sl]))
+    acc, cm, g = (torch.cat([p[j] for p in parts]) for j in range(3))
+    load = (None if parts[0][3] is None
+            else torch.cat([p[3] for p in parts]))
+    if batched:
+        return acc, cm, g, load
+    return acc[0], cm[0], g[0], None if load is None else load[0]
+
+
+def threshold_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
+                     mask: torch.Tensor, tau, k: int, *, used=None,
+                     counts=None, count=None, bn: int = 256,
+                     compute_dtype=None, weights=None, budget=None,
+                     group_ids=None, caps=None, x_scale=None, x_zp=None,
+                     eval_weights=None, active=None, enc=None):
+    """One τ-level of threshold-batch selection (plain version).
+
+    Returns ``(accept, cur_min_out)``: the rows committed at this level
+    and the running minimum after folding them in.  Block-sequential at
+    granularity ``bn``, as ``repro.kernels.ref.threshold_select``:
+
+    * a block's gains see the ``cur_min`` every earlier block left;
+    * a row qualifies when it is available, its gain is ≥ τ and it is
+      singly feasible against the block-entry state;
+    * the block accepts the qualifying rows before the first whose
+      inclusive cumulative count / weight / group count exceeds ``k`` /
+      the budget / its cap; that row stops the launch (later blocks
+      accept nothing);
+    * accepted rows fold into ``cur_min`` by a masked row-min of the
+      contraction-form distances.
+
+    ``tau``, ``used``, ``count`` are per machine (``(M,)`` or scalars),
+    ``counts`` ``(M, G)``.  ``active`` ``(M,)`` marks the machines whose
+    ladder still runs: the others accept nothing and keep ``cur_min``.
+    ``enc`` is the constraint operands as an :class:`Encoding` already
+    built.
+    """
+    reject_unported(compute_dtype=compute_dtype, x_scale=x_scale, x_zp=x_zp,
+                    eval_weights=eval_weights)
+    acc, cm, _, _ = threshold_select_trace(
+        X, E, cur_min, mask, tau, k, used=used, counts=counts, count=count,
+        bn=bn, weights=weights, budget=budget, group_ids=group_ids,
+        caps=caps, active=active, enc=enc)
+    return acc, cm

@@ -20,6 +20,14 @@ def make_inputs(M, n, m, d, seed, frac_valid=0.85):
     return X, E, mask
 
 
+def make_attrs(r, shape, n_groups):
+    """Knapsack weights ~ U(0.2, 1.0) and group ids uniform over
+    ``n_groups``, both fp32 (the attribute columns of the benchmarks)."""
+    w = r.uniform(0.2, 1.0, shape).astype(np.float32)
+    g = r.integers(0, n_groups, shape).astype(np.float32)
+    return w, g
+
+
 def jax_tree_plan(seed: int, mu: int, machines_per_round) -> ArrayPlan:
     """The slot permutations ``repro.core.tree.tree_maximize`` draws: per
     round ``key, kpart, kalg = split(key, 3)`` and ``permutation(kpart,

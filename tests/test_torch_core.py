@@ -22,7 +22,7 @@ from repro_torch.convert import ArrayPlan, objective_from_numpy
 from repro_torch.core import (TorchPlan, TreeConfig, centralized_greedy,
                               tree_maximize)
 from repro_torch.core import algorithms, distributed, partition
-from repro_torch.core.constraints import Unconstrained
+from repro_torch.core.constraints import Knapsack, Unconstrained
 
 from _torch_parity import make_inputs
 
@@ -106,11 +106,17 @@ def test_run_algorithm_hygiene():
         algorithms.run_algorithm("greedy", *args, key=1)
     with pytest.raises(ValueError, match="does not accept"):
         algorithms.run_algorithm("threshold_greedy", *args, fused=True)
-    for name in ("stochastic_greedy", "threshold_greedy", "threshold_batch"):
+    for name in ("stochastic_greedy", "threshold_greedy"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
             algorithms.run_algorithm(name, *args)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        algorithms.greedy(*args, constraint=object())
+    res = algorithms.run_algorithm("threshold_batch", *args, eps=0.5)
+    assert res.sel_idx.shape == (3,) and int(res.depth) >= 2
+    with pytest.raises(ValueError, match="no fused encoding"):
+        algorithms.run_algorithm("threshold_batch", *args,
+                                 constraint=object(), attrs=args[1])
+    with pytest.raises(ValueError, match="needs per-item attrs"):
+        algorithms.run_algorithm("threshold_batch", *args,
+                                 constraint=Knapsack(budget=1.0))
     assert algorithms.driver_kwargs("greedy", key=1, eps=0.5) == {}
     assert algorithms.driver_kwargs("greedy", key=1, eps=0.5) == \
         jalg.driver_kwargs("greedy", key=1, eps=0.5)

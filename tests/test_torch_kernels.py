@@ -130,18 +130,17 @@ def test_near_tie_rule():
 
 @pytest.mark.parametrize("kw,item", [({"compute_dtype": torch.bfloat16}, "10"),
                                      ({"x_scale": 1}, "10"),
-                                     ({"eval_weights": 1}, "9"),
-                                     ({"weights": 1, "budget": 1.0}, "7"),
-                                     ({"group_ids": 1, "caps": (1,)}, "7")])
+                                     ({"eval_weights": 1}, "9")])
 def test_unported_arguments_name_their_roadmap_item(kw, item):
     X, E, mask = make_inputs(1, 9, 5, 3, seed=0)
     args = (torch.from_numpy(X[0]), torch.from_numpy(E),
             torch.ones(5), torch.from_numpy(mask[0]), 2)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
         ops.greedy_select(*args, **kw)
-    if not {"weights", "budget", "group_ids", "caps"} & set(kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.exemplar_gains(*args[:3], **kw)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
+        ops.threshold_select(*args[:4], 0.1, 2, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.exemplar_gains(*args[:3], **kw)
 
 
 def test_non_cpu_tensor_never_falls_back_to_plain():
@@ -173,7 +172,11 @@ def test_launch_counts_untouched_by_plain_path():
     X, E, mask = make_inputs(2, 20, 7, 3, seed=1)
     ops.greedy_select(torch.from_numpy(X), torch.from_numpy(E),
                       torch.ones(7), torch.from_numpy(mask), 3)
-    assert ops.launch_counts == {"exemplar_gains": 0, "greedy_select": 0}
+    ops.threshold_select(torch.from_numpy(X), torch.from_numpy(E),
+                         torch.ones(7), torch.from_numpy(mask), 0.01, 3)
+    assert ops.launch_counts == {"exemplar_gains": 0, "greedy_select": 0,
+                                 "greedy_select_constrained": 0,
+                                 "threshold_select": 0}
 
 
 @pytest.mark.parametrize("M,n,m,d", [(1, 300, 70, 6), (7, 333, 130, 17),
@@ -192,3 +195,17 @@ def test_kernels_match_plain_on_card(cuda, M, n, m, d):  # noqa: F811
     assert ok
     same = torch.all(sel == sel_p, dim=1)
     testing.assert_close(cm[same], cm_p[same])
+
+
+def test_machine_chunked_gains_match_whole(monkeypatch):
+    """The plain gains over a stack too large for its distance tensor (a
+    full round at the card's shape) are scored a machine chunk at a time,
+    to the same bits."""
+    X, E, _ = make_inputs(9, 50, 13, 5, seed=8)
+    Xt, Et = torch.from_numpy(X), torch.from_numpy(E)
+    cm = torch.rand((9, 13), generator=torch.Generator().manual_seed(0)) * 5
+    want = ref.exemplar_gains(Xt, Et, cm)
+    shared = ref.exemplar_gains(Xt, Et, cm[0])
+    monkeypatch.setattr(ref, "_CHUNK_ELEMS", 2 * 50 * 13)
+    assert torch.equal(ref.exemplar_gains(Xt, Et, cm), want)
+    assert torch.equal(ref.exemplar_gains(Xt, Et, cm[0]), shared)

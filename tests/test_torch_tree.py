@@ -88,3 +88,61 @@ def test_native_plan_runs_and_stays_near_centralized():
                                torch.Generator().manual_seed(0)).value)
     assert a.value / cent > 0.9
     assert a.value > rand
+
+
+def _tree_constraints(k):
+    """The constraint classes of ``benchmarks/constrained_tree.py``, sized
+    to bind, over attribute columns [weight, group id]."""
+    from repro.core import constraints as jcons
+    return {
+        "none": None,
+        "knapsack": jcons.Knapsack(budget=0.35 * k, col=0),
+        "partition": jcons.PartitionMatroid(caps=(max(1, k // 8),) * 8,
+                                            col=1),
+        "intersection": jcons.Intersection((
+            jcons.Knapsack(budget=0.45 * k, col=0),
+            jcons.PartitionMatroid(caps=(max(1, k // 4),) * 8, col=1))),
+    }
+
+
+@pytest.mark.parametrize("alg", ["greedy", "threshold_batch"])
+@pytest.mark.parametrize("cname", ["none", "knapsack", "partition",
+                                   "intersection"])
+def test_constrained_tree_matches_jax(alg, cname):
+    """μ = 600 > 256: every round-0 machine runs more than one
+    threshold_select block."""
+    from repro_torch.convert import constraint_from_jax
+    from repro_torch.core import check_feasible
+    from _torch_parity import make_attrs
+    n, d, k, mu = 3000, 17, 10, 600
+    data = datasets.csn(n=n, d=d)
+    E = _eval_rows(data, 128)
+    w, g = make_attrs(np.random.default_rng(5), (n,), 8)
+    jc = _tree_constraints(k)[cname]
+    attrs = None if jc is None else np.stack([w, g], axis=1)
+    jcfg = JTreeConfig(k=k, capacity=mu, seed=0, algorithm=alg, eps=0.5)
+    jres = jtree(JExemplar(jnp.asarray(E)), jnp.asarray(data), jcfg,
+                 constraint=jc, attrs=attrs)
+    plan = jax_tree_plan(0, mu, jres.machines_per_round)
+    tc = constraint_from_jax(jc)
+    cfg = TreeConfig(k=k, capacity=mu, seed=0, algorithm=alg, eps=0.5)
+    tres = tree_maximize(objective_from_numpy(E, "cpu"), data, cfg,
+                         device="cpu", plan=plan, constraint=tc, attrs=attrs)
+    np.testing.assert_array_equal(tres.sel_rows, np.asarray(jres.sel_rows))
+    np.testing.assert_array_equal(tres.sel_mask, np.asarray(jres.sel_mask))
+    if jc is None:
+        assert tres.sel_attrs is None and jres.sel_attrs is None
+    else:
+        np.testing.assert_array_equal(tres.sel_attrs,
+                                      np.asarray(jres.sel_attrs))
+        assert check_feasible(tc, tres.sel_attrs, tres.sel_mask)[0]
+    assert tres.rounds == jres.rounds
+    assert tres.machines_per_round == jres.machines_per_round == [5, 1]
+    assert tres.oracle_calls == jres.oracle_calls
+    assert tres.depth_per_round == jres.depth_per_round
+    assert tres.solve_depth == jres.solve_depth
+    if alg == "threshold_batch":
+        assert max(tres.depth_per_round) <= 1 + int(np.ceil(
+            np.log(2 * k / 0.5) / 0.5))
+    testing.assert_close(tres.value, jres.value)
+    testing.assert_close(tres.round_values, jres.round_values)
