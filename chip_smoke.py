@@ -204,6 +204,161 @@ def phase_kernels() -> None:
         f"{testing.RTOL} atol={testing.ATOL}; near-tie steps {ties}")
 
 
+def eval_weights(m: int, seed: int):
+    """Eval weights as the serve layer draws them: U(0.5, 1.5), normalised
+    to mean 1, fp32 on the card."""
+    import numpy as np
+    import torch
+    w = np.random.default_rng(seed).uniform(0.5, 1.5, m)
+    return torch.as_tensor((w / w.mean()).astype(np.float32), device="cuda")
+
+
+def phase_kernels_rbf() -> None:
+    """rbf_kernel against its plain version at ragged shapes, with the
+    machine axis on either operand or both; K(x, x) within [1 − tol, 1]."""
+    import numpy as np
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import ops, ref
+    tol = testing.ATOL + testing.RTOL
+    cases = [(Mx, My, n, m, d) for d, n, m in ((1, 37, 300), (6, 33, 129),
+                                                (22, 70, 1000),
+                                                (64, 129, 77))
+             for Mx, My in ((1, 1), (3, 1), (1, 3), (3, 3))]
+    worst = 0.0
+    for Mx, My, n, m, d in cases:
+        r = np.random.default_rng(n * d + Mx)
+        X = torch.as_tensor(r.standard_normal((Mx, n, d)) / np.sqrt(d),
+                            dtype=torch.float32, device="cuda")
+        Y = torch.as_tensor(r.standard_normal((My, m, d)) / np.sqrt(d),
+                            dtype=torch.float32, device="cuda")
+        for h in (0.5, 1.0):
+            K = ops.rbf_kernel(X, Y, h)
+            torch.cuda.synchronize()
+            testing.assert_close(K, ref.rbf_kernel(X, Y, h),
+                                 f"rbf_kernel Mx={Mx} My={My} n={n} m={m} "
+                                 f"d={d} h={h}")
+            worst = max(worst, testing.max_abs_err(K, ref.rbf_kernel(X, Y,
+                                                                     h)))
+            Kxx = torch.diagonal(ops.rbf_kernel(Y, Y, h), dim1=-2, dim2=-1)
+            if not bool(torch.all((Kxx >= 1 - tol) & (Kxx <= 1))):
+                fail(f"rbf_kernel K(x, x) outside [1 - {tol}, 1] at d={d} "
+                     f"h={h}: {float(Kxx.min())}")
+    log(f"rbf_kernel vs plain: {len(cases) * 2} shapes agree within rtol="
+        f"{testing.RTOL} atol={testing.ATOL} (max |dK| {worst:.3g}); K(x, x) "
+        f"in [1 - {tol:g}, 1]")
+
+
+def phase_kernels_weighted() -> None:
+    """The weighted exemplar_gains, greedy_select (unconstrained and under
+    knapsack ∩ partition) and threshold_select against their plain versions
+    at phase 2's shapes, with weights U(0.5, 1.5) normalised to mean 1; and
+    w ≡ 1.0 bit-identical to the unweighted launch."""
+    import numpy as np
+    import torch
+    from repro_torch import testing
+    from repro_torch.core.algorithms import _fused_constraint_kwargs
+    from repro_torch.kernels import ops, ref
+    k = 10
+    cases = [(M, n, m, d, kind) for d, n, m in ((6, 1000, 300),
+                                                 (17, 777, 130))
+             for M in (1, 7) for kind in ("none", "both")]
+    cases.append((1, 100_003, 300, 6, "none"))
+    cons = webscope_constraint(k)
+    ties = same_bits = 0
+    for M, n, m, d, kind in cases:
+        X = _dataset(d, M * n + m, seed=500 + d)
+        E = torch.as_tensor(X[M * n:], device="cuda")
+        T = torch.as_tensor(X[:M * n].reshape(M, n, d), device="cuda")
+        r = np.random.default_rng(d * M + n)
+        mask = torch.as_tensor(r.random((M, n)) < 0.85, device="cuda")
+        a = torch.as_tensor(make_attrs(M * n, seed=d + M).reshape(M, n, 2),
+                            device="cuda")
+        kw = _fused_constraint_kwargs(cons, a) if kind == "both" else {}
+        w = eval_weights(m, seed=m + M)
+        ones = torch.ones((m,), dtype=torch.float32, device="cuda")
+        e0 = torch.sum(E * E, dim=-1)
+        what = f"weighted M={M} n={n} m={m} d={d} {kind}"
+        trace = ref.greedy_select_trace(T, E, e0, mask, k, eval_weights=w,
+                                        **kw)
+        for cm in (e0, trace[1]):
+            testing.assert_close(ops.exemplar_gains(T, E, cm, eval_weights=w),
+                                 ref.exemplar_gains(T, E, cm, eval_weights=w),
+                                 f"exemplar_gains {what}")
+        sel, cm_out = ops.greedy_select(T, E, e0, mask, k, eval_weights=w,
+                                        **kw)
+        torch.cuda.synchronize()
+        n_tie, same, err = check_greedy(sel, cm_out, T, E, e0, trace,
+                                        f"greedy_select {what}")
+        ties += n_tie
+        # w ≡ 1.0 against the unweighted launch: the same bits
+        for cm in (e0, trace[1]):
+            if not torch.equal(ops.exemplar_gains(T, E, cm,
+                                                  eval_weights=ones),
+                               ops.exemplar_gains(T, E, cm)):
+                fail(f"exemplar_gains {what}: w = 1 differs from unweighted")
+        s1, c1 = ops.greedy_select(T, E, e0, mask, k, eval_weights=ones, **kw)
+        s0, c0 = ops.greedy_select(T, E, e0, mask, k, **kw)
+        if not (torch.equal(s1, s0) and torch.equal(c1, c0)):
+            fail(f"greedy_select {what}: w = 1 differs from unweighted")
+        same_bits += 1
+        log(f"  {what} k={k}: gains, sel, cur_min agree ({same}/{M} machines "
+            f"select as plain, max|dcm| {err:.3g}, near-tie steps {n_tie}); "
+            f"w = 1 gives the unweighted bits")
+    log(f"weighted exemplar_gains / greedy_select vs plain: {len(cases)} "
+        f"shapes agree; near-tie steps {ties}; w = 1 bit-identical on "
+        f"{same_bits}")
+
+    k = 12
+    tcases = [(3, 1000, 300, 6, 256, True), (7, 777, 130, 17, 16, True),
+              (7, 201, 130, 17, 256, False), (1, 30_000, 300, 6, 256, False)]
+    full_all = m_all = 0
+    for M, n, m, d, bn, constrained in tcases:
+        X = _dataset(d, M * n + m, seed=600 + d)
+        E = torch.as_tensor(X[M * n:], device="cuda")
+        T = torch.as_tensor(X[:M * n].reshape(M, n, d), device="cuda")
+        r = np.random.default_rng(n + bn + 1)
+        mask = torch.as_tensor(r.random((M, n)) < 0.85, device="cuda")
+        a = torch.as_tensor(make_attrs(M * n, seed=n + 1).reshape(M, n, 2),
+                            device="cuda")
+        kw = _fused_constraint_kwargs(cons, a) if constrained else {}
+        limit = ref.knapsack_limit(kw["budget"]) if constrained else None
+        w = eval_weights(m, seed=m)
+        e0 = torch.sum(E * E, dim=-1)
+        cm_in = (e0 * torch.as_tensor(0.6 + 0.4 * r.random((M, m)),
+                                      dtype=torch.float32, device="cuda"))
+        g = ref.exemplar_gains(T, E, cm_in, eval_weights=w)
+        tau = g.masked_fill(~mask, 0.0).amax(dim=1) * 0.4
+        st = {"count": torch.full((M,), 3, dtype=torch.int32, device="cuda")}
+        acc, cm = ops.threshold_select(T, E, cm_in, mask, tau, k, bn=bn,
+                                       eval_weights=w, **st, **kw)
+        torch.cuda.synchronize()
+        trace = ref.threshold_select_trace(T, E, cm_in, mask, tau, k,
+                                           bn=min(bn, max(8, n)),
+                                           eval_weights=w, **st, **kw)
+        what = (f"threshold_select weighted "
+                f"{'knapsack ∩ partition' if constrained else 'unconstrained'}"
+                f" M={M} n={n} m={m} d={d} bn={bn}")
+        full, near, _ = check_threshold(acc, cm, trace, T, E, cm_in, tau,
+                                        mask, k, limit, what)
+        ones = torch.ones((m,), dtype=torch.float32, device="cuda")
+        a1 = ops.threshold_select(T, E, cm_in, mask, tau, k, bn=bn,
+                                  eval_weights=ones, **st, **kw)
+        a0 = ops.threshold_select(T, E, cm_in, mask, tau, k, bn=bn, **st,
+                                  **kw)
+        if not (torch.equal(a1[0], a0[0]) and torch.equal(a1[1], a0[1])):
+            fail(f"{what}: w = 1 differs from unweighted")
+        full_all, m_all = full_all + full, m_all + M
+        log(f"  {what}: {full}/{M} machines accept as plain, "
+            f"{int(acc.sum())} rows accepted, near rows {near}; w = 1 gives "
+            f"the unweighted bits")
+    if full_all < FULL_SHARE * m_all:
+        fail(f"weighted threshold_select: only {full_all}/{m_all} machines "
+             f"compared in full")
+    log(f"weighted threshold_select vs plain: {len(tcases)} shapes agree "
+        f"under the near-threshold rule, {full_all}/{m_all} machines in full")
+
+
 def make_attrs(n: int, seed: int):
     """Per-row attributes as the repo's benchmarks draw them
     (``benchmarks/adaptive_depth.py``): a weight ~ U(0.2, 1.0) and a group
@@ -431,10 +586,9 @@ def phase_constrained(main: dict) -> dict:
     constraint."""
     import torch
     from repro_torch import testing
-    from repro_torch.core import (TorchPlan, TreeConfig, centralized_greedy,
-                                  check_feasible, tree_maximize)
+    from repro_torch.core import TreeConfig
     from repro_torch.core.algorithms import _fused_constraint_kwargs
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     X, obj, cfg = main["X"], main["obj"], main["cfg"]
     n, d = X.shape
     k, mu = cfg.k, cfg.capacity
@@ -445,56 +599,12 @@ def phase_constrained(main: dict) -> dict:
         f"{n * (d + 2) * 4 / 1e9:.2f} GB on the card, constraint "
         f"{cons} ({time.perf_counter() - t0:.1f} s)")
 
-    def check_run(name, res, counts, constraint):
-        if constraint is not None:
-            ok, detail = check_feasible(constraint, res.sel_attrs,
-                                        res.sel_mask)
-            if not ok:
-                fail(f"{name}: coreset infeasible: {detail}")
-        if not math.isfinite(res.value) or res.sel_rows.shape != (k, d):
-            fail(f"{name}: non-finite value or wrong shape")
-        rescore = obj.evaluate(torch.as_tensor(res.sel_rows, device="cuda"),
-                               torch.as_tensor(res.sel_mask, device="cuda"))
-        testing.assert_close(float(rescore), res.value, f"{name} re-scored")
-        log(f"{name}: rounds {res.rounds}, machines/round "
-            f"{res.machines_per_round}, oracle calls {res.oracle_calls}, "
-            f"depth/round {res.depth_per_round} (solve depth "
-            f"{res.solve_depth}), value {res.value!r}, selected "
-            f"{int(res.sel_mask.sum())}")
-        log(f"{name} round walls (CUDA events, s): {res.round_walls}; "
-            f"total {res.total_wall_s:.3f} s; launches {counts}")
+    cent, cent_value = run_central("constrained centralized greedy", obj, X,
+                                   k, constraint=cons, attrs=attrs)
 
-    def tree(name, cfg_r, constraint):
-        ops.reset_launch_counts()
-        res = tree_maximize(obj, X, cfg_r, device="cuda",
-                            plan=TorchPlan(SEED), constraint=constraint,
-                            attrs=None if constraint is None else attrs)
-        torch.cuda.synchronize()
-        counts = dict(ops.launch_counts)
-        check_run(name, res, counts, constraint)
-        return res, counts
-
-    ops.reset_launch_counts()
-    t1 = time.perf_counter()
-    cent = centralized_greedy(obj, X, k, constraint=cons, attrs=attrs,
-                              device="cuda")
-    cent_value = float(cent.value)
-    torch.cuda.synchronize()
-    log(f"constrained centralized greedy: value {cent_value!r}, wall "
-        f"{time.perf_counter() - t1:.3f} s, launches "
-        f"{dict(ops.launch_counts)}")
-    ok, detail = check_feasible(cons, cent.sel_attrs.cpu().numpy(),
-                                cent.sel_mask.cpu().numpy())
-    if not ok:
-        fail(f"constrained centralized greedy infeasible: {detail}")
-    testing.assert_close(cent_value, float(obj.evaluate(cent.sel_rows,
-                                                        cent.sel_mask)),
-                         "constrained centralized value re-scored")
-
-    tree_g, cnt_g = tree("GREEDY TREE, knapsack ∩ partition", cfg, cons)
-    if cnt_g["greedy_select_constrained"] == 0:
-        fail("constrained GREEDY TREE launched the constrained "
-             "greedy_select no time")
+    tree_g, cnt_g = run_tree("GREEDY TREE, knapsack ∩ partition", obj, X,
+                             cfg, ("greedy_select_constrained",),
+                             constraint=cons, attrs=attrs)
     ratio = tree_g.value / cent_value
     log(f"GREEDY TREE / centralized, both constrained: {ratio!r}")
     if ratio < 0.9:
@@ -509,10 +619,10 @@ def phase_constrained(main: dict) -> dict:
             ("unconstrained", None, main["cent_value"]),
             ("knapsack ∩ partition", cons, cent_value)):
         name = f"THRESHOLD-BATCH TREE eps={EPS}, {label}"
-        res, counts = tree(name, cfg_t, constraint)
-        for kern in ("threshold_select", "exemplar_gains"):
-            if counts[kern] == 0:
-                fail(f"{name} launched {kern} no time")
+        res, counts = run_tree(name, obj, X, cfg_t, ("threshold_select",
+                                                     "exemplar_gains"),
+                               constraint=constraint,
+                               attrs=None if constraint is None else attrs)
         if max(res.depth_per_round) > depth_cap:
             fail(f"{name}: depth/round {res.depth_per_round} above "
                  f"{depth_cap}")
@@ -545,10 +655,12 @@ def phase_constrained(main: dict) -> dict:
         f"{int(same.sum())}/{k} steps select the same row, near-tie steps "
         f"{n_tie} (plain {time.perf_counter() - t2:.1f} s)")
     return {"attrs": attrs, "cons": cons, "launches": {
-        "greedy_select_constrained": cnt_g["greedy_select_constrained"],
-        "threshold_select": runs["knapsack ∩ partition"]["threshold_select"],
+        "greedy_select_constrained": cnt_g.get("greedy_select_constrained",
+                                               0),
+        "threshold_select": runs["knapsack ∩ partition"].get(
+            "threshold_select", 0),
         "threshold_select_unconstrained":
-            runs["unconstrained"]["threshold_select"]}}
+            runs["unconstrained"].get("threshold_select", 0)}}
 
 
 def times_constrained(main: dict, constrained: dict, blocks, bmask, part
@@ -804,15 +916,360 @@ def phase_main() -> dict:
         f"steps select the same row, near-tie steps {n_tie} (plain "
         f"{time.perf_counter() - t2:.1f} s)")
     return {"X": X, "obj": obj, "cfg": cfg, "launches": counts,
-            "cent_value": cent_value}
+            "cent_value": cent_value, "tree": tree}
 
 
-def phase_times(scan: dict, main: dict, constrained: dict) -> list[dict]:
+def check_coreset(name: str, constraint, sel_attrs, sel_mask) -> None:
+    """Fail unless the selection is feasible under ``constraint`` (the
+    independent NumPy checker); nothing to check without one."""
+    from repro_torch.core import check_feasible
+    if constraint is None:
+        return
+    ok, detail = check_feasible(constraint, _numpy(sel_attrs),
+                                _numpy(sel_mask))
+    if not ok:
+        fail(f"{name}: selection infeasible: {detail}")
+
+
+def _numpy(x):
+    return x.cpu().numpy() if hasattr(x, "cpu") else x
+
+
+def run_tree(name: str, obj, X, cfg, kernels, constraint=None, attrs=None):
+    """One TREE run on the card with the launch counts zeroed just before
+    and read just after; fails if a kernel of ``kernels`` launched no time
+    or the coreset breaks ``constraint``.  Logs rounds, machines per round,
+    depth, round walls and value; the value is re-scored by
+    ``obj.evaluate``.  Returns the result and the non-zero counts."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.core import TorchPlan, tree_maximize
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    res = tree_maximize(obj, X, cfg, device="cuda", plan=TorchPlan(SEED),
+                        constraint=constraint, attrs=attrs)
+    torch.cuda.synchronize()
+    counts = {key: v for key, v in ops.launch_counts.items() if v}
+    for kern in kernels:
+        if counts.get(kern, 0) == 0:
+            fail(f"{name} launched {kern} no time")
+    check_coreset(name, constraint, res.sel_attrs, res.sel_mask)
+    d = X.shape[1]
+    if not math.isfinite(res.value) or res.sel_rows.shape != (cfg.k, d):
+        fail(f"{name}: non-finite value or wrong shape")
+    rescore = obj.evaluate(torch.as_tensor(res.sel_rows, device="cuda"),
+                           torch.as_tensor(res.sel_mask, device="cuda"))
+    testing.assert_close(float(rescore), res.value, f"{name} re-scored")
+    log(f"{name}: rounds {res.rounds}, machines/round "
+        f"{res.machines_per_round}, oracle calls {res.oracle_calls}, depth/"
+        f"round {res.depth_per_round} (solve depth {res.solve_depth}), value "
+        f"{res.value!r}, selected {int(res.sel_mask.sum())}")
+    log(f"{name} round walls (CUDA events, s): {res.round_walls}; total "
+        f"{res.total_wall_s:.3f} s; launches {counts}")
+    return res, counts
+
+
+def run_central(name: str, obj, X, k: int, constraint=None, attrs=None):
+    """Centralized greedy on the card, launches counted; the selection
+    checked against ``constraint`` and its value re-scored."""
+    from repro_torch import testing
+    from repro_torch.core import centralized_greedy
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = centralized_greedy(obj, X, k, device="cuda", constraint=constraint,
+                             attrs=attrs)
+    value = float(res.value)
+    wall = time.perf_counter() - t0
+    counts = {key: v for key, v in ops.launch_counts.items() if v}
+    check_coreset(name, constraint, res.sel_attrs, res.sel_mask)
+    testing.assert_close(value, float(obj.evaluate(res.sel_rows,
+                                                   res.sel_mask)),
+                         f"{name} re-scored")
+    log(f"{name}: value {value!r}, wall {wall:.3f} s, launches {counts}")
+    return res, value
+
+
+def phase_active_set_parkinsons() -> None:
+    """ActiveSetSelection on the paper's own dataset, as
+    ``examples/active_set_selection.py`` sets it: the Parkinsons analog
+    (n = 5,800, d = 22) × 0.5, h = 0.5, σ = 1, k = 25, μ = 100 — TREE
+    against centralized greedy, and centralized greedy under a knapsack of
+    10.0 on costs U(0.5, 2.0)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ActiveSetSelection, Knapsack, TreeConfig
+    from repro_torch.data import datasets
+    data = torch.as_tensor((datasets.parkinsons() * 0.5).astype(np.float32),
+                           device="cuda")
+    k, mu = 25, 100
+    obj = ActiveSetSelection(k_max=k, h=0.5, sigma=1.0, device="cuda")
+    tree, _ = run_tree("ActiveSetSelection TREE, Parkinsons", obj, data,
+                       TreeConfig(k=k, capacity=mu, seed=SEED),
+                       ("rbf_kernel",))
+    _, cent = run_central("ActiveSetSelection centralized, Parkinsons", obj,
+                          data, k)
+    ratio = tree.value / cent
+    log(f"ActiveSetSelection TREE / centralized, Parkinsons: {ratio!r}")
+    if ratio < 0.9:
+        fail(f"ActiveSetSelection Parkinsons ratio {ratio} below 0.9")
+    costs = np.random.default_rng(SEED).uniform(
+        0.5, 2.0, (data.shape[0], 1)).astype(np.float32)
+    res, _ = run_central("ActiveSetSelection centralized, Parkinsons, "
+                         "Knapsack(10.0)", obj, data, k,
+                         constraint=Knapsack(budget=10.0), attrs=costs)
+    log(f"ActiveSetSelection knapsack: {int(res.sel_mask.sum())} items, cost "
+        f"{float(res.sel_attrs[res.sel_mask].sum())!r} ≤ 10.0, feasible")
+
+
+def round0_blocks(main: dict):
+    """Round 0's blocks of the Webscope TREE (the plan of every run here)
+    and its partition."""
+    from repro_torch.core import TorchPlan
+    from repro_torch.core import partition as part_lib
+    X, cfg = main["X"], main["cfg"]
+    N = X.shape[0]
+    part = part_lib.balanced_partition(
+        TorchPlan(SEED), 0, N, part_lib.n_parts(N, cfg.capacity),
+        cap=cfg.capacity, device="cuda")
+    blocks, bmask = part_lib.gather_partition(X, part)
+    return blocks, bmask, part
+
+
+def phase_active_set_webscope(main: dict) -> dict:
+    """ActiveSetSelection at the Webscope deployment (n = 45M, d = 6,
+    μ = 22,500, k = k_max = 50, h = 0.5, σ = 1): TREE against the
+    centralized greedy over all 45M rows; round 0 itself on the card, its
+    first 16 machines held against the port's plain path on the CPU under
+    the exact-tie rule."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.core import ActiveSetSelection, algorithms
+    X, cfg = main["X"], main["cfg"]
+    k = cfg.k
+    obj = ActiveSetSelection(k_max=k, h=0.5, sigma=1.0, device="cuda")
+    tree, counts = run_tree("ActiveSetSelection TREE, Webscope", obj, X, cfg,
+                            ("rbf_kernel",))
+    _, cent = run_central("ActiveSetSelection centralized, Webscope", obj, X,
+                          k)
+    ratio = tree.value / cent
+    log(f"ActiveSetSelection TREE / centralized, Webscope: {ratio!r}")
+    if ratio < 0.9:
+        fail(f"ActiveSetSelection Webscope ratio {ratio} below 0.9")
+    blocks, bmask, _ = round0_blocks(main)
+    t0 = time.perf_counter()
+    card = algorithms.greedy(obj, blocks, bmask, k)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    n_check = 16
+    obj_cpu = ActiveSetSelection(k_max=k, h=0.5, sigma=1.0, device="cpu")
+    T16, m16 = blocks[:n_check].cpu(), bmask[:n_check].cpu()
+    t0 = time.perf_counter()
+    plain = algorithms.greedy(obj_cpu, T16, m16, k)
+    gains = testing.gain_trace(obj_cpu, T16, m16, plain.sel_idx)
+    t_cpu = time.perf_counter() - t0
+    sel = card.sel_idx[:n_check].cpu()
+    ok, ties, excused = testing.picks_agree(sel, plain.sel_idx, gains)
+    if not ok:
+        fail("ActiveSetSelection round 0: the card's picks part from the "
+             "plain path's beyond the exact-tie rule")
+    same = torch.all(sel == plain.sel_idx, dim=-1)
+    testing.assert_close(card.value[:n_check].cpu()[same],
+                         plain.value[same], "round-0 values, same picks")
+    for i in torch.nonzero(~same).flatten().tolist():
+        rows = T16[i, torch.clamp_min(sel[i], 0)]
+        testing.assert_close(float(card.value[i]), float(obj_cpu.evaluate(
+            rows, sel[i] >= 0)), f"round-0 machine {i} re-scored")
+    log(f"ActiveSetSelection round 0 on the card (M = {blocks.shape[0]}, "
+        f"{t_card:.2f} s) vs the plain path on the CPU, first {n_check} "
+        f"machines ({t_cpu:.1f} s): picks agree under the exact-tie rule, "
+        f"{int(same.sum())}/{n_check} machines pick alike, exact-tie steps "
+        f"{ties}, excused steps {excused}")
+    return {"launches": counts.get("rbf_kernel", 0), "sel": card.sel_idx,
+            "tree": tree}
+
+
+def phase_facility(main: dict) -> dict:
+    """FacilityLocation at the Webscope deployment over the 512 eval rows
+    of the earlier phases, h = 1.0: TREE against centralized greedy."""
+    from repro_torch.core import FacilityLocation
+    X, cfg = main["X"], main["cfg"]
+    obj = FacilityLocation(main["obj"].eval_set, h=1.0)
+    tree, counts = run_tree("FacilityLocation TREE, Webscope", obj, X, cfg,
+                            ("rbf_kernel",))
+    _, cent = run_central("FacilityLocation centralized, Webscope", obj, X,
+                          cfg.k)
+    ratio = tree.value / cent
+    log(f"FacilityLocation TREE / centralized, Webscope: {ratio!r}")
+    if ratio < 0.9:
+        fail(f"FacilityLocation ratio {ratio} below 0.9")
+    return {"launches": counts.get("rbf_kernel", 0), "obj": obj}
+
+
+def phase_weighted(main: dict) -> dict:
+    """WeightedExemplarClustering at the Webscope deployment, weights
+    U(0.5, 1.5) normalised to mean 1 over the 512 eval rows: GREEDY and
+    THRESHOLD-BATCH TREE against the weighted centralized greedy; and with
+    w ≡ 1.0 the GREEDY TREE selects the unweighted TREE's rows with its
+    value, to the bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import TreeConfig, WeightedExemplarClustering
+    X, cfg = main["X"], main["cfg"]
+    E = main["obj"].eval_set
+    w = eval_weights(E.shape[0], SEED)
+    obj = WeightedExemplarClustering(E, eval_weights=w)
+    _, cent = run_central("weighted centralized greedy, Webscope", obj, X,
+                          cfg.k)
+    tree, counts = run_tree("weighted GREEDY TREE, Webscope", obj, X, cfg,
+                            ("greedy_select_weighted",))
+    ratio = tree.value / cent
+    log(f"weighted GREEDY TREE / centralized: {ratio!r}")
+    if ratio < 0.9:
+        fail(f"weighted GREEDY TREE ratio {ratio} below 0.9")
+    cfg_t = TreeConfig(k=cfg.k, capacity=cfg.capacity, seed=SEED,
+                       algorithm="threshold_batch", eps=EPS)
+    res, _ = run_tree(f"weighted THRESHOLD-BATCH TREE eps={EPS}, Webscope",
+                      obj, X, cfg_t, ("exemplar_gains_weighted",
+                                      "threshold_select_weighted"))
+    gap = 1.0 - res.value / cent
+    depth_cap = 1 + math.ceil(math.log(2 * cfg.k / EPS) / EPS)
+    log(f"weighted THRESHOLD-BATCH TREE: gap 1 - tree/central = {gap!r} "
+        f"(ε = {EPS}), depth/round {res.depth_per_round}")
+    if gap > EPS or max(res.depth_per_round) > depth_cap:
+        fail(f"weighted THRESHOLD-BATCH: gap {gap} or depth "
+             f"{res.depth_per_round} out of bounds")
+    unit = WeightedExemplarClustering(E, eval_weights=torch.ones_like(w))
+    one, _ = run_tree("weighted GREEDY TREE, w = 1.0", unit, X, cfg,
+                      ("greedy_select_weighted",))
+    base = main["tree"]
+    if not (np.array_equal(one.sel_rows, base.sel_rows)
+            and np.float32(one.value).tobytes()
+            == np.float32(base.value).tobytes()):
+        fail("w = 1.0 TREE does not reproduce the unweighted TREE's rows "
+             "and value to the bit")
+    log(f"w = 1.0 GREEDY TREE: the unweighted TREE's {cfg.k} rows and value "
+        f"{one.value!r}, to the bit")
+    return {"w": w, "launches": counts.get("greedy_select_weighted", 0)}
+
+
+def times_new(main: dict, active: dict, facility: dict, weighted: dict,
+              blocks, bmask) -> list[dict]:
+    """rbf_kernel at its two path shapes and the weighted greedy_select at
+    round 0: each held against its plain version there, timed beside it
+    and beside its bound; and rbf_kernel at the centralized update shape
+    (one row against all 45M) held against its plain version."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.core.objectives import SIM_BYTES
+    from repro_torch.kernels import ops, ref
+    X, obj, cfg = main["X"], main["obj"], main["cfg"]
+    E = obj.eval_set
+    M, mu, d = blocks.shape
+    m, k = E.shape[0], cfg.k
+    tol = testing.ATOL + testing.RTOL
+    rows = []
+
+    # the ActiveSetSelection update at round 0: each machine's second pick
+    # against its whole block
+    idx = torch.clamp_min(active["sel"][:, 1], 0)
+    x = torch.take_along_dim(blocks, idx[:, None, None], dim=1)
+    K = ops.rbf_kernel(x, blocks, 0.5)
+    K_p = ref.rbf_kernel(x, blocks, 0.5)
+    testing.assert_close(K, K_p, "rbf_kernel at the round-0 update")
+    err = testing.max_abs_err(K, K_p)
+    self_k = torch.take_along_dim(K[:, 0], idx[:, None], dim=1)
+    if not bool(torch.all((self_k >= 1 - tol) & (self_k <= 1))):
+        fail("rbf_kernel K(x, x) outside [1 - tol, 1] at the round-0 update")
+    del K, K_p
+    ms = cuda_ms(lambda: ops.rbf_kernel(x, blocks, 0.5), runs=20)
+    plain = cuda_ms(lambda: ref.rbf_kernel(x, blocks, 0.5), runs=5)
+    # each operand read once, the output written once; dot (2d), norms of
+    # the pair (3), scale, clamp and exp (3) per output element, fp32
+    b, by = bound_ms(M * mu * (2 * d + 6), 4 * (M * d + M * mu * d + M * mu))
+    rows.append({"name": "rbf_kernel (ActiveSetSelection update)",
+                 "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/rbf_kernel.cu",
+                 "replaces": "src/repro/kernels/rbf_kernel.py:44",
+                 "launches": active["launches"], "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                 "library_ms": None})
+
+    # one FacilityLocation gain chunk at round 0: the shared eval set
+    # against a candidate chunk of every machine
+    c = max(1, SIM_BYTES // (4 * m * M))
+    Y = blocks[:, :c]
+    K = ops.rbf_kernel(E, Y, 1.0)
+    K_p = ref.rbf_kernel(E, Y, 1.0)
+    testing.assert_close(K, K_p, "rbf_kernel at a FacilityLocation chunk")
+    err = testing.max_abs_err(K, K_p)
+    del K, K_p
+    ms = cuda_ms(lambda: ops.rbf_kernel(E, Y, 1.0), runs=10)
+    plain = cuda_ms(lambda: ref.rbf_kernel(E, Y, 1.0), runs=3)
+    b, by = bound_ms(M * m * c * (2 * d + 6),
+                     4 * (m * d + M * c * d + M * m * c))
+    log(f"rbf_kernel FacilityLocation chunk: (M, n_eval, chunk) = "
+        f"({M}, {m}, {c}), {4 * M * m * c / 1e9:.2f} GB out")
+    rows.append({"name": "rbf_kernel (FacilityLocation gains)",
+                 "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/rbf_kernel.cu",
+                 "replaces": "src/repro/kernels/rbf_kernel.py:44",
+                 "launches": facility["launches"], "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                 "library_ms": None})
+
+    # the centralized update: one row against all n rows
+    x1 = X[1:2]
+    K = ops.rbf_kernel(x1, X, 0.5)
+    testing.assert_close(K, ref.rbf_kernel(x1, X, 0.5),
+                         "rbf_kernel at the centralized update")
+    if not 1 - tol <= float(K[0, 1]) <= 1:
+        fail("rbf_kernel K(x, x) outside [1 - tol, 1] at the centralized "
+             "update")
+    log(f"rbf_kernel at the centralized update (1 x {X.shape[0]}): agrees "
+        f"with plain, {cuda_ms(lambda: ops.rbf_kernel(x1, X, 0.5), 10):.4f} "
+        f"ms")
+    del K
+
+    # the weighted greedy_select at round 0
+    w = weighted["w"]
+    seed = torch.sum(E * E, dim=-1)
+    sel, cm_out = ops.greedy_select(blocks, E, seed, bmask, k, eval_weights=w)
+    t0 = time.perf_counter()
+    trace = ref.greedy_select_trace(blocks, E, seed, bmask, k,
+                                    eval_weights=w)
+    torch.cuda.synchronize()
+    log(f"plain weighted greedy at round 0 (M={M}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_tie, same, err = check_greedy(sel, cm_out, blocks, E, seed, trace,
+                                    "weighted greedy_select at round 0")
+    log(f"weighted greedy_select round 0 vs plain: {same}/{M} machines "
+        f"select as plain, near-tie steps {n_tie}, max|dcm| {err:.3g}")
+    ms = cuda_ms(lambda: ops.greedy_select(blocks, E, seed, bmask, k,
+                                           eval_weights=w), runs=5)
+    plain = cuda_ms(lambda: ref.greedy_select(blocks, E, seed, bmask, k,
+                                              eval_weights=w),
+                    runs=1, warmup=0)
+    n_avail = torch.sum(bmask.long(), dim=1, keepdim=True)
+    calls = int(torch.sum(torch.clamp_min(
+        n_avail - torch.arange(k, device="cuda"), 0)))
+    b, by = bound_ms(calls * m * (2 * d + 4),
+                     4 * M * mu * d + 4 * m * d + 8 * m + M * mu
+                     + 4 * M * k + 4 * M * m)
+    rows.append({"name": "greedy_select (eval weights)", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/greedy_select.cu",
+                 "replaces": "src/repro/kernels/greedy_select.py:265",
+                 "launches": weighted["launches"], "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                 "library_ms": None})
+    return rows
+
+
+def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
+                facility: dict, weighted: dict) -> list[dict]:
     """Each kernel at its path's shapes: time, plain time, bound."""
     import torch
     from repro_torch import testing
-    from repro_torch.core import TorchPlan
-    from repro_torch.core import partition as part_lib
     from repro_torch.kernels import exemplar_gains as _eg
     from repro_torch.kernels import ops, ref
     rows = []
@@ -840,13 +1297,9 @@ def phase_times(scan: dict, main: dict, constrained: dict) -> list[dict]:
                  "plain_ms": plain, "bound_ms": b, "bound_by": by,
                  "library_ms": None})
     # greedy_select at round 0 of the main path
-    X, obj, cfg = main["X"], main["obj"], main["cfg"]
+    obj, cfg = main["obj"], main["cfg"]
     E = obj.eval_set
-    N = X.shape[0]
-    L = part_lib.n_parts(N, cfg.capacity)
-    part = part_lib.balanced_partition(TorchPlan(SEED), 0, N, L,
-                                       cap=cfg.capacity, device="cuda")
-    blocks, bmask = part_lib.gather_partition(X, part)
+    blocks, bmask, part = round0_blocks(main)
     M, mu, d = blocks.shape
     m, k = E.shape[0], cfg.k
     seed = torch.sum(E * E, dim=-1)
@@ -877,6 +1330,7 @@ def phase_times(scan: dict, main: dict, constrained: dict) -> list[dict]:
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
                  "bound_ms": b, "bound_by": by, "library_ms": None})
     rows += times_constrained(main, constrained, blocks, bmask, part)
+    rows += times_new(main, active, facility, weighted, blocks, bmask)
     for r in rows:
         log(f"time {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
@@ -894,10 +1348,17 @@ def main() -> None:
     phase_setup()
     phase_kernels()
     phase_kernels_constrained()
+    phase_kernels_rbf()
+    phase_kernels_weighted()
     scan = phase_scan()
     main_path = phase_main()
     constrained = phase_constrained(main_path)
-    rows = phase_times(scan, main_path, constrained)
+    phase_active_set_parkinsons()
+    active = phase_active_set_webscope(main_path)
+    facility = phase_facility(main_path)
+    weighted = phase_weighted(main_path)
+    rows = phase_times(scan, main_path, constrained, active, facility,
+                       weighted)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

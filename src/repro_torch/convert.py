@@ -10,17 +10,48 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core import constraints as cons
-from repro_torch.core.objectives import ExemplarClustering
+from repro_torch.core import objectives as objs
 from repro_torch.core.plan import ArrayPlan
 from repro_torch.device import as_tensor, resolve_device
 
-__all__ = ["ArrayPlan", "constraint_from_jax", "objective_from_numpy"]
+__all__ = ["ArrayPlan", "constraint_from_jax", "objective_from_jax",
+           "objective_from_numpy"]
 
 
 def objective_from_numpy(eval_set: np.ndarray, device="cuda"
-                         ) -> ExemplarClustering:
+                         ) -> objs.ExemplarClustering:
     """The port's ``ExemplarClustering`` over a NumPy eval set."""
-    return ExemplarClustering(as_tensor(eval_set, resolve_device(device)))
+    return objs.ExemplarClustering(as_tensor(eval_set,
+                                             resolve_device(device)))
+
+
+def objective_from_jax(obj, device="cuda"):
+    """The port's counterpart of a ``repro.core.objectives`` object on
+    ``device``, read by class name and fields (arrays through NumPy), so
+    nothing of ``repro`` is imported here."""
+    dev = resolve_device(device)
+    name = type(obj).__name__
+
+    def arr(x):
+        return as_tensor(np.array(x), dev)
+
+    if name in ("ExemplarClustering", "WeightedExemplarClustering"):
+        if getattr(obj, "score_dtype", None) is not None:
+            raise NotImplementedError(
+                "score_dtype= is not ported yet: ROADMAP queue 1 item 10 "
+                "(narrow operands)")
+        if name == "ExemplarClustering":
+            return objs.ExemplarClustering(arr(obj.eval_set))
+        return objs.WeightedExemplarClustering(
+            arr(obj.eval_set), eval_weights=arr(obj.eval_weights))
+    if name == "ActiveSetSelection":
+        return objs.ActiveSetSelection(k_max=int(obj.k_max), h=float(obj.h),
+                                       sigma=float(obj.sigma), device=dev)
+    if name == "FacilityLocation":
+        return objs.FacilityLocation(arr(obj.eval_set), h=float(obj.h))
+    if name == "WeightedCoverage":
+        return objs.WeightedCoverage(arr(obj.weights))
+    raise ValueError(f"no port of objective class {name!r}")
 
 
 def constraint_from_jax(c):

@@ -1,5 +1,6 @@
 """repro_torch.core — tree-based compression on a resident ground set, with
-GREEDY or THRESHOLD-BATCH on each machine, under hereditary constraints."""
+GREEDY or THRESHOLD-BATCH on each machine, under hereditary constraints,
+for every objective of the paper (§4.2) and the package's extra ones."""
 from repro_torch.core.algorithms import (SelectResult, greedy, run_algorithm,
                                          threshold_batch)
 from repro_torch.core.baselines import (BaselineResult, centralized_greedy,
@@ -9,7 +10,10 @@ from repro_torch.core.constraints import (Intersection, Knapsack,
                                           attr_dim, check_feasible,
                                           constraint_from_spec, from_spec)
 from repro_torch.core.distributed import RoundResult, run_round
-from repro_torch.core.objectives import ExemplarClustering
+from repro_torch.core.objectives import (ActiveSetSelection,
+                                         ExemplarClustering, FacilityLocation,
+                                         WeightedCoverage,
+                                         WeightedExemplarClustering)
 from repro_torch.core.partition import (balanced_partition, gather_partition,
                                         n_parts, repartition_rows)
 from repro_torch.core.plan import ArrayPlan, TorchPlan
@@ -20,7 +24,8 @@ __all__ = [
     "BaselineResult", "centralized_greedy", "random_subset",
     "Intersection", "Knapsack", "PartitionMatroid", "Unconstrained",
     "attr_dim", "check_feasible", "constraint_from_spec", "from_spec",
-    "RoundResult", "run_round", "ExemplarClustering",
+    "RoundResult", "run_round", "ActiveSetSelection", "ExemplarClustering",
+    "FacilityLocation", "WeightedCoverage", "WeightedExemplarClustering",
     "balanced_partition", "gather_partition", "n_parts", "repartition_rows",
     "ArrayPlan", "TorchPlan", "TreeConfig", "TreeResult", "tree_maximize",
 ]

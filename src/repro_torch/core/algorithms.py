@@ -113,11 +113,19 @@ def greedy(obj, T: torch.Tensor, mask: torch.Tensor, k: int, *,
     knapsack∩partition-constrained selection through the objective's
     ``fused_select`` hook (``ops.greedy_select``: one call for the whole
     k-step loop on every machine); ``fused=False`` forces the step-wise
-    scan, ``fused=True`` asserts the fast path.
+    scan, ``fused=True`` asserts the fast path.  The scan commits a step
+    through the objective's ``masked_update`` where it has one (a state
+    too large to copy per step, updated in place where ``ok``), else
+    through ``update`` and a per-machine select.  An objective with a
+    ``k_max`` refuses ``k > k_max``.
     """
     if qmeta is not None:
         raise NotImplementedError("quantized blocks are not ported yet: "
                                   "ROADMAP queue 1 item 10 (narrow operands)")
+    k_max = getattr(obj, "k_max", None)
+    if k_max is not None and k > k_max:
+        raise ValueError(f"k = {k} exceeds {type(obj).__name__}.k_max = "
+                         f"{k_max}: its state holds k_max selections")
     batch = T.shape[:-2]
     depth = torch.full(batch, k, dtype=torch.long, device=T.device)
     if fused is None:
@@ -147,7 +155,10 @@ def greedy(obj, T: torch.Tensor, mask: torch.Tensor, k: int, *,
         best = torch.argmax(gains, dim=-1)              # lowest index on ties
         ok = torch.take_along_dim(gains, best[..., None], dim=-1)[..., 0] \
             > NEG_INF / 2                               # any candidate at all?
-        state = _where_state(ok, obj.update(state, T, best), state)
+        if hasattr(obj, "masked_update"):   # in place, same bits
+            state = obj.masked_update(state, T, best, ok)
+        else:
+            state = _where_state(ok, obj.update(state, T, best), state)
         cstate = _where_state(ok, constraint.update(cstate, attrs, best),
                               cstate)
         hit = torch.nn.functional.one_hot(best, T.shape[-2]).bool()

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("exemplar_gains", "greedy_select", "threshold_select")
+SOURCES = ("exemplar_gains", "greedy_select", "threshold_select",
+           "rbf_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,19 +33,24 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # be cut to 32 bits), sizes as long long, fp32 constants as float, the rest
 # as int
 ARGTYPES = {
-    "exemplar_gains_launch": [_P, _P, _P, _P, _LL, _LL, _I, _I, _P],
+    "exemplar_gains_launch": [_P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
     "greedy_select_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I,
-                             _I, _P, _P, _F, _P, _P, _P, _I, _P],
-    "threshold_select_launch": [_P] * 13 + [_LL, _LL] + [_I] * 6 + [_F, _P],
-    "threshold_select_max_groups": [_I],
+                             _I, _P, _P, _F, _P, _P, _P, _I, _P, _P],
+    "threshold_select_launch": [_P] * 13 + [_LL, _LL] + [_I] * 6
+    + [_F, _P, _P],
+    "threshold_select_max_groups": [_I, _I],
+    "rbf_kernel_launch": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _F, _P],
 }
 
 #: kernel launches per kernel, counted by the wrappers where they launch
-#: (re-exported as ``ops.launch_counts``); greedy_select's launches with a
-#: constraint encoding are counted apart from the unconstrained ones
+#: (re-exported as ``ops.launch_counts``).  The weighted launches (eval
+#: weights, ``WeightedExemplarClustering``) are counted apart, and so are
+#: greedy_select's unweighted launches with a constraint encoding
 launch_counts: dict[str, int] = {
-    name: 0 for name in ("exemplar_gains", "greedy_select",
-                         "greedy_select_constrained", "threshold_select")}
+    name: 0 for name in (
+        "exemplar_gains", "exemplar_gains_weighted", "greedy_select",
+        "greedy_select_constrained", "greedy_select_weighted",
+        "threshold_select", "threshold_select_weighted", "rbf_kernel")}
 #: ptxas register/shared-memory report of each library built in this process
 build_log: dict[str, str] = {}
 

@@ -6,7 +6,8 @@
 //
 //     sum_j max(0, cm[j] - max(x2_i + e2_j - 2 x_i.e_j, 0))
 //
-// — the contraction form of repro's exemplar_gains.  Both kernels call this
+// — the contraction form of repro's exemplar_gains — or, with eval weights,
+// sum_j w_j max(0, ...).  Every selection kernel calls this
 // one function, so the step-wise scan (exemplar_gains) and the fused greedy
 // (greedy_select) see the same bits for the same row and the same cm, which
 // is what lets the fused path reproduce the scan's selections.
@@ -54,13 +55,21 @@ struct __align__(16) TileSmem {
 // compiler neither hoists out of the caller's block loop nor sends down the
 // non-coherent read-only path; otherwise (exemplar_gains, greedy_select) cm
 // is read-only for the launch and loaded as any other operand.
-template <bool kCmRewritten = false>
+//
+// kWeighted: the eval columns carry weights ew (mp,), zero-padded like cm,
+// staged per eval tile into s_ew (BM,) in the caller's shared memory, and
+// each column's clamped contribution is multiplied by its weight before it
+// is added: fmaf(contrib, w, sum), which for w == 1.0f is the unweighted
+// sum + contrib, so unit weights give the unweighted bits.  The unweighted
+// instantiation never touches ew or s_ew and compiles as before.
+template <bool kCmRewritten = false, bool kWeighted = false>
 __device__ __forceinline__ void row_gain_sums(
     const float* __restrict__ X,   // this machine's (n, d) block
     const float* __restrict__ E,   // (mp, d), mp % BM == 0, zero-padded
     const float* __restrict__ cm,  // this machine's (mp,), zero-padded
     long long n, int d, int mp, long long row0, TileSmem& sm,
-    float sums[TR]) {
+    float sums[TR], const float* __restrict__ ew = nullptr,
+    float* s_ew = nullptr) {
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
@@ -124,6 +133,7 @@ __device__ __forceinline__ void row_gain_sums(
       } else {
         sm.cm[tid - BN] = cm[j0 + tid - BN];
       }
+      if constexpr (kWeighted) s_ew[tid - BN] = ew[j0 + tid - BN];
     }
     __syncthreads();
 #pragma unroll
@@ -132,7 +142,12 @@ __device__ __forceinline__ void row_gain_sums(
 #pragma unroll
       for (int c = 0; c < TC; ++c) {
         const float d2 = fmaxf(x2 + sm.e2[tx * TC + c] - 2.f * acc[r][c], 0.f);
-        sums[r] += fmaxf(sm.cm[tx * TC + c] - d2, 0.f);
+        if constexpr (kWeighted) {
+          sums[r] = fmaf(fmaxf(sm.cm[tx * TC + c] - d2, 0.f),
+                         s_ew[tx * TC + c], sums[r]);
+        } else {
+          sums[r] += fmaxf(sm.cm[tx * TC + c] - d2, 0.f);
+        }
       }
     }
   }

@@ -27,6 +27,11 @@
 // weight and group-id pointers select the unconstrained instantiation
 // (kConstrained = false), which compiles no feasibility code at all.
 //
+// Weighted variant (WeightedExemplarClustering): eval weights ew (mp,),
+// zero-padded, weigh each eval column's contribution to a gain (the tile's
+// kWeighted instantiation, its own step-kernel instantiation); the commit
+// is unchanged, since cur_min does not depend on the weights.
+//
 // 2k launches per call, each over all M machines, so one tree round is one
 // call.  The step kernel fills the card even at M = 1 (the centralized
 // baseline over the whole ground set), where a block-per-machine kernel
@@ -69,20 +74,22 @@ __device__ __forceinline__ bool feasible(const Constraint& c, long long mach,
   return true;
 }
 
-template <bool kConstrained>
+template <bool kConstrained, bool kWeighted>
 __global__ void __launch_bounds__(THREADS)
 greedy_step_kernel(const float* __restrict__ X, const float* __restrict__ E,
                    const float* __restrict__ cm,
                    const unsigned char* __restrict__ avail,
                    float* __restrict__ win_v, int* __restrict__ win_i,
                    long long n, int d, int mp, int m_true, int ntiles,
-                   Constraint con) {
+                   Constraint con, const float* __restrict__ ew) {
   __shared__ TileSmem sm;
   __shared__ float tv[BN];
+  __shared__ float s_ew[kWeighted ? BM : 1];
   const long long mach = blockIdx.y;
   const long long row0 = (long long)blockIdx.x * BN;
   float sums[TR];
-  row_gain_sums(X + mach * n * d, E, cm + mach * mp, n, d, mp, row0, sm, sums);
+  row_gain_sums<false, kWeighted>(X + mach * n * d, E, cm + mach * mp, n, d,
+                                  mp, row0, sm, sums, ew, s_ew);
   if ((threadIdx.x & 15) == 0) {
     const int ty = threadIdx.x >> 4;
 #pragma unroll
@@ -188,19 +195,19 @@ greedy_commit_kernel(const float* __restrict__ X, const float* __restrict__ E,
   }
 }
 
-template <bool kConstrained>
+template <bool kConstrained, bool kWeighted>
 static int run_steps(const void* X, const void* E, void* cm, void* avail,
                      void* win_v, void* win_i, void* sel, long long M,
                      long long n, int d, int mp, int m_true, int k,
-                     const Constraint& con, void* stream) {
+                     const Constraint& con, const void* ew, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int ntiles = (int)((n + BN - 1) / BN);
   const dim3 grid((unsigned)ntiles, (unsigned)M);
   for (int t = 0; t < k; ++t) {
-    greedy_step_kernel<kConstrained><<<grid, THREADS, 0, s>>>(
+    greedy_step_kernel<kConstrained, kWeighted><<<grid, THREADS, 0, s>>>(
         (const float*)X, (const float*)E, (const float*)cm,
         (const unsigned char*)avail, (float*)win_v, (int*)win_i, n, d, mp,
-        m_true, ntiles, con);
+        m_true, ntiles, con, (const float*)ew);
     int err = (int)cudaGetLastError();
     if (err != 0) return err;
     greedy_commit_kernel<kConstrained><<<(unsigned)M, COMMIT_THREADS, 0, s>>>(
@@ -217,20 +224,29 @@ static int run_steps(const void* X, const void* E, void* cm, void* avail,
 // the running state, updated in place; win_v/win_i (M, ceil(n / BN)) are
 // scratch; sel (M, k) int32.  Constraint operands: w (M, n) fp32 with used
 // (M,) fp32 scratch and limit, gid (M, n) int32 with caps (G,) int32 and
-// counts (M, G) int32 scratch; null w / gid switch a part off.  Launches
-// 2k kernels on `stream`.
+// counts (M, G) int32 scratch; null w / gid switch a part off.  ew (mp,)
+// fp32 eval weights, zero-padded, or null (unweighted).  Launches 2k
+// kernels on `stream`.
 extern "C" int greedy_select_launch(const void* X, const void* E, void* cm,
                                     void* avail, void* win_v, void* win_i,
                                     void* sel, long long M, long long n, int d,
                                     int mp, int m_true, int k, const void* w,
                                     void* used, float limit, const void* gid,
                                     const void* caps, void* counts, int G,
-                                    void* stream) {
+                                    const void* ew, void* stream) {
   const Constraint con{(const float*)w, (const int*)gid, (const int*)caps,
                        (float*)used, (int*)counts, limit, G};
-  return w == nullptr && gid == nullptr
-             ? run_steps<false>(X, E, cm, avail, win_v, win_i, sel, M, n, d,
-                                mp, m_true, k, con, stream)
-             : run_steps<true>(X, E, cm, avail, win_v, win_i, sel, M, n, d,
-                               mp, m_true, k, con, stream);
+  const bool constrained = w != nullptr || gid != nullptr;
+  if (ew == nullptr)
+    return constrained
+               ? run_steps<true, false>(X, E, cm, avail, win_v, win_i, sel, M,
+                                        n, d, mp, m_true, k, con, ew, stream)
+               : run_steps<false, false>(X, E, cm, avail, win_v, win_i, sel,
+                                         M, n, d, mp, m_true, k, con, ew,
+                                         stream);
+  return constrained
+             ? run_steps<true, true>(X, E, cm, avail, win_v, win_i, sel, M, n,
+                                     d, mp, m_true, k, con, ew, stream)
+             : run_steps<false, true>(X, E, cm, avail, win_v, win_i, sel, M,
+                                      n, d, mp, m_true, k, con, ew, stream);
 }

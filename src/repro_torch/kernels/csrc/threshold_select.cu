@@ -27,7 +27,9 @@
 //            slice of the output, which the tile reads for the next block.
 //
 // limit = float32(budget + KNAPSACK_TOL) comes from the host.  Weights are
-// knapsack weights (>= 0).  A group id outside [0, G) belongs to no open
+// knapsack weights (>= 0).  Eval weights ew (mp,), where given, weigh the
+// gains' eval columns (the tile's kWeighted instantiation, this kernel's
+// own instantiation); the fold does not depend on them.  A group id outside [0, G) belongs to no open
 // group.  A machine whose ladder has ended (active == 0) is left alone.
 //
 // Bound on the H100: fp32 FMA throughput of the gains, n * m * (2d + 3)
@@ -41,6 +43,7 @@ using namespace exemplar;
 constexpr int MAX_BN = 256;
 static_assert(MAX_BN <= THREADS, "one thread per block row");
 
+template <bool kWeighted>
 __global__ void __launch_bounds__(THREADS)
 threshold_select_kernel(const float* __restrict__ X,
                         const float* __restrict__ E, float* cm,
@@ -55,9 +58,10 @@ threshold_select_kernel(const float* __restrict__ X,
                         const int* __restrict__ caps,
                         unsigned char* __restrict__ accept, long long n, int d,
                         int mp, int m_true, int k, int bn, int G,
-                        float limit) {
+                        float limit, const float* __restrict__ ew) {
   extern __shared__ int s_counts[];  // (G,) running group counts
   __shared__ TileSmem sm;
+  __shared__ float s_ew[kWeighted ? BM : 1];
   __shared__ float s_g[MAX_BN];
   __shared__ unsigned char s_q[MAX_BN];
   __shared__ int s_acc[MAX_BN];      // accepted rows of the block, in order
@@ -89,7 +93,8 @@ threshold_select_kernel(const float* __restrict__ X,
     const int nb = (int)(b1 - b0);
     for (int r0 = 0; r0 < nb; r0 += BN) {
       float sums[TR];
-      row_gain_sums<true>(Xm, E, cmm, b1, d, mp, b0 + r0, sm, sums);
+      row_gain_sums<true, kWeighted>(Xm, E, cmm, b1, d, mp, b0 + r0, sm,
+                                     sums, ew, s_ew);
       if ((tid & 15) == 0) {
         const int ty = tid >> 4;
 #pragma unroll
@@ -178,38 +183,60 @@ threshold_select_kernel(const float* __restrict__ X,
 // place; avail (M, n) uint8; tau, used (M,) fp32; count (M,) int32;
 // counts (M, G) int32; active (M,) uint8; w (M, n) fp32 or null; gid
 // (M, n) int32 or null with caps (G,) int32; accept (M, n) uint8, zero on
-// entry.  One launch of M blocks on `stream`; G must not exceed
-// threshold_select_max_groups().
+// entry; ew (mp,) fp32 eval weights, zero-padded, or null (unweighted).
+// One launch of M blocks on `stream`; G must not exceed
+// threshold_select_max_groups() for the same weighting.
+template <bool kWeighted>
+static int launch(const void* X, const void* E, void* cm, const void* avail,
+                  const void* tau, const void* used, const void* count,
+                  const void* counts, const void* active, const void* w,
+                  const void* gid, const void* caps, void* accept, long long M,
+                  long long n, int d, int mp, int m_true, int k, int bn, int G,
+                  float limit, const void* ew, void* stream) {
+  const size_t smem = gid != nullptr ? (size_t)G * sizeof(int) : 0;
+  if (smem > 0) {  // past 48 KB the kernel must opt in to more
+    const int err = (int)cudaFuncSetAttribute(
+        threshold_select_kernel<kWeighted>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != 0) return err;
+  }
+  threshold_select_kernel<kWeighted><<<(unsigned)M, THREADS, smem,
+                                       (cudaStream_t)stream>>>(
+      (const float*)X, (const float*)E, (float*)cm,
+      (const unsigned char*)avail, (const float*)tau, (const float*)used,
+      (const int*)count, (const int*)counts, (const unsigned char*)active,
+      (const float*)w, (const int*)gid, (const int*)caps,
+      (unsigned char*)accept, n, d, mp, m_true, k, bn, G, limit,
+      (const float*)ew);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int threshold_select_launch(
     const void* X, const void* E, void* cm, const void* avail,
     const void* tau, const void* used, const void* count, const void* counts,
     const void* active, const void* w, const void* gid, const void* caps,
     void* accept, long long M, long long n, int d, int mp, int m_true, int k,
-    int bn, int G, float limit, void* stream) {
-  const size_t smem = gid != nullptr ? (size_t)G * sizeof(int) : 0;
-  if (smem > 0) {  // past 48 KB the kernel must opt in to more
-    const int err = (int)cudaFuncSetAttribute(
-        threshold_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != 0) return err;
-  }
-  threshold_select_kernel<<<(unsigned)M, THREADS, smem,
-                            (cudaStream_t)stream>>>(
-      (const float*)X, (const float*)E, (float*)cm,
-      (const unsigned char*)avail, (const float*)tau, (const float*)used,
-      (const int*)count, (const int*)counts, (const unsigned char*)active,
-      (const float*)w, (const int*)gid, (const int*)caps,
-      (unsigned char*)accept, n, d, mp, m_true, k, bn, G, limit);
-  return (int)cudaGetLastError();
+    int bn, int G, float limit, const void* ew, void* stream) {
+  return ew == nullptr
+             ? launch<false>(X, E, cm, avail, tau, used, count, counts, active,
+                             w, gid, caps, accept, M, n, d, mp, m_true, k, bn,
+                             G, limit, ew, stream)
+             : launch<true>(X, E, cm, avail, tau, used, count, counts, active,
+                            w, gid, caps, accept, M, n, d, mp, m_true, k, bn,
+                            G, limit, ew, stream);
 }
 
 // The most partition groups one launch takes on `device`: the group counts
 // live in dynamic shared memory, which is the opt-in maximum per block less
-// the kernel's static shared memory (the gain tile and the block buffers).
-extern "C" int threshold_select_max_groups(int device) {
+// the kernel's static shared memory (the gain tile and the block buffers,
+// and the eval weights' stage where `weighted`).
+extern "C" int threshold_select_max_groups(int device, int weighted) {
   cudaFuncAttributes attr;
   int optin = 0;
-  if (cudaFuncGetAttributes(&attr, threshold_select_kernel) != cudaSuccess ||
+  const cudaError_t got =
+      weighted ? cudaFuncGetAttributes(&attr, threshold_select_kernel<true>)
+               : cudaFuncGetAttributes(&attr, threshold_select_kernel<false>);
+  if (got != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess)
     return -(int)cudaGetLastError();

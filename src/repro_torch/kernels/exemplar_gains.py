@@ -10,7 +10,9 @@ What bounds it on the H100: fp32 FMA issue — (2d + 3) operations per
 TF32, which the port does not use.  The design keeps an 8 x 4 block of dot
 products per thread in registers, streams the feature axis through shared
 memory in 8-wide passes (any d) and adds a leading machine axis to the
-grid, so one launch scores every machine of a round.
+grid, so one launch scores every machine of a round.  Eval weights
+(``WeightedExemplarClustering``) are the tile's weighted instantiation, a
+kernel of their own: the unweighted one compiles as before.
 
 The plain version is :func:`repro_torch.kernels.ref.exemplar_gains`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
@@ -26,16 +28,21 @@ BN = 128   # candidate rows per block (csrc/exemplar_tile.cuh)
 BM = 64    # eval columns per tile: E and cur_min are zero-padded to it
 
 
-def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor
-           ) -> torch.Tensor:
+def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
+           ew: torch.Tensor | None = None) -> torch.Tensor:
     """Raw gain sums ``(M, n)`` on the card (not divided by m).
 
     X ``(M, n, d)``, E ``(mp, d)`` with ``mp % BM == 0`` and cur_min
-    ``(M, mp)``, all fp32, contiguous and on one CUDA device.
+    ``(M, mp)``, all fp32, contiguous and on one CUDA device; ``ew``
+    ``(mp,)`` the eval weights, zero-padded like cur_min (``None``: the
+    unweighted instantiation).
     """
     M, n, d = X.shape
     mp = E.shape[0]
-    for t, shape in ((X, (M, n, d)), (E, (mp, d)), (cur_min, (M, mp))):
+    checks = [(X, (M, n, d)), (E, (mp, d)), (cur_min, (M, mp))]
+    if ew is not None:
+        checks.append((ew, (mp,)))
+    for t, shape in checks:
         if (t.device.type != "cuda" or t.device != X.device
                 or t.dtype != torch.float32 or not t.is_contiguous()
                 or tuple(t.shape) != shape):
@@ -51,6 +58,9 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor
     fn = _build.load("exemplar_gains").exemplar_gains_launch
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _build.check(fn(X.data_ptr(), E.data_ptr(), cur_min.data_ptr(),
-                    out.data_ptr(), M, n, d, mp, stream), "exemplar_gains")
-    _build.launch_counts["exemplar_gains"] += 1
+                    out.data_ptr(), M, n, d, mp,
+                    None if ew is None else ew.data_ptr(), stream),
+                 "exemplar_gains")
+    _build.launch_counts["exemplar_gains" if ew is None
+                         else "exemplar_gains_weighted"] += 1
     return out

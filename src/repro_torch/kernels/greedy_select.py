@@ -27,6 +27,11 @@ reference's order) and increments its group.  ``limit`` is the host's
 ``float32(budget + KNAPSACK_TOL)``.  A group id outside ``[0, G)`` belongs
 to no open group, so such a row is never selected.
 
+Weighted variant: eval weights (``WeightedExemplarClustering``) weigh each
+eval column's contribution in the step kernel's gains (its own template
+instantiation, with or without a constraint); the commit does not depend
+on them.  Its launches count as ``greedy_select_weighted``.
+
 The plain version is :func:`repro_torch.kernels.ref.greedy_select`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
 """
@@ -42,7 +47,8 @@ from repro_torch.kernels.ref import greedy_select as plain  # noqa: F401
 def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
            avail: torch.Tensor, k: int, m_true: int, *,
            w: torch.Tensor | None = None, limit: float = 0.0,
-           gid: torch.Tensor | None = None, caps: torch.Tensor | None = None
+           gid: torch.Tensor | None = None, caps: torch.Tensor | None = None,
+           ew: torch.Tensor | None = None
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run k greedy steps on the card; returns ``(sel (M, k) int32,
     cur_min (M, mp))``.
@@ -51,7 +57,9 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     rows past ``m_true``); cur_min ``(M, mp)`` fp32 and avail ``(M, n)``
     uint8 are the running state and are updated in place.  ``w`` ``(M, n)``
     fp32 with ``limit``, and ``gid`` ``(M, n)`` int32 with ``caps`` ``(G,)``
-    int32, encode the constraint (``None`` switches a part off).
+    int32, encode the constraint (``None`` switches a part off).  ``ew``
+    ``(mp,)`` fp32 are the eval weights, zero-padded like cur_min (``None``:
+    unweighted).
     """
     M, n, d = X.shape
     mp = E.shape[0]
@@ -62,6 +70,8 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
         checks.append((w, (M, n), torch.float32))
     if gid is not None:
         checks += [(gid, (M, n), torch.int32), (caps, (G,), torch.int32)]
+    if ew is not None:
+        checks.append((ew, (mp,), torch.float32))
     for t, shape, dtype in checks:
         if (t.device.type != "cuda" or t.device != X.device
                 or t.dtype != dtype or not t.is_contiguous()
@@ -93,8 +103,11 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                     used.data_ptr() if constrained else None, limit,
                     None if gid is None else gid.data_ptr(),
                     None if caps is None else caps.data_ptr(),
-                    counts.data_ptr() if constrained else None, G, stream),
+                    counts.data_ptr() if constrained else None, G,
+                    None if ew is None else ew.data_ptr(), stream),
                  "greedy_select")
-    name = "greedy_select_constrained" if constrained else "greedy_select"
+    name = ("greedy_select_weighted" if ew is not None
+            else "greedy_select_constrained" if constrained
+            else "greedy_select")
     _build.launch_counts[name] += 2 * k
     return sel, cur_min

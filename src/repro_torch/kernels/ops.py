@@ -21,6 +21,17 @@ host's fp32 constant ``float32(budget + KNAPSACK_TOL)``.  A caller that
 launches many times on one set of operands (the τ-ladder) builds the
 ``Encoding`` once and passes it on, so no level uploads ``caps`` again.
 
+Eval weights (``eval_weights`` ``(m,)``, ``WeightedExemplarClustering``)
+go to the three selection kernels zero-padded to the eval tile, as ``E``
+and ``cur_min`` are; a padded column's contribution is 0 whatever its
+weight.  A weighted call launches the kernels' weighted instantiation (the
+JAX package sends it to its jnp reference instead: on the card the port
+has no plain path).
+
+``rbf_kernel`` takes a machine axis on either operand: an operand without
+one (or with one machine) is shared by every machine at machine stride 0,
+never copied per machine.
+
 Every argument of the JAX signatures that the port lacks raises
 :class:`NotImplementedError` naming its ROADMAP item.
 """
@@ -31,12 +42,14 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import exemplar_gains as _eg
 from repro_torch.kernels import greedy_select as _gs
+from repro_torch.kernels import rbf_kernel as _rbf
 from repro_torch.kernels import ref
 from repro_torch.kernels import threshold_select as _ts
 from repro_torch.kernels._build import launch_counts  # noqa: F401
 
 __all__ = ["exemplar_gains", "greedy_select", "launch_counts",
-           "pairwise_sqdist", "reset_launch_counts", "threshold_select"]
+           "pairwise_sqdist", "rbf_kernel", "reset_launch_counts",
+           "threshold_select"]
 
 
 def reset_launch_counts() -> None:
@@ -66,9 +79,31 @@ def _pad_eval(E: torch.Tensor, cur_min: torch.Tensor):
     return Ep, cmp_
 
 
+def _pad_weights(ew, m: int):
+    """The eval weights as a contiguous fp32 ``(mp,)`` tensor, zero-padded
+    to the eval tile, or ``None``."""
+    if ew is None:
+        return None
+    ew = ew.float().reshape(m)
+    return F.pad(ew, (0, (-m) % _eg.BM)).contiguous()
+
+
 def pairwise_sqdist(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """(..., n, d), (m, d) -> (..., n, m).  Always the plain version."""
     return ref.pairwise_sqdist(X, Y)
+
+
+def rbf_kernel(X: torch.Tensor, Y: torch.Tensor, h: float) -> torch.Tensor:
+    """``exp(−‖x − y‖²/h²)`` for every pair of rows: X ``(n, d)`` or
+    ``(Mx, n, d)``, Y ``(m, d)`` or ``(My, m, d)`` with ``Mx, My ∈ {1, M}``;
+    returns ``(n, m)``, or ``(M, n, m)`` where either operand had the
+    machine axis."""
+    if not _on_card(X):
+        return ref.rbf_kernel(X, Y, h)
+    batched = X.dim() == 3 or Y.dim() == 3
+    K = _rbf.launch((X if X.dim() == 3 else X.unsqueeze(0)).float(),
+                    (Y if Y.dim() == 3 else Y.unsqueeze(0)).float(), h)
+    return K if batched else K[0]
 
 
 def exemplar_gains(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
@@ -77,18 +112,19 @@ def exemplar_gains(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     """Marginal gains of exemplar clustering for every row of ``X``.
 
     ``X`` is ``(n, d)`` or ``(M, n, d)``; ``cur_min`` is ``(m,)`` (shared)
-    or ``(M, m)``.  Returns ``(n,)`` or ``(M, n)``.
+    or ``(M, m)``; ``eval_weights`` ``(m,)`` weigh the eval columns.
+    Returns ``(n,)`` or ``(M, n)``.
     """
     ref.reject_unported(compute_dtype=compute_dtype, x_scale=x_scale,
-                        x_zp=x_zp, eval_weights=eval_weights)
+                        x_zp=x_zp)
     if not _on_card(X):
-        return ref.exemplar_gains(X, E, cur_min)
+        return ref.exemplar_gains(X, E, cur_min, eval_weights=eval_weights)
     batched = X.dim() == 3
     Xb = (X if batched else X.unsqueeze(0)).float().contiguous()
     M, m = Xb.shape[0], E.shape[0]
     cm = cur_min.reshape(-1, m).expand(M, m)
     Ep, cmp_ = _pad_eval(E.float(), cm)
-    g = _eg.launch(Xb, Ep, cmp_) / m
+    g = _eg.launch(Xb, Ep, cmp_, _pad_weights(eval_weights, m)) / m
     return g if batched else g[0]
 
 
@@ -113,18 +149,20 @@ def greedy_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     int64, −1 from the first step with no feasible candidate on.  Ties
     go to the lowest index.  ``weights``/``budget`` (a knapsack) and
     ``group_ids``/``caps`` (a partition matroid) constrain every step, as
-    :func:`repro_torch.kernels.ref.greedy_select` says.  On the CPU the
+    :func:`repro_torch.kernels.ref.greedy_select` says; ``eval_weights``
+    ``(m,)`` weigh the eval columns of every step's gains.  On the CPU the
     result is bit-identical to the step-wise greedy with
     ``ExemplarClustering``; on the card both score a row with the same
     kernel tile, and only the difference-form ``cur_min`` refresh may round
     apart (fma in the kernel).
     """
     ref.reject_unported(compute_dtype=compute_dtype, x_scale=x_scale,
-                        x_zp=x_zp, eval_weights=eval_weights)
+                        x_zp=x_zp)
     if not _on_card(X):
         return ref.greedy_select(X, E, cur_min, mask, k, weights=weights,
                                  budget=budget, group_ids=group_ids,
-                                 caps=caps, enc=enc)
+                                 caps=caps, enc=enc,
+                                 eval_weights=eval_weights)
     batched = X.dim() == 3
     Xb = (X if batched else X.unsqueeze(0)).float().contiguous()
     M, n, m = Xb.shape[0], Xb.shape[1], E.shape[0]
@@ -132,7 +170,9 @@ def greedy_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     cm = cur_min.reshape(-1, m).expand(M, m)
     Ep, cmp_ = _pad_eval(E.float(), cm)
     enc = ref.encoding(M, n, X.device, enc, weights, budget, group_ids, caps)
-    sel, cm_out = _gs.launch(Xb, Ep, cmp_, avail, k, m, **_card_encoding(enc))
+    sel, cm_out = _gs.launch(Xb, Ep, cmp_, avail, k, m,
+                             ew=_pad_weights(eval_weights, m),
+                             **_card_encoding(enc))
     sel, cm_out = sel.long(), cm_out[:, :m]
     return (sel, cm_out) if batched else (sel[0], cm_out[0])
 
@@ -149,19 +189,21 @@ def threshold_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     ``X`` is ``(n, d)`` or ``(M, n, d)`` with ``mask`` and ``cur_min``
     following it; ``tau``, ``used``, ``count`` per machine, ``counts``
     ``(M, G)``; ``active`` ``(M,)`` marks the machines whose ladder still
-    runs (the others accept nothing and keep ``cur_min``).  The semantics
+    runs (the others accept nothing and keep ``cur_min``);
+    ``eval_weights`` ``(m,)`` weigh the gains' eval columns.  The semantics
     are block-sequential at ``bn``, which is part of the function's
     meaning: as in ``repro.kernels.ops``, ``bn = min(bn, max(8, n))``.
     """
     ref.reject_unported(compute_dtype=compute_dtype, x_scale=x_scale,
-                        x_zp=x_zp, eval_weights=eval_weights)
+                        x_zp=x_zp)
     n = X.shape[-2]
     bn = min(bn, max(8, n))
     if not _on_card(X):
         return ref.threshold_select(
             X, E, cur_min, mask, tau, k, used=used, counts=counts,
             count=count, bn=bn, weights=weights, budget=budget,
-            group_ids=group_ids, caps=caps, active=active, enc=enc)
+            group_ids=group_ids, caps=caps, active=active, enc=enc,
+            eval_weights=eval_weights)
     batched = X.dim() == 3
     Xb = (X if batched else X.unsqueeze(0)).float().contiguous()
     M, m = Xb.shape[0], E.shape[0]
@@ -185,6 +227,6 @@ def threshold_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
         per_machine(count, torch.int32, (M,)),
         per_machine(counts, torch.int32, (M, enc.G)),
         per_machine(True if active is None else active, torch.uint8, (M,)),
-        k, bn, m, **_card_encoding(enc))
+        k, bn, m, ew=_pad_weights(eval_weights, m), **_card_encoding(enc))
     acc, cm_out = acc.bool(), cmp_[:, :m]
     return (acc, cm_out) if batched else (acc[0], cm_out[0])

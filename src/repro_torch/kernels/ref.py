@@ -6,9 +6,12 @@ against the JAX package's ``ref`` functions, and ``chip_smoke.py`` holds the
 CUDA kernels against them on the card.  On a CPU tensor the dispatch in
 :mod:`repro_torch.kernels.ops` runs them as the production path.
 
-Scope: fp32, no ``compute_dtype``, no ``x_scale``/``x_zp`` dequant and no
-``eval_weights``.  Each of those raises :class:`NotImplementedError` naming
-the ROADMAP item that brings it.
+Scope: fp32, no ``compute_dtype`` and no ``x_scale``/``x_zp`` dequant; each
+of those raises :class:`NotImplementedError` naming the ROADMAP item that
+brings it.  ``eval_weights`` ``(m,)`` reweights the eval columns of every
+exemplar gain (``WeightedExemplarClustering``): each column's clamped
+contribution is multiplied by its weight before the sum, so a weight of
+exactly 1.0 gives the unweighted bits.
 
 Every function takes an optional leading machine axis: ``X`` is ``(n, d)``
 or ``(M, n, d)``; per-machine state (``cur_min``, ``mask``, constraint
@@ -37,7 +40,6 @@ _ROADMAP_ITEM = {
     "compute_dtype": "ROADMAP queue 1 item 10 (narrow operands)",
     "x_scale": "ROADMAP queue 1 item 10 (narrow operands)",
     "x_zp": "ROADMAP queue 1 item 10 (narrow operands)",
-    "eval_weights": "ROADMAP queue 1 item 9 (WeightedExemplarClustering)",
 }
 
 
@@ -57,7 +59,7 @@ def knapsack_limit(budget) -> float:
     return float(np.float32(float(budget) + KNAPSACK_TOL))
 
 
-def _exact_fp32(t: torch.Tensor) -> None:
+def exact_fp32(t: torch.Tensor) -> None:
     # the plain versions are the card's reference: a float32 product there
     # must not drop to TF32 (three decimal digits), so say so explicitly
     if t.is_cuda:
@@ -66,11 +68,72 @@ def _exact_fp32(t: torch.Tensor) -> None:
 
 def pairwise_sqdist(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """(..., n, d), (m, d) -> (..., n, m) squared euclidean distances."""
-    _exact_fp32(X)
+    exact_fp32(X)
     x2 = torch.sum(X * X, dim=-1, keepdim=True)            # (..., n, 1)
     y2 = torch.sum(Y * Y, dim=-1)                          # (m,)
     d2 = x2 + y2 - 2.0 * (X @ Y.T)
     return torch.clamp_min(d2, 0.0)
+
+
+def _sq_norms(X: torch.Tensor) -> torch.Tensor:
+    """(..., n, d) -> (..., n): Σ_c x_c·x_c in feature order, each product
+    rounded before its add (see :func:`rbf_kernel`)."""
+    s = torch.zeros(X.shape[:-1], dtype=torch.float32, device=X.device)
+    for c in range(X.shape[-1]):
+        s = s + X[..., c] * X[..., c]
+    return s
+
+
+def _rbf_block(X, x2, Y, y2, h: float) -> torch.Tensor:
+    """One chunk of :func:`rbf_kernel`: ``X`` (C, n, d) with norms ``x2``
+    (C, n), ``Y`` (C, m, d) with ``y2`` (C, m), C broadcasting."""
+    dot = torch.zeros((max(X.shape[0], Y.shape[0]), X.shape[1], Y.shape[1]),
+                      dtype=torch.float32, device=X.device)
+    for c in range(X.shape[-1]):
+        dot += X[..., c].unsqueeze(-1) * Y[..., c].unsqueeze(-2)
+    d2 = x2.unsqueeze(-1) + y2.unsqueeze(-2) - 2.0 * dot
+    return torch.exp(-torch.clamp_min(d2, 0.0) / (h * h))
+
+
+def rbf_kernel(X: torch.Tensor, Y: torch.Tensor, h: float) -> torch.Tensor:
+    """K[..., i, j] = exp(−max(‖x_i‖² + ‖y_j‖² − 2 x_i·y_j, 0) / (h·h)).
+
+    The contraction form of :func:`pairwise_sqdist` with ``max(d², 0)``,
+    as ``repro.kernels.ref.rbf_kernel`` computes it.  ``‖x‖²``, ``‖y‖²`` and
+    ``x·y`` are each summed over the feature axis in order, every product
+    rounded before its add: the CUDA kernel keeps that order and does not
+    fuse, so both give a pair the same d² bits.  Near x = y the contraction
+    form cancels, and at h = 0.5 a d² that differs by an ulp of ‖x‖² moves
+    K by 4 ulps of ‖x‖², so a different order would part the two by more
+    than the tolerance on rows of large norm.
+
+    ``X`` is ``(n, d)`` or ``(Mx, n, d)``, ``Y`` ``(m, d)`` or ``(My, m, d)``:
+    a machine axis on either operand or on both (``Mx, My ∈ {1, M}``).
+    Returns ``(n, m)``, or ``(M, n, m)`` where either had the axis.  Scored
+    a machine chunk at a time (row chunks of ``X`` where one machine's
+    ``(n, m)`` is too large), so no chunk holds more than ``_CHUNK_ELEMS``
+    elements beside the output.
+    """
+    batched = X.dim() == 3 or Y.dim() == 3
+    X3 = (X if X.dim() == 3 else X.unsqueeze(0)).float()
+    Y3 = (Y if Y.dim() == 3 else Y.unsqueeze(0)).float()
+    Mx, My = X3.shape[0], Y3.shape[0]
+    M, n, m = max(Mx, My), X3.shape[1], Y3.shape[1]
+    if Mx not in (1, M) or My not in (1, M) or X3.shape[2] != Y3.shape[2]:
+        raise ValueError(f"rbf_kernel: shapes {tuple(X.shape)} and "
+                         f"{tuple(Y.shape)} do not pair up")
+    out = torch.empty((M, n, m), dtype=torch.float32, device=X.device)
+    x2, y2 = _sq_norms(X3), _sq_norms(Y3)
+    mstep = max(1, _CHUNK_ELEMS // max(1, n * m))
+    rstep = n if n * m <= _CHUNK_ELEMS else max(1, _CHUNK_ELEMS // max(1, m))
+    for i in range(0, M, mstep):
+        xs = slice(i, i + mstep) if Mx > 1 else slice(None)
+        ys = slice(i, i + mstep) if My > 1 else slice(None)
+        for r0 in range(0, n, rstep):
+            rs = slice(r0, r0 + rstep)
+            out[i:i + mstep, rs] = _rbf_block(X3[xs, rs], x2[xs, rs],
+                                              Y3[ys], y2[ys], h)
+    return out if batched else out[0]
 
 
 def _sqdist(X: torch.Tensor, E: torch.Tensor,
@@ -83,25 +146,35 @@ def _sqdist(X: torch.Tensor, E: torch.Tensor,
 def exemplar_gains(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                    compute_dtype=None, x_scale=None, x_zp=None,
                    eval_weights=None) -> torch.Tensor:
-    """gains[..., i] = (1/m) Σ_j max(0, cur_min[..., j] − ‖X[..., i] − E[j]‖²).
+    """gains[..., i] = (1/m) Σ_j w_j·max(0, cur_min[..., j] − ‖X[..., i] − E[j]‖²).
 
-    ``cur_min`` is ``(m,)`` or carries the machine axis of ``X``.  A
+    ``cur_min`` is ``(m,)`` or carries the machine axis of ``X``;
+    ``eval_weights`` ``(m,)`` are the w_j (1 where None).  A
     ``(M, n, d)`` stack whose ``(M, n, m)`` distances exceed the chunk
     size is scored a machine chunk at a time (a row's gain does not depend
     on the chunk).
     """
-    reject_unported(x_scale=x_scale, x_zp=x_zp, eval_weights=eval_weights)
+    reject_unported(x_scale=x_scale, x_zp=x_zp)
     m = E.shape[0]
     if (X.dim() == 3 and X.shape[0] > 1
             and X.shape[0] * X.shape[1] * m > _CHUNK_ELEMS):
         step = max(1, _CHUNK_ELEMS // (X.shape[1] * m))
         cm = cur_min.reshape(-1, m).expand(X.shape[0], m)
         return torch.cat([exemplar_gains(X[i:i + step], E, cm[i:i + step],
-                                         compute_dtype)
+                                         compute_dtype,
+                                         eval_weights=eval_weights)
                           for i in range(0, X.shape[0], step)])
     d2 = _sqdist(X, E, compute_dtype)                      # (..., n, m)
-    contrib = torch.clamp_min(cur_min.unsqueeze(-2) - d2, 0.0)
-    return torch.sum(contrib, dim=-1) / m
+    return _gain_sums(cur_min.unsqueeze(-2), d2, eval_weights) / m
+
+
+def _gain_sums(cm: torch.Tensor, d2: torch.Tensor, ew) -> torch.Tensor:
+    """Σ_j w_j·max(0, cm_j − d2_ij) over the last axis (w ≡ 1 where
+    ``ew`` is None): the one gain reduction of every plain version."""
+    contrib = torch.clamp_min(cm - d2, 0.0)
+    if ew is not None:
+        contrib = contrib * ew
+    return torch.sum(contrib, dim=-1)
 
 
 # -- constraint encodings ---------------------------------------------------
@@ -186,7 +259,7 @@ def commit_state(enc: Encoding, used, counts, best, ok):
 # -- greedy -------------------------------------------------------------------
 
 
-def _greedy_chunk(X, E, cm, avail, k, enc: Encoding):
+def _greedy_chunk(X, E, cm, avail, k, enc: Encoding, ew=None):
     """Plain k-step greedy over a (C, n, d) machine chunk; returns
     (sel (C, k), cur_min (C, m), top-2 gain gap (C, k), best gain (C, k))."""
     C, n, _ = X.shape
@@ -201,8 +274,7 @@ def _greedy_chunk(X, E, cm, avail, k, enc: Encoding):
     used = torch.zeros((C,), dtype=torch.float32, device=X.device)
     counts = torch.zeros((C, enc.G), dtype=torch.int32, device=X.device)
     for t in range(k):
-        contrib = torch.clamp_min(cm.unsqueeze(1) - d2, 0.0)
-        g = torch.sum(contrib, dim=-1) / m
+        g = _gain_sums(cm.unsqueeze(1), d2, ew) / m
         g = torch.where(enc.feasible(avail, used, counts), g,
                         torch.full_like(g, NEG_INF))
         best = torch.argmax(g, dim=-1)                     # lowest index on ties
@@ -223,7 +295,7 @@ def _greedy_chunk(X, E, cm, avail, k, enc: Encoding):
     return sel, cm, gaps, tops
 
 
-def _greedy_rows(X, E, cm, avail, k, enc: Encoding):
+def _greedy_rows(X, E, cm, avail, k, enc: Encoding, ew=None):
     """:func:`_greedy_chunk` for one machine ``(1, n, d)`` whose ``(n, m)``
     distance tensor is too large to hold: each step recomputes the gains
     in row chunks and merges the chunks' winners (lowest index on ties)."""
@@ -241,8 +313,7 @@ def _greedy_rows(X, E, cm, avail, k, enc: Encoding):
         best_v, best_i, top = [], [], []
         for r0 in range(0, n, rows):
             sl = (slice(None), slice(r0, r0 + rows))
-            contrib = torch.clamp_min(cm - _sqdist(X[sl], E), 0.0)
-            g = torch.sum(contrib, dim=-1)[0] / m
+            g = _gain_sums(cm, _sqdist(X[sl], E), ew)[0] / m
             cand = enc.rows(sl).feasible(avail[sl], used, counts)[0]
             g = torch.where(cand, g, torch.full_like(g, NEG_INF))
             i = torch.argmax(g)                            # lowest in chunk
@@ -280,7 +351,7 @@ def _batched(X, mask, cur_min, m):
 def greedy_select_trace(X: torch.Tensor, E: torch.Tensor,
                         cur_min: torch.Tensor, mask: torch.Tensor, k: int,
                         *, weights=None, budget=None, group_ids=None,
-                        caps=None, enc=None):
+                        caps=None, enc=None, eval_weights=None):
     """:func:`greedy_select` plus, per step, the top-2 gain gap among the
     step's candidates (inf where at most one remained) and the best gain —
     what the near-tie rule of :mod:`repro_torch.testing` needs.  Returns
@@ -291,13 +362,13 @@ def greedy_select_trace(X: torch.Tensor, E: torch.Tensor,
     enc = encoding(M, n, X.device, enc, weights, budget, group_ids, caps)
     if n * m > _CHUNK_ELEMS:            # one machine's distances do not fit
         parts = [_greedy_rows(X[i:i + 1], E, cm[i:i + 1], mask[i:i + 1], k,
-                              enc.rows(slice(i, i + 1)))
+                              enc.rows(slice(i, i + 1)), eval_weights)
                  for i in range(M)]
     else:
         step = _CHUNK_ELEMS // max(1, n * m)
         parts = [_greedy_chunk(X[i:i + step], E, cm[i:i + step],
                                mask[i:i + step], k,
-                               enc.rows(slice(i, i + step)))
+                               enc.rows(slice(i, i + step)), eval_weights)
                  for i in range(0, M, step)]
     out = tuple(torch.cat([p[j] for p in parts]) for j in range(4))
     return out if batched else tuple(o[0] for o in out)
@@ -342,14 +413,14 @@ def greedy_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     group count is below its cap); they compose, as the step-wise
     ``Intersection`` does.  ``weights`` and ``group_ids`` follow ``X``'s
     machine axis; ``budget`` and ``caps`` are shared.  ``enc`` is the
-    same operands as an :class:`Encoding` already built.
+    same operands as an :class:`Encoding` already built; ``eval_weights``
+    ``(m,)`` weigh the eval columns of every step's gains.
     """
-    reject_unported(compute_dtype=compute_dtype, x_scale=x_scale, x_zp=x_zp,
-                    eval_weights=eval_weights)
+    reject_unported(compute_dtype=compute_dtype, x_scale=x_scale, x_zp=x_zp)
     sel, cm, _, _ = greedy_select_trace(X, E, cur_min, mask, k,
                                         weights=weights, budget=budget,
                                         group_ids=group_ids, caps=caps,
-                                        enc=enc)
+                                        enc=enc, eval_weights=eval_weights)
     return sel, cm
 
 
@@ -357,7 +428,7 @@ def greedy_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
 
 
 def _threshold_chunk(X, E, cm, avail, tau, k, used, counts, count, bn,
-                     enc: Encoding, active):
+                     enc: Encoding, active, ew=None):
     """One τ-level over a (C, n, d) machine chunk, block-sequential at
     ``bn``.  Returns (accept, cur_min, gains as scored, knapsack load
     ``used + cumw`` per row)."""
@@ -372,8 +443,7 @@ def _threshold_chunk(X, E, cm, avail, tau, k, used, counts, count, bn,
     for b0 in range(0, n, bn):
         b1 = min(b0 + bn, n)
         d2b = d2[:, b0:b1] if d2 is not None else _sqdist(X[:, b0:b1], E)
-        g = torch.sum(torch.clamp_min(cm.unsqueeze(1) - d2b, 0.0),
-                      dim=-1) / m
+        g = _gain_sums(cm.unsqueeze(1), d2b, ew) / m
         q = avail[:, b0:b1] & (g >= tau.unsqueeze(1)) & active.unsqueeze(1)
         blk = enc.rows((slice(None), slice(b0, b1)))
         q = blk.feasible(q, used, counts)
@@ -412,7 +482,7 @@ def threshold_select_trace(X: torch.Tensor, E: torch.Tensor,
                            k: int, *, used=None, counts=None, count=None,
                            bn: int = 256, weights=None, budget=None,
                            group_ids=None, caps=None, active=None,
-                           enc=None):
+                           enc=None, eval_weights=None):
     """:func:`threshold_select` plus what the near-threshold rule of
     :mod:`repro_torch.testing` needs: each row's gain as its block scored
     it, and its knapsack load ``used + cumw`` (``None`` without a
@@ -441,7 +511,7 @@ def threshold_select_trace(X: torch.Tensor, E: torch.Tensor,
         sl = slice(i, i + step)
         parts.append(_threshold_chunk(
             X[sl], E, cm[sl], mask[sl], tau[sl], k, used[sl], counts[sl],
-            count[sl], bn, enc.rows(sl), active[sl]))
+            count[sl], bn, enc.rows(sl), active[sl], eval_weights))
     acc, cm, g = (torch.cat([p[j] for p in parts]) for j in range(3))
     load = (None if parts[0][3] is None
             else torch.cat([p[3] for p in parts]))
@@ -476,12 +546,11 @@ def threshold_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     ``counts`` ``(M, G)``.  ``active`` ``(M,)`` marks the machines whose
     ladder still runs: the others accept nothing and keep ``cur_min``.
     ``enc`` is the constraint operands as an :class:`Encoding` already
-    built.
+    built; ``eval_weights`` ``(m,)`` weigh the eval columns of the gains.
     """
-    reject_unported(compute_dtype=compute_dtype, x_scale=x_scale, x_zp=x_zp,
-                    eval_weights=eval_weights)
+    reject_unported(compute_dtype=compute_dtype, x_scale=x_scale, x_zp=x_zp)
     acc, cm, _, _ = threshold_select_trace(
         X, E, cur_min, mask, tau, k, used=used, counts=counts, count=count,
         bn=bn, weights=weights, budget=budget, group_ids=group_ids,
-        caps=caps, active=active, enc=enc)
+        caps=caps, active=active, enc=enc, eval_weights=eval_weights)
     return acc, cm

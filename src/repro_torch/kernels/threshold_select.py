@@ -27,7 +27,10 @@ so G is at most :func:`max_groups`.  Knapsack weights are non-negative.
 What bounds it on the H100: fp32 FMA throughput of the gains, M·n·m·(2d + 3)
 operations per level (the accept walk and the fold touch only qualifying
 rows).  A round of M machines uses min(M, 132·2) CTAs at a time, so rounds
-with a handful of machines leave most SMs idle.
+with a handful of machines leave most SMs idle.  Eval weights
+(``WeightedExemplarClustering``) weigh the gains' eval columns in the
+kernel's own weighted instantiation; its launches count as
+``threshold_select_weighted``.
 
 The plain version is :func:`repro_torch.kernels.ref.threshold_select`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
@@ -42,21 +45,23 @@ from repro_torch.kernels.ref import threshold_select as plain  # noqa: F401
 
 MAX_BN = 256  # rows per block the kernel takes (one thread each)
 
-_max_groups: dict[int, int] = {}
+_max_groups: dict[tuple[int, bool], int] = {}
 
 
-def max_groups(device: torch.device) -> int:
+def max_groups(device: torch.device, weighted: bool = False) -> int:
     """The most partition groups one launch takes on ``device``: its group
     counts fill the block's opt-in shared memory less the kernel's static
-    shared memory, as the built kernel reports them."""
-    idx = torch.device(device).index or 0
-    if idx not in _max_groups:
-        got = _build.load("threshold_select").threshold_select_max_groups(idx)
+    shared memory, as the built kernel reports them (the weighted
+    instantiation stages its eval weights there too)."""
+    key = (torch.device(device).index or 0, bool(weighted))
+    if key not in _max_groups:
+        got = _build.load("threshold_select").threshold_select_max_groups(
+            key[0], int(key[1]))
         if got <= 0:
             raise RuntimeError(f"threshold_select: shared-memory query failed "
                                f"(CUDA error {-got})")
-        _max_groups[idx] = got
-    return _max_groups[idx]
+        _max_groups[key] = got
+    return _max_groups[key]
 
 
 def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
@@ -64,7 +69,8 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
            count: torch.Tensor, counts: torch.Tensor, active: torch.Tensor,
            k: int, bn: int, m_true: int, *, w: torch.Tensor | None = None,
            limit: float = 0.0, gid: torch.Tensor | None = None,
-           caps: torch.Tensor | None = None) -> torch.Tensor:
+           caps: torch.Tensor | None = None,
+           ew: torch.Tensor | None = None) -> torch.Tensor:
     """Run one level on the card; returns ``accept`` ``(M, n)`` uint8.
 
     X ``(M, n, d)`` and E ``(mp, d)`` fp32 with ``mp % BM == 0`` (zero
@@ -72,7 +78,9 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     avail ``(M, n)`` and active ``(M,)`` uint8; tau, used ``(M,)`` fp32;
     count ``(M,)`` int32; counts ``(M, G)`` int32.  ``w`` ``(M, n)`` fp32
     with ``limit``, and ``gid`` ``(M, n)`` int32 with ``caps`` ``(G,)``
-    int32, encode the constraint (``None`` switches a part off).
+    int32, encode the constraint (``None`` switches a part off).  ``ew``
+    ``(mp,)`` fp32 are the eval weights, zero-padded like cur_min (``None``:
+    unweighted).
     """
     M, n, d = X.shape
     mp = E.shape[0]
@@ -86,6 +94,8 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
         checks.append((w, (M, n), torch.float32))
     if gid is not None:
         checks += [(gid, (M, n), torch.int32), (caps, (G,), torch.int32)]
+    if ew is not None:
+        checks.append((ew, (mp,), torch.float32))
     for t, shape, dtype in checks:
         if (t.device.type != "cuda" or t.device != X.device
                 or t.dtype != dtype or not t.is_contiguous()
@@ -96,7 +106,7 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     if (mp % BM or not 0 < M < 2 ** 31 or not 0 < n < 2 ** 31
             or not 1 <= bn <= MAX_BN
             or (gid is not None
-                and not 0 < G <= max_groups(X.device))):
+                and not 0 < G <= max_groups(X.device, ew is not None))):
         raise ValueError(f"threshold_select kernel: unsupported shape "
                          f"M={M} n={n} mp={mp} bn={bn} G={G}")
     accept = torch.zeros((M, n), dtype=torch.uint8, device=X.device)
@@ -109,7 +119,8 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                     None if gid is None else gid.data_ptr(),
                     None if caps is None else caps.data_ptr(),
                     accept.data_ptr(), M, n, d, mp, m_true, k, bn, G, limit,
-                    stream),
+                    None if ew is None else ew.data_ptr(), stream),
                  "threshold_select")
-    _build.launch_counts["threshold_select"] += 1
+    _build.launch_counts["threshold_select" if ew is None
+                         else "threshold_select_weighted"] += 1
     return accept

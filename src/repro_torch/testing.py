@@ -1,4 +1,5 @@
-"""The port's one tolerance, the near-tie rule for selections and the
+"""The port's one tolerance, the near-tie rule for selections, the
+exact-tie rule for objectives whose gains tie exactly, and the
 near-threshold rule for threshold-batch accept sets.
 
 Used by the tests (plain versions against the JAX package on the CPU) and
@@ -48,6 +49,71 @@ def selections_agree(sel, sel_ref, gaps, best) -> tuple[bool, int]:
     first = np.where(tie.any(axis=1), tie.argmax(axis=1), sel.shape[1])
     upto = np.arange(sel.shape[1])[None, :] < first[:, None]
     return bool(np.all((sel == sel_ref) | ~upto)), int(tie.sum())
+
+
+NEG_INF = -1e30
+
+
+def gain_trace(obj, T: torch.Tensor, mask: torch.Tensor,
+               sel: torch.Tensor) -> torch.Tensor:
+    """The gains ``obj`` gives at each step of the selections ``sel``
+    ``(…, k)`` (block positions, −1 for none), replayed through its own
+    oracle from ``init_state``: ``(…, k, cap)``, ``NEG_INF`` where a row is
+    no longer a candidate.  Unconstrained; what :func:`picks_agree` needs
+    of the reference."""
+    from repro_torch.core.algorithms import _where_state
+    state = obj.init_state(T, mask)
+    avail = mask.bool().clone()
+    out = []
+    for t in range(sel.shape[-1]):
+        out.append(obj.gains(state, T, avail))
+        ok = sel[..., t] >= 0
+        safe = torch.clamp_min(sel[..., t], 0)
+        state = _where_state(ok, obj.update(state, T, safe), state)
+        hit = torch.nn.functional.one_hot(safe, T.shape[-2]).bool()
+        avail = avail & ~(ok[..., None] & hit)
+    return torch.stack(out, dim=-2)
+
+
+def picks_agree(sel, sel_ref, gains_ref) -> tuple[bool, int, int]:
+    """Compare two ``(…, k)`` selections under the exact-tie rule.
+
+    For objectives whose gains tie exactly (``ActiveSetSelection``: every
+    gain is ½·log 2 at step 0, and a row far from every pick keeps r = 2.0
+    exactly), where :func:`selections_agree` would excuse every step.
+    ``gains_ref`` ``(…, k, cap)`` are the reference's gains at each of its
+    steps (:func:`gain_trace`).  Each machine's picks must agree step by
+    step, ties to the lowest index included.  The first step where they
+    part is excused only if the reference's own gain for the row ``sel``
+    picked is within ``ATOL + RTOL·|best|`` of the reference's best gain
+    there; from then on that machine's picks are not compared (only values
+    are).  Returns (they agree, exact-tie steps among the compared ones,
+    excused steps).
+    """
+    k = _np(sel).shape[-1]
+    sel, sel_ref = _np(sel).reshape(-1, k), _np(sel_ref).reshape(-1, k)
+    g = _np(gains_ref)
+    g = g.reshape(sel.shape[0], k, g.shape[-1])
+    agree, ties, excused = True, 0, 0
+    for i in range(sel.shape[0]):
+        part = np.flatnonzero(sel[i] != sel_ref[i])
+        upto = part[0] if part.size else k - 1
+        for t in range(upto + 1):
+            if g.shape[-1] >= 2:
+                top = np.partition(g[i, t], -2)[-2:]
+                ties += int(top[0] == top[1] and top[0] > NEG_INF / 2)
+        if not part.size:
+            continue
+        t, p, b = part[0], sel[i, part[0]], sel_ref[i, part[0]]
+        if p < 0 or b < 0:
+            agree = False
+            continue
+        best = float(g[i, t, b])
+        if abs(float(g[i, t, p]) - best) <= ATOL + RTOL * abs(best):
+            excused += 1
+        else:
+            agree = False
+    return agree, ties, excused
 
 
 def accepts_agree(acc, acc_ref, gains, tau, *, load=None, limit=None,

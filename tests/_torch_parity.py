@@ -47,3 +47,21 @@ def cuda():
         pytest.skip("needs a CUDA card: the hand-written kernels run only "
                     "there (python3 chip_smoke.py drives them)")
     return torch.device("cuda")
+
+
+def jax_gain_trace(jobj, T, mask, sel) -> np.ndarray:
+    """The JAX objective's gains at each step of its own selections ``sel``
+    ``(k,)`` over one block, replayed through its oracle: ``(k, cap)``,
+    −1e30 where a row is no longer a candidate — what
+    ``repro_torch.testing.picks_agree`` holds the port's picks against."""
+    import jax.numpy as jnp
+    state = jobj.init_state(jnp.asarray(T), jnp.asarray(mask))
+    avail = np.asarray(mask, bool).copy()
+    out = []
+    for s in np.asarray(sel):
+        out.append(np.asarray(jobj.gains(state, jnp.asarray(T),
+                                         jnp.asarray(avail))))
+        if s >= 0:
+            state = jobj.update(state, jnp.asarray(T), jnp.int32(s))
+            avail[s] = False
+    return np.stack(out)

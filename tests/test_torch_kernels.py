@@ -130,7 +130,7 @@ def test_near_tie_rule():
 
 @pytest.mark.parametrize("kw,item", [({"compute_dtype": torch.bfloat16}, "10"),
                                      ({"x_scale": 1}, "10"),
-                                     ({"eval_weights": 1}, "9")])
+                                     ({"x_zp": 1}, "10")])
 def test_unported_arguments_name_their_roadmap_item(kw, item):
     X, E, mask = make_inputs(1, 9, 5, 3, seed=0)
     args = (torch.from_numpy(X[0]), torch.from_numpy(E),
@@ -173,10 +173,16 @@ def test_launch_counts_untouched_by_plain_path():
     ops.greedy_select(torch.from_numpy(X), torch.from_numpy(E),
                       torch.ones(7), torch.from_numpy(mask), 3)
     ops.threshold_select(torch.from_numpy(X), torch.from_numpy(E),
-                         torch.ones(7), torch.from_numpy(mask), 0.01, 3)
-    assert ops.launch_counts == {"exemplar_gains": 0, "greedy_select": 0,
-                                 "greedy_select_constrained": 0,
-                                 "threshold_select": 0}
+                         torch.ones(7), torch.from_numpy(mask), 0.01, 3,
+                         eval_weights=torch.ones(7))
+    ops.exemplar_gains(torch.from_numpy(X), torch.from_numpy(E),
+                       torch.ones(7), eval_weights=torch.ones(7))
+    ops.rbf_kernel(torch.from_numpy(X), torch.from_numpy(E), 0.5)
+    assert ops.launch_counts == {
+        "exemplar_gains": 0, "exemplar_gains_weighted": 0,
+        "greedy_select": 0, "greedy_select_constrained": 0,
+        "greedy_select_weighted": 0, "threshold_select": 0,
+        "threshold_select_weighted": 0, "rbf_kernel": 0}
 
 
 @pytest.mark.parametrize("M,n,m,d", [(1, 300, 70, 6), (7, 333, 130, 17),
