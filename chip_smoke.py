@@ -31,9 +31,23 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    unconstrained and constrained (gap ≤ ε), every coreset feasible and
    re-scored, τ-ladder depth ≤ 1 + ⌈log(2k/ε)/ε⌉; the constrained
    centralized selections against the plain constrained greedy;
-6. times — each kernel at its path's shapes, held against its plain
-   version there, timed beside it and beside its bound (fp32 FMA rate,
-   memory rate).
+6. other objectives — ActiveSetSelection (Parkinsons analog, Webscope),
+   FacilityLocation and the weighted exemplar objective at Webscope;
+7. attention kernels (run after phase 2, as are 8 and 9) —
+   ``flash_attention`` against its plain version in fp32 and bf16: D ∈
+   {16, 64, 128, 256}, GQA groups 1/4/8, causal and not, the (T − S)
+   offset, ragged S and T, decode with kv_valid_len (split over the keys
+   and not), and the 32k prefill;
+8. LM parity — Qwen3-8B at full width and 2 layers, prefill and decode on
+   the card against the CPU's plain path on the same weights;
+9. LM serving — Qwen3-8B at full width and depth through
+   ``greedy_generate`` (8 prompts of 2,048 tokens, 32 new), every
+   attention launch counted, the last decode step against ``forward``,
+   prefill and decode times, memory peak and attention's share;
+10. times — each kernel at its path's shapes, held against its plain
+   version there, timed beside it and beside its bound (fp32 FMA rate or
+   bf16 tensor-core rate, memory rate), and ``flash_attention`` beside
+   PyTorch's ``scaled_dot_product_attention``.
 
 Ends with one JSON line per kernel table and the ``ok`` line.  Imports
 nothing of the JAX package.
@@ -52,8 +66,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense bf16 on
+# the tensor cores, HBM3 rate
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 SEED = 0
 WEBSCOPE = dict(n=45_000_000, d=6, k=50, mu=22_500, n_eval=512)
@@ -62,6 +78,15 @@ EPS = 0.5
 # share of machines whose accept sets must match the plain version's in
 # full under the near-threshold rule
 FULL_SHARE = 0.9
+# LM logits, card against the CPU's plain path at full width (2 layers):
+# bf16 matmuls round at other places in cuBLAS and on the CPU, as between
+# the two packages on the CPU (testing.LM_ATOL: four bf16 ulps of a logit
+# in [4, 8)); measured on an H100 over two weight draws: 0.039-0.047
+LM_PARITY_TOL = 0.125
+# the last decode step against forward at full depth (36 layers): the gate
+# of tests/test_models.py at 4 layers; measured on an H100 over two weight
+# draws: 0.073-0.081
+LM_SERVE_TOL = 0.25
 
 
 def fail(msg: str) -> None:
@@ -1339,6 +1364,401 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
     return rows
 
 
+
+# ---------------------------------------------------------------------------
+# LM serving: the dense transformer (Qwen3-8B) and flash_attention
+# ---------------------------------------------------------------------------
+
+# hf:Qwen/Qwen3-8B at full width; the serving cell and the parity run
+LM_ARCH = "qwen3-8b"
+LM_SERVE = dict(batch=8, prompt=2048, new=32, cache_len=2080)
+LM_PARITY = dict(layers=2, batch=1, prompt=256, new=8)
+ATTN_32K = dict(B=1, H=32, Hkv=8, S=32_768, D=128)   # prefill_32k, batch 1
+
+
+def _qkv(B, H, Hkv, S, T, D, dtype, seed):
+    """q, k, v ~ N(0, 1) on the card (logits of unit spread)."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+
+
+def visible_pairs(S: int, T: int, causal: bool, kv) -> int:
+    """(query, key) pairs that take part: each query row sees the keys
+    below kv_valid_len and, causal, at or before its own position."""
+    kv = T if kv is None else min(kv, T)
+    if not causal:
+        return S * kv
+    return sum(min(kv, r + 1 + T - S) for r in range(S))
+
+
+def attention_bound(B, H, Hkv, S, T, D, causal, kv, itemsize):
+    """(bound ms, by): the products (4 operations per visible pair and
+    feature) on the bf16 tensor cores, or the bytes of q, the valid K/V
+    and the output, each moved once."""
+    flops = 4 * B * H * D * visible_pairs(S, T, causal, kv)
+    kvn = T if kv is None else min(kv, T)
+    nbytes = itemsize * D * (2 * B * H * S + 2 * B * Hkv * kvn)
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_kernels_attention() -> None:
+    """flash_attention against its plain version on the card, fp32 and
+    bf16: D ∈ {16, 64, 128, 256} × group ∈ {1, 4, 8}, causal and not, S = T
+    and S < T (the offset) at ragged S and T; decode (S = 1) with
+    kv_valid_len ∈ {1, T/2 + 3, T}, split over the keys (B × Hkv = 1) and
+    not (B × Hkv = 320); prefill with kv_valid_len; the 32k prefill; a
+    head dim it has no instantiation of raises."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+
+    def check(B, H, Hkv, S, T, D, dtype, causal, kv, seed):
+        nonlocal n
+        q, k, v = _qkv(B, H, Hkv, S, T, D, dtype, seed)
+        o = ops.flash_attention(q, k, v, causal=causal, kv_valid_len=kv)
+        torch.cuda.synchronize()
+        o_p = ref.flash_attention(q, k, v, causal=causal, kv_valid_len=kv)
+        what = (f"flash_attention {dtype} B={B} H={H} Hkv={Hkv} S={S} T={T} "
+                f"D={D} causal={causal} kv_valid_len={kv}")
+        if o.shape != q.shape or o.dtype != q.dtype:
+            fail(f"{what}: output {o.dtype} {tuple(o.shape)}")
+        testing.assert_attention_close(o, o_p, dtype == torch.bfloat16, what)
+        worst[dtype] = max(worst[dtype], testing.max_abs_err(o, o_p))
+        n += 1
+
+    seed = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in fa.HEAD_DIMS:
+            for group in (1, 4, 8):
+                for causal in (True, False):
+                    for S, T in ((100, 100), (37, 300)):
+                        seed += 1
+                        check(2, 2 * group, 2, S, T, D, dtype, causal, None,
+                              seed)
+                T = 1000
+                for kv in (1, T // 2 + 3, T):
+                    seed += 1
+                    check(1, group, 1, 1, T, D, dtype, False, kv, seed)
+            seed += 1
+            check(40, 8, 8, 1, 300, D, dtype, True, 250, seed)   # one split
+            check(2, 8, 2, 70, 200, D, dtype, True, 150, seed)   # prefill
+    log(f"  decode splits: B x Hkv = 1 at T = 1000 -> "
+        f"{fa.decode_splits(1, 1, 8, 1000, 132)}, B x Hkv = 320 -> "
+        f"{fa.decode_splits(40, 8, 1, 250, 132)} (nsplit, chunk)")
+    c = ATTN_32K
+    t0 = time.perf_counter()
+    check(c["B"], c["H"], c["Hkv"], c["S"], c["S"], c["D"], torch.bfloat16,
+          True, None, 99)
+    log(f"  32k prefill ({c}, causal, bf16) against plain: "
+        f"{time.perf_counter() - t0:.1f} s")
+    q, k, v = _qkv(1, 2, 1, 3, 9, 32, torch.bfloat16, 0)
+    try:
+        ops.flash_attention(q, k, v)
+    except ValueError:
+        pass
+    else:
+        fail("flash_attention took a head dim it has no instantiation of")
+    smem = {D: (fa.smem_bytes(D, False), fa.smem_bytes(D, True))
+            for D in fa.HEAD_DIMS}
+    log(f"  shared memory per CTA (prefill, decode) by D, from the built "
+        f"kernel: {smem}")
+    log(f"flash_attention vs plain: {n} shapes agree (fp32 within rtol="
+        f"{testing.RTOL} atol={testing.ATOL}, max |do| "
+        f"{worst[torch.float32]:.3g}; bf16 within rtol={testing.BF16_RTOL:.5g}"
+        f" atol={testing.ATOL}, max |do| {worst[torch.bfloat16]:.3g})")
+
+
+def _lm_prompt(cfg, batch: int, seq: int, device: str):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    return SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=SEED),
+                       device).batch(0)["tokens"]
+
+
+def phase_lm_parity() -> None:
+    """Qwen3-8B at full width and 2 layers, one set of weights: prefill a
+    SyntheticLM prompt and decode on the card, and the same on the CPU
+    through the plain versions, fed the card's tokens; logits within
+    LM_PARITY_TOL at every step, and the card's pick the CPU's or within
+    LM_PARITY_TOL of the CPU's best (the near-tie rule)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serve import make_serve_fns
+    from repro_torch.serve.serve_step import next_token
+    c = LM_PARITY
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=c["layers"])
+    params = transformer.init_params(cfg, device="cuda", seed=SEED)
+    prompt = _lm_prompt(cfg, c["batch"], c["prompt"], "cuda")
+    cache_len = c["prompt"] + c["new"]
+
+    def run(p, toks_in, device):
+        pf, df = make_serve_fns(cfg, cache_len)
+        lg, cache = pf(p, prompt.to(device))
+        logits, toks = [lg[:, -1].float().cpu()], [next_token(lg)]
+        for t in range(c["new"] - 1):
+            feed = toks[-1] if toks_in is None else toks_in[t].to(device)
+            lg, cache = df(p, cache, feed)
+            logits.append(lg[:, -1].float().cpu())
+            toks.append(next_token(lg))
+        return torch.stack(logits, 1), [t.cpu() for t in toks]
+
+    ops.reset_launch_counts()
+    card_logits, card_toks = run(params, None, "cuda")
+    torch.cuda.synchronize()
+    counts = dict(ops.launch_counts)
+    if (counts["flash_attention_prefill"] != c["layers"]
+            or counts["flash_attention_decode"]
+            != c["layers"] * (c["new"] - 1)):
+        fail(f"LM parity: flash_attention launches {counts}")
+    cpu_params = {name: ({key: t.cpu() for key, t in val.items()}
+                         if isinstance(val, dict) else val.cpu())
+                  for name, val in params.items()}
+    del params
+    t0 = time.perf_counter()
+    cpu_logits, cpu_toks = run(cpu_params, card_toks, "cpu")
+    t_cpu = time.perf_counter() - t0
+    err = float(torch.max(torch.abs(card_logits - cpu_logits)))
+    card_tok = torch.cat(card_toks, 1)
+    best = cpu_logits.max(dim=-1).values
+    picked = torch.take_along_dim(cpu_logits, card_tok[..., None].long(),
+                                  dim=-1)[..., 0]
+    differ = card_tok != torch.cat(cpu_toks, 1)
+    gap = float(torch.max(best - picked))
+    log(f"LM parity, {LM_ARCH} at full width and {c['layers']} layers "
+        f"(B={c['batch']}, prompt {c['prompt']}, {c['new']} tokens): card vs "
+        f"CPU max |dlogit| {err!r} over {c['new']} steps (logits up to "
+        f"{float(cpu_logits.abs().max()):.3f}); picks differing "
+        f"{int(differ.sum())}, CPU's best minus its logit at the card's "
+        f"pick up to {gap!r}; CPU side {t_cpu:.1f} s; launches {counts}")
+    if err > LM_PARITY_TOL:
+        fail(f"LM parity: card and CPU logits differ by {err} > "
+             f"{LM_PARITY_TOL}")
+    if gap > LM_PARITY_TOL:
+        fail(f"LM parity: a card pick is {gap} below the CPU's best "
+             f"(> {LM_PARITY_TOL})")
+
+
+def phase_lm_serve() -> dict:
+    """Qwen3-8B at full width and depth on the card through
+    greedy_generate: 8 SyntheticLM prompts of 2,048 tokens, 32 new tokens,
+    cache 2,080.  Every flash_attention launch counter moved (36 prefill,
+    36 × 31 decode); the last decode step's logits agree with forward over
+    the prompt and the generated tokens within LM_SERVE_TOL.  Times prefill
+    and each decode step (CUDA events), the memory peak, attention's share
+    of both (events around each flash_attention call, a run of its own),
+    and the device time of one prefill and one decode step replayed from a
+    CUDA graph (so 1 − device / wall is the share the device idles while
+    the host launches)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serve import greedy_generate, make_serve_fns
+    from repro_torch.serve.serve_step import next_token
+    c = LM_SERVE
+    cfg = get_config(LM_ARCH)
+    B, S, n_new = c["batch"], c["prompt"], c["new"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    w_bytes = sum(t.numel() * t.element_size()
+                  for val in params.values()
+                  for t in (val.values() if isinstance(val, dict) else [val]))
+    prompt = _lm_prompt(cfg, B, S, "cuda")
+    ops.reset_launch_counts()
+    out = greedy_generate(cfg, params, prompt, n_new,
+                          cache_len=c["cache_len"])
+    torch.cuda.synchronize()
+    counts = dict(ops.launch_counts)
+    want = {"flash_attention_prefill": cfg.n_layers,
+            "flash_attention_decode": cfg.n_layers * (n_new - 1)}
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"LM serve: {name} launched {counts[name]} times, not {n}")
+    if (out.shape != (B, n_new) or int(out.min()) < 0
+            or int(out.max()) >= cfg.padded_vocab):
+        fail(f"LM serve: tokens {tuple(out.shape)} out of range")
+
+    pf, df = make_serve_fns(cfg, c["cache_len"])
+
+    def serve_once():
+        """(prefill ms, decode ms per step, last logits, tokens, cache)."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(n_new + 1)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        lg, cache = pf(params, prompt)
+        ev[1].record()
+        toks = [next_token(lg)]
+        for t in range(n_new - 1):
+            lg, cache = df(params, cache, toks[-1])
+            ev[t + 2].record()
+            toks.append(next_token(lg))
+        torch.cuda.synchronize()
+        steps = [ev[t + 1].elapsed_time(ev[t + 2]) for t in range(n_new - 1)]
+        return ev[0].elapsed_time(ev[1]), steps, lg, torch.cat(toks, 1), cache
+
+    def device_ms(fn) -> float:
+        """Device time of ``fn``'s work alone: captured once in a CUDA graph
+        and replayed, so no host launch overhead is in it."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):      # warm up off the capture
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return cuda_ms(graph.replay, runs=3)
+
+    prefill_ms, steps, last, toks, cache = serve_once()
+    peak = torch.cuda.max_memory_allocated()
+    # one more decode step (position 2,079 of 2,080) and one more prefill,
+    # each timed on the device alone
+    pos, tok = cache["pos"], toks[:, -1:]
+
+    def decode_at_pos():
+        df(params, cache, tok)
+        cache["pos"] = pos
+
+    dev_decode = device_ms(decode_at_pos)
+    del cache
+    dev_prefill = device_ms(lambda: pf(params, prompt))
+    torch.cuda.empty_cache()
+    if not torch.equal(toks, out):
+        fail("LM serve: a second run through the serve fns picked other "
+             "tokens than greedy_generate")
+    # attention's share: events around every flash_attention call
+    calls = []
+    orig = ops.flash_attention
+
+    def timed(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        o = orig(*a, **kw)
+        e1.record()
+        calls.append((a[0].shape[2], e0, e1))
+        return o
+
+    ops.flash_attention = timed
+    try:
+        prefill_ms2, steps2, _, toks2, _ = serve_once()
+    finally:
+        ops.flash_attention = orig
+    attn_prefill = sum(e0.elapsed_time(e1) for s, e0, e1 in calls if s > 1)
+    attn_decode = sum(e0.elapsed_time(e1) for s, e0, e1 in calls if s == 1)
+    if not torch.equal(toks2, out):
+        fail("LM serve: the timed run picked other tokens")
+
+    full = transformer.forward(params, cfg, torch.cat([prompt,
+                                                       out[:, :-1]], 1))
+    err = float(torch.max(torch.abs(full[:, -1].float()
+                                    - last[:, -1].float())))
+    del full
+    decode_ms = statistics.median(steps)
+    total_ms = prefill_ms + sum(steps)
+    res = {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+           "decode_ms_mean": sum(steps) / len(steps),
+           "tokens_per_s": B * n_new / (total_ms / 1e3),
+           "decode_tokens_per_s": B / (decode_ms / 1e3),
+           "peak_bytes": peak, "init_peak_bytes": init_peak,
+           "weight_bytes": w_bytes,
+           "attn_share_prefill": attn_prefill / prefill_ms2,
+           "attn_share_decode": attn_decode / sum(steps2),
+           "attn_prefill_ms": attn_prefill,
+           "attn_decode_ms_per_token": attn_decode / (n_new - 1),
+           "prefill_device_ms": dev_prefill, "decode_device_ms": dev_decode,
+           "decode_device_idle_share": 1.0 - dev_decode / decode_ms,
+           "prefill_device_idle_share": 1.0 - dev_prefill / prefill_ms,
+           "decode_vs_forward": err, "launches": counts,
+           "init_s": t_init}
+    log(f"LM serve, {LM_ARCH} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {w_bytes / 1e9:.2f} GB of bf16 weights, init "
+        f"{t_init:.1f} s): B={B}, prompt {S}, {n_new} new tokens, cache "
+        f"{c['cache_len']}; launches {counts}; tokens[0, :8] "
+        f"{out[0, :8].tolist()}")
+    log(f"LM serve: {json.dumps(res)}")
+    if err > LM_SERVE_TOL:
+        fail(f"LM serve: last decode step vs forward {err} > {LM_SERVE_TOL}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def times_attention(serve: dict) -> list[dict]:
+    """flash_attention at the serving cell's prefill and decode shapes and
+    at the 32k prefill, bf16: held against its plain version there, timed
+    beside it, beside its bound and beside PyTorch's
+    scaled_dot_product_attention on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import testing
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    c, a = LM_SERVE, ATTN_32K
+    cfg = get_config(LM_ARCH)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    shapes = [("prefill", c["batch"], H, Hkv, c["prompt"], c["prompt"], D,
+               True, None, serve["launches"]["flash_attention_prefill"], 10,
+               3),
+              ("decode", c["batch"], H, Hkv, 1, c["cache_len"], D, False,
+               c["cache_len"], serve["launches"]["flash_attention_decode"],
+               50, 10),
+              ("prefill 32k", a["B"], a["H"], a["Hkv"], a["S"], a["S"],
+               a["D"], True, None,
+               serve["launches"]["flash_attention_prefill"], 3, 1)]
+    rows = []
+    for (what, B, H, Hkv, S, T, D, causal, kv, launches, runs,
+         plain_runs) in shapes:
+        q, k, v = _qkv(B, H, Hkv, S, T, D, torch.bfloat16, 7)
+        o = ops.flash_attention(q, k, v, causal=causal, kv_valid_len=kv)
+        o_p = ref.flash_attention(q, k, v, causal=causal, kv_valid_len=kv)
+        testing.assert_attention_close(o, o_p, True,
+                                       f"flash_attention at the {what} shape")
+        err = testing.max_abs_err(o, o_p)
+        del o, o_p
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                 kv_valid_len=kv), runs=runs)
+        plain = cuda_ms(lambda: ref.flash_attention(
+            q, k, v, causal=causal, kv_valid_len=kv), runs=plain_runs)
+        if kv is None:
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), runs=runs)
+        else:
+            mask = (torch.arange(T, device="cuda") < kv)[None, None, None]
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), runs=runs)
+        b, by = attention_bound(B, H, Hkv, S, T, D, causal, kv, 2)
+        log(f"flash_attention {what}: B={B} H={H} Hkv={Hkv} S={S} T={T} "
+            f"D={D} causal={causal} kv_valid_len={kv}, bf16")
+        rows.append({"name": f"flash_attention ({what})", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:91",
+                     "launches": launches, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                     "library_ms": lib})
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1350,6 +1770,10 @@ def main() -> None:
     phase_kernels_constrained()
     phase_kernels_rbf()
     phase_kernels_weighted()
+    phase_kernels_attention()
+    phase_lm_parity()
+    serve = phase_lm_serve()
+    attn_rows = times_attention(serve)
     scan = phase_scan()
     main_path = phase_main()
     constrained = phase_constrained(main_path)
@@ -1359,6 +1783,12 @@ def main() -> None:
     weighted = phase_weighted(main_path)
     rows = phase_times(scan, main_path, constrained, active, facility,
                        weighted)
+    rows += attn_rows
+    for r in attn_rows:
+        log(f"time {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
+            f"ms, SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            f"ms by {r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of "
+            f"bound), launches {r['launches']}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

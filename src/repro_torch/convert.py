@@ -15,7 +15,7 @@ from repro_torch.core.plan import ArrayPlan
 from repro_torch.device import as_tensor, resolve_device
 
 __all__ = ["ArrayPlan", "constraint_from_jax", "objective_from_jax",
-           "objective_from_numpy"]
+           "objective_from_numpy", "params_from_jax"]
 
 
 def objective_from_numpy(eval_set: np.ndarray, device="cuda"
@@ -73,3 +73,31 @@ def constraint_from_jax(c):
                                        for p in c.parts))
     raise ValueError(f"no port of constraint class {name!r} yet "
                      "(Dynamic* classes: ROADMAP queue 1 item 12)")
+
+
+def params_from_jax(params, cfg, device="cuda") -> dict:
+    """The port's serving parameters of the dense transformer from a JAX
+    ``repro.models.transformer.init_params`` tree (leaves read through
+    ``np.asarray``): the stacks cast by ``layers.cast_stacks``, ``emb`` and
+    ``head`` by ``layers.cast``, the norm scales fp32 — what the JAX package
+    casts at every call, cast once.  One leaf at a time, cast on the host
+    before it moves."""
+    import torch
+
+    from repro_torch.models import layers, transformer
+    transformer.check_dense(cfg)
+    dev = resolve_device(device)
+
+    def leaf(x):
+        return torch.from_numpy(np.array(np.asarray(x)))   # a writable copy
+
+    out = {}
+    for name, val in params.items():
+        if isinstance(val, dict):
+            out[name] = {key: layers.cast_stacks(leaf(x)).to(dev)
+                         for key, x in val.items()}
+        elif name in ("emb", "head"):
+            out[name] = layers.cast(leaf(val)).to(dev)
+        else:
+            out[name] = leaf(val).to(dev)
+    return out

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("exemplar_gains", "greedy_select", "threshold_select",
-           "rbf_kernel")
+           "rbf_kernel", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,17 +40,24 @@ ARGTYPES = {
     + [_F, _P, _P],
     "threshold_select_max_groups": [_I, _I],
     "rbf_kernel_launch": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _F, _P],
+    "flash_attention_prefill_launch": [_P] * 4 + [_LL] * 12 + [_I] * 8
+    + [_F, _I, _P],
+    "flash_attention_decode_launch": [_P] * 4 + [_LL] * 12 + [_I] * 7
+    + [_F, _I, _P, _P, _P],
+    "flash_attention_smem": [_I, _I],
 }
 
 #: kernel launches per kernel, counted by the wrappers where they launch
 #: (re-exported as ``ops.launch_counts``).  The weighted launches (eval
 #: weights, ``WeightedExemplarClustering``) are counted apart, and so are
-#: greedy_select's unweighted launches with a constraint encoding
+#: greedy_select's unweighted launches with a constraint encoding;
+#: flash_attention's prefill (S > 1) and decode (S = 1) launches apart
 launch_counts: dict[str, int] = {
     name: 0 for name in (
         "exemplar_gains", "exemplar_gains_weighted", "greedy_select",
         "greedy_select_constrained", "greedy_select_weighted",
-        "threshold_select", "threshold_select_weighted", "rbf_kernel")}
+        "threshold_select", "threshold_select_weighted", "rbf_kernel",
+        "flash_attention_prefill", "flash_attention_decode")}
 #: ptxas register/shared-memory report of each library built in this process
 build_log: dict[str, str] = {}
 

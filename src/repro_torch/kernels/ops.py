@@ -32,6 +32,12 @@ has no plain path).
 one (or with one machine) is shared by every machine at machine stride 0,
 never copied per machine.
 
+``flash_attention`` takes ``kv_valid_len`` (decode against a partially
+filled cache) into its kernel too: the JAX package sends that case to its
+jnp reference, and on the card the port has no plain path.  It takes any
+``S`` and ``T``; the kernel masks the ragged edges (the ``S % bq`` rule
+belongs to the Pallas launch only).
+
 Every argument of the JAX signatures that the port lacks raises
 :class:`NotImplementedError` naming its ROADMAP item.
 """
@@ -41,15 +47,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import exemplar_gains as _eg
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import greedy_select as _gs
 from repro_torch.kernels import rbf_kernel as _rbf
 from repro_torch.kernels import ref
 from repro_torch.kernels import threshold_select as _ts
 from repro_torch.kernels._build import launch_counts  # noqa: F401
 
-__all__ = ["exemplar_gains", "greedy_select", "launch_counts",
-           "pairwise_sqdist", "rbf_kernel", "reset_launch_counts",
-           "threshold_select"]
+__all__ = ["exemplar_gains", "flash_attention", "greedy_select",
+           "launch_counts", "pairwise_sqdist", "rbf_kernel",
+           "reset_launch_counts", "threshold_select"]
 
 
 def reset_launch_counts() -> None:
@@ -104,6 +111,22 @@ def rbf_kernel(X: torch.Tensor, Y: torch.Tensor, h: float) -> torch.Tensor:
     K = _rbf.launch((X if X.dim() == 3 else X.unsqueeze(0)).float(),
                     (Y if Y.dim() == 3 else Y.unsqueeze(0)).float(), h)
     return K if batched else K[0]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    kv_valid_len=None) -> torch.Tensor:
+    """Attention with GQA by head groups: q ``(B, H, S, D)``, k and v
+    ``(B, Hkv, T, D)``; a causal mask with the ``(T − S)`` offset, keys at
+    or past ``kv_valid_len`` masked; returns ``(B, H, S, D)`` in
+    ``q.dtype`` (see :func:`repro_torch.kernels.ref.flash_attention`)."""
+    if not _on_card(q):
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale,
+                                   kv_valid_len=kv_valid_len)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    return _fa.launch(q, k, v, causal=causal, scale=scale,
+                      kv_valid_len=kv_valid_len)
 
 
 def exemplar_gains(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,

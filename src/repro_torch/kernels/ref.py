@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the selection kernels (counterpart of
-``repro.kernels.ref``).
+"""Plain PyTorch versions of the kernels (counterpart of
+``repro.kernels.ref``): the selection kernels, ``rbf_kernel`` and
+``flash_attention``.
 
 They are the semantic ground truth of the port: the CPU tests hold them
 against the JAX package's ``ref`` functions, and ``chip_smoke.py`` holds the
@@ -554,3 +555,54 @@ def threshold_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
         bn=bn, weights=weights, budget=budget, group_ids=group_ids,
         caps=caps, active=active, enc=enc, eval_weights=eval_weights)
     return acc, cm
+
+
+#: queries per block of the plain attention when ``S`` is a larger multiple
+#: of it (``repro.kernels.ref.flash_attention``'s CHUNK)
+ATTN_CHUNK = 1024
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    kv_valid_len=None) -> torch.Tensor:
+    """Attention with GQA by head groups (plain version of
+    ``repro.kernels.ref.flash_attention``).
+
+    ``q`` ``(B, H, S, D)``, ``k``/``v`` ``(B, Hkv, T, D)``; query head ``h``
+    reads KV head ``h // (H / Hkv)``, with no repeat of the KV heads.  The
+    logits ``(q·k)·scale`` (``scale = 1/√D`` by default), the softmax and
+    the products are fp32; a causal mask keeps ``kpos ≤ qpos + (T − S)``
+    and ``kv_valid_len`` keeps ``kpos < kv_valid_len``, masked logits set
+    to −1e30.  Queries run in blocks of :data:`ATTN_CHUNK` where
+    ``S > ATTN_CHUNK`` and ``S % ATTN_CHUNK == 0``, as there.  Returns
+    ``(B, H, S, D)`` in ``q.dtype``.
+    """
+    exact_fp32(q)
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    G = H // Hkv
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(T, device=q.device)[None, :]
+
+    def on_chunk(qc: torch.Tensor, off: int) -> torch.Tensor:
+        """qc ``(B, Hkv, G, Sc, D)`` fp32, grouped."""
+        Sc = qc.shape[3]
+        logits = torch.einsum("bkgsd,bktd->bkgst", qc, kf) * scale
+        if causal:
+            qpos = (off + (T - S)
+                    + torch.arange(Sc, device=q.device)[:, None])
+            logits = torch.where(kpos <= qpos, logits, NEG_INF)
+        if kv_valid_len is not None:
+            logits = torch.where(kpos < kv_valid_len, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        return torch.einsum("bkgst,bktd->bkgsd", probs, vf)
+
+    qg = q.float().reshape(B, Hkv, G, S, D)
+    if S > ATTN_CHUNK and S % ATTN_CHUNK == 0:
+        o = torch.cat([on_chunk(qg[:, :, :, s0:s0 + ATTN_CHUNK], s0)
+                       for s0 in range(0, S, ATTN_CHUNK)], dim=3)
+    else:
+        o = on_chunk(qg, 0)
+    return o.reshape(B, H, S, D).to(q.dtype)

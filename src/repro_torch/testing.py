@@ -1,10 +1,12 @@
-"""The port's one tolerance, the near-tie rule for selections, the
-exact-tie rule for objectives whose gains tie exactly, and the
-near-threshold rule for threshold-batch accept sets.
+"""The port's tolerances (one for fp32 values, one more bf16 ulp for
+attention outputs in bf16, and one for LM logits), the near-tie rule for
+selections and for greedy tokens, the exact-tie rule for objectives whose
+gains tie exactly, and the near-threshold rule for threshold-batch accept
+sets.
 
 Used by the tests (plain versions against the JAX package on the CPU) and
 by ``chip_smoke.py`` (kernels against their plain versions on the card).
-Never loosen it to make a comparison pass.
+Never loosen them to make a comparison pass.
 """
 from __future__ import annotations
 
@@ -17,8 +19,11 @@ ATOL = 1e-5
 
 
 def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    x = np.asarray(x)
+    return x.astype(np.float32) if x.dtype.name == "bfloat16" else x
 
 
 def max_abs_err(a, b) -> float:
@@ -29,6 +34,51 @@ def max_abs_err(a, b) -> float:
 def assert_close(actual, expected, what: str = "value") -> None:
     np.testing.assert_allclose(_np(actual), _np(expected), rtol=RTOL,
                                atol=ATOL, err_msg=what)
+
+
+#: attention outputs in bf16 (the model's type): the fp32 results agree
+#: within RTOL/ATOL, and rounding them to bf16 can then part them by one
+#: bf16 ulp, at most 2⁻⁷·|value|
+BF16_RTOL = 2.0 ** -7 + RTOL
+
+#: LM logits and KV caches of the port against the JAX package on the CPU
+#: (four layers at ``reduced()`` size).  In bf16 the two frameworks' matmuls
+#: round at different places: measured ≤ 0.0625 on the four dense
+#: configurations (two bf16 ulps of a logit in [4, 8)); the bound is four
+#: such ulps.  In fp32 (``COMPUTE_DTYPE`` fp32 in both packages, fp32
+#: caches) only the order of the sums differs: measured ≤ 4.2e-6.
+LM_ATOL = {torch.bfloat16: 0.125, torch.float32: 1e-4}
+
+
+def assert_attention_close(actual, expected, bf16: bool,
+                           what: str = "attention") -> None:
+    """fp32 outputs within RTOL/ATOL; bf16 outputs within BF16_RTOL/ATOL."""
+    np.testing.assert_allclose(_np(actual), _np(expected),
+                               rtol=BF16_RTOL if bf16 else RTOL, atol=ATOL,
+                               err_msg=what)
+
+
+def tokens_agree(tok, tok_ref, logits_ref, tol: float) -> tuple[bool, int]:
+    """Greedy tokens ``(B, n)`` against the reference's under the near-tie
+    rule.  ``logits_ref`` ``(B, n, V)`` are the reference's logits at each
+    of its steps.  Each row must match up to its first divergence; a
+    divergence at step t is excused only where the reference's own logit
+    for the token picked is within ``tol`` of its best logit there (so the
+    reference's top-2 gap is within ``tol``), and the row is not compared
+    after it.  Returns (they agree, rows excused)."""
+    tok, tok_ref = _np(tok), _np(tok_ref)
+    lg = _np(logits_ref).astype(np.float64)
+    agree, excused = True, 0
+    for b in range(tok.shape[0]):
+        part = np.flatnonzero(tok[b] != tok_ref[b])
+        if not part.size:
+            continue
+        t = part[0]
+        if lg[b, t].max() - lg[b, t, tok[b, t]] <= tol:
+            excused += 1
+        else:
+            agree = False
+    return agree, excused
 
 
 def near_tie(gap: np.ndarray, best: np.ndarray) -> np.ndarray:
