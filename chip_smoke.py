@@ -33,7 +33,7 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    centralized selections against the plain constrained greedy;
 6. other objectives — ActiveSetSelection (Parkinsons analog, Webscope),
    FacilityLocation and the weighted exemplar objective at Webscope;
-7. attention kernels (run after phase 2, as are 8 and 9) —
+7. attention kernels (run after phase 2, as are 8 to 12) —
    ``flash_attention`` against its plain version in fp32 and bf16: D ∈
    {16, 64, 128, 256}, GQA groups 1/4/8, causal and not, the (T − S)
    offset, ragged S and T, decode with kv_valid_len (split over the keys
@@ -44,7 +44,15 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    ``greedy_generate`` (8 prompts of 2,048 tokens, 32 new), every
    attention launch counted, the last decode step against ``forward``,
    prefill and decode times, memory peak and attention's share;
-10. times — each kernel at its path's shapes, held against its plain
+10. wkv6 kernel (run after phase 7) — ``wkv6`` against its plain version
+   in fp32 and bf16: Dk = Dv ∈ {16, 64}, Dk ≠ Dv, ragged T, B × H = 1 and
+   256, strided views, a given state, T = 2,100, chaining over the halves
+   of T, a decode step in place, the shapes it does not take;
+11. RWKV parity — rwkv6-1.6b at full width and 2 layers, card against the
+   CPU's plain path, as phase 8;
+12. RWKV serving — rwkv6-1.6b at full width and depth (24 layers) as
+   phase 9, every ``wkv6`` launch counted (24 prefill, 24 × 31 decode);
+13. times — each kernel at its path's shapes, held against its plain
    version there, timed beside it and beside its bound (fp32 FMA rate or
    bf16 tensor-core rate, memory rate), and ``flash_attention`` beside
    PyTorch's ``scaled_dot_product_attention``.
@@ -82,10 +90,13 @@ FULL_SHARE = 0.9
 # bf16 matmuls round at other places in cuBLAS and on the CPU, as between
 # the two packages on the CPU (testing.LM_ATOL: four bf16 ulps of a logit
 # in [4, 8)); measured on an H100 over two weight draws: 0.039-0.047
+# (Qwen3-8B), 0.046875 both times (rwkv6-1.6b)
 LM_PARITY_TOL = 0.125
-# the last decode step against forward at full depth (36 layers): the gate
-# of tests/test_models.py at 4 layers; measured on an H100 over two weight
-# draws: 0.073-0.081
+# the last decode step against forward at full depth: the gate of
+# tests/test_models.py at 4 layers; measured on an H100 over two weight
+# draws: 0.073-0.081 (Qwen3-8B, 36 layers); 0.176-0.180 (rwkv6-1.6b, 24
+# layers, whose decode keeps the WKV output in fp32 where forward rounds it
+# to bf16, as the JAX package's two paths do)
 LM_SERVE_TOL = 0.25
 
 
@@ -1371,6 +1382,11 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
 
 # hf:Qwen/Qwen3-8B at full width; the serving cell and the parity run
 LM_ARCH = "qwen3-8b"
+# arXiv:2404.05892 (Finch) at full width and depth: the same two phases
+RWKV_ARCH = "rwkv6-1.6b"
+#: the hand-written kernel each family's serving runs; its launch counters
+#: are "<name>_prefill" and "<name>_decode"
+FAMILY_KERNEL = {"dense": "flash_attention", "ssm": "wkv6"}
 LM_SERVE = dict(batch=8, prompt=2048, new=32, cache_len=2080)
 LM_PARITY = dict(layers=2, batch=1, prompt=256, new=8)
 ATTN_32K = dict(B=1, H=32, Hkv=8, S=32_768, D=128)   # prefill_32k, batch 1
@@ -1483,22 +1499,24 @@ def _lm_prompt(cfg, batch: int, seq: int, device: str):
                        device).batch(0)["tokens"]
 
 
-def phase_lm_parity() -> None:
-    """Qwen3-8B at full width and 2 layers, one set of weights: prefill a
-    SyntheticLM prompt and decode on the card, and the same on the CPU
-    through the plain versions, fed the card's tokens; logits within
-    LM_PARITY_TOL at every step, and the card's pick the CPU's or within
-    LM_PARITY_TOL of the CPU's best (the near-tie rule)."""
+def phase_lm_parity(arch: str = LM_ARCH) -> None:
+    """``arch`` (Qwen3-8B, rwkv6-1.6b) at full width and 2 layers, one set
+    of weights: prefill a SyntheticLM prompt and decode on the card, and the
+    same on the CPU through the plain versions, fed the card's tokens;
+    logits within LM_PARITY_TOL at every step, and the card's pick the
+    CPU's or within LM_PARITY_TOL of the CPU's best (the near-tie rule);
+    the family's kernel launched once per layer and call."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer
+    from repro_torch.models import get_model
     from repro_torch.serve import make_serve_fns
     from repro_torch.serve.serve_step import next_token
     c = LM_PARITY
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=c["layers"])
-    params = transformer.init_params(cfg, device="cuda", seed=SEED)
+    cfg = dataclasses.replace(get_config(arch), n_layers=c["layers"])
+    kern = FAMILY_KERNEL[cfg.family]
+    params = get_model(cfg).init_params(cfg, device="cuda", seed=SEED)
     prompt = _lm_prompt(cfg, c["batch"], c["prompt"], "cuda")
     cache_len = c["prompt"] + c["new"]
 
@@ -1517,10 +1535,9 @@ def phase_lm_parity() -> None:
     card_logits, card_toks = run(params, None, "cuda")
     torch.cuda.synchronize()
     counts = dict(ops.launch_counts)
-    if (counts["flash_attention_prefill"] != c["layers"]
-            or counts["flash_attention_decode"]
-            != c["layers"] * (c["new"] - 1)):
-        fail(f"LM parity: flash_attention launches {counts}")
+    if (counts[f"{kern}_prefill"] != c["layers"]
+            or counts[f"{kern}_decode"] != c["layers"] * (c["new"] - 1)):
+        fail(f"LM parity ({arch}): {kern} launches {counts}")
     cpu_params = {name: ({key: t.cpu() for key, t in val.items()}
                          if isinstance(val, dict) else val.cpu())
                   for name, val in params.items()}
@@ -1535,44 +1552,46 @@ def phase_lm_parity() -> None:
                                   dim=-1)[..., 0]
     differ = card_tok != torch.cat(cpu_toks, 1)
     gap = float(torch.max(best - picked))
-    log(f"LM parity, {LM_ARCH} at full width and {c['layers']} layers "
+    log(f"LM parity, {arch} at full width and {c['layers']} layers "
         f"(B={c['batch']}, prompt {c['prompt']}, {c['new']} tokens): card vs "
         f"CPU max |dlogit| {err!r} over {c['new']} steps (logits up to "
         f"{float(cpu_logits.abs().max()):.3f}); picks differing "
         f"{int(differ.sum())}, CPU's best minus its logit at the card's "
         f"pick up to {gap!r}; CPU side {t_cpu:.1f} s; launches {counts}")
     if err > LM_PARITY_TOL:
-        fail(f"LM parity: card and CPU logits differ by {err} > "
+        fail(f"LM parity ({arch}): card and CPU logits differ by {err} > "
              f"{LM_PARITY_TOL}")
     if gap > LM_PARITY_TOL:
-        fail(f"LM parity: a card pick is {gap} below the CPU's best "
-             f"(> {LM_PARITY_TOL})")
+        fail(f"LM parity ({arch}): a card pick is {gap} below the CPU's "
+             f"best (> {LM_PARITY_TOL})")
 
 
-def phase_lm_serve() -> dict:
-    """Qwen3-8B at full width and depth on the card through
-    greedy_generate: 8 SyntheticLM prompts of 2,048 tokens, 32 new tokens,
-    cache 2,080.  Every flash_attention launch counter moved (36 prefill,
-    36 × 31 decode); the last decode step's logits agree with forward over
-    the prompt and the generated tokens within LM_SERVE_TOL.  Times prefill
-    and each decode step (CUDA events), the memory peak, attention's share
-    of both (events around each flash_attention call, a run of its own),
-    and the device time of one prefill and one decode step replayed from a
-    CUDA graph (so 1 − device / wall is the share the device idles while
-    the host launches)."""
+def phase_lm_serve(arch: str = LM_ARCH) -> dict:
+    """``arch`` (Qwen3-8B, rwkv6-1.6b) at full width and depth on the card
+    through greedy_generate: 8 SyntheticLM prompts of 2,048 tokens, 32 new
+    tokens, cache 2,080.  Every launch counter of the family's kernel moved
+    (one prefill launch per layer, one decode launch per layer and step);
+    the last decode step's logits agree with forward over the prompt and
+    the generated tokens within LM_SERVE_TOL.  Times prefill and each
+    decode step (CUDA events), the memory peak, the kernel's share of both
+    (events around each call of it, a run of its own), and the device time
+    of one prefill and one decode step replayed from a CUDA graph (so
+    1 − device / wall is the share the device idles while the host
+    launches)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer
+    from repro_torch.models import get_model
     from repro_torch.serve import greedy_generate, make_serve_fns
     from repro_torch.serve.serve_step import next_token
     c = LM_SERVE
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    model, kern = get_model(cfg), FAMILY_KERNEL[cfg.family]
     B, S, n_new = c["batch"], c["prompt"], c["new"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = transformer.init_params(cfg, device="cuda", seed=SEED)
+    params = model.init_params(cfg, device="cuda", seed=SEED)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
@@ -1586,14 +1605,15 @@ def phase_lm_serve() -> dict:
                           cache_len=c["cache_len"])
     torch.cuda.synchronize()
     counts = dict(ops.launch_counts)
-    want = {"flash_attention_prefill": cfg.n_layers,
-            "flash_attention_decode": cfg.n_layers * (n_new - 1)}
+    want = {f"{kern}_prefill": cfg.n_layers,
+            f"{kern}_decode": cfg.n_layers * (n_new - 1)}
     for name, n in want.items():
         if counts[name] != n:
-            fail(f"LM serve: {name} launched {counts[name]} times, not {n}")
+            fail(f"LM serve ({arch}): {name} launched {counts[name]} times, "
+                 f"not {n}")
     if (out.shape != (B, n_new) or int(out.min()) < 0
             or int(out.max()) >= cfg.padded_vocab):
-        fail(f"LM serve: tokens {tuple(out.shape)} out of range")
+        fail(f"LM serve ({arch}): tokens {tuple(out.shape)} out of range")
 
     pf, df = make_serve_fns(cfg, c["cache_len"])
 
@@ -1641,11 +1661,11 @@ def phase_lm_serve() -> dict:
     dev_prefill = device_ms(lambda: pf(params, prompt))
     torch.cuda.empty_cache()
     if not torch.equal(toks, out):
-        fail("LM serve: a second run through the serve fns picked other "
-             "tokens than greedy_generate")
-    # attention's share: events around every flash_attention call
+        fail(f"LM serve ({arch}): a second run through the serve fns picked "
+             "other tokens than greedy_generate")
+    # the kernel's share: events around every call of it
     calls = []
-    orig = ops.flash_attention
+    orig = getattr(ops, kern)
 
     def timed(*a, **kw):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -1656,18 +1676,17 @@ def phase_lm_serve() -> dict:
         calls.append((a[0].shape[2], e0, e1))
         return o
 
-    ops.flash_attention = timed
+    setattr(ops, kern, timed)
     try:
         prefill_ms2, steps2, _, toks2, _ = serve_once()
     finally:
-        ops.flash_attention = orig
-    attn_prefill = sum(e0.elapsed_time(e1) for s, e0, e1 in calls if s > 1)
-    attn_decode = sum(e0.elapsed_time(e1) for s, e0, e1 in calls if s == 1)
+        setattr(ops, kern, orig)
+    k_prefill = sum(e0.elapsed_time(e1) for s, e0, e1 in calls if s > 1)
+    k_decode = sum(e0.elapsed_time(e1) for s, e0, e1 in calls if s == 1)
     if not torch.equal(toks2, out):
-        fail("LM serve: the timed run picked other tokens")
+        fail(f"LM serve ({arch}): the timed run picked other tokens")
 
-    full = transformer.forward(params, cfg, torch.cat([prompt,
-                                                       out[:, :-1]], 1))
+    full = model.forward(params, cfg, torch.cat([prompt, out[:, :-1]], 1))
     err = float(torch.max(torch.abs(full[:, -1].float()
                                     - last[:, -1].float())))
     del full
@@ -1679,23 +1698,25 @@ def phase_lm_serve() -> dict:
            "decode_tokens_per_s": B / (decode_ms / 1e3),
            "peak_bytes": peak, "init_peak_bytes": init_peak,
            "weight_bytes": w_bytes,
-           "attn_share_prefill": attn_prefill / prefill_ms2,
-           "attn_share_decode": attn_decode / sum(steps2),
-           "attn_prefill_ms": attn_prefill,
-           "attn_decode_ms_per_token": attn_decode / (n_new - 1),
+           "kernel": kern,
+           "kernel_share_prefill": k_prefill / prefill_ms2,
+           "kernel_share_decode": k_decode / sum(steps2),
+           "kernel_prefill_ms": k_prefill,
+           "kernel_decode_ms_per_token": k_decode / (n_new - 1),
            "prefill_device_ms": dev_prefill, "decode_device_ms": dev_decode,
            "decode_device_idle_share": 1.0 - dev_decode / decode_ms,
            "prefill_device_idle_share": 1.0 - dev_prefill / prefill_ms,
            "decode_vs_forward": err, "launches": counts,
            "init_s": t_init}
-    log(f"LM serve, {LM_ARCH} ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {w_bytes / 1e9:.2f} GB of bf16 weights, init "
+    log(f"LM serve, {arch} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {w_bytes / 1e9:.2f} GB of weights, init "
         f"{t_init:.1f} s): B={B}, prompt {S}, {n_new} new tokens, cache "
         f"{c['cache_len']}; launches {counts}; tokens[0, :8] "
         f"{out[0, :8].tolist()}")
     log(f"LM serve: {json.dumps(res)}")
     if err > LM_SERVE_TOL:
-        fail(f"LM serve: last decode step vs forward {err} > {LM_SERVE_TOL}")
+        fail(f"LM serve ({arch}): last decode step vs forward {err} > "
+             f"{LM_SERVE_TOL}")
     del params
     torch.cuda.empty_cache()
     return res
@@ -1759,6 +1780,202 @@ def times_attention(serve: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# RWKV-6 serving (rwkv6-1.6b) and wkv6
+# ---------------------------------------------------------------------------
+
+WKV_32K = dict(B=1, T=32_768)   # prefill_32k's length, batch 1
+
+
+def _wkv_inputs(B, H, T, Dk, Dv, dtype, seed, decay="model", strided=True):
+    """r, k, v ~ N(0, 1) and u ~ 0.1·N(0, 1) in ``dtype``, w fp32 in (0, 1)
+    on the card: ``decay`` "model" is the decay of the model at its init,
+    exp(−exp(−6 + N(0, 1)/2)) ≈ 0.9975 (a state that remembers ~400
+    steps), "fast" is sigmoid(N(0, 1) + 2), as tests/test_kernels.py draws
+    it.  ``strided``: each a (B, H, T, D) view of a (B, T, H, D) tensor, as
+    the model passes them."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def draw(D, dt):
+        x = torch.randn((B, T, H, D), generator=g, device="cuda").to(dt)
+        return x.transpose(1, 2) if strided else x.transpose(1, 2).contiguous()
+
+    r, k, v = draw(Dk, dtype), draw(Dk, dtype), draw(Dv, dtype)
+    n = draw(Dk, torch.float32)
+    w = (torch.exp(-torch.exp(-6.0 + 0.5 * n)) if decay == "model"
+         else torch.sigmoid(n + 2.0))
+    u = (0.1 * torch.randn((H, Dk), generator=g, device="cuda")).to(dtype)
+    return r, k, v, w, u
+
+
+def wkv6_bound(B, H, T, Dk, Dv, itemsize, state_in, y_itemsize):
+    """(bound ms, by): 5·Dk·Dv + 3·Dk + 2·Dv fp32 operations per step and
+    head (the state update w·S + k·v, r·S, the bonus (r·u)·k and v·a), or
+    the bytes of r, k, v and u (``itemsize``), w (fp32), y
+    (``y_itemsize``) and the fp32 state, read where given and written,
+    each moved once."""
+    steps = B * H * T
+    flops = steps * (5 * Dk * Dv + 3 * Dk + 2 * Dv)
+    nbytes = (steps * ((2 * Dk + Dv) * itemsize + 4 * Dk + Dv * y_itemsize)
+              + H * Dk * itemsize + 4 * B * H * Dk * Dv * (1 + int(state_in)))
+    return bound_ms(flops, nbytes)
+
+
+def phase_kernels_wkv6() -> None:
+    """wkv6 against its plain version on the card, fp32 and bf16: Dk = Dv
+    = 64 and 16, Dk ≠ Dv, ragged T, B × H = 1 and 256, r/k/v/w as the
+    model's strided views and contiguous, from zeros and from a given
+    state, T = 2,100; two launches over the halves of T against one over
+    all of it; one decode step (T = 1) from a state written in place; the
+    shapes it does not take raise.  The kernel repeats its plain version's
+    arithmetic op for op, so they agree to the bit: the check is
+    testing's tolerance, and the bitwise agreements are counted."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv6 as wk
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = same = 0
+
+    def check(y, st, y_p, st_p, bf16, what):
+        nonlocal n, same
+        testing.assert_attention_close(y, y_p, bf16, f"{what}: y")
+        testing.assert_close(st, st_p, f"{what}: state")
+        worst[torch.bfloat16 if bf16 else torch.float32] = max(
+            worst[torch.bfloat16 if bf16 else torch.float32],
+            testing.max_abs_err(y, y_p), testing.max_abs_err(st, st_p))
+        n += 1
+        same += int(torch.equal(y, y_p) and torch.equal(st, st_p))
+
+    seed = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        small = 4 if dtype == torch.float32 else 8
+        cases = [(2, 3, 37, 16, 16, "fast", True),
+                 (1, 1, 100, 64, 64, "model", True),
+                 (8, 32, 70, 64, 64, "model", True),
+                 (2, 2, 45, 16, 64, "fast", True),
+                 (2, 2, 33, 64, 16, "fast", False),
+                 (1, 2, 20, small, 2 * small, "fast", False),
+                 (2, 4, 2100, 64, 64, "model", True)]
+        for B, H, T, Dk, Dv, decay, strided in cases:
+            for given in (False, True):
+                seed += 1
+                r, k, v, w, u = _wkv_inputs(B, H, T, Dk, Dv, dtype, seed,
+                                            decay, strided)
+                s0 = (torch.randn((B, H, Dk, Dv), device="cuda")
+                      if given else None)
+                y, st = ops.wkv6(r, k, v, w, u, s0)
+                torch.cuda.synchronize()
+                y_p, st_p = ref.wkv6(r, k, v, w, u, s0)
+                check(y, st, y_p, st_p, dtype == torch.bfloat16,
+                      f"wkv6 {dtype} B={B} H={H} T={T} Dk={Dk} Dv={Dv} "
+                      f"{decay} strided={strided} state={given}")
+    # state chaining: [0, 150) then [150, 300) from its state, in place
+    r, k, v, w, u = _wkv_inputs(2, 4, 300, 64, 64, torch.bfloat16, 91)
+    y, st = ops.wkv6(r, k, v, w, u)
+    st2 = torch.empty_like(st)
+    y1, _ = ops.wkv6(*(a[:, :, :150] for a in (r, k, v, w)), u,
+                     state_out=st2)
+    y2, _ = ops.wkv6(*(a[:, :, 150:] for a in (r, k, v, w)), u, st2,
+                     state_out=st2)
+    torch.cuda.synchronize()
+    if not (torch.equal(torch.cat([y1, y2], 2), y) and torch.equal(st2, st)):
+        fail("wkv6: two launches over the halves of T differ from one")
+    # one decode step from a state, written in place, y in fp32 as the model
+    r, k, v, w, u = _wkv_inputs(8, 32, 1, 64, 64, torch.bfloat16, 92)
+    state = torch.randn((8, 32, 64, 64), device="cuda")
+    before = state.clone()
+    y, st = ops.wkv6(r, k, v, w, u, state, state_out=state,
+                     out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    y_p, st_p = ref.wkv6(r, k, v, w, u, before, out_dtype=torch.float32)
+    if st is not state or y.dtype != torch.float32:
+        fail("wkv6 decode: the state was not updated in place")
+    check(y, st, y_p, st_p, False, "wkv6 decode in place")
+    for Dk, dtype in ((128, torch.bfloat16), (4, torch.bfloat16)):
+        r, k, v, w, u = _wkv_inputs(1, 1, 3, Dk, 16, dtype, 0)
+        try:
+            ops.wkv6(r, k, v, w, u)
+        except ValueError:
+            pass
+        else:
+            fail(f"wkv6 took Dk={Dk} in {dtype}, which it has no "
+                 "instantiation of")
+    smem = {Dk: (wk.smem_bytes(Dk, False), wk.smem_bytes(Dk, True))
+            for Dk in (16, 32, 64)}
+    log(f"  shared memory per CTA (fp32, bf16 operands) by Dk, from the "
+        f"built kernel: {smem}")
+    log(f"wkv6 vs plain: {n} cases agree (fp32 within rtol={testing.RTOL} "
+        f"atol={testing.ATOL}, max |d| {worst[torch.float32]!r}; bf16 y "
+        f"within rtol={testing.BF16_RTOL:.5g}, max |d| "
+        f"{worst[torch.bfloat16]!r}), {same} of them to the bit; chaining "
+        f"over halves of T and the in-place decode step checked")
+
+
+def times_wkv6(serve: dict) -> list[dict]:
+    """wkv6 at the RWKV serving cell's prefill (B = 8, T = 2,048, the
+    final state written) and decode (B = 8, T = 1, state in and out, y in
+    fp32) shapes and at the 32k prefill (B = 1), bf16 r/k/v/u and fp32 w
+    as the model passes them: held against its plain version there, timed
+    beside it and beside its bound.  No PyTorch call computes the
+    recurrence (library_ms null)."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    c = LM_SERVE
+    cfg = get_config(RWKV_ARCH)
+    H, D = cfg.n_heads, cfg.rwkv_head_dim
+    launches = serve["launches"]
+    shapes = [("prefill", c["batch"], c["prompt"], False,
+               launches["wkv6_prefill"], 20, 2),
+              ("decode", c["batch"], 1, True, launches["wkv6_decode"], 50,
+               10),
+              ("prefill 32k", WKV_32K["B"], WKV_32K["T"], False,
+               launches["wkv6_prefill"], 5, 1)]
+    rows = []
+    for what, B, T, given, n_launch, runs, plain_runs in shapes:
+        r, k, v, w, u = _wkv_inputs(B, H, T, D, D, torch.bfloat16, 17)
+        s0 = torch.randn((B, H, D, D), device="cuda") if given else None
+        st = torch.empty((B, H, D, D), device="cuda")
+        out_dtype = torch.float32 if given else None
+
+        def kernel():
+            return ops.wkv6(r, k, v, w, u, s0, state_out=st,
+                            out_dtype=out_dtype)
+
+        def plain():
+            return ref.wkv6(r, k, v, w, u, s0, out_dtype=out_dtype)
+
+        y, _ = kernel()
+        t0 = time.perf_counter()
+        y_p, st_p = plain()
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        testing.assert_attention_close(y, y_p, not given,
+                                       f"wkv6 at the {what} shape: y")
+        testing.assert_close(st, st_p, f"wkv6 at the {what} shape: state")
+        err = max(testing.max_abs_err(y, y_p), testing.max_abs_err(st, st_p))
+        del y, y_p, st_p
+        ms = cuda_ms(kernel, runs=runs)
+        plain_ms = cuda_ms(plain, runs=plain_runs, warmup=0)
+        b, by = wkv6_bound(B, H, T, D, D, 2, given, 4 if given else 2)
+        log(f"wkv6 {what}: B={B} H={H} T={T} Dk=Dv={D}, bf16 r/k/v/u, fp32 "
+            f"w, state {'in and out' if given else 'out'}; the check's "
+            f"plain run {t_plain:.1f} s")
+        rows.append({"name": f"wkv6 ({what})", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+                     "replaces": "src/repro/kernels/wkv6.py:69",
+                     "launches": n_launch, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "library_ms": None})
+        del r, k, v, w, u, s0, st
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1771,9 +1988,13 @@ def main() -> None:
     phase_kernels_rbf()
     phase_kernels_weighted()
     phase_kernels_attention()
+    phase_kernels_wkv6()
     phase_lm_parity()
     serve = phase_lm_serve()
     attn_rows = times_attention(serve)
+    phase_lm_parity(RWKV_ARCH)
+    rwkv = phase_lm_serve(RWKV_ARCH)
+    wkv_rows = times_wkv6(rwkv)
     scan = phase_scan()
     main_path = phase_main()
     constrained = phase_constrained(main_path)
@@ -1783,12 +2004,14 @@ def main() -> None:
     weighted = phase_weighted(main_path)
     rows = phase_times(scan, main_path, constrained, active, facility,
                        weighted)
-    rows += attn_rows
-    for r in attn_rows:
+    rows += attn_rows + wkv_rows
+    for r in attn_rows + wkv_rows:
+        lib = ("no library call" if r["library_ms"] is None
+               else f"SDPA {r['library_ms']:.4f} ms")
         log(f"time {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
-            f"ms, SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-            f"ms by {r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of "
-            f"bound), launches {r['launches']}")
+            f"ms, {lib}, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.1%} of bound), launches "
+            f"{r['launches']}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

@@ -76,16 +76,18 @@ def constraint_from_jax(c):
 
 
 def params_from_jax(params, cfg, device="cuda") -> dict:
-    """The port's serving parameters of the dense transformer from a JAX
-    ``repro.models.transformer.init_params`` tree (leaves read through
-    ``np.asarray``): the stacks cast by ``layers.cast_stacks``, ``emb`` and
-    ``head`` by ``layers.cast``, the norm scales fp32 — what the JAX package
+    """The port's serving parameters of a ported family (the dense
+    transformer, RWKV-6) from the JAX ``init_params`` tree of its model
+    (leaves read through ``np.asarray``): the stacks cast by
+    ``layers.cast_stacks``, ``emb`` and ``head`` by ``layers.cast``, the
+    other leaves (norm scales, RWKV's ``w0``) fp32 — what the JAX package
     casts at every call, cast once.  One leaf at a time, cast on the host
     before it moves."""
     import torch
 
-    from repro_torch.models import layers, transformer
-    transformer.check_dense(cfg)
+    from repro_torch.models import get_model, layers, transformer
+    if get_model(cfg) is transformer:
+        transformer.check_dense(cfg)
     dev = resolve_device(device)
 
     def leaf(x):

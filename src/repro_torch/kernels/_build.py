@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("exemplar_gains", "greedy_select", "threshold_select",
-           "rbf_kernel", "flash_attention")
+           "rbf_kernel", "flash_attention", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,19 +45,23 @@ ARGTYPES = {
     "flash_attention_decode_launch": [_P] * 4 + [_LL] * 12 + [_I] * 7
     + [_F, _I, _P, _P, _P],
     "flash_attention_smem": [_I, _I],
+    "wkv6_launch": [_P] * 8 + [_LL] * 15 + [_I] * 8 + [_P],
+    "wkv6_smem": [_I, _I],
 }
 
 #: kernel launches per kernel, counted by the wrappers where they launch
 #: (re-exported as ``ops.launch_counts``).  The weighted launches (eval
 #: weights, ``WeightedExemplarClustering``) are counted apart, and so are
 #: greedy_select's unweighted launches with a constraint encoding;
-#: flash_attention's prefill (S > 1) and decode (S = 1) launches apart
+#: flash_attention's prefill (S > 1) and decode (S = 1) launches apart, and
+#: wkv6's prefill (T > 1) and decode (T = 1) launches
 launch_counts: dict[str, int] = {
     name: 0 for name in (
         "exemplar_gains", "exemplar_gains_weighted", "greedy_select",
         "greedy_select_constrained", "greedy_select_weighted",
         "threshold_select", "threshold_select_weighted", "rbf_kernel",
-        "flash_attention_prefill", "flash_attention_decode")}
+        "flash_attention_prefill", "flash_attention_decode",
+        "wkv6_prefill", "wkv6_decode")}
 #: ptxas register/shared-memory report of each library built in this process
 build_log: dict[str, str] = {}
 

@@ -38,6 +38,11 @@ jnp reference, and on the card the port has no plain path.  It takes any
 ``S`` and ``T``; the kernel masks the ragged edges (the ``S % bq`` rule
 belongs to the Pallas launch only).
 
+``wkv6`` takes an initial state and returns the final one (prefill fills
+the cache's state, decode updates it in place through ``state_out``), and
+any T: the kernel masks the ragged chunk (the ``T % bt`` rule belongs to
+the Pallas launch only).
+
 Every argument of the JAX signatures that the port lacks raises
 :class:`NotImplementedError` naming its ROADMAP item.
 """
@@ -52,11 +57,12 @@ from repro_torch.kernels import greedy_select as _gs
 from repro_torch.kernels import rbf_kernel as _rbf
 from repro_torch.kernels import ref
 from repro_torch.kernels import threshold_select as _ts
+from repro_torch.kernels import wkv6 as _wkv
 from repro_torch.kernels._build import launch_counts  # noqa: F401
 
 __all__ = ["exemplar_gains", "flash_attention", "greedy_select",
            "launch_counts", "pairwise_sqdist", "rbf_kernel",
-           "reset_launch_counts", "threshold_select"]
+           "reset_launch_counts", "threshold_select", "wkv6"]
 
 
 def reset_launch_counts() -> None:
@@ -127,6 +133,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = 1.0 / (q.shape[-1] ** 0.5)
     return _fa.launch(q, k, v, causal=causal, scale=scale,
                       kv_valid_len=kv_valid_len)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: torch.Tensor | None = None, *,
+         state_out: torch.Tensor | None = None,
+         out_dtype: torch.dtype | None = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV recurrence: r, k, w ``(B, H, T, Dk)`` (w the decay in
+    (0, 1), fp32), v ``(B, H, T, Dv)``, u ``(H, Dk)``, from ``state``
+    ``(B, H, Dk, Dv)`` fp32 (zeros when None).  Returns ``y`` ``(B, H, T,
+    Dv)`` in ``out_dtype`` (``r.dtype`` by default) and the final state,
+    written into ``state_out`` when given (it may be ``state``: an update
+    in place).  See :func:`repro_torch.kernels.ref.wkv6`."""
+    if not _on_card(r):
+        y, final = ref.wkv6(r, k, v, w, u, state, out_dtype=out_dtype)
+        if state_out is None:
+            return y, final
+        return y, state_out.copy_(final)
+    return _wkv.launch(r, k, v, w, u, state, state_out=state_out,
+                       out_dtype=out_dtype)
 
 
 def exemplar_gains(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the kernels (counterpart of
-``repro.kernels.ref``): the selection kernels, ``rbf_kernel`` and
-``flash_attention``.
+``repro.kernels.ref``): the selection kernels, ``rbf_kernel``,
+``flash_attention`` and ``wkv6``.
 
 They are the semantic ground truth of the port: the CPU tests hold them
 against the JAX package's ``ref`` functions, and ``chip_smoke.py`` holds the
@@ -606,3 +606,75 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         o = on_chunk(qg, 0)
     return o.reshape(B, H, S, D).to(q.dtype)
+
+
+#: lanes of the ``wkv6`` kernel that share one state column (row ``k`` on
+#: lane ``k % 8``), and the lanes of the warp that sums the bonus term
+WKV_LANES = 8
+WKV_WARP = 32
+
+
+def _slab_sum(x: torch.Tensor, width: int, dim: int) -> torch.Tensor:
+    """``x`` zero-padded along ``dim`` to a multiple of ``width``, its
+    slabs of ``width`` added in order: lane ``i`` of the result holds
+    ``x[i] + x[i + width] + …``, summed as one lane of the kernel sums its
+    rows."""
+    n = x.shape[dim]
+    pad = (-n) % width
+    if pad:
+        shape = list(x.shape)
+        shape[dim] = pad
+        x = torch.cat([x, x.new_zeros(shape)], dim=dim)
+    out = x.narrow(dim, 0, width)
+    for i in range(1, x.shape[dim] // width):
+        out = out + x.narrow(dim, i * width, width)
+    return out
+
+
+def _lane_tree(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` (a power of two) by adjacent pairs, level by level:
+    the order of a warp's xor-shuffle reduction (lane 0's value)."""
+    while x.shape[dim] > 1:
+        n = x.shape[dim]
+        idx = torch.arange(0, n, 2, device=x.device)
+        x = x.index_select(dim, idx) + x.index_select(dim, idx + 1)
+    return x.squeeze(dim)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: torch.Tensor | None = None, *,
+         out_dtype: torch.dtype | None = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV recurrence (plain version of ``repro.kernels.ref.wkv6``):
+
+        y_t = r_t·(S + diag(u)·k_tᵀv_t),   S ← diag(w_t)·S + k_tᵀv_t
+
+    ``r``, ``k``, ``w`` ``(B, H, T, Dk)``, ``v`` ``(B, H, T, Dv)``, ``u``
+    ``(H, Dk)``; ``state`` the ``(B, H, Dk, Dv)`` state before step 0
+    (zeros when None).  Returns ``y`` ``(B, H, T, Dv)`` in ``out_dtype``
+    (``r.dtype`` by default) and the final state, both computed in fp32.
+
+    The arithmetic is the CUDA kernel's, operation for operation, so the
+    two agree to the bit: ``y_t = Σ_k r_k·S_kj + v_j·a_t`` with the bonus
+    ``a_t = Σ_k (r_k·u_k)·k_k``; the sum over k of ``r_k·S_kj`` runs as
+    8 lanes each adding its rows ``k ≡ lane (mod 8)`` in order, then a
+    pairwise tree over the lanes, and ``a_t`` as 32 lanes then a tree;
+    every product is rounded before its add (no fused multiply-add), and
+    ``S ← w·S + k·v`` the same way.  With ``state=None`` this is what
+    ``repro.kernels.ref.wkv6`` computes, in another summation order.
+    """
+    B, H, T, Dk = r.shape
+    Dv = v.shape[-1]
+    r32, k32, v32, w32 = (x.float() for x in (r, k, v, w))
+    ruk = r32 * u.float()[None, :, None, :] * k32
+    bonus = _lane_tree(_slab_sum(ruk, WKV_WARP, -1), -1)      # (B, H, T)
+    S = (torch.zeros((B, H, Dk, Dv), dtype=torch.float32, device=r.device)
+         if state is None else state.float().clone())
+    y = torch.empty((B, H, T, Dv), dtype=torch.float32, device=r.device)
+    for t in range(T):
+        rs = r32[:, :, t, :, None] * S                          # (B, H, Dk, Dv)
+        part = _lane_tree(_slab_sum(rs, WKV_LANES, -2), -2)     # (B, H, Dv)
+        vt = v32[:, :, t]
+        y[:, :, t] = part + vt * bonus[:, :, t, None]
+        S = w32[:, :, t, :, None] * S + k32[:, :, t, :, None] * vt[:, :, None]
+    return y.to(out_dtype or r.dtype), S

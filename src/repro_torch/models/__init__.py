@@ -1,5 +1,5 @@
 """repro_torch.models — the LM substrate's models (the dense transformer
-family so far)."""
+family and RWKV-6 so far)."""
 from repro_torch.models.registry import get_model
 
 __all__ = ["get_model"]

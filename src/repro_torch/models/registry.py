@@ -8,19 +8,19 @@ Uniform API of a ported family:
   prefill(params, cfg, tokens, cache, embeds=None)  -> (logits, cache)
   decode_step(params, cfg, cache, tokens)           -> (logits, cache)
 
-The port runs the dense family; the other families raise
-:class:`NotImplementedError` naming the item that brings them.
+The port runs the dense family and RWKV-6 (``"ssm"``); the other
+families raise :class:`NotImplementedError` naming the item that brings
+them.
 """
 from __future__ import annotations
 
 import types
 
-from repro_torch.models import transformer
+from repro_torch.models import rwkv, transformer
 
 _UNPORTED = {
     "moe": "MoE layers (layers.moe)",
     "vlm": "the VLM frontend",
-    "ssm": "RWKV-6 (models/rwkv.py, layers.gla_*, ops.wkv6)",
     "hybrid": "the hybrid family (models/hybrid.py)",
     "encdec": "the encoder-decoder family (models/encdec.py)",
 }
@@ -29,6 +29,8 @@ _UNPORTED = {
 def get_model(cfg) -> types.ModuleType:
     if cfg.family == "dense":
         return transformer
+    if cfg.family == "ssm":
+        return rwkv
     if cfg.family in _UNPORTED:
         raise NotImplementedError(f"{_UNPORTED[cfg.family]} is not ported "
                                   f"yet: ROADMAP queue 1 item 14")

@@ -181,12 +181,16 @@ def test_launch_counts_untouched_by_plain_path():
     q = torch.ones((1, 2, 3, 16))
     ops.flash_attention(q, q[:, :1], q[:, :1])
     ops.flash_attention(q[:, :, :1], q[:, :1], q[:, :1], kv_valid_len=2)
+    ops.wkv6(q, q, q, q, q[0, :, 0])
+    ops.wkv6(q[:, :, :1], q[:, :, :1], q[:, :, :1], q[:, :, :1], q[0, :, 0],
+             torch.zeros((1, 2, 16, 16)))
     assert ops.launch_counts == {
         "exemplar_gains": 0, "exemplar_gains_weighted": 0,
         "greedy_select": 0, "greedy_select_constrained": 0,
         "greedy_select_weighted": 0, "threshold_select": 0,
         "threshold_select_weighted": 0, "rbf_kernel": 0,
-        "flash_attention_prefill": 0, "flash_attention_decode": 0}
+        "flash_attention_prefill": 0, "flash_attention_decode": 0,
+        "wkv6_prefill": 0, "wkv6_decode": 0}
 
 
 @pytest.mark.parametrize("M,n,m,d", [(1, 300, 70, 6), (7, 333, 130, 17),

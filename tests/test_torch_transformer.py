@@ -6,8 +6,8 @@ from the JAX ``init_params(cfg, PRNGKey(0))`` through
 ``greedy_generate`` tokens (under the near-tie rule), in the model's bf16
 and, with ``COMPUTE_DTYPE`` set to fp32 in both packages (fp32 caches),
 in fp32; the port's own decode-vs-forward consistency (as
-``tests/test_models.py``); the configuration copies, the synthetic data,
-the serving parameters, and what is not ported yet.
+``tests/test_models.py``); the configuration copies (RWKV-6's too), the
+synthetic data, the serving parameters, and what is not ported yet.
 
 Tolerance: ``repro_torch.testing.LM_ATOL`` — bf16 logits and caches
 within 0.125 (the frameworks' bf16 matmuls round at different places;
@@ -30,7 +30,8 @@ from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro.serve import serve_step as JS
 from repro_torch import testing
-from repro_torch.configs import ARCH_IDS, DENSE_ARCH_IDS, get_config
+from repro_torch.configs import (ARCH_IDS, DENSE_ARCH_IDS, PORTED_ARCH_IDS,
+                                  get_config)
 from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.data import pipeline as tpipe
@@ -173,7 +174,7 @@ def test_decode_matches_forward(arch):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_config_copies_match_jax(arch):
-    if arch not in DENSE_ARCH_IDS:
+    if arch not in PORTED_ARCH_IDS:
         with pytest.raises(NotImplementedError, match="queue 1 item 14"):
             get_config(arch)
         return
@@ -198,7 +199,7 @@ def test_unported_families_and_modes_raise():
         get_model(moe)
     with pytest.raises(NotImplementedError, match="MoE"):
         TT.init_params(dataclasses.replace(cfg, n_experts=4), device="cpu")
-    for fam in ("vlm", "ssm", "hybrid", "encdec"):
+    for fam in ("vlm", "hybrid", "encdec"):
         with pytest.raises(NotImplementedError, match="queue 1 item 14"):
             get_model(dataclasses.replace(cfg, family=fam))
     p = TT.init_params(cfg, device="cpu")
