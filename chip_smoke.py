@@ -36,13 +36,17 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
 7. attention kernels (run after phase 2, as are 8 to 12) —
    ``flash_attention`` against its plain version in fp32 and bf16: D ∈
    {16, 64, 128, 256}, GQA groups 1/4/8, causal and not, the (T − S)
-   offset, ragged S and T, decode with kv_valid_len (split over the keys
-   and not), and the 32k prefill;
+   offset, ragged S and T, the tensor-core prefill's tile edges on the
+   model's strided views, decode with kv_valid_len (split over the keys
+   and not), and the 32k prefill; each case's route held against the
+   launch counters, ptxas's registers and spills of the new kernels, and
+   the HGMMA instructions of the built library;
 8. LM parity — Qwen3-8B at full width and 2 layers, prefill and decode on
    the card against the CPU's plain path on the same weights;
 9. LM serving — Qwen3-8B at full width and depth through
    ``greedy_generate`` (8 prompts of 2,048 tokens, 32 new), every
-   attention launch counted, the last decode step against ``forward``,
+   attention launch counted (every prefill launch on the tensor-core
+   route), the last decode step against ``forward``,
    prefill and decode times, memory peak and attention's share;
 10. wkv6 kernel (run after phase 7) — ``wkv6`` against its plain version
    in fp32 and bf16: Dk = Dv ∈ {16, 64}, Dk ≠ Dv, ragged T, B × H = 1 and
@@ -1392,11 +1396,18 @@ LM_PARITY = dict(layers=2, batch=1, prompt=256, new=8)
 ATTN_32K = dict(B=1, H=32, Hkv=8, S=32_768, D=128)   # prefill_32k, batch 1
 
 
-def _qkv(B, H, Hkv, S, T, D, dtype, seed):
-    """q, k, v ~ N(0, 1) on the card (logits of unit spread)."""
+def _qkv(B, H, Hkv, S, T, D, dtype, seed, strided=False):
+    """q, k, v ~ N(0, 1) on the card (logits of unit spread); strided, as
+    the model passes its projections: (B, S, H, D) memory seen as
+    (B, H, S, D)."""
     import torch
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
+    if strided:
+        return tuple(torch.randn((b, n, h, d), generator=g, device="cuda")
+                     .to(dtype).transpose(1, 2)
+                     for b, h, n, d in ((B, H, S, D), (B, Hkv, T, D),
+                                        (B, Hkv, T, D)))
     return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
                  for shape in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
 
@@ -1422,33 +1433,87 @@ def attention_bound(B, H, Hkv, S, T, D, causal, kv, itemsize):
                                        else "bytes")
 
 
+def _ptxas_report(log: str, marker: str) -> list[str]:
+    """ptxas's registers, shared memory and spills of each kernel in
+    ``log`` whose mangled name holds ``marker``."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and marker in name and ("spill" in line
+                                          or "registers" in line):
+            out.append(f"{name[name.find(marker):][:56]}: "
+                       f"{line.replace('ptxas info    :', '').strip()}")
+    return out
+
+
+def hgmma_count() -> int | None:
+    """HGMMA instructions in the built flash_attention library's SASS (the
+    tensor-core prefill's products), or None where cuobjdump is missing."""
+    import os
+    import shutil
+    from repro_torch.kernels import _build
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    _build.load("flash_attention")
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path(
+        "flash_attention"))], capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump: {sass.stderr.strip()[:500]}")
+    return sum(line.count("HGMMA") for line in sass.stdout.splitlines())
+
+
 def phase_kernels_attention() -> None:
     """flash_attention against its plain version on the card, fp32 and
     bf16: D ∈ {16, 64, 128, 256} × group ∈ {1, 4, 8}, causal and not, S = T
-    and S < T (the offset) at ragged S and T; decode (S = 1) with
+    and S < T (the offset) at ragged S and T; the tensor-core prefill's
+    tile edges (S, T ∈ {127, 128, 129}, D ∈ {64, 128, 256}, groups 1/4/8)
+    on the model's strided (B, S, H, D) views; decode (S = 1) with
     kv_valid_len ∈ {1, T/2 + 3, T}, split over the keys (B × Hkv = 1) and
-    not (B × Hkv = 320); prefill with kv_valid_len; the 32k prefill; a
-    head dim it has no instantiation of raises."""
+    not (B × Hkv = 320), and at the serving shape across the 16-key tile's
+    edges; prefill with kv_valid_len; the 32k prefill; a head dim it has no
+    instantiation of raises.  Each case's route (``prefill_route``, or
+    decode) is logged and held against the launch counters; the worst |Δ|
+    per route, the new kernels' registers, shared memory and spills, and
+    the HGMMA instructions of the built library (none fails the phase,
+    where cuobjdump exists)."""
     import torch
     from repro_torch import testing
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    n = 0
+    worst: dict[str, float] = {}
+    cases: dict[str, int] = {}
 
-    def check(B, H, Hkv, S, T, D, dtype, causal, kv, seed):
-        nonlocal n
-        q, k, v = _qkv(B, H, Hkv, S, T, D, dtype, seed)
+    def check(B, H, Hkv, S, T, D, dtype, causal, kv, seed, strided=False):
+        q, k, v = _qkv(B, H, Hkv, S, T, D, dtype, seed, strided)
+        route = "decode" if S == 1 else fa.prefill_route(dtype, D)
+        ops.reset_launch_counts()
         o = ops.flash_attention(q, k, v, causal=causal, kv_valid_len=kv)
         torch.cuda.synchronize()
+        counts = dict(ops.launch_counts)
         o_p = ref.flash_attention(q, k, v, causal=causal, kv_valid_len=kv)
         what = (f"flash_attention {dtype} B={B} H={H} Hkv={Hkv} S={S} T={T} "
-                f"D={D} causal={causal} kv_valid_len={kv}")
+                f"D={D} causal={causal} kv_valid_len={kv} strided={strided}")
+        want = {"decode": (0, 0, 1), "wgmma": (1, 1, 0),
+                "cuda_cores": (1, 0, 0)}[route]
+        got = (counts["flash_attention_prefill"],
+               counts["flash_attention_prefill_wgmma"],
+               counts["flash_attention_decode"])
+        if got != want:
+            fail(f"{what}: route {route} but launches (prefill, wgmma, "
+                 f"decode) {got}")
         if o.shape != q.shape or o.dtype != q.dtype:
             fail(f"{what}: output {o.dtype} {tuple(o.shape)}")
         testing.assert_attention_close(o, o_p, dtype == torch.bfloat16, what)
-        worst[dtype] = max(worst[dtype], testing.max_abs_err(o, o_p))
-        n += 1
+        err = testing.max_abs_err(o, o_p)
+        key = f"{route} {str(dtype).split('.')[-1]}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        cases[key] = cases.get(key, 0) + 1
+        log(f"  {route:10s} {what[16:]}: max |do| {err:.3g}")
 
     seed = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -1466,13 +1531,26 @@ def phase_kernels_attention() -> None:
             seed += 1
             check(40, 8, 8, 1, 300, D, dtype, True, 250, seed)   # one split
             check(2, 8, 2, 70, 200, D, dtype, True, 150, seed)   # prefill
-    log(f"  decode splits: B x Hkv = 1 at T = 1000 -> "
-        f"{fa.decode_splits(1, 1, 8, 1000, 132)}, B x Hkv = 320 -> "
-        f"{fa.decode_splits(40, 8, 1, 250, 132)} (nsplit, chunk)")
+    # the tensor-core prefill's tile edges (128 queries, 128 or 64 keys)
+    for D in fa.WGMMA_HEAD_DIMS:
+        for group in (1, 4, 8):
+            for S, T in ((127, 127), (128, 128), (129, 129), (127, 129),
+                         (129, 257)):
+                seed += 1
+                check(2, 2 * group, 2, S, T, D, torch.bfloat16, True, None,
+                      seed, strided=True)
+    # decode at the serving shape across the 16-key tile's edges
+    for kv in (15, 16, 17, 2079, 2080):
+        seed += 1
+        check(8, 32, 8, 1, 2080, 128, torch.bfloat16, False, kv, seed)
+    log(f"  decode splits (nsplit, chunk) at 132 SMs, 2 CTAs an SM: "
+        f"B x Hkv = 1 at T = 1000 -> {fa.decode_splits(1, 1, 8, 1000, 132)}"
+        f", B x Hkv = 320 -> {fa.decode_splits(40, 8, 1, 250, 132)}, the "
+        f"serving shape -> {fa.decode_splits(8, 8, 4, 2080, 132)}")
     c = ATTN_32K
     t0 = time.perf_counter()
     check(c["B"], c["H"], c["Hkv"], c["S"], c["S"], c["D"], torch.bfloat16,
-          True, None, 99)
+          True, None, 99, strided=True)
     log(f"  32k prefill ({c}, causal, bf16) against plain: "
         f"{time.perf_counter() - t0:.1f} s")
     q, k, v = _qkv(1, 2, 1, 3, 9, 32, torch.bfloat16, 0)
@@ -1482,14 +1560,27 @@ def phase_kernels_attention() -> None:
         pass
     else:
         fail("flash_attention took a head dim it has no instantiation of")
-    smem = {D: (fa.smem_bytes(D, False), fa.smem_bytes(D, True))
+    smem = {D: {kind: fa.smem_bytes(D, kind) for kind in fa.SMEM_KINDS}
             for D in fa.HEAD_DIMS}
-    log(f"  shared memory per CTA (prefill, decode) by D, from the built "
-        f"kernel: {smem}")
-    log(f"flash_attention vs plain: {n} shapes agree (fp32 within rtol="
-        f"{testing.RTOL} atol={testing.ATOL}, max |do| "
-        f"{worst[torch.float32]:.3g}; bf16 within rtol={testing.BF16_RTOL:.5g}"
-        f" atol={testing.ATOL}, max |do| {worst[torch.bfloat16]:.3g})")
+    log(f"  shared memory per CTA by D (bf16; decode at G = 4), from the "
+        f"built kernel: {smem}")
+    build_log = _build.build_log.get("flash_attention", "")
+    for marker in ("flash_prefill_wgmma_kernel", "flash_decode_kernel"):
+        for line in _ptxas_report(build_log, marker):
+            log(f"  ptxas {line}")
+    n_hgmma = hgmma_count()
+    if n_hgmma is None:
+        log("  cuobjdump not found: HGMMA not counted")
+    elif n_hgmma == 0:
+        fail("flash_attention: no HGMMA instruction in the built library's "
+             "SASS (the tensor-core prefill runs no wgmma)")
+    else:
+        log(f"  HGMMA instructions in the built library's SASS: {n_hgmma}")
+    log(f"flash_attention vs plain: {sum(cases.values())} shapes agree "
+        f"(fp32 within rtol={testing.RTOL} atol={testing.ATOL}; bf16 within "
+        f"rtol={testing.BF16_RTOL:.5g} atol={testing.ATOL}); cases and max "
+        f"|do| by route: " + ", ".join(
+            f"{key} {cases[key]} {worst[key]:.3g}" for key in sorted(cases)))
 
 
 def _lm_prompt(cfg, batch: int, seq: int, device: str):
@@ -1611,6 +1702,11 @@ def phase_lm_serve(arch: str = LM_ARCH) -> dict:
         if counts[name] != n:
             fail(f"LM serve ({arch}): {name} launched {counts[name]} times, "
                  f"not {n}")
+    if (kern == "flash_attention" and counts["flash_attention_prefill_wgmma"]
+            != counts["flash_attention_prefill"]):
+        fail(f"LM serve ({arch}): {counts['flash_attention_prefill_wgmma']} "
+             f"of {counts['flash_attention_prefill']} prefill launches took "
+             "the tensor-core route")
     if (out.shape != (B, n_new) or int(out.min()) < 0
             or int(out.max()) >= cfg.padded_vocab):
         fail(f"LM serve ({arch}): tokens {tuple(out.shape)} out of range")

@@ -42,8 +42,11 @@ ARGTYPES = {
     "rbf_kernel_launch": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _F, _P],
     "flash_attention_prefill_launch": [_P] * 4 + [_LL] * 12 + [_I] * 8
     + [_F, _I, _P],
+    "flash_attention_prefill_wgmma_launch": [_P] * 4 + [_LL] * 12
+    + [_I] * 8 + [_F, _P],
     "flash_attention_decode_launch": [_P] * 4 + [_LL] * 12 + [_I] * 7
-    + [_F, _I, _P, _P, _P],
+    + [_F, _I, _P, _P, _P, _P],
+    "flash_attention_decode_shape": [_I, _I, _I, _I],
     "flash_attention_smem": [_I, _I],
     "wkv6_launch": [_P] * 8 + [_LL] * 15 + [_I] * 8 + [_P],
     "wkv6_smem": [_I, _I],
@@ -53,14 +56,17 @@ ARGTYPES = {
 #: (re-exported as ``ops.launch_counts``).  The weighted launches (eval
 #: weights, ``WeightedExemplarClustering``) are counted apart, and so are
 #: greedy_select's unweighted launches with a constraint encoding;
-#: flash_attention's prefill (S > 1) and decode (S = 1) launches apart, and
-#: wkv6's prefill (T > 1) and decode (T = 1) launches
+#: flash_attention's prefill (S > 1) and decode (S = 1) launches apart (the
+#: prefill launches that take the tensor-core route are counted once more
+#: under flash_attention_prefill_wgmma), and wkv6's prefill (T > 1) and
+#: decode (T = 1) launches
 launch_counts: dict[str, int] = {
     name: 0 for name in (
         "exemplar_gains", "exemplar_gains_weighted", "greedy_select",
         "greedy_select_constrained", "greedy_select_weighted",
         "threshold_select", "threshold_select_weighted", "rbf_kernel",
-        "flash_attention_prefill", "flash_attention_decode",
+        "flash_attention_prefill", "flash_attention_prefill_wgmma",
+        "flash_attention_decode",
         "wkv6_prefill", "wkv6_decode")}
 #: ptxas register/shared-memory report of each library built in this process
 build_log: dict[str, str] = {}

@@ -7,19 +7,22 @@ flash_attention_pallas`` (``src/repro/kernels/flash_attention.py:69``,
 An online softmax over KV tiles, GQA by head groups (query head ``h`` reads
 KV head ``h // (H / Hkv)``), the causal mask ``kpos ≤ qpos + (T − S)`` and
 the ``kv_valid_len`` mask; logits, softmax state and accumulator in fp32;
-the output in ``q.dtype``.  ``S > 1`` launches the prefill kernel (one CTA
-per (b, h, 64-query tile), KV tiles above the diagonal or past
-``kv_valid_len`` skipped); ``S == 1`` the decode kernel (the valid keys cut
-into splits, one CTA per (split, KV head, up to 8 of its query heads, b),
-then a combining pass).  Operands are read through their strides (the last
-axis contiguous, rows on 16-byte boundaries; a view that is not is copied
-first), fp32 or bf16; the output is allocated ``(B, S, H, D)`` in
-memory and returned as its ``(B, H, S, D)`` view, so the model's
-``transpose(1, 2).reshape(B, S, H·D)`` copies nothing.
+the output in ``q.dtype``.  ``S > 1`` launches a prefill kernel, chosen by
+:func:`prefill_route`: bf16 at D ∈ {64, 128, 256} (the model path) runs
+on the tensor cores (``wgmma`` over K/V tiles brought by TMA into a ring
+of shared-memory stages, a producer warp, P split into two bf16 parts for
+P·V); fp32 operands and D = 16 run on the CUDA cores.  ``S == 1``
+launches the decode kernel once: the valid keys cut into splits (see
+:func:`decode_splits`), each warp of a CTA walking its own 16-key tiles,
+the last CTA of each (b, KV head, head group) folding the splits.
+Operands are read through their strides (the last axis contiguous, rows
+on 16-byte boundaries; a view that is not is copied first), fp32 or bf16;
+the output is allocated ``(B, S, H, D)`` in memory and returned as its
+``(B, H, S, D)`` view, so the model's ``transpose(1, 2).reshape(B, S,
+H·D)`` copies nothing.
 
 What bounds it on the H100: operations at prefill, bytes at decode (see
-the note at the head of the source); the products run in fp32 on the CUDA
-cores in this version.
+the note at the head of the source).
 
 The plain version is :func:`repro_torch.kernels.ref.flash_attention`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
@@ -33,21 +36,49 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention as plain  # noqa: F401
 
 HEAD_DIMS = (16, 64, 128, 256)   # the instantiations of csrc/flash_attention.cu
-DECODE_TILE = 64                 # keys per decode tile (csrc BT)
-DECODE_HEADS = 8                 # query heads per decode CTA (csrc GC)
+WGMMA_HEAD_DIMS = (64, 128, 256)  # those of the tensor-core prefill (bf16)
+DECODE_TILE = 16                  # keys of a decode warp's tile (csrc DEC_KS)
+DECODE_HEADS = 8                  # query heads per decode CTA (csrc DEC_GC)
+#: tiles a decode warp walks, at most: at the Qwen3-8B serving shape on an
+#: H100 one wave of 9-tile chains (0.039 ms) beat two waves of 5-tile
+#: chains (0.047 ms) and 19 splits of 2-tile chains (0.064 ms; measured by
+#: ``ab_attention.py --decode-chain``)
+DECODE_CHAIN = 16
 _GRID_YZ = 65535
 _INT_MAX = 2 ** 31 - 1
 _sm_count: dict[int, int] = {}
+_decode_shape: dict[tuple, tuple[int, int]] = {}
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def decode_splits(B: int, Hkv: int, G: int, kv_valid: int, sms: int
-                  ) -> tuple[int, int]:
+def prefill_route(dtype: torch.dtype, D: int) -> str:
+    """The prefill kernel for operands of ``dtype`` at head dim ``D``:
+    ``"wgmma"`` (tensor cores, bf16 at D ∈ {64, 128, 256}) or
+    ``"cuda_cores"`` (fp32 operands, and D = 16)."""
+    return ("wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS
+            else "cuda_cores")
+
+
+def decode_splits(B: int, Hkv: int, G: int, kv_valid: int, sms: int,
+                  per_sm: int = 2, warps: int = 4) -> tuple[int, int]:
     """``(nsplit, chunk)`` of the decode launch: the ``kv_valid`` keys cut
-    into splits of ``chunk`` keys (a multiple of the tile, none empty), as
-    many as bring the grid to about two CTAs per SM."""
+    into splits of ``chunk`` keys (a multiple of the tile, none empty).
+    A split is one CTA of ``warps`` warps per (b, KV head, head group), and
+    ``sms × per_sm`` CTAs are resident at once (a wave).  The split count
+    fills whole waves: the fewest waves ``w`` whose ``⌊w·slots / ctas⌋``
+    splits give each warp at most :data:`DECODE_CHAIN` tiles, or as many
+    splits as give every warp one tile."""
     ctas = B * Hkv * -(-G // DECODE_HEADS)
+    slots = sms * per_sm
     tiles = -(-kv_valid // DECODE_TILE)
-    nsplit = min(max(1, -(-2 * sms // ctas)), tiles)
+    cap = max(1, -(-tiles // warps))         # every warp at least one tile
+    waves = 1
+    while True:
+        nsplit = min(max(1, waves * slots // ctas), cap)
+        chain = -(-(-(-tiles // nsplit)) // warps)
+        if chain <= DECODE_CHAIN or nsplit == cap:
+            break
+        waves += 1
     chunk = -(-tiles // nsplit) * DECODE_TILE
     return -(-kv_valid // chunk), chunk
 
@@ -113,19 +144,45 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             *sq, *sk, *sv, *so)
     if S == 1:
         dev = q.device.index
+        G = H // Hkv
         if dev not in _sm_count:
             _sm_count[dev] = torch.cuda.get_device_properties(
                 q.device).multi_processor_count
-        nsplit, chunk = decode_splits(B, Hkv, H // Hkv, kv, _sm_count[dev])
-        part_acc = torch.empty((nsplit, B, H, D), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((nsplit, B, H, 2), dtype=torch.float32,
-                              device=q.device)
+        key = (dev, D, bf16, min(G, DECODE_HEADS))
+        if key not in _decode_shape:
+            per_sm = lib.flash_attention_decode_shape(D, bf16, G, 0)
+            if per_sm < 1:
+                raise RuntimeError(f"flash_attention (decode): no CTA of "
+                                   f"D={D} fits an SM (CUDA {-per_sm})")
+            _decode_shape[key] = (
+                per_sm, lib.flash_attention_decode_shape(D, bf16, G, 1))
+        per_sm, warps = _decode_shape[key]
+        nsplit, chunk = decode_splits(B, Hkv, G, kv, _sm_count[dev],
+                                      per_sm, warps)
+        scratch = [None, None, None]
+        if nsplit > 1:
+            scratch = [torch.empty((nsplit, B, H, D), dtype=torch.float32,
+                                   device=q.device),
+                       torch.empty((nsplit, B, H, 2), dtype=torch.float32,
+                                   device=q.device),
+                       _ticket_buffer(q.device, stream,
+                                      B * Hkv * -(-G // DECODE_HEADS))]
         _build.check(lib.flash_attention_decode_launch(
             *ptrs, B, H, Hkv, D, kv, chunk, nsplit, scale32, bf16,
-            part_acc.data_ptr(), part_ml.data_ptr(), stream),
+            *(None if t is None else t.data_ptr() for t in scratch), stream),
             "flash_attention (decode)")
         _build.launch_counts["flash_attention_decode"] += 1
+    elif prefill_route(q.dtype, D) == "wgmma":
+        # TMA takes a stride only where the dim is longer than one
+        dims = {"q": (B, H, S), "k": (B, Hkv, T), "v": (B, Hkv, T)}
+        for name, st in (("q", sq), ("k", sk), ("v", sv)):
+            st[:] = [s if n > 1 else D for s, n in zip(st, dims[name])]
+        _build.check(lib.flash_attention_prefill_wgmma_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *sq, *sk, *sv, *so, B, H, Hkv, S, T, D, kv, int(bool(causal)),
+            scale32, stream), "flash_attention (prefill, wgmma)")
+        _build.launch_counts["flash_attention_prefill"] += 1
+        _build.launch_counts["flash_attention_prefill_wgmma"] += 1
     else:
         _build.check(lib.flash_attention_prefill_launch(
             *ptrs, B, H, Hkv, S, T, D, kv, int(bool(causal)), scale32, bf16,
@@ -134,7 +191,24 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-def smem_bytes(D: int, decode: bool) -> int:
-    """Dynamic shared memory of one CTA, read from the built kernel."""
+def _ticket_buffer(device: torch.device, stream: int, n: int
+                   ) -> torch.Tensor:
+    """The decode launch's tickets for launches on ``stream``: ints that
+    start at zero and that each launch leaves at zero."""
+    key = (device.index, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
+
+
+SMEM_KINDS = {"prefill": 0, "prefill_wgmma": 1, "decode": 2}
+
+
+def smem_bytes(D: int, kind: str) -> int:
+    """Dynamic shared memory of one CTA of ``kind`` (``"prefill"`` on the
+    CUDA cores, ``"prefill_wgmma"``, ``"decode"`` at G = 4), bf16, read
+    from the built kernel; -1 where there is no such instantiation."""
     return int(_build.load("flash_attention").flash_attention_smem(
-        D, int(decode)))
+        D, SMEM_KINDS[kind]))

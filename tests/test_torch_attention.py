@@ -139,15 +139,103 @@ def test_non_cpu_tensor_never_falls_back_to_plain_attention():
         ops.flash_attention(q, q[:, :1], q[:, :1])
 
 
+@pytest.mark.parametrize("per_sm,warps", [(2, 4), (1, 1), (3, 2)])
 @pytest.mark.parametrize("B,Hkv,G,kv", [(8, 8, 4, 2080), (1, 1, 1, 1),
                                         (1, 8, 4, 32768), (64, 8, 4, 100),
-                                        (2, 1, 32, 777)])
-def test_decode_splits_cover_the_valid_keys(B, Hkv, G, kv):
-    nsplit, chunk = fa_mod.decode_splits(B, Hkv, G, kv, sms=132)
-    assert chunk % fa_mod.DECODE_TILE == 0 and nsplit >= 1
+                                        (2, 1, 32, 777), (8, 8, 4, 15),
+                                        (8, 8, 4, 17), (1, 1, 8, 1000),
+                                        (40, 8, 1, 250), (256, 8, 4, 4096),
+                                        (1, 1, 1, 131072)])
+def test_decode_splits_cover_the_valid_keys(B, Hkv, G, kv, per_sm, warps):
+    sms, tile = 132, fa_mod.DECODE_TILE
+    nsplit, chunk = fa_mod.decode_splits(B, Hkv, G, kv, sms, per_sm, warps)
+    assert chunk % tile == 0 and nsplit >= 1
     assert (nsplit - 1) * chunk < kv <= nsplit * chunk   # none empty
-    if B * Hkv * -(-G // fa_mod.DECODE_HEADS) < 132 and kv > chunk:
+    ctas = B * Hkv * -(-G // fa_mod.DECODE_HEADS)
+    slots = sms * per_sm
+    tiles = -(-kv // tile)
+    if ctas < 132 and kv > chunk:
         assert nsplit > 1
+
+    def chain(splits):   # tiles a warp walks
+        return -(-(-(-tiles // splits)) // warps)
+
+    # each warp walks a short chain, and the grid takes the fewest whole
+    # waves of resident CTAs that give one: the splits of a wave less
+    # would not
+    assert chain(nsplit) <= fa_mod.DECODE_CHAIN
+    waves = -(-nsplit * ctas // slots)
+    fewer = max(1, (waves - 1) * slots // ctas)
+    if waves > 1 and fewer < nsplit:
+        assert chain(fewer) > fa_mod.DECODE_CHAIN
+    if waves == 1:   # as many splits as a wave holds, at most one a warp
+        most = min(slots // ctas, -(-tiles // warps))
+        assert nsplit == -(-kv // (-(-tiles // most) * tile))
+
+
+def test_decode_splits_fill_one_wave_at_the_serving_shape():
+    """B = 8, Hkv = 8, G = 4, T = 2,080 on 132 SMs of two 4-warp CTAs: 64
+    CTAs a split, so 4 splits of 528 keys fill one wave of 264 slots, and
+    each warp walks 9 tiles of 16 keys."""
+    assert fa_mod.decode_splits(8, 8, 4, 2080, 132, 2, 4) == (4, 528)
+
+
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_prefill_route(dtype, D):
+    """bf16 at D ∈ {64, 128, 256} runs on the tensor cores; fp32 operands
+    and every other head dim keep the CUDA-core kernel."""
+    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128, 256)
+            else "cuda_cores")
+    assert fa_mod.prefill_route(dtype, D) == want
+
+
+def _split_p_attention(q, k, v, *, split: bool, bk: int = 128):
+    """The tensor-core prefill's arithmetic on the CPU, causal: fp32 logits
+    of bf16 q, k; an online softmax over tiles of ``bk`` keys in the log2
+    domain (the scale times log2 e on the fp32 logits); P rounded to bf16
+    for P·V, either once or split into hi = bf16(p) and lo = bf16(p − hi)
+    with two products into one fp32 accumulator; l the sum of the fp32 p.
+    Products of bf16 values are exact in fp32, as on the tensor cores."""
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    c = float(np.float32(1.0 / D ** 0.5 * np.log2(np.e)))
+    kf, vf = k.float(), v.float()
+    qpos = torch.arange(S)[:, None] + (T - S)
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros((B, H, S, 1))
+    o = torch.zeros((B, H, S, D))
+    for k0 in range(0, T, bk):
+        s = q.float() @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+        kpos = torch.arange(k0, min(T, k0 + bk))[None, :]
+        s = torch.where(kpos <= qpos, s, torch.tensor(-1e30))
+        mn = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        alpha = torch.exp2(m - mn)
+        p = torch.exp2(s * c - mn)
+        m = mn
+        l = alpha * l + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, :, k0:k0 + bk]
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + bk]
+        o = alpha * o + pv
+    return (o / l).bfloat16()
+
+
+def test_split_p_meets_the_bf16_check_and_one_bf16_p_does_not():
+    """Why the tensor-core prefill splits P: at D = 128, S = T = 256,
+    causal, P split in two bf16 parts agrees with the plain version within
+    the unchanged bf16 check; P rounded once to bf16 (what a single bf16
+    product does) fails it."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(16, 1, 2, 1, 256, 256, 128))
+    want = ref.flash_attention(q, k, v, causal=True)
+    testing.assert_attention_close(_split_p_attention(q, k, v, split=True),
+                                   want, True)
+    with pytest.raises(AssertionError):
+        testing.assert_attention_close(
+            _split_p_attention(q, k, v, split=False), want, True)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
@@ -165,3 +253,29 @@ def test_attention_kernel_matches_plain_on_card(cuda, dtype, B, H, Hkv, S,  # no
     testing.assert_attention_close(
         got, ref.flash_attention(q, k, v, causal=causal, kv_valid_len=kvl),
         dtype == "bf16")
+
+
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S,T", [(127, 127), (128, 128), (129, 129),
+                                 (127, 129), (128, 129), (129, 257)])
+def test_attention_kernel_tile_edges_on_card(cuda, S, T, D, group,  # noqa: F811
+                                             strided):
+    """The tensor-core prefill at its tiles' edges (128 queries, 128 or 32
+    keys), bf16, causal, on contiguous operands and on the model's
+    (B, S, H, D) projections seen as (B, H, S, D)."""
+    B, Hkv = 2, 2
+    arrs = _qkv(S + T + D + group, B, Hkv * group, Hkv, S, T, D)
+    if strided:
+        q, k, v = (torch.from_numpy(a.transpose(0, 2, 1, 3).copy())
+                   .to(cuda, torch.bfloat16).transpose(1, 2) for a in arrs)
+    else:
+        q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+                   for a in arrs)
+    before = ops.launch_counts["flash_attention_prefill_wgmma"]
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["flash_attention_prefill_wgmma"] == before + 1
+    testing.assert_attention_close(
+        got, ref.flash_attention(q, k, v, causal=True), True)
