@@ -16,7 +16,8 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    unconstrained and under knapsack ∩ partition at bn ∈ {16, 256}, ragged
    n and n < 256, mid-ladder state, a stop flag raised in an early block,
    M = 1 over more than 100 blocks, and the most partition groups a
-   launch takes (one more raises);
+   launch takes (one more raises); the HMMA instructions (the gain tile's
+   TF32 products) in the SASS of the three libraries built on the tile;
 3. scan path — ``run_algorithm("greedy", fused=False)`` on one 22,500-row
    block, launching ``exemplar_gains``; its selections and the fused
    path's against the plain greedy under the near-tie rule;
@@ -57,9 +58,12 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
 12. RWKV serving — rwkv6-1.6b at full width and depth (24 layers) as
    phase 9, every ``wkv6`` launch counted (24 prefill, 24 × 31 decode);
 13. times — each kernel at its path's shapes, held against its plain
-   version there, timed beside it and beside its bound (fp32 FMA rate or
-   bf16 tensor-core rate, memory rate), and ``flash_attention`` beside
-   PyTorch's ``scaled_dot_product_attention``.
+   version there, timed beside it and beside its bound (fp32 FMA rate,
+   TF32 or bf16 tensor-core rate, memory rate), and ``flash_attention``
+   beside PyTorch's ``scaled_dot_product_attention``; the gain tile
+   against the plain gains on every round-0 machine after 0, 25 and 49
+   plain greedy steps; one ``greedy_select`` call launching k kernels;
+   the share of blocks the threshold pre-pass flags at each timed level.
 
 Ends with one JSON line per kernel table and the ``ok`` line.  Imports
 nothing of the JAX package.
@@ -81,6 +85,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense bf16 on
 # the tensor cores, HBM3 rate
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 SEED = 0
@@ -145,6 +150,35 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def tile_bound(pairs: float, d: int, nbytes: float, epilogue: int
+               ) -> tuple[float, str, float]:
+    """The bound of a kernel on the gain tile, with the distances on the
+    tensor cores: the larger of the 2d-flop products per (row, eval
+    column) pair at the TF32 rate and the ``epilogue`` remaining operations
+    a pair (3; 4 with eval weights) at the fp32 rate, against the bytes.
+    Returns (bound ms, what bounds it, the fp32-only bound of the CUDA-core
+    tile: all 2d + epilogue operations at the fp32 rate)."""
+    t_ops = max(pairs * 2 * d / PEAK_TF32, pairs * epilogue / PEAK_FP32)
+    t_bytes = nbytes / PEAK_BYTES
+    fp32_only, _ = bound_ms(pairs * (2 * d + epilogue), nbytes)
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", fp32_only)
+
+
+def check_step_launches(name: str, fn, k: int) -> None:
+    """One greedy_select call launches its kernel once a step: k launches,
+    counted under ``name``."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    got = ops.launch_counts[name]
+    if got != k:
+        fail(f"{name}: {got} launches for one call of k = {k} steps")
+    log(f"{name}: one call of k = {k} launched {got} kernels (one a step)")
 
 
 def phase_setup():
@@ -242,6 +276,7 @@ def phase_kernels() -> None:
             f"{err:.3g}, near-tie steps {n_tie})")
     log(f"kernels vs plain: {len(cases)} shapes agree within rtol="
         f"{testing.RTOL} atol={testing.ATOL}; near-tie steps {ties}")
+    hmma_counts()
 
 
 def eval_weights(m: int, seed: int):
@@ -659,8 +694,9 @@ def phase_constrained(main: dict) -> dict:
             ("unconstrained", None, main["cent_value"]),
             ("knapsack ∩ partition", cons, cent_value)):
         name = f"THRESHOLD-BATCH TREE eps={EPS}, {label}"
-        res, counts = run_tree(name, obj, X, cfg_t, ("threshold_select",
-                                                     "exemplar_gains"),
+        res, counts = run_tree(name, obj, X, cfg_t,
+                               ("threshold_select", "threshold_select_prepass",
+                                "threshold_select_tail", "exemplar_gains"),
                                constraint=constraint,
                                attrs=None if constraint is None else attrs)
         if max(res.depth_per_round) > depth_cap:
@@ -699,6 +735,10 @@ def phase_constrained(main: dict) -> dict:
                                                0),
         "threshold_select": runs["knapsack ∩ partition"].get(
             "threshold_select", 0),
+        "threshold_select_prepass": runs["knapsack ∩ partition"].get(
+            "threshold_select_prepass", 0),
+        "threshold_select_tail": runs["knapsack ∩ partition"].get(
+            "threshold_select_tail", 0),
         "threshold_select_unconstrained":
             runs["unconstrained"].get("threshold_select", 0)}}
 
@@ -738,18 +778,21 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
                  runs=5)
     plain = cuda_ms(lambda: ref.greedy_select(blocks, E, seed, bmask, k,
                                               **kw), runs=1, warmup=0)
+    check_step_launches("greedy_select_constrained", lambda: ops.greedy_select(
+        blocks, E, seed, bmask, k, **kw), k)
     calls = int(torch.sum(obj.fused_select(blocks, bmask, k, **kw)[3]))
-    b, by = bound_ms(calls * m * (2 * d + 3),
-                     4 * M * mu * d + 4 * m * d + 4 * m + M * mu
-                     + 8 * M * mu + 4 * M * k + 4 * M * m)
+    b, by, b32 = tile_bound(calls * m, d,
+                            4 * M * mu * d + 4 * m * d + 4 * m + M * mu
+                            + 8 * M * mu + 4 * M * k + 4 * M * m, 3)
+    launches = constrained["launches"]["greedy_select_constrained"]
     rows.append({"name": "greedy_select (knapsack ∩ partition)",
                  "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/greedy_select.cu",
                  "replaces": "src/repro/kernels/greedy_select.py:265",
-                 "launches": constrained["launches"][
-                     "greedy_select_constrained"],
+                 "launches": launches, "calls": launches // k,
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                 "bound_ms": b, "bound_by": by, "library_ms": None})
+                 "bound_ms": b, "bound_by": by, "bound_fp32_ms": b32,
+                 "library_ms": None})
 
     # one τ-level under the intersection at round 0, at the first level's
     # τ = d_max, and the next level; the same two levels unconstrained (the
@@ -776,9 +819,25 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
         f"{dmax_err:.3g}")
     limit = ref.knapsack_limit(kw["budget"])
     errs = []
+    Xb = blocks.contiguous()
+    Ep, cmp_ = ops._pad_eval(E, seed.expand(M, m))
+    flags = torch.empty((M, -(-mu // 256)), dtype=torch.uint8, device="cuda")
     for label, lkw, lim, t0_ in (("knapsack ∩ partition", kw, limit, tau0),
                                  ("unconstrained", {}, None, tau0_u)):
         for level, tau in ((0, t0_), (1, t0_ * (1.0 - EPS))):
+            # the pre-pass's block flags at this level (the kernel alone)
+            lenc = ref.Encoding(M, mu, blocks.device, **lkw)
+            _ts.launch(Xb, Ep, cmp_.clone(), bmask.to(torch.uint8),
+                       tau.contiguous(), torch.zeros((M,), device="cuda"),
+                       torch.zeros((M,), dtype=torch.int32, device="cuda"),
+                       torch.zeros((M, lenc.G), dtype=torch.int32,
+                                   device="cuda"),
+                       torch.ones((M,), dtype=torch.uint8, device="cuda"),
+                       k, 256, m, flags_out=flags, **ops._card_encoding(lenc))
+            log(f"threshold_select {label} at round 0, level {level}: "
+                f"{float(flags.float().mean()):.4%} of {flags.numel()} blocks "
+                f"flagged by the pre-pass (the tail visits these only; the "
+                f"head walked each machine's first blocks)")
             acc, cm = ops.threshold_select(blocks, E, seed, bmask, tau, k,
                                            **lkw)
             t0 = time.perf_counter()
@@ -797,8 +856,6 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
                 fail(f"{what}: only {full}/{M} machines compared in full")
     # the kernel alone on operands prepared once (cur_min restored before
     # each launch); the whole ops call beside it
-    Xb = blocks.contiguous()
-    Ep, cmp_ = ops._pad_eval(E, seed.expand(M, m))
     cm_run = cmp_.clone()
     ops_kw = ops._card_encoding(enc)
     args = (bmask.to(torch.uint8), tau0.contiguous(),
@@ -807,11 +864,13 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
             torch.zeros((M, enc.G), dtype=torch.int32, device="cuda"),
             torch.ones((M,), dtype=torch.uint8, device="cuda"))
 
-    def kernel_alone():
+    def kernel_alone(tau=tau0):
         cm_run.copy_(cmp_)
-        _ts.launch(Xb, Ep, cm_run, *args, k, 256, m, **ops_kw)
+        _ts.launch(Xb, Ep, cm_run, args[0], tau.contiguous(), *args[2:], k,
+                   256, m, **ops_kw)
 
     ms = cuda_ms(kernel_alone, runs=10)
+    ms1 = cuda_ms(lambda: kernel_alone(tau0 * (1.0 - EPS)), runs=10)
     ms_ops = cuda_ms(lambda: ops.threshold_select(blocks, E, seed, bmask,
                                                   tau0, k, **kw), runs=10)
     plain = cuda_ms(lambda: ref.threshold_select(blocks, E, seed, bmask,
@@ -821,17 +880,22 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
                                                 tau0_u, k), runs=10)
     log(f"threshold_select level 0 at round 0: kernel {ms:.4f} ms, whole "
         f"ops call {ms_ops:.4f} ms; unconstrained, whole ops call "
-        f"{ms_u:.4f} ms")
+        f"{ms_u:.4f} ms; level 1, kernel {ms1:.4f} ms")
     n_rows = int(bmask.sum())
-    b, by = bound_ms(n_rows * m * (2 * d + 3),
-                     M * mu * (4 * d + 4 + 4 + 1 + 1) + 4 * m * d
-                     + 8 * M * m + 16 * M)
+    b, by, b32 = tile_bound(n_rows * m, d,
+                            M * mu * (4 * d + 4 + 4 + 1 + 1) + 4 * m * d
+                            + 8 * M * m + 16 * M, 3)
     rows.append({"name": "threshold_select", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/threshold_select.cu",
                  "replaces": "src/repro/kernels/threshold_select.py:238",
                  "launches": constrained["launches"]["threshold_select"],
+                 "prepass_launches": constrained["launches"][
+                     "threshold_select_prepass"],
+                 "tail_launches": constrained["launches"][
+                     "threshold_select_tail"],
                  "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
-                 "bound_ms": b, "bound_by": by, "library_ms": None})
+                 "bound_ms": b, "bound_by": by, "bound_fp32_ms": b32,
+                 "library_ms": None})
     return rows
 
 
@@ -1171,7 +1235,9 @@ def phase_weighted(main: dict) -> dict:
                        algorithm="threshold_batch", eps=EPS)
     res, _ = run_tree(f"weighted THRESHOLD-BATCH TREE eps={EPS}, Webscope",
                       obj, X, cfg_t, ("exemplar_gains_weighted",
-                                      "threshold_select_weighted"))
+                                      "threshold_select_weighted",
+                                      "threshold_select_prepass",
+                                      "threshold_select_tail"))
     gap = 1.0 - res.value / cent
     depth_cap = 1 + math.ceil(math.log(2 * cfg.k / EPS) / EPS)
     log(f"weighted THRESHOLD-BATCH TREE: gap 1 - tree/central = {gap!r} "
@@ -1290,19 +1356,50 @@ def times_new(main: dict, active: dict, facility: dict, weighted: dict,
     plain = cuda_ms(lambda: ref.greedy_select(blocks, E, seed, bmask, k,
                                               eval_weights=w),
                     runs=1, warmup=0)
+    check_step_launches("greedy_select_weighted", lambda: ops.greedy_select(
+        blocks, E, seed, bmask, k, eval_weights=w), k)
     n_avail = torch.sum(bmask.long(), dim=1, keepdim=True)
     calls = int(torch.sum(torch.clamp_min(
         n_avail - torch.arange(k, device="cuda"), 0)))
-    b, by = bound_ms(calls * m * (2 * d + 4),
-                     4 * M * mu * d + 4 * m * d + 8 * m + M * mu
-                     + 4 * M * k + 4 * M * m)
+    b, by, b32 = tile_bound(calls * m, d,
+                            4 * M * mu * d + 4 * m * d + 8 * m + M * mu
+                            + 4 * M * k + 4 * M * m, 4)
     rows.append({"name": "greedy_select (eval weights)", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/greedy_select.cu",
                  "replaces": "src/repro/kernels/greedy_select.py:265",
-                 "launches": weighted["launches"], "max_abs_err": err,
+                 "launches": weighted["launches"],
+                 "calls": weighted["launches"] // k, "max_abs_err": err,
                  "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
-                 "library_ms": None})
+                 "bound_fp32_ms": b32, "library_ms": None})
     return rows
+
+
+#: plain greedy steps after which the split tile is held against the plain
+#: gains at round 0 (the first, the middle and the last step of k = 50)
+TILE_STEPS = (0, 25, 49)
+
+
+def tile_precision(blocks, E, seed, sel) -> dict:
+    """The gain tile (split TF32 on the tensor cores, through
+    ``exemplar_gains``' kernel) against the plain ``exemplar_gains`` on
+    every machine of round 0, at the cur_min the plain greedy ``sel`` left
+    after each of ``TILE_STEPS`` steps, under the unchanged RTOL/ATOL.
+    Returns {steps: max |Δ gain|}."""
+    from repro_torch import testing
+    from repro_torch.kernels import ops, ref
+    errs = {}
+    for s in TILE_STEPS:
+        cm = ref.refresh_cur_min(blocks, E, seed, sel[:, :s])
+        g, g_p = ops.exemplar_gains(blocks, E, cm), ref.exemplar_gains(
+            blocks, E, cm)
+        testing.assert_close(g, g_p, f"gain tile at round 0 after {s} steps")
+        errs[s] = testing.max_abs_err(g, g_p)
+        del g, g_p
+    after = ", ".join(f"{s} steps {e!r}" for s, e in errs.items())
+    log(f"gain tile (split TF32) vs plain at round 0, M = {blocks.shape[0]}: "
+        f"max |Δ gain| after {after} (rtol={testing.RTOL} "
+        f"atol={testing.ATOL})")
+    return errs
 
 
 def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
@@ -1329,13 +1426,13 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
     plain = cuda_ms(lambda: ref.exemplar_gains(T, E, cm), runs=50)
     log(f"exemplar_gains at the scan block: kernel {ms:.4f} ms, whole ops "
         f"call (padding, launch, division) {ms_ops:.4f} ms")
-    b, by = bound_ms(n * m * (2 * d + 3), 4 * (n * d + m * d + m + n))
+    b, by, b32 = tile_bound(n * m, d, 4 * (n * d + m * d + m + n), 3)
     rows.append({"name": "exemplar_gains", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/exemplar_gains.cu",
                  "replaces": "src/repro/kernels/exemplar_gains.py:107",
                  "launches": scan["launches"], "max_abs_err": err, "ms": ms,
                  "plain_ms": plain, "bound_ms": b, "bound_by": by,
-                 "library_ms": None})
+                 "bound_fp32_ms": b32, "library_ms": None})
     # greedy_select at round 0 of the main path
     obj, cfg = main["obj"], main["cfg"]
     E = obj.eval_set
@@ -1348,6 +1445,7 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
     trace = ref.greedy_select_trace(blocks, E, seed, bmask, k)
     torch.cuda.synchronize()
     log(f"plain greedy at round 0 (M={M}): {time.perf_counter() - t0:.1f} s")
+    tile_precision(blocks, E, seed, trace[0])
     n_tie, same, err = check_greedy(sel, cm_out, blocks, E, seed, trace,
                                     "greedy_select at round 0")
     log(f"greedy_select round 0 vs plain: {same}/{M} machines select as "
@@ -1357,25 +1455,33 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
                  runs=10)
     plain = cuda_ms(lambda: ref.greedy_select(blocks, E, seed, bmask, k),
                     runs=3)
+    check_step_launches("greedy_select", lambda: ops.greedy_select(
+        blocks, E, seed, bmask, k), k)
     n_avail = torch.sum(bmask.long(), dim=1, keepdim=True)
     steps = torch.arange(k, device="cuda")
     calls = int(torch.sum(torch.clamp_min(n_avail - steps, 0)))
-    b, by = bound_ms(calls * m * (2 * d + 3),
-                     4 * M * mu * d + 4 * m * d + 4 * m + M * mu
-                     + 4 * M * k + 4 * M * m)
+    b, by, b32 = tile_bound(calls * m, d,
+                            4 * M * mu * d + 4 * m * d + 4 * m + M * mu
+                            + 4 * M * k + 4 * M * m, 3)
+    launches = main["launches"]["greedy_select"]
     rows.append({"name": "greedy_select", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/greedy_select.cu",
                  "replaces": "src/repro/kernels/greedy_select.py:265",
-                 "launches": main["launches"]["greedy_select"],
+                 "launches": launches, "calls": launches // k,
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                 "bound_ms": b, "bound_by": by, "library_ms": None})
+                 "bound_ms": b, "bound_by": by, "bound_fp32_ms": b32,
+                 "library_ms": None})
     rows += times_constrained(main, constrained, blocks, bmask, part)
     rows += times_new(main, active, facility, weighted, blocks, bmask)
     for r in rows:
-        log(f"time {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
-            f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-            f"{r['bound_ms'] / r['ms']:.1%} of bound), launches "
-            f"{r['launches']}")
+        per = (f" a call ({r['calls']} calls a run)" if "calls" in r else "")
+        b32 = (f"; fp32-only bound {r['bound_fp32_ms']:.4f} ms, "
+               f"{r['bound_fp32_ms'] / r['ms']:.1%}"
+               if "bound_fp32_ms" in r else "")
+        log(f"time {r['name']}: {r['ms']:.4f} ms{per} (plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of bound{b32}), "
+            f"launches {r['launches']}")
     return rows
 
 
@@ -1447,9 +1553,9 @@ def _ptxas_report(log: str, marker: str) -> list[str]:
     return out
 
 
-def hgmma_count() -> int | None:
-    """HGMMA instructions in the built flash_attention library's SASS (the
-    tensor-core prefill's products), or None where cuobjdump is missing."""
+def sass_count(lib: str, op: str) -> int | None:
+    """Instructions whose opcode holds ``op`` in the SASS of the built
+    library ``lib``, or None where cuobjdump is missing."""
     import os
     import shutil
     from repro_torch.kernels import _build
@@ -1458,12 +1564,41 @@ def hgmma_count() -> int | None:
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
     if tool is None:
         return None
-    _build.load("flash_attention")
-    sass = subprocess.run([tool, "-sass", str(_build.lib_path(
-        "flash_attention"))], capture_output=True, text=True, timeout=300)
+    _build.load(lib)
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path(lib))],
+                          capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         fail(f"cuobjdump: {sass.stderr.strip()[:500]}")
-    return sum(line.count("HGMMA") for line in sass.stdout.splitlines())
+    return sum(line.count(op) for line in sass.stdout.splitlines())
+
+
+def hgmma_count() -> int | None:
+    """HGMMA instructions in the built flash_attention library's SASS (the
+    tensor-core prefill's products), or None where cuobjdump is missing."""
+    return sass_count("flash_attention", "HGMMA")
+
+
+def hmma_counts() -> dict:
+    """HMMA instructions (mma.sync, the gain tile's TF32 products) in the
+    SASS of the three libraries built on exemplar_tile.cuh, next to
+    flash_attention's HGMMA; fails where cuobjdump shows a library without
+    one.  Returns {library: count}, empty where cuobjdump is missing."""
+    from repro_torch.kernels import _build
+    counts = {lib: sass_count(lib, "HMMA") for lib in
+              ("exemplar_gains", "greedy_select", "threshold_select")}
+    if None in counts.values():
+        log("  cuobjdump not found: HMMA not counted")
+        return {}
+    for lib, n in counts.items():
+        if n == 0:
+            fail(f"{lib}: no HMMA instruction in the built library's SASS "
+                 f"(the gain tile runs no tensor-core product)")
+    log(f"HMMA in the SASS of the gain tile's libraries: {counts}; HGMMA in "
+        f"flash_attention's: {hgmma_count()}")
+    for lib in counts:
+        for line in _ptxas_report(_build.build_log.get(lib, ""), "kernel"):
+            log(f"  ptxas {lib} {line}")
+    return counts
 
 
 def phase_kernels_attention() -> None:

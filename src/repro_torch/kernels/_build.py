@@ -34,11 +34,13 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # as int
 ARGTYPES = {
     "exemplar_gains_launch": [_P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
-    "greedy_select_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I,
-                             _I, _P, _P, _F, _P, _P, _P, _I, _P, _P],
-    "threshold_select_launch": [_P] * 13 + [_LL, _LL] + [_I] * 6
+    "exemplar_tile_smem": [_I, _I, _I],
+    "greedy_select_launch": [_P] * 8 + [_LL, _LL, _I, _I, _I, _I, _LL, _P, _P,
+                                        _F, _P, _P, _P, _I, _P, _P],
+    "greedy_select_grid": [_LL, _LL, _I, _I, _I, _I],
+    "threshold_select_launch": [_P] * 20 + [_LL, _LL] + [_I] * 6
     + [_F, _P, _P],
-    "threshold_select_max_groups": [_I, _I],
+    "threshold_select_max_groups": [_I, _I, _I, _I],
     "rbf_kernel_launch": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _F, _P],
     "flash_attention_prefill_launch": [_P] * 4 + [_LL] * 12 + [_I] * 8
     + [_F, _I, _P],
@@ -51,11 +53,17 @@ ARGTYPES = {
     "wkv6_launch": [_P] * 8 + [_LL] * 15 + [_I] * 8 + [_P],
     "wkv6_smem": [_I, _I],
 }
+#: entry points that return a size rather than an error code
+RESTYPES = {"exemplar_tile_smem": _LL, "greedy_select_grid": _LL}
 
 #: kernel launches per kernel, counted by the wrappers where they launch
 #: (re-exported as ``ops.launch_counts``).  The weighted launches (eval
 #: weights, ``WeightedExemplarClustering``) are counted apart, and so are
-#: greedy_select's unweighted launches with a constraint encoding;
+#: greedy_select's unweighted launches with a constraint encoding (one a
+#: greedy step); threshold_select's walk is two launches a τ-level, the head
+#: (counted as threshold_select or threshold_select_weighted) and the tail
+#: (threshold_select_tail), with the pre-pass between them
+#: (threshold_select_prepass), weighted or not;
 #: flash_attention's prefill (S > 1) and decode (S = 1) launches apart (the
 #: prefill launches that take the tensor-core route are counted once more
 #: under flash_attention_prefill_wgmma), and wkv6's prefill (T > 1) and
@@ -64,7 +72,8 @@ launch_counts: dict[str, int] = {
     name: 0 for name in (
         "exemplar_gains", "exemplar_gains_weighted", "greedy_select",
         "greedy_select_constrained", "greedy_select_weighted",
-        "threshold_select", "threshold_select_weighted", "rbf_kernel",
+        "threshold_select", "threshold_select_weighted",
+        "threshold_select_prepass", "threshold_select_tail", "rbf_kernel",
         "flash_attention_prefill", "flash_attention_prefill_wgmma",
         "flash_attention_decode",
         "wkv6_prefill", "wkv6_decode")}
@@ -131,7 +140,7 @@ def load(name: str) -> ctypes.CDLL:
             for fn, argtypes in ARGTYPES.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
+                    getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
             _libs[name] = lib
         return lib
 

@@ -5,14 +5,16 @@ Replaces the TPU kernel ``repro.kernels.exemplar_gains.exemplar_gains_pallas``
 Source: ``csrc/exemplar_gains.cu`` with the gain tile of
 ``csrc/exemplar_tile.cuh``.
 
-What bounds it on the H100: fp32 FMA issue — (2d + 3) operations per
-(candidate, eval column) pair, with no tensor-core route for fp32 outside
-TF32, which the port does not use.  The design keeps an 8 x 4 block of dot
-products per thread in registers, streams the feature axis through shared
-memory in 8-wide passes (any d) and adds a leading machine axis to the
-grid, so one launch scores every machine of a round.  Eval weights
-(``WeightedExemplarClustering``) are the tile's weighted instantiation, a
-kernel of their own: the unweighted one compiles as before.
+The tile folds both squared norms into one product of depth
+round_up(d + 2, 8) and runs it on the tensor cores as three TF32 products
+per 8-deep k-step (hi·hi, hi·lo, lo·hi of each operand's TF32 split, which
+keeps fp32's accuracy; one unsplit TF32 product does not).  What bounds it
+on the H100 is then the CUDA-core epilogue, four fp32 issue slots per
+(candidate, eval column) pair (clamp, subtract, clamp, add).  A leading
+machine axis on the grid scores every machine of a round in one launch.
+Eval weights (``WeightedExemplarClustering``) are the tile's weighted
+instantiation, a kernel of their own: the add becomes an fma with the
+weight, so unit weights give the unweighted bits.
 
 The plain version is :func:`repro_torch.kernels.ref.exemplar_gains`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
@@ -25,7 +27,21 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import exemplar_gains as plain  # noqa: F401
 
 BN = 128   # candidate rows per block (csrc/exemplar_tile.cuh)
-BM = 64    # eval columns per tile: E and cur_min are zero-padded to it
+BM = 64    # E and cur_min are zero-padded to a multiple of it
+
+
+def check_tile(device: torch.device, d: int, mp: int, weighted: bool,
+               what: str) -> None:
+    """Raise ValueError where the tile's shared memory at ``(d, mp)``
+    (``csrc/exemplar_tile.cuh``'s ``Layout``, linear in mp) exceeds what a
+    block of ``device`` may opt in to."""
+    need = _build.load("exemplar_gains").exemplar_tile_smem(d, mp,
+                                                            int(weighted))
+    have = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    if need > have:
+        raise ValueError(f"{what} kernel: d={d} mp={mp} needs {need} B of "
+                         f"shared memory, the card gives a block {have}")
 
 
 def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
@@ -55,6 +71,7 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     out = torch.empty((M, n), dtype=torch.float32, device=X.device)
     if n == 0:
         return out
+    check_tile(X.device, d, mp, ew is not None, "exemplar_gains")
     fn = _build.load("exemplar_gains").exemplar_gains_launch
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _build.check(fn(X.data_ptr(), E.data_ptr(), cur_min.data_ptr(),

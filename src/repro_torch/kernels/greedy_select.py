@@ -8,15 +8,20 @@ fused and the step-wise paths score a row with the same bits).
 
 The TPU kernel is one launch whose sequential grid carries the running
 state between steps.  Hopper blocks run in parallel and in no order, so
-each greedy step is two launches over all M machines: a gains + tile-argmax
-kernel over (candidate tiles, M), then a commit kernel per machine that
-reduces the tile winners (lowest index on ties), refreshes ``cur_min`` in
-the difference form and clears the winner's availability.  2k launches per
-call; the running state lives in device scratch allocated here.
+each greedy step is one launch of a persistent grid (resident CTAs per SM
+times the SMs): each CTA scores a contiguous range of the flattened
+(machine, 128-row tile) space and writes one (best value, lowest index)
+winner per machine segment it covers; a per-machine ticket elects the last
+CTA to finish a machine, which reduces the machine's winners (lowest index
+on ties), refreshes ``cur_min`` in the difference form and clears the
+winner's availability.  k launches per call; the running state, the
+segment winners and the tickets live in device scratch allocated here.
 
-What bounds it on the H100: fp32 FMA issue of the gains, k·M·n·m·(2d + 3)
-operations per call; the commit is O(k·M·m·d).  The step kernel fills the
-card at M = 1 too (the centralized baseline over the whole ground set).
+What bounds it on the H100: the gain tile's CUDA-core epilogue, four fp32
+issue slots per (candidate, eval column) pair per step, beside its
+tensor-core products (three TF32 products per 8-deep k-step); the commit
+is O(k·M·m·d).  The persistent grid fills the card at M = 1 too (the
+centralized baseline over the whole ground set).
 
 Constrained variant: the knapsack (``w``, ``limit``) and partition-matroid
 (``gid``, ``caps``) encodings, either or both.  The step kernel masks rows
@@ -40,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.exemplar_gains import BM, BN
+from repro_torch.kernels.exemplar_gains import BM, check_tile
 from repro_torch.kernels.ref import greedy_select as plain  # noqa: F401
 
 
@@ -83,23 +88,31 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
             or (gid is not None and G == 0)):
         raise ValueError(f"greedy_select kernel: unsupported shape "
                          f"M={M} n={n} mp={mp} k={k} G={G}")
-    ntiles = -(-n // BN)
-    win_v = torch.empty((M, ntiles), dtype=torch.float32, device=X.device)
-    win_i = torch.empty((M, ntiles), dtype=torch.int32, device=X.device)
     sel = torch.empty((M, k), dtype=torch.int32, device=X.device)
     if k == 0:
         return sel, cur_min
     constrained = w is not None or gid is not None
+    check_tile(X.device, d, mp, ew is not None, "greedy_select")
+    lib = _build.load("greedy_select")
+    P = lib.greedy_select_grid(M, n, d, mp, int(constrained),
+                               int(ew is not None))
+    if P <= 0:
+        raise RuntimeError("greedy_select: occupancy query failed")
+    # one winner per (CTA, machine segment): segment (c, mach) has slot
+    # c + mach; the tickets start at 0 and every commit sets its back to 0
+    win_v = torch.empty((M + P,), dtype=torch.float32, device=X.device)
+    win_i = torch.empty((M + P,), dtype=torch.int32, device=X.device)
+    ticket = torch.zeros((M,), dtype=torch.int32, device=X.device)
     if constrained:  # the running constraint state, device scratch
         used = torch.zeros((M,), dtype=torch.float32, device=X.device)
         counts = torch.zeros((M, max(G, 1)), dtype=torch.int32,
                              device=X.device)
-    fn = _build.load("greedy_select").greedy_select_launch
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    _build.check(fn(X.data_ptr(), E.data_ptr(), cur_min.data_ptr(),
+    _build.check(lib.greedy_select_launch(
+                    X.data_ptr(), E.data_ptr(), cur_min.data_ptr(),
                     avail.data_ptr(), win_v.data_ptr(), win_i.data_ptr(),
-                    sel.data_ptr(), M, n, d, mp, m_true, k,
-                    None if w is None else w.data_ptr(),
+                    ticket.data_ptr(), sel.data_ptr(), M, n, d, mp, m_true,
+                    k, P, None if w is None else w.data_ptr(),
                     used.data_ptr() if constrained else None, limit,
                     None if gid is None else gid.data_ptr(),
                     None if caps is None else caps.data_ptr(),
@@ -109,5 +122,5 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     name = ("greedy_select_weighted" if ew is not None
             else "greedy_select_constrained" if constrained
             else "greedy_select")
-    _build.launch_counts[name] += 2 * k
+    _build.launch_counts[name] += k
     return sel, cur_min

@@ -188,7 +188,8 @@ def test_launch_counts_untouched_by_plain_path():
         "exemplar_gains": 0, "exemplar_gains_weighted": 0,
         "greedy_select": 0, "greedy_select_constrained": 0,
         "greedy_select_weighted": 0, "threshold_select": 0,
-        "threshold_select_weighted": 0, "rbf_kernel": 0,
+        "threshold_select_weighted": 0, "threshold_select_prepass": 0,
+        "threshold_select_tail": 0, "rbf_kernel": 0,
         "flash_attention_prefill": 0, "flash_attention_prefill_wgmma": 0,
         "flash_attention_decode": 0, "wkv6_prefill": 0, "wkv6_decode": 0}
 
