@@ -49,20 +49,30 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    attention launch counted (every prefill launch on the tensor-core
    route), the last decode step against ``forward``,
    prefill and decode times, memory peak and attention's share;
-10. wkv6 kernel (run after phase 7) — ``wkv6`` against its plain version
-   in fp32 and bf16: Dk = Dv ∈ {16, 64}, Dk ≠ Dv, ragged T, B × H = 1 and
-   256, strided views, a given state, T = 2,100, chaining over the halves
-   of T, a decode step in place, the shapes it does not take;
+10. wkv6 kernels (run after phase 7) — ``wkv6`` against its plain
+   version in fp32 and bf16: Dk = Dv ∈ {16, 64}, Dk ≠ Dv, ragged T, B × H
+   = 1 and 256, strided views, a given state, T = 2,100, the strong decays
+   0.5, 0.05, 1e-6 over 300 steps, chaining over parts of T, a decode step
+   in place, the shapes it does not take; each case through the routed
+   (recurrent) kernel and through the chunked one, which is held by the
+   error model of ``testing.WKV_TERMS_RTOL`` (its elements outside the
+   recurrent kernel's tolerance counted); the HMMA in the chunked
+   kernel's SASS;
 11. RWKV parity — rwkv6-1.6b at full width and 2 layers, card against the
    CPU's plain path, as phase 8;
 12. RWKV serving — rwkv6-1.6b at full width and depth (24 layers) as
    phase 9, every ``wkv6`` launch counted (24 prefill, 24 × 31 decode);
+   then phases 11 and 12 once more with every prefill call on the chunked
+   kernel (three launches a call);
 13. times — each kernel at its path's shapes, held against its plain
    version there, timed beside it and beside its bound (fp32 FMA rate,
-   TF32 or bf16 tensor-core rate, memory rate), and ``flash_attention``
+   TF32 or bf16 tensor-core rate, memory rate; ``wkv6`` the tensor-core
+   bound with the fp32-only one beside it, its chunked kernel at both
+   prefill shapes and both kernels by T), and ``flash_attention``
    beside PyTorch's ``scaled_dot_product_attention``; the gain tile
    against the plain gains on every round-0 machine after 0, 25 and 49
    plain greedy steps; one ``greedy_select`` call launching k kernels;
+   ``rbf_kernel``'s update shapes on its row vector;
    the share of blocks the threshold pre-pass flags at each timed level.
 
 Ends with one JSON line per kernel table and the ``ok`` line.  Imports
@@ -126,24 +136,10 @@ def eval_rows(data, n_eval: int):
 
 
 def cuda_ms(fn, runs: int, warmup: int = 1) -> float:
-    """Median milliseconds of ``runs`` calls, timed with CUDA events.  Each
-    timed call is queued behind a ~1 ms device sleep, so the host's launch
-    overhead falls outside the event window: the time is the device's."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(2_000_000)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    """Median device milliseconds of ``runs`` calls, timed with CUDA events
+    behind a device sleep (:func:`repro_torch.timing.device_ms`)."""
+    from repro_torch.timing import device_ms
+    return device_ms(fn, runs, warmup)
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -290,38 +286,56 @@ def eval_weights(m: int, seed: int):
 
 def phase_kernels_rbf() -> None:
     """rbf_kernel against its plain version at ragged shapes, with the
-    machine axis on either operand or both; K(x, x) within [1 − tol, 1]."""
+    machine axis on either operand or both, in both instantiations (the
+    row vector for n ≤ 4 at ragged m around its 1,024-row span, the tile
+    above), each case's instantiation held against the launch counts;
+    K(x, x) within [1 − tol, 1] in both."""
     import numpy as np
     import torch
     from repro_torch import testing
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rbf_kernel as rbf_mod
     tol = testing.ATOL + testing.RTOL
     cases = [(Mx, My, n, m, d) for d, n, m in ((1, 37, 300), (6, 33, 129),
                                                 (22, 70, 1000),
                                                 (64, 129, 77))
              for Mx, My in ((1, 1), (3, 1), (1, 3), (3, 3))]
+    cases += [(Mx, 3, n, m, d) for d in (6, 22) for n in (1, 2, 3, 5)
+              for m in (1023, 1025, 2100) for Mx in (1, 3)]
     worst = 0.0
+    routes = {True: 0, False: 0}
     for Mx, My, n, m, d in cases:
         r = np.random.default_rng(n * d + Mx)
         X = torch.as_tensor(r.standard_normal((Mx, n, d)) / np.sqrt(d),
                             dtype=torch.float32, device="cuda")
         Y = torch.as_tensor(r.standard_normal((My, m, d)) / np.sqrt(d),
                             dtype=torch.float32, device="cuda")
+        vec = rbf_mod.rowvec(n, d)
+        routes[vec] += 1
         for h in (0.5, 1.0):
+            ops.reset_launch_counts()
             K = ops.rbf_kernel(X, Y, h)
             torch.cuda.synchronize()
-            testing.assert_close(K, ref.rbf_kernel(X, Y, h),
-                                 f"rbf_kernel Mx={Mx} My={My} n={n} m={m} "
-                                 f"d={d} h={h}")
-            worst = max(worst, testing.max_abs_err(K, ref.rbf_kernel(X, Y,
-                                                                     h)))
-            Kxx = torch.diagonal(ops.rbf_kernel(Y, Y, h), dim1=-2, dim2=-1)
-            if not bool(torch.all((Kxx >= 1 - tol) & (Kxx <= 1))):
-                fail(f"rbf_kernel K(x, x) outside [1 - {tol}, 1] at d={d} "
-                     f"h={h}: {float(Kxx.min())}")
+            if ops.launch_counts["rbf_kernel_rowvec"] != int(vec):
+                fail(f"rbf_kernel n={n} d={d}: the row vector launched "
+                     f"{ops.launch_counts['rbf_kernel_rowvec']} times, the "
+                     f"rule says {int(vec)}")
+            K_p = ref.rbf_kernel(X, Y, h)
+            testing.assert_close(K, K_p, f"rbf_kernel Mx={Mx} My={My} n={n} "
+                                 f"m={m} d={d} h={h}")
+            worst = max(worst, testing.max_abs_err(K, K_p))
+            # K(x, x): the tile on Y against itself, and (the row vector
+            # where n <= 4) Y's first rows against Y
+            for Kd in (ops.rbf_kernel(Y, Y, h),
+                       ops.rbf_kernel(Y[:, :min(n, m)], Y, h)):
+                Kxx = torch.diagonal(Kd, dim1=-2, dim2=-1)
+                if not bool(torch.all((Kxx >= 1 - tol) & (Kxx <= 1))):
+                    fail(f"rbf_kernel K(x, x) outside [1 - {tol}, 1] at "
+                         f"n={n} d={d} h={h}: {float(Kxx.min())}")
     log(f"rbf_kernel vs plain: {len(cases) * 2} shapes agree within rtol="
-        f"{testing.RTOL} atol={testing.ATOL} (max |dK| {worst:.3g}); K(x, x) "
-        f"in [1 - {tol:g}, 1]")
+        f"{testing.RTOL} atol={testing.ATOL} (max |dK| {worst:.3g}); "
+        f"{routes[True]} cases on the row vector, {routes[False]} on the "
+        f"tile; K(x, x) in [1 - {tol:g}, 1]")
 
 
 def phase_kernels_weighted() -> None:
@@ -1153,7 +1167,7 @@ def phase_active_set_webscope(main: dict) -> dict:
     k = cfg.k
     obj = ActiveSetSelection(k_max=k, h=0.5, sigma=1.0, device="cuda")
     tree, counts = run_tree("ActiveSetSelection TREE, Webscope", obj, X, cfg,
-                            ("rbf_kernel",))
+                            ("rbf_kernel", "rbf_kernel_rowvec"))
     _, cent = run_central("ActiveSetSelection centralized, Webscope", obj, X,
                           k)
     ratio = tree.value / cent
@@ -1280,7 +1294,10 @@ def times_new(main: dict, active: dict, facility: dict, weighted: dict,
     # against its whole block
     idx = torch.clamp_min(active["sel"][:, 1], 0)
     x = torch.take_along_dim(blocks, idx[:, None, None], dim=1)
+    ops.reset_launch_counts()
     K = ops.rbf_kernel(x, blocks, 0.5)
+    if ops.launch_counts["rbf_kernel_rowvec"] != 1:
+        fail("rbf_kernel at the round-0 update did not take the row vector")
     K_p = ref.rbf_kernel(x, blocks, 0.5)
     testing.assert_close(K, K_p, "rbf_kernel at the round-0 update")
     err = testing.max_abs_err(K, K_p)
@@ -1324,9 +1341,13 @@ def times_new(main: dict, active: dict, facility: dict, weighted: dict,
                  "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
                  "library_ms": None})
 
-    # the centralized update: one row against all n rows
+    # the centralized update: one row against all n rows, on the row vector
     x1 = X[1:2]
+    ops.reset_launch_counts()
     K = ops.rbf_kernel(x1, X, 0.5)
+    if ops.launch_counts["rbf_kernel_rowvec"] != 1:
+        fail("rbf_kernel at the centralized update did not take the row "
+             "vector")
     testing.assert_close(K, ref.rbf_kernel(x1, X, 0.5),
                          "rbf_kernel at the centralized update")
     if not 1 - tol <= float(K[0, 1]) <= 1:
@@ -2019,12 +2040,13 @@ WKV_32K = dict(B=1, T=32_768)   # prefill_32k's length, batch 1
 
 
 def _wkv_inputs(B, H, T, Dk, Dv, dtype, seed, decay="model", strided=True):
-    """r, k, v ~ N(0, 1) and u ~ 0.1·N(0, 1) in ``dtype``, w fp32 in (0, 1)
+    """r, k, v ~ N(0, 1) and u ~ 0.1·N(0, 1) in ``dtype``, w fp32 in (0, 1]
     on the card: ``decay`` "model" is the decay of the model at its init,
     exp(−exp(−6 + N(0, 1)/2)) ≈ 0.9975 (a state that remembers ~400
     steps), "fast" is sigmoid(N(0, 1) + 2), as tests/test_kernels.py draws
-    it.  ``strided``: each a (B, H, T, D) view of a (B, T, H, D) tensor, as
-    the model passes them."""
+    it, and a number is that constant decay (the strong decays 0.5, 0.05,
+    1e-6 of a trained model's fast channels).  ``strided``: each a (B, H,
+    T, D) view of a (B, T, H, D) tensor, as the model passes them."""
     import torch
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -2035,40 +2057,76 @@ def _wkv_inputs(B, H, T, Dk, Dv, dtype, seed, decay="model", strided=True):
 
     r, k, v = draw(Dk, dtype), draw(Dk, dtype), draw(Dv, dtype)
     n = draw(Dk, torch.float32)
-    w = (torch.exp(-torch.exp(-6.0 + 0.5 * n)) if decay == "model"
-         else torch.sigmoid(n + 2.0))
+    if decay == "model":
+        w = torch.exp(-torch.exp(-6.0 + 0.5 * n))
+    elif decay == "fast":
+        w = torch.sigmoid(n + 2.0)
+    else:
+        w = torch.full_like(n, float(decay))
     u = (0.1 * torch.randn((H, Dk), generator=g, device="cuda")).to(dtype)
     return r, k, v, w, u
 
 
 def wkv6_bound(B, H, T, Dk, Dv, itemsize, state_in, y_itemsize):
-    """(bound ms, by): 5·Dk·Dv + 3·Dk + 2·Dv fp32 operations per step and
-    head (the state update w·S + k·v, r·S, the bonus (r·u)·k and v·a), or
-    the bytes of r, k, v and u (``itemsize``), w (fp32), y
-    (``y_itemsize``) and the fp32 state, read where given and written,
-    each moved once."""
+    """(bound ms, by, fp32-only bound ms): the bytes of r, k, v and u
+    (``itemsize``), w (fp32), y (``y_itemsize``) and the fp32 state, read
+    where given and written, each moved once, against 5·Dk·Dv + 3·Dk + 2·Dv
+    operations per step and head (the state update w·S + k·v, r·S, the
+    bonus (r·u)·k and v·a) at the TF32 tensor-core rate; the fp32-only
+    bound takes the operations at the fp32 rate (the recurrent kernel's
+    CUDA cores)."""
     steps = B * H * T
     flops = steps * (5 * Dk * Dv + 3 * Dk + 2 * Dv)
     nbytes = (steps * ((2 * Dk + Dv) * itemsize + 4 * Dk + Dv * y_itemsize)
               + H * Dk * itemsize + 4 * B * H * Dk * Dv * (1 + int(state_in)))
-    return bound_ms(flops, nbytes)
+    t_tc, t_bytes = flops / PEAK_TF32, nbytes / PEAK_BYTES
+    fp32_only, _ = bound_ms(flops, nbytes)
+    return (1e3 * max(t_tc, t_bytes),
+            "operations" if t_tc >= t_bytes else "bytes", fp32_only)
+
+
+def wkv6_readings(y, st, y_p, st_p, terms, bf16) -> dict:
+    """The chunked kernel against the plain recurrence: the error model's
+    reading (max |Δ|/m, y and state) and the elements outside the
+    unchanged RTOL/ATOL checks."""
+    import torch
+    from repro_torch import testing
+    rt = testing.BF16_RTOL if bf16 else testing.RTOL
+
+    def outside(a, b, rtol):
+        a, b = a.double(), b.double()
+        return int(torch.sum((a - b).abs() > testing.ATOL + rtol * b.abs()))
+
+    return {"terms_ratio_y": testing.terms_ratio(y, y_p, terms[0], bf16),
+            "terms_ratio_state": testing.terms_ratio(st, st_p, terms[1]),
+            "outside_rtol_atol": outside(y.float(), y_p.float(), rt)
+            + outside(st, st_p, testing.RTOL)}
 
 
 def phase_kernels_wkv6() -> None:
     """wkv6 against its plain version on the card, fp32 and bf16: Dk = Dv
     = 64 and 16, Dk ≠ Dv, ragged T, B × H = 1 and 256, r/k/v/w as the
     model's strided views and contiguous, from zeros and from a given
-    state, T = 2,100; two launches over the halves of T against one over
-    all of it; one decode step (T = 1) from a state written in place; the
-    shapes it does not take raise.  The kernel repeats its plain version's
-    arithmetic op for op, so they agree to the bit: the check is
-    testing's tolerance, and the bitwise agreements are counted."""
+    state, T = 2,100, the strong decays 0.5, 0.05 and 1e-6 over several
+    chunks; two launches over parts of T against one over all of it; one
+    decode step (T = 1) from a state written in place; the shapes it does
+    not take raise.  Each case through the routed kernel (``ops.wkv6``:
+    the recurrent kernel, which repeats the plain version's arithmetic op
+    for op) held by testing's tolerance, the bitwise agreements counted;
+    and through the chunked kernel (``wkv6.launch_chunked``), held by the
+    error model (``testing.WKV_TERMS_RTOL``) at every case, its elements
+    outside the same tolerance counted by decay: where the terms cancel
+    (y or a state entry near 0 against a large Σ|terms|) the tolerance
+    holds no summation order but the recurrence's own, the exact sum
+    included (``tests/test_torch_wkv6_chunked.py``)."""
     import torch
     from repro_torch import testing
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import wkv6 as wk
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    n = same = 0
+    ratio = {"y": 0.0, "state": 0.0}
+    outside = {}   # elements outside RTOL/ATOL, chunked kernel, by decay
+    n = same = n_chunked = 0
 
     def check(y, st, y_p, st_p, bf16, what):
         nonlocal n, same
@@ -2080,40 +2138,75 @@ def phase_kernels_wkv6() -> None:
         n += 1
         same += int(torch.equal(y, y_p) and torch.equal(st, st_p))
 
-    seed = 0
+    def check_chunked(y, st, y_p, st_p, terms, bf16, decay, what):
+        nonlocal n_chunked
+        ratio["y"] = max(ratio["y"], testing.assert_within_terms(
+            y, y_p, terms[0], bf16, f"chunked {what}: y"))
+        ratio["state"] = max(ratio["state"], testing.assert_within_terms(
+            st, st_p, terms[1], False, f"chunked {what}: state"))
+        key = f"{decay} {'bf16' if bf16 else 'fp32'}"
+        outside[key] = outside.get(key, 0) + wkv6_readings(
+            y, st, y_p, st_p, terms, bf16)["outside_rtol_atol"]
+        n_chunked += 1
+
+    # (dtype, case), the strong decays last so the earlier cases keep
+    # their seeds
+    runs = []
     for dtype in (torch.float32, torch.bfloat16):
         small = 4 if dtype == torch.float32 else 8
-        cases = [(2, 3, 37, 16, 16, "fast", True),
-                 (1, 1, 100, 64, 64, "model", True),
-                 (8, 32, 70, 64, 64, "model", True),
-                 (2, 2, 45, 16, 64, "fast", True),
-                 (2, 2, 33, 64, 16, "fast", False),
-                 (1, 2, 20, small, 2 * small, "fast", False),
-                 (2, 4, 2100, 64, 64, "model", True)]
-        for B, H, T, Dk, Dv, decay, strided in cases:
-            for given in (False, True):
-                seed += 1
-                r, k, v, w, u = _wkv_inputs(B, H, T, Dk, Dv, dtype, seed,
-                                            decay, strided)
-                s0 = (torch.randn((B, H, Dk, Dv), device="cuda")
-                      if given else None)
-                y, st = ops.wkv6(r, k, v, w, u, s0)
-                torch.cuda.synchronize()
-                y_p, st_p = ref.wkv6(r, k, v, w, u, s0)
-                check(y, st, y_p, st_p, dtype == torch.bfloat16,
-                      f"wkv6 {dtype} B={B} H={H} T={T} Dk={Dk} Dv={Dv} "
-                      f"{decay} strided={strided} state={given}")
-    # state chaining: [0, 150) then [150, 300) from its state, in place
+        runs += [(dtype, case) for case in (
+            (2, 3, 37, 16, 16, "fast", True),
+            (1, 1, 100, 64, 64, "model", True),
+            (8, 32, 70, 64, 64, "model", True),
+            (2, 2, 45, 16, 64, "fast", True),
+            (2, 2, 33, 64, 16, "fast", False),
+            (1, 2, 20, small, 2 * small, "fast", False),
+            (2, 4, 2100, 64, 64, "model", True))]
+    runs += [(dtype, (2, 3, 300, 64, 64, decay, True))
+             for dtype in (torch.float32, torch.bfloat16)
+             for decay in (0.5, 0.05, 1e-6)]
+    seed = 0
+    for dtype, (B, H, T, Dk, Dv, decay, strided) in runs:
+        for given in (False, True):
+            seed += 1
+            r, k, v, w, u = _wkv_inputs(B, H, T, Dk, Dv, dtype, seed,
+                                        decay, strided)
+            s0 = (torch.randn((B, H, Dk, Dv), device="cuda")
+                  if given else None)
+            bf16 = dtype == torch.bfloat16
+            what = (f"wkv6 {dtype} B={B} H={H} T={T} Dk={Dk} Dv={Dv} "
+                    f"{decay} strided={strided} state={given}")
+            y, st = ops.wkv6(r, k, v, w, u, s0)
+            torch.cuda.synchronize()
+            y_p, st_p = ref.wkv6(r, k, v, w, u, s0)
+            check(y, st, y_p, st_p, bf16, what)
+            y, st = wk.launch_chunked(r, k, v, w, u, s0)
+            torch.cuda.synchronize()
+            check_chunked(y, st, y_p, st_p, testing.wkv6_terms(
+                r, k, v, w, u, s0), bf16, decay, what)
+    # state chaining, in place: the recurrent kernel over [0, 150) and
+    # [150, 300) gives one call's bits; the chunked kernel the same on a
+    # chunk boundary ([0, 128), [128, 300)), and at 150, where the chunk
+    # grid moves with the split, the checks of one call against plain
     r, k, v, w, u = _wkv_inputs(2, 4, 300, 64, 64, torch.bfloat16, 91)
-    y, st = ops.wkv6(r, k, v, w, u)
-    st2 = torch.empty_like(st)
-    y1, _ = ops.wkv6(*(a[:, :, :150] for a in (r, k, v, w)), u,
-                     state_out=st2)
-    y2, _ = ops.wkv6(*(a[:, :, 150:] for a in (r, k, v, w)), u, st2,
-                     state_out=st2)
-    torch.cuda.synchronize()
-    if not (torch.equal(torch.cat([y1, y2], 2), y) and torch.equal(st2, st)):
-        fail("wkv6: two launches over the halves of T differ from one")
+    y_p, st_p = ref.wkv6(r, k, v, w, u)
+    terms = testing.wkv6_terms(r, k, v, w, u)
+    for fn, cut in ((wk.launch, 150), (wk.launch_chunked, 128),
+                    (wk.launch_chunked, 150)):
+        y, st = fn(r, k, v, w, u)
+        st2 = torch.empty_like(st)
+        y1, _ = fn(*(a[:, :, :cut] for a in (r, k, v, w)), u, state_out=st2)
+        y2, _ = fn(*(a[:, :, cut:] for a in (r, k, v, w)), u, st2,
+                   state_out=st2)
+        torch.cuda.synchronize()
+        y12 = torch.cat([y1, y2], 2)
+        if fn is wk.launch or cut % wk.CHUNK == 0:
+            if not (torch.equal(y12, y) and torch.equal(st2, st)):
+                fail(f"wkv6 {fn.__name__}: two launches split at {cut} of "
+                     "300 differ from one")
+        else:
+            check_chunked(y12, st2, y_p, st_p, terms, True, "model",
+                          f"two launches split at {cut}")
     # one decode step from a state, written in place, y in fp32 as the model
     r, k, v, w, u = _wkv_inputs(8, 32, 1, 64, 64, torch.bfloat16, 92)
     state = torch.randn((8, 32, 64, 64), device="cuda")
@@ -2127,35 +2220,55 @@ def phase_kernels_wkv6() -> None:
     check(y, st, y_p, st_p, False, "wkv6 decode in place")
     for Dk, dtype in ((128, torch.bfloat16), (4, torch.bfloat16)):
         r, k, v, w, u = _wkv_inputs(1, 1, 3, Dk, 16, dtype, 0)
-        try:
-            ops.wkv6(r, k, v, w, u)
-        except ValueError:
-            pass
-        else:
-            fail(f"wkv6 took Dk={Dk} in {dtype}, which it has no "
-                 "instantiation of")
+        for fn in (ops.wkv6, wk.launch_chunked):
+            try:
+                fn(r, k, v, w, u)
+            except ValueError:
+                pass
+            else:
+                fail(f"wkv6 took Dk={Dk} in {dtype}, which it has no "
+                     "instantiation of")
     smem = {Dk: (wk.smem_bytes(Dk, False), wk.smem_bytes(Dk, True))
             for Dk in (16, 32, 64)}
     log(f"  shared memory per CTA (fp32, bf16 operands) by Dk, from the "
-        f"built kernel: {smem}")
-    log(f"wkv6 vs plain: {n} cases agree (fp32 within rtol={testing.RTOL} "
-        f"atol={testing.ATOL}, max |d| {worst[torch.float32]!r}; bf16 y "
-        f"within rtol={testing.BF16_RTOL:.5g}, max |d| "
-        f"{worst[torch.bfloat16]!r}), {same} of them to the bit; chaining "
-        f"over halves of T and the in-place decode step checked")
+        f"built kernel: {smem}; chunked kernel (fp32, bf16) "
+        f"{(wk.chunked_smem_bytes(False), wk.chunked_smem_bytes(True))}")
+    n_hmma = sass_count("wkv6_chunked", "HMMA")
+    if n_hmma is None:
+        log("  cuobjdump not found: the chunked kernel's HMMA not counted")
+    elif n_hmma == 0:
+        fail("wkv6_chunked: no HMMA instruction in the built library's SASS")
+    else:
+        log(f"  HMMA instructions in the chunked kernel's SASS: {n_hmma}")
+    log(f"wkv6 vs plain: {n} cases through ops.wkv6 (the recurrent kernel) "
+        f"agree (fp32 within rtol={testing.RTOL} atol={testing.ATOL}, max "
+        f"|d| {worst[torch.float32]!r}; bf16 y within rtol="
+        f"{testing.BF16_RTOL:.5g}, max |d| {worst[torch.bfloat16]!r}), "
+        f"{same} of them to the bit; the chunked kernel in {n_chunked} "
+        f"cases within the error model (max |d|/m: y {ratio['y']!r}, state "
+        f"{ratio['state']!r}; bound {testing.WKV_TERMS_RTOL!r}), elements "
+        f"outside that tolerance by decay and type {outside}; chaining over "
+        f"parts of T and the in-place decode step checked")
 
 
-def times_wkv6(serve: dict) -> list[dict]:
+def times_wkv6(serve: dict, chunked_serve: dict) -> list[dict]:
     """wkv6 at the RWKV serving cell's prefill (B = 8, T = 2,048, the
     final state written) and decode (B = 8, T = 1, state in and out, y in
     fp32) shapes and at the 32k prefill (B = 1), bf16 r/k/v/u and fp32 w
-    as the model passes them: held against its plain version there, timed
-    beside it and beside its bound.  No PyTorch call computes the
-    recurrence (library_ms null)."""
+    as the model passes them: the routed kernel (the recurrent one, its
+    launches from ``serve``) held against its plain version there, the
+    chunked kernel at both prefill shapes (its launches from
+    ``chunked_serve``, phase_rwkv_chunked's run) held by the error model
+    and read against RTOL/ATOL, each timed
+    beside the plain version and the bound (the tensor-core bound, the
+    fp32-only bound beside it); the two kernels at B = 8, H = 32 and T
+    from 16 to 512 (where the chunked kernel starts to pay).  No PyTorch
+    call computes the recurrence (library_ms null)."""
     import torch
     from repro_torch import testing
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv6 as wk
     c = LM_SERVE
     cfg = get_config(RWKV_ARCH)
     H, D = cfg.n_heads, cfg.rwkv_head_dim
@@ -2173,9 +2286,8 @@ def times_wkv6(serve: dict) -> list[dict]:
         st = torch.empty((B, H, D, D), device="cuda")
         out_dtype = torch.float32 if given else None
 
-        def kernel():
-            return ops.wkv6(r, k, v, w, u, s0, state_out=st,
-                            out_dtype=out_dtype)
+        def kernel(fn=ops.wkv6):
+            return fn(r, k, v, w, u, s0, state_out=st, out_dtype=out_dtype)
 
         def plain():
             return ref.wkv6(r, k, v, w, u, s0, out_dtype=out_dtype)
@@ -2189,22 +2301,81 @@ def times_wkv6(serve: dict) -> list[dict]:
                                        f"wkv6 at the {what} shape: y")
         testing.assert_close(st, st_p, f"wkv6 at the {what} shape: state")
         err = max(testing.max_abs_err(y, y_p), testing.max_abs_err(st, st_p))
-        del y, y_p, st_p
         ms = cuda_ms(kernel, runs=runs)
         plain_ms = cuda_ms(plain, runs=plain_runs, warmup=0)
-        b, by = wkv6_bound(B, H, T, D, D, 2, given, 4 if given else 2)
+        b, by, b32 = wkv6_bound(B, H, T, D, D, 2, given, 4 if given else 2)
         log(f"wkv6 {what}: B={B} H={H} T={T} Dk=Dv={D}, bf16 r/k/v/u, fp32 "
             f"w, state {'in and out' if given else 'out'}; the check's "
             f"plain run {t_plain:.1f} s")
-        rows.append({"name": f"wkv6 ({what})", "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/wkv6.cu",
-                     "replaces": "src/repro/kernels/wkv6.py:69",
-                     "launches": n_launch, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                     "library_ms": None})
-        del r, k, v, w, u, s0, st
-    torch.cuda.empty_cache()
+        row = {"name": f"wkv6 ({what})", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+               "replaces": "src/repro/kernels/wkv6.py:69",
+               "launches": n_launch, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+               "bound_fp32_ms": b32, "library_ms": None}
+        rows.append(row)
+        if T > 1:
+            y, _ = kernel(wk.launch_chunked)
+            torch.cuda.synchronize()
+            terms = testing.wkv6_terms(r, k, v, w, u, s0)
+            testing.assert_within_terms(y, y_p, terms[0], not given,
+                                        f"chunked wkv6 at the {what}: y")
+            testing.assert_within_terms(st, st_p, terms[1], False,
+                                        f"chunked wkv6 at the {what}: state")
+            read = wkv6_readings(y, st, y_p, st_p, terms, not given)
+            del terms
+            ms_c = cuda_ms(lambda: kernel(wk.launch_chunked), runs=runs)
+            rows.append({**row, "name": f"wkv6 chunked ({what})",
+                         "source": "src/repro_torch/kernels/csrc/"
+                                   "wkv6_chunked.cu",
+                         "launches": chunked_serve["launches"][
+                             "wkv6_chunked"],
+                         "max_abs_err": max(testing.max_abs_err(y, y_p),
+                                            testing.max_abs_err(st, st_p)),
+                         "ms": ms_c, **read})
+            log(f"wkv6 chunked {what}: {ms_c:.4f} ms (recurrent {ms:.4f}); "
+                f"{read}")
+        del y, y_p, st_p, r, k, v, w, u, s0, st
+        torch.cuda.empty_cache()
+    sweep = {}
+    for T in (16, 32, 64, 128, 256, 512):
+        r, k, v, w, u = _wkv_inputs(8, H, T, D, D, torch.bfloat16, 18)
+        sweep[T] = {name: cuda_ms(lambda fn=fn: fn(r, k, v, w, u), runs=20)
+                    for name, fn in (("recurrent", wk.launch),
+                                     ("chunked", wk.launch_chunked))}
+    log(f"wkv6 by T at B=8 H={H} (ms, recurrent and chunked): {sweep}")
     return rows
+
+
+def phase_rwkv_chunked() -> dict:
+    """rwkv6-1.6b as phases 11 and 12 with every prefill call's wkv6 on the
+    chunked kernel, which ``ops.wkv6`` dispatches no call to (the
+    recurrent ``wkv6.launch`` swapped for these runs only and restored;
+    decode stays on it): card against CPU within LM_PARITY_TOL at 2
+    layers; serving at 24 layers with three chunked launches per layer,
+    the last decode step against forward within LM_SERVE_TOL, prefill
+    time beside phase 12's."""
+    from repro_torch.kernels import wkv6 as wk
+    recurrent = wk.launch
+
+    def prefill_chunked(r, *args, **kwargs):
+        fn = wk.launch_chunked if r.shape[2] > 1 else recurrent
+        return fn(r, *args, **kwargs)
+
+    wk.launch = prefill_chunked
+    try:
+        phase_lm_parity(RWKV_ARCH)
+        res = phase_lm_serve(RWKV_ARCH)
+    finally:
+        wk.launch = recurrent
+    n = res["launches"]["wkv6_chunked"]
+    if n != 3 * res["launches"]["wkv6_prefill"]:
+        fail(f"rwkv6 serving on the chunked route: {n} chunked launches for "
+             f"{res['launches']['wkv6_prefill']} prefill calls")
+    log(f"rwkv6 serving, prefill on the chunked wkv6: prefill "
+        f"{res['prefill_ms']!r} ms, wkv6 {res['kernel_prefill_ms']!r} ms of "
+        f"it; last decode step vs forward {res['decode_vs_forward']!r}")
+    return res
 
 
 def main() -> None:
@@ -2225,7 +2396,7 @@ def main() -> None:
     attn_rows = times_attention(serve)
     phase_lm_parity(RWKV_ARCH)
     rwkv = phase_lm_serve(RWKV_ARCH)
-    wkv_rows = times_wkv6(rwkv)
+    wkv_rows = times_wkv6(rwkv, phase_rwkv_chunked())
     scan = phase_scan()
     main_path = phase_main()
     constrained = phase_constrained(main_path)
@@ -2239,9 +2410,12 @@ def main() -> None:
     for r in attn_rows + wkv_rows:
         lib = ("no library call" if r["library_ms"] is None
                else f"SDPA {r['library_ms']:.4f} ms")
+        fp32 = ("" if "bound_fp32_ms" not in r else
+                f"; fp32-only bound {r['bound_fp32_ms']:.4f} ms, "
+                f"{r['bound_fp32_ms'] / r['ms']:.1%}")
         log(f"time {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
             f"ms, {lib}, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-            f"{r['bound_ms'] / r['ms']:.1%} of bound), launches "
+            f"{r['bound_ms'] / r['ms']:.1%} of bound{fp32}), launches "
             f"{r['launches']}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

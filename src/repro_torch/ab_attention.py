@@ -27,10 +27,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 import sys
 from pathlib import Path
+
+if __package__:   # imported as repro_torch.ab_attention
+    from .timing import card, device_ms, kernel_trace
+else:             # run as a script: timing.py beside this file
+    from timing import card, device_ms, kernel_trace
 
 SHAPES = {  # name: (B, H, Hkv, S, T, D, causal, kv_valid_len)
     "prefill": (8, 32, 8, 2048, 2048, 128, True, None),
@@ -63,21 +66,6 @@ def main() -> None:
     if args.decode_chain is not None:
         fa.DECODE_CHAIN = args.decode_chain
 
-    def timed(fn, runs):
-        fn()
-        times = []
-        for _ in range(runs):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            torch.cuda._sleep(2_000_000)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     # (a parent checkout may predate the split rule's names)
     out = {"tag": args.tag, "decode_chain": getattr(fa, "DECODE_CHAIN", None)}
     names = args.shapes or (["prefill", "decode"]
@@ -98,35 +86,21 @@ def main() -> None:
         err = float((o.float() - ref.flash_attention(
             q, k, v, causal=causal, kv_valid_len=kv).float()).abs().max())
         runs = max(3, args.runs // (10 if S > 4096 else 1))
-        res = {"ms": timed(call, runs), "max_abs_err": err}
+        res = {"ms": device_ms(call, runs), "max_abs_err": err}
         shape = getattr(fa, "_decode_shape", {})
         if S == 1 and shape:   # (nsplit, chunk) as the launch chose them
             res["splits"] = fa.decode_splits(
                 B, Hkv, H // Hkv, kv, torch.cuda.get_device_properties(
                     0).multi_processor_count, *next(iter(shape.values())))
         if kv is None:
-            res["sdpa_ms"] = timed(lambda: F.scaled_dot_product_attention(
+            res["sdpa_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), runs)
         else:
             mask = (torch.arange(T, device="cuda") < kv)[None, None, None]
-            res["sdpa_ms"] = timed(lambda: F.scaled_dot_product_attention(
+            res["sdpa_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=True), runs)
         if args.trace:
-            from torch.profiler import ProfilerActivity, profile
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(runs):
-                    call()
-                torch.cuda.synchronize()
-            kernels = {}
-            for e in prof.key_averages():
-                dev = getattr(e, "self_device_time_total",
-                              getattr(e, "self_cuda_time_total", 0))
-                if dev > 0 and e.count:
-                    kernels[e.key] = {"count": e.count,
-                                      "us_per_launch": dev / e.count}
-            res["trace"] = kernels
+            res["trace"] = kernel_trace(call, runs)
         out[name] = res
         del q, k, v, o
         torch.cuda.empty_cache()
@@ -134,10 +108,7 @@ def main() -> None:
     out["ptxas"] = [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln
                     or "Compiling entry" in ln]
-    out["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
+    out["card"] = card()
     print(json.dumps(out), flush=True)
 
 

@@ -24,8 +24,8 @@ Round 0 is the shape ``chip_smoke.py`` times: the 45M Webscope rows
 
 Prints one JSON line: the tag, the kernel, the card's name and power
 limit, the median and every CUDA-event time of ``--runs`` calls after one
-warm-up (each queued behind a device sleep, so the host's launch overhead
-falls outside the window), the launches one call counted, and a digest of
+warm-up (``timing.device_times``: each queued behind a device sleep, so
+the host's launch overhead falls outside the window), the launches one call counted, and a digest of
 the selections (greedy) or the accept set (threshold).  Near ties may
 break apart between checkouts, so a digest that differs is reported, not
 failed: ``chip_smoke.py`` holds each kernel against its plain version.
@@ -39,30 +39,15 @@ import hashlib
 import inspect
 import json
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
+if __package__:   # imported as repro_torch.ab_round0
+    from .timing import card, device_times
+else:             # run as a script: timing.py beside this file
+    from timing import card, device_times
+
 KERNELS = ("greedy", "greedy_constrained", "greedy_weighted", "threshold")
-
-
-def timed(fn, runs: int) -> list[float]:
-    """CUDA-event milliseconds of ``runs`` calls of ``fn``, each queued
-    behind a device sleep (after one warm-up call)."""
-    import torch
-    fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(2_000_000)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return times
 
 
 def main() -> None:
@@ -151,7 +136,7 @@ def main() -> None:
             return level(tau0)
 
         extra["ms_level1_median"] = statistics.median(
-            timed(lambda: level(tau0 * 0.5), args.runs))
+            device_times(lambda: level(tau0 * 0.5), args.runs))
         if has_flags:
             for lv, tau in ((0, tau0), (1, tau0 * 0.5)):
                 level(tau)
@@ -168,10 +153,8 @@ def main() -> None:
     call()
     torch.cuda.synchronize()
     launches = {key: v for key, v in ops.launch_counts.items() if v}
-    times = timed(call, args.runs)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
+    times = device_times(call, args.runs)
+    smi = card()
     print(json.dumps({
         "tag": args.tag, "kernel": args.kernel, "card": smi,
         "shape": [*blocks.shape, m], "k": k,

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("exemplar_gains", "greedy_select", "threshold_select",
-           "rbf_kernel", "flash_attention", "wkv6")
+           "rbf_kernel", "flash_attention", "wkv6", "wkv6_chunked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +41,8 @@ ARGTYPES = {
     "threshold_select_launch": [_P] * 20 + [_LL, _LL] + [_I] * 6
     + [_F, _P, _P],
     "threshold_select_max_groups": [_I, _I, _I, _I],
-    "rbf_kernel_launch": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _F, _P],
+    "rbf_kernel_launch": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _F, _I,
+                          _P],
     "flash_attention_prefill_launch": [_P] * 4 + [_LL] * 12 + [_I] * 8
     + [_F, _I, _P],
     "flash_attention_prefill_wgmma_launch": [_P] * 4 + [_LL] * 12
@@ -52,6 +53,8 @@ ARGTYPES = {
     "flash_attention_smem": [_I, _I],
     "wkv6_launch": [_P] * 8 + [_LL] * 15 + [_I] * 8 + [_P],
     "wkv6_smem": [_I, _I],
+    "wkv6_chunked_launch": [_P] * 11 + [_LL] * 15 + [_I] * 8 + [_P],
+    "wkv6_chunked_smem": [_I],
 }
 #: entry points that return a size rather than an error code
 RESTYPES = {"exemplar_tile_smem": _LL, "greedy_select_grid": _LL}
@@ -63,20 +66,23 @@ RESTYPES = {"exemplar_tile_smem": _LL, "greedy_select_grid": _LL}
 #: greedy step); threshold_select's walk is two launches a τ-level, the head
 #: (counted as threshold_select or threshold_select_weighted) and the tail
 #: (threshold_select_tail), with the pre-pass between them
-#: (threshold_select_prepass), weighted or not;
+#: (threshold_select_prepass), weighted or not; rbf_kernel's launches that
+#: take the row vector are counted once more (rbf_kernel_rowvec);
 #: flash_attention's prefill (S > 1) and decode (S = 1) launches apart (the
 #: prefill launches that take the tensor-core route are counted once more
 #: under flash_attention_prefill_wgmma), and wkv6's prefill (T > 1) and
-#: decode (T = 1) launches
+#: decode (T = 1) calls (either kernel), with the chunked kernel's launches
+#: (three a call) counted apart under wkv6_chunked
 launch_counts: dict[str, int] = {
     name: 0 for name in (
         "exemplar_gains", "exemplar_gains_weighted", "greedy_select",
         "greedy_select_constrained", "greedy_select_weighted",
         "threshold_select", "threshold_select_weighted",
         "threshold_select_prepass", "threshold_select_tail", "rbf_kernel",
+        "rbf_kernel_rowvec",
         "flash_attention_prefill", "flash_attention_prefill_wgmma",
         "flash_attention_decode",
-        "wkv6_prefill", "wkv6_decode")}
+        "wkv6_prefill", "wkv6_decode", "wkv6_chunked")}
 #: ptxas register/shared-memory report of each library built in this process
 build_log: dict[str, str] = {}
 

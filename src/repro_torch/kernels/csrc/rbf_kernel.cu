@@ -19,27 +19,38 @@
 // d^2 moves K by four, so any other order would part the kernel from its
 // plain version by more than the tolerance on rows of large norm.
 //
-// Tiling: one CTA per (32-row x 128-column) output tile of one machine,
-// 256 threads as 8 row groups x 32 column lanes; each thread owns 4 rows x
-// 4 columns (columns lane + 32 q), so each warp stores 128 consecutive
-// bytes of a row.  The feature axis streams through shared memory DK
-// columns at a time (any d; ragged edges zero-filled, and a zero product
-// adds nothing), and the norms of the tile's rows are computed once, from
-// the staged features.
+// Two instantiations, chosen by n in kernels/rbf_kernel.py::launch:
 //
-// Machine axis: grid.z.  X and Y each take a machine stride in elements
-// (0 for an operand every machine shares, as FacilityLocation's eval set);
-// rows are contiguous (row stride d).  out (M, n, m) is contiguous.
+// * the 32 x 128 tile (n > ROWVEC_N or d > ROWVEC_D; FacilityLocation's
+//   512 eval rows): one CTA per (32-row x 128-column) output tile of one
+//   machine, 256 threads as 8 row groups x 32 column lanes; each thread
+//   owns 4 rows x 4 columns (columns lane + 32 q), so each warp stores 128
+//   consecutive bytes of a row.  The feature axis streams through shared
+//   memory DK columns at a time (any d; ragged edges zero-filled, and a zero
+//   product adds nothing), and the norms of the tile's rows are computed
+//   once, from the staged features.
+// * the row vector (n <= ROWVEC_N and d <= ROWVEC_D: ActiveSetSelection's
+//   update, one row against every candidate): at n = 1 the tile leaves 31
+//   of its 32 rows empty, and each CTA stages 128 Y rows for 512 bytes of
+//   output.  Here a CTA owns a span of SPAN consecutive Y rows of one
+//   machine and keeps the n X rows and their norms in shared memory.  It
+//   stages VT rows (VT * d contiguous floats) at a time with 16-byte loads,
+//   coalesced across rows, behind a scalar head and tail where the span
+//   does not start on 16 bytes; thread t then scores row t of the pass
+//   against every X row and writes it, so each warp stores 128 consecutive
+//   bytes of each output row.  Grid (ceil(m / SPAN), M).
+//
+// Machine axis: grid.z (tile) or grid.y (row vector).  X and Y each take a
+// machine stride in elements (0 for an operand every machine shares, as
+// FacilityLocation's eval set); rows are contiguous (row stride d).  out
+// (M, n, m) is contiguous.
 //
 // Bound on the H100: bytes.  The output is 4 n m bytes per machine: at the
 // FacilityLocation gain shape (512 eval rows x 22,500 candidates x 2,000
 // machines) 92 GB a step; at the ActiveSetSelection update shape (one row
 // against 22,500 candidates x 2,000 machines) it reads every candidate row
-// (1.08 GB) and writes 0.18 GB.  The next limit is expf on the SFUs.  At
-// n = 1 (the update) 31 of a tile's 32 rows are empty: a tile shape chosen
-// by n is later work.
-//
-// Grid: (ceil(m / 128), ceil(n / 32), M).  Block: 256 threads.  No atomics.
+// (1.08 GB) and writes 0.18 GB, which the row vector streams.  The next
+// limit is expf on the SFUs.  No atomics.
 #include <cuda_runtime.h>
 
 namespace {
@@ -144,14 +155,119 @@ rbf_kernel_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   }
 }
 
+// Row vector: n <= ROWVEC_N X rows against SPAN consecutive Y rows.
+constexpr int ROWVEC_N = 4;    // X rows the row vector takes
+constexpr int ROWVEC_D = 32;   // features it takes
+constexpr int VT = 256;        // threads; Y rows per staged pass
+constexpr int PASSES = 4;      // passes per CTA
+constexpr int SPAN = VT * PASSES;
+
+// count floats of global src -> shared dst: a scalar head up to the first
+// 16-byte boundary of src, 16-byte loads, a scalar tail.  dst + head is
+// 16-byte aligned (the caller offsets dst by (4 - head) % 4 floats).
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int count, int head) {
+  const int tid = threadIdx.x;
+  if (tid < head) dst[tid] = src[tid];
+  const int body = (count - head) / 4;
+  const float4* s4 = reinterpret_cast<const float4*>(src + head);
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int i = tid; i < body; i += VT) d4[i] = s4[i];
+  for (int i = head + 4 * body + tid; i < count; i += VT) dst[i] = src[i];
+}
+
+template <int NR>
+__global__ void __launch_bounds__(VT)
+rbf_rowvec_kernel(const float* __restrict__ X, const float* __restrict__ Y,
+                  float* __restrict__ out, long long sx, long long sy,
+                  long long m, int d, float inv_h2) {
+  __shared__ float xs[NR * ROWVEC_D];
+  __shared__ float x2s[NR];
+  extern __shared__ float4 ys4[];  // VT * d + 4 floats
+  float* ys = reinterpret_cast<float*>(ys4);
+  const int tid = threadIdx.x;
+  const long long mach = blockIdx.y;
+  const long long row0 = (long long)blockIdx.x * SPAN;
+  const float* Xm = X + mach * sx;
+  const float* Ym = Y + mach * sy;
+  for (int i = tid; i < NR * d; i += VT) xs[i] = Xm[i];
+  __syncthreads();
+  if (tid < NR) {
+    float norm = 0.f;
+    for (int c = 0; c < d; ++c)
+      norm = __fadd_rn(norm, __fmul_rn(xs[tid * d + c], xs[tid * d + c]));
+    x2s[tid] = norm;
+  }
+  for (int p = 0; p < PASSES; ++p) {
+    const long long base = row0 + (long long)p * VT;
+    if (base >= m) break;
+    const int rows = (int)min((long long)VT, m - base);
+    const float* src = Ym + base * d;
+    const int head = (int)min(
+        (long long)((16 - (reinterpret_cast<unsigned long long>(src) & 15))
+                    & 15) / 4, (long long)rows * d);
+    const int pad = (4 - head) & 3;
+    __syncthreads();  // the last pass is done with ys (and x2s is written)
+    stage_rows(ys + pad, src, rows * d, head);
+    __syncthreads();
+    if (tid < rows) {
+      const float* y = ys + pad + tid * d;
+      float y2 = 0.f, acc[NR];
+#pragma unroll
+      for (int r = 0; r < NR; ++r) acc[r] = 0.f;
+      for (int c = 0; c < d; ++c) {
+        const float yc = y[c];
+        y2 = __fadd_rn(y2, __fmul_rn(yc, yc));
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+          acc[r] = __fadd_rn(acc[r], __fmul_rn(xs[r * d + c], yc));
+      }
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const float s = __fadd_rn(x2s[r], y2);
+        const float d2 = fmaxf(__fsub_rn(s, __fmul_rn(2.f, acc[r])), 0.f);
+        out[(mach * NR + r) * m + base + tid] = expf(__fmul_rn(-d2, inv_h2));
+      }
+    }
+  }
+}
+
+template <int NR>
+int launch_rowvec(const void* X, const void* Y, void* out, long long sx,
+                  long long sy, long long M, long long m, int d, float inv_h2,
+                  void* stream) {
+  const dim3 grid((unsigned)((m + SPAN - 1) / SPAN), (unsigned)M);
+  const size_t smem = (size_t)(VT * d + 4) * sizeof(float);
+  rbf_rowvec_kernel<NR><<<grid, VT, smem, (cudaStream_t)stream>>>(
+      (const float*)X, (const float*)Y, (float*)out, sx, sy, m, d, inv_h2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // X rows at X + mach * sx, Y rows at Y + mach * sy (fp32, row stride d;
 // a stride of 0 shares the operand); out (M, n, m) fp32 contiguous.
+// rowvec = 1 takes the row vector (n <= 4 and d <= 32, else
+// cudaErrorInvalidValue), 0 the 32 x 128 tile.
 extern "C" int rbf_kernel_launch(const void* X, const void* Y, void* out,
                                  long long sx, long long sy, long long M,
                                  long long n, long long m, int d,
-                                 float inv_h2, void* stream) {
+                                 float inv_h2, int rowvec, void* stream) {
+  if (rowvec) {
+    if (d > ROWVEC_D) return (int)cudaErrorInvalidValue;
+    switch (n) {
+      case 1: return launch_rowvec<1>(X, Y, out, sx, sy, M, m, d, inv_h2,
+                                      stream);
+      case 2: return launch_rowvec<2>(X, Y, out, sx, sy, M, m, d, inv_h2,
+                                      stream);
+      case 3: return launch_rowvec<3>(X, Y, out, sx, sy, M, m, d, inv_h2,
+                                      stream);
+      case 4: return launch_rowvec<4>(X, Y, out, sx, sy, M, m, d, inv_h2,
+                                      stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   const dim3 grid((unsigned)((m + COLS - 1) / COLS),
                   (unsigned)((n + ROWS - 1) / ROWS), (unsigned)M);
   rbf_kernel_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(

@@ -8,10 +8,14 @@ Source: ``csrc/rbf_kernel.cu``.
 ``inv_h2 = float32(1/(h·h))``, ``expf`` and no fast math.  The sums over the
 feature axis run in order, each product rounded before its add, so the
 kernel and its plain version give a pair the same squared distance (see
-``csrc/rbf_kernel.cu``).  One CTA per 32 × 128 output tile of one machine;
-a leading machine grid axis with a machine stride per operand, 0 for an
-operand every machine shares (``FacilityLocation``'s eval set), so a shared
-operand is never copied per machine.
+``csrc/rbf_kernel.cu``).  Two instantiations, chosen by :func:`rowvec`:
+the 32 × 128 output tile, and for a few X rows (``ActiveSetSelection``'s
+update: one row against every candidate) the row vector, in which a CTA
+streams 1,024 consecutive Y rows of one machine with 16-byte loads and
+keeps the X rows in shared memory.  A leading machine grid axis with a
+machine stride per operand, 0 for an operand every machine shares
+(``FacilityLocation``'s eval set), so a shared operand is never copied per
+machine.
 
 What bounds it on the H100: bytes — the output is 4·n·m bytes per machine
 (92 GB a step at the ``FacilityLocation`` gain shape of a Webscope round 0,
@@ -32,7 +36,17 @@ from repro_torch.kernels.ref import rbf_kernel as plain  # noqa: F401
 
 ROWS = 32     # X rows per output tile (csrc/rbf_kernel.cu)
 COLS = 128    # Y rows per output tile
+ROWVEC_N = 4  # the row vector takes n <= ROWVEC_N X rows ...
+ROWVEC_D = 32  # ... of d <= ROWVEC_D features
+SPAN = 1024   # Y rows per row-vector CTA
 _GRID_YZ = 65535
+
+
+def rowvec(n: int, d: int) -> bool:
+    """The rule: the row vector for n ≤ 4 X rows of d ≤ 32 features, where
+    a 32-row tile would leave most of its rows empty (n = 1 at
+    ``ActiveSetSelection``'s update); the 32 × 128 tile otherwise."""
+    return n <= ROWVEC_N and d <= ROWVEC_D
 
 
 def _rows_operand(t: torch.Tensor, M: int, what: str):
@@ -62,8 +76,10 @@ def launch(X: torch.Tensor, Y: torch.Tensor, h: float) -> torch.Tensor:
         raise ValueError(f"rbf_kernel kernel: X {tuple(X.shape)} on "
                          f"{X.device} and Y {tuple(Y.shape)} on {Y.device} "
                          f"do not pair up")
+    vec = rowvec(n, d)
     if (not 0 < M <= _GRID_YZ or -(-n // ROWS) > _GRID_YZ
-            or -(-m // COLS) >= 2 ** 31 or not 0 < d < 2 ** 31):
+            or -(-m // (SPAN if vec else COLS)) >= 2 ** 31
+            or not 0 < d < 2 ** 31):
         raise ValueError(f"rbf_kernel kernel: unsupported shape M={M} n={n} "
                          f"m={m} d={d}")
     out = torch.empty((M, n, m), dtype=torch.float32, device=X.device)
@@ -73,6 +89,9 @@ def launch(X: torch.Tensor, Y: torch.Tensor, h: float) -> torch.Tensor:
     fn = _build.load("rbf_kernel").rbf_kernel_launch
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _build.check(fn(X.data_ptr(), Y.data_ptr(), out.data_ptr(), sx, sy, M, n,
-                    m, d, inv_h2, stream), "rbf_kernel")
+                    m, d, inv_h2, int(vec), stream), "rbf_kernel")
     _build.launch_counts["rbf_kernel"] += 1
+    if vec:
+        _build.launch_counts["rbf_kernel_rowvec"] += 1
     return out
+

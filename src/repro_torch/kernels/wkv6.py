@@ -1,29 +1,49 @@
-"""RWKV-6 WKV recurrence: the CUDA kernel's launch wrapper and its plain
+"""RWKV-6 WKV recurrence: the CUDA kernels' launch wrappers and their plain
 version.
 
 Replaces the TPU kernel ``repro.kernels.wkv6.wkv6_pallas``
-(``src/repro/kernels/wkv6.py:52``, ``pl.pallas_call`` at ``:69``).  Source:
-``csrc/wkv6.cu``.
+(``src/repro/kernels/wkv6.py:52``, ``pl.pallas_call`` at ``:69``).
+Sources: ``csrc/wkv6.cu`` (the recurrent kernel) and
+``csrc/wkv6_chunked.cu`` (the chunked kernel).
 
 ``y_t = r_t·(S + diag(u)·k_tᵀv_t)``, ``S ← diag(w_t)·S + k_tᵀv_t`` from an
 initial state (zeros, or a given ``(B, H, Dk, Dv)`` fp32 state), returning
 ``y`` and the final state: the TPU kernel's function with the state in and
 out, which prefill (the final state into the cache) and decode (the cache's
-state in, written back in place) need.  One CTA per (b, h, 16 columns of
-the state) walks all of T with the state in registers; chunks of 32 steps
-are staged in shared memory by ``cp.async`` with the next one in flight.
-Any T (the ragged chunk is masked in the kernel; the ``T % bt`` rule belongs
-to the Pallas launch only); Dk ≤ 64 and Dk, Dv with 16-byte rows.  r, k, v
-fp32 or bf16, w fp32, u fp32 or bf16; operands are read through their
-strides (last axis contiguous, rows on 16-byte boundaries; a view that is
-not is copied first); ``y`` is allocated ``(B, T, H, Dv)`` in memory and
-returned as its ``(B, H, T, Dv)`` view, so the model's
-``transpose(1, 2).reshape(B, T, H·Dv)`` copies nothing.
+state in, written back in place) need.  Any T; Dk ≤ 64 and Dk, Dv with
+16-byte rows.  r, k, v fp32 or bf16, w fp32, u fp32 or bf16; operands are
+read through their strides (last axis contiguous, rows on 16-byte
+boundaries; a view that is not is copied first); ``y`` is allocated ``(B,
+T, H, Dv)`` in memory and returned as its ``(B, H, T, Dv)`` view, so the
+model's ``transpose(1, 2).reshape(B, T, H·Dv)`` copies nothing.
 
-What bounds it on the H100: operations at prefill (5·Dk·Dv per step and
-head), bytes at decode (the fp32 state, read and written once).  This
-version runs unfused fp32 products on the CUDA cores, in the plain
-version's order, so the two agree to the bit.
+Two kernels:
+
+* :func:`launch`, the recurrent kernel, which :func:`repro_torch.kernels.
+  ops.wkv6` takes for every call: one CTA per (b, h, 16 columns of the
+  state) walks all of T with the state in registers, chunks of 32 steps
+  staged by ``cp.async``; unfused fp32 products on the CUDA cores in the
+  plain version's order, so the two agree to the bit.  Bound: operations
+  at prefill (5·Dk·Dv per step and head at the fp32 rate), bytes at
+  decode.
+* :func:`launch_chunked`, the chunked kernel: chunks of 64 steps with
+  their products on the tensor cores (every fp32 operand split in three
+  bf16 pieces), in three launches — each chunk's own state, a scan over
+  the chunk states, each chunk's y — so time runs in parallel.  Its sums
+  run in another order than the recurrence's; it meets
+  ``testing.WKV_TERMS_RTOL``, the error model against the magnitude of
+  the terms.  Bound: bytes.  On the H100 it is the faster of the two
+  from T = 64 at B = 8, H = 32 (``chip_smoke.py``'s times phase).
+
+No call is dispatched to the chunked kernel.  The port's checks of
+``wkv6`` against its plain version (``testing.assert_attention_close`` and
+``assert_close``, RTOL = ATOL = 1e-5) hold any kernel to the recurrence's
+own rounding where the decay is slow and the terms cancel: at the model's
+init decay (w ≈ 0.9975) with N(0, 1) operands even the exact sum parts
+from the plain version by more than they allow, from T = 70 at B × H =
+256 on (``tests/test_torch_wkv6_chunked.py``).  Only the recurrent
+kernel, which repeats the plain version's order, meets them at the
+model's shapes.
 
 The plain version is :func:`repro_torch.kernels.ref.wkv6`; the dispatch in
 :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
@@ -37,6 +57,8 @@ from repro_torch.kernels.flash_attention import _bhs
 from repro_torch.kernels.ref import wkv6 as plain  # noqa: F401
 
 MAX_DK = 64          # the largest instantiation of csrc/wkv6.cu
+CHUNK = 64           # steps per chunk of csrc/wkv6_chunked.cu
+CHUNKED_MAX_D = 64   # Dk and Dv the chunked kernel takes
 _GRID_YZ = 65535
 _OPERANDS = (torch.float32, torch.bfloat16)
 
@@ -51,13 +73,10 @@ def _state(s, shape, device, what: str):
     return s
 
 
-def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           w: torch.Tensor, u: torch.Tensor, state=None, *, state_out=None,
-           out_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's ``(y, final_state)`` for r, k, w ``(B, H, T, Dk)``, v
-    ``(B, H, T, Dv)``, u ``(H, Dk)`` on the card.  ``state_out`` (which may
-    be ``state``) receives the final state in place; a new tensor does
-    otherwise."""
+def _operands(r, k, v, w, u, state, state_out, out_dtype):
+    """Check a call; returns (shape (B, H, T, Dk, Dv), state, state_out —
+    allocated when not given —, y (B, H, T, Dv) as a view of (B, T, H,
+    Dv))."""
     dev = r.device
     if (dev.type != "cuda" or any(t.device != dev for t in (k, v, w, u))
             or r.dim() != 4 or v.dim() != 4 or r.dtype not in _OPERANDS
@@ -95,13 +114,25 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         state_out = torch.empty(shape, dtype=torch.float32, device=dev)
     y = torch.empty((B, T, H, Dv), dtype=out_dtype or r.dtype,
                     device=dev).transpose(1, 2)
+    return (B, H, T, Dk, Dv), state, state_out, y
+
+
+def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           w: torch.Tensor, u: torch.Tensor, state=None, *, state_out=None,
+           out_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The recurrent kernel's (``csrc/wkv6.cu``) ``(y, final_state)`` for
+    r, k, w ``(B, H, T, Dk)``, v ``(B, H, T, Dv)``, u ``(H, Dk)`` on the
+    card.  ``state_out`` (which may be ``state``) receives the final state
+    in place; a new tensor does otherwise."""
+    (B, H, T, Dk, Dv), state, state_out, y = _operands(
+        r, k, v, w, u, state, state_out, out_dtype)
     r, *sr = _bhs(r)
     k, *sk = _bhs(k)
     v, *sv = _bhs(v)
     w, *sw = _bhs(w)
     u = u.contiguous()
     lib = _build.load("wkv6")
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(r.device).cuda_stream
     _build.check(lib.wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), 0 if state is None else state.data_ptr(),
@@ -113,6 +144,51 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, state_out
 
 
+def launch_chunked(r, k, v, w, u, state=None, *, state_out=None,
+                   out_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`launch`'s function on the chunked kernel
+    (``csrc/wkv6_chunked.cu``), for Dk, Dv ≤ 64: three launches, with two
+    ``(B, H, ⌈T/64⌉, 64, 64)`` fp32 tensors of scratch (each chunk's own
+    state, each chunk's entry state)."""
+    (B, H, T, Dk, Dv), state, state_out, y = _operands(
+        r, k, v, w, u, state, state_out, out_dtype)
+    if Dk > CHUNKED_MAX_D or Dv > CHUNKED_MAX_D:
+        raise ValueError(f"wkv6 chunked kernel: Dk={Dk}, Dv={Dv}: it takes "
+                         f"Dk, Dv <= {CHUNKED_MAX_D}")
+    nc = -(-T // CHUNK)
+    dev = r.device
+    st, se = torch.empty((2, B, H, nc, CHUNKED_MAX_D, CHUNKED_MAX_D),
+                         dtype=torch.float32, device=dev)
+    dc = torch.empty((B, H, nc, CHUNKED_MAX_D), dtype=torch.float32,
+                     device=dev)
+    r, *sr = _bhs(r)
+    k, *sk = _bhs(k)
+    v, *sv = _bhs(v)
+    w, *sw = _bhs(w)
+    u = u.contiguous()
+    lib = _build.load("wkv6_chunked")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(lib.wkv6_chunked_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), 0 if state is None else state.data_ptr(),
+        state_out.data_ptr(), y.data_ptr(), st.data_ptr(), se.data_ptr(),
+        dc.data_ptr(),
+        *sr, *sk, *sv, *sw, y.stride(0), y.stride(1), y.stride(2), B, H, T,
+        Dk, Dv, int(r.dtype == torch.bfloat16),
+        int(u.dtype == torch.bfloat16), int(y.dtype == torch.float32),
+        stream), "wkv6 chunked")
+    _build.launch_counts["wkv6_decode" if T == 1 else "wkv6_prefill"] += 1
+    _build.launch_counts["wkv6_chunked"] += 3
+    return y, state_out
+
+
 def smem_bytes(Dk: int, bf16: bool) -> int:
-    """Dynamic shared memory of one CTA, read from the built kernel."""
+    """Dynamic shared memory of one recurrent CTA, read from the built
+    kernel."""
     return int(_build.load("wkv6").wkv6_smem(Dk, int(bf16)))
+
+
+def chunked_smem_bytes(bf16: bool) -> int:
+    """Dynamic shared memory of one chunk CTA, read from the built
+    kernel."""
+    return int(_build.load("wkv6_chunked").wkv6_chunked_smem(int(bf16)))

@@ -1,14 +1,17 @@
 """The port's tolerances (one for fp32 values, one more bf16 ulp for
 attention outputs in bf16, and those of LM logits and caches), the
 near-tie rule for selections and for greedy tokens, the exact-tie rule for
-objectives whose gains tie exactly, and the near-threshold rule for
-threshold-batch accept sets.
+objectives whose gains tie exactly, the near-threshold rule for
+threshold-batch accept sets, and the error model of the chunked ``wkv6``
+against the recurrence.
 
 Used by the tests (plain versions against the JAX package on the CPU) and
 by ``chip_smoke.py`` (kernels against their plain versions on the card).
 Never loosen them to make a comparison pass.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -60,6 +63,67 @@ LM_ATOL = {torch.bfloat16: 0.125, torch.float32: 1e-4}
 #: of the sums differs, the port's recurrence against the JAX package's
 #: chunked form included: measured ≤ 9.9e-6 and ≤ 8.2e-7.
 RWKV_ATOL = {torch.bfloat16: (0.5, 0.05), torch.float32: (1e-4, 1e-5)}
+
+
+#: The chunked ``wkv6`` (``kernels/csrc/wkv6_chunked.cu``) against the
+#: recurrence (``kernels/ref.py::wkv6``).  Both sum the same terms, in
+#: another order: the chunked form decays each term by products of up to 64
+#: w's (one fp32 rounding a factor), takes its products on the tensor cores
+#: with every fp32 operand split in three bf16 pieces (the dropped pieces ≤
+#: 3·2⁻²⁴ of a term) and sums in the tensor cores' order; the recurrence
+#: rounds each state update once a step.  So their difference is bounded
+#: by the magnitude of the terms summed along the path, not by |y| or |S|:
+#: where the terms nearly cancel (y or a state entry near 0 after a long,
+#: slow decay) any two summation orders part by more than RTOL/ATOL, the
+#: exact sum included (``tests/test_torch_wkv6_chunked.py``).  Error model,
+#: elementwise: ``|Δ| ≤ WKV_TERMS_RTOL·m`` (plus one ulp of a bf16 output),
+#: ``m`` from :func:`wkv6_terms`.  2⁻¹⁹ is 32 units of 2⁻²⁴: room for the
+#: recurrence's own rounding (a few units of m: each term passes ~L
+#: roundings of relative size 2⁻²⁴ with random signs, and m grows like L
+#: where the sum grows like √L) and the chunked form's.
+WKV_TERMS_RTOL = 2.0 ** -19
+
+
+def wkv6_terms(r, k, v, w, u, state=None):
+    """(m_y, m_S): the magnitude of the terms each output of ``wkv6`` sums
+    — the recurrence run on |r|, |k|, |v|, w, |u| and |S₀|, so ``m_y`` is
+    Σ_k |r_k|·m_S,kj + |r·u·k|·|v_j| and ``m_S`` the decayed Σ|k·v| plus
+    the decayed |S₀|, both in fp32."""
+    from repro_torch.kernels import ref
+    return ref.wkv6(r.abs(), k.abs(), v.abs(), w, u.abs(),
+                    None if state is None else state.abs(),
+                    out_dtype=torch.float32)
+
+
+def terms_ratio(actual, expected, terms, bf16: bool = False) -> float:
+    """The largest ``(|Δ| − one bf16 ulp of expected, if bf16) / m`` over
+    the elements: the error model holds where it is ≤ WKV_TERMS_RTOL (an
+    element with m = 0 must agree exactly)."""
+    dev = actual.device if isinstance(actual, torch.Tensor) else "cpu"
+    a, b, m = (x.detach().to(dev, torch.float64)
+               if isinstance(x, torch.Tensor)
+               else torch.from_numpy(np.array(_np(x), np.float64)).to(dev)
+               for x in (actual, expected, terms))
+    over = (a - b).abs()
+    if bf16:
+        over = (over - 2.0 ** -7 * b.abs()).clamp_min(0.0)
+    if not over.numel():
+        return 0.0
+    if bool(torch.any((m == 0) & (over > 0))):
+        return math.inf
+    return float(torch.where(m > 0, over / m.clamp_min(1e-300),
+                             torch.zeros_like(m)).max())
+
+
+def assert_within_terms(actual, expected, terms, bf16: bool = False,
+                        what: str = "wkv6") -> float:
+    """The error model (``WKV_TERMS_RTOL``); returns the ratio read."""
+    ratio = terms_ratio(actual, expected, terms, bf16)
+    if not ratio <= WKV_TERMS_RTOL:
+        raise AssertionError(
+            f"{what}: max |Δ|/m = {ratio!r} > WKV_TERMS_RTOL = "
+            f"{WKV_TERMS_RTOL!r}")
+    return ratio
 
 
 def assert_attention_close(actual, expected, bf16: bool,

@@ -189,9 +189,10 @@ def test_launch_counts_untouched_by_plain_path():
         "greedy_select": 0, "greedy_select_constrained": 0,
         "greedy_select_weighted": 0, "threshold_select": 0,
         "threshold_select_weighted": 0, "threshold_select_prepass": 0,
-        "threshold_select_tail": 0, "rbf_kernel": 0,
+        "threshold_select_tail": 0, "rbf_kernel": 0, "rbf_kernel_rowvec": 0,
         "flash_attention_prefill": 0, "flash_attention_prefill_wgmma": 0,
-        "flash_attention_decode": 0, "wkv6_prefill": 0, "wkv6_decode": 0}
+        "flash_attention_decode": 0, "wkv6_prefill": 0, "wkv6_decode": 0,
+        "wkv6_chunked": 0}
 
 
 @pytest.mark.parametrize("M,n,m,d", [(1, 300, 70, 6), (7, 333, 130, 17),

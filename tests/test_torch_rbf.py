@@ -1,7 +1,10 @@
 """The port's ``rbf_kernel`` against the JAX package on the CPU: its plain
 version against ``repro.kernels.ref.rbf_kernel`` and against the Pallas
 kernel in interpret mode, at ragged shapes and with a machine axis on
-either operand, and the CUDA kernel against its plain version on a card.
+either operand; the rule that picks the kernel's instantiation; and the
+CUDA kernel against its plain version on a card, in both instantiations
+(the row vector for n ≤ 4, the 32 × 128 tile above), at ragged m around
+the row vector's 1,024-row span.
 
 Tolerance: ``repro_torch.testing`` (rtol = atol = 1e-5); K(x, x) is 1 to
 the bit in the plain version, whose norms and dot products share one order.
@@ -15,6 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import testing
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rbf_kernel as rbf_mod
 
 from _torch_parity import cuda  # noqa: F401
 
@@ -89,14 +93,32 @@ def test_rbf_dispatch_refuses_other_devices():
         ref.rbf_kernel(torch.zeros((2, 4, 3)), torch.zeros((3, 5, 3)), 0.5)
 
 
+@pytest.mark.parametrize("n,d,vec", [(1, 6, True), (4, 32, True),
+                                     (5, 6, False), (1, 33, False),
+                                     (512, 6, False)])
+def test_rbf_instantiation_rule(n, d, vec):
+    """The row vector takes a few X rows of few features; the tile the rest
+    (FacilityLocation's 512 eval rows among them)."""
+    assert rbf_mod.rowvec(n, d) is vec
+
+
 @pytest.mark.parametrize("n,m,d", [(1, 22_500, 6), (512, 977, 6),
-                                   (33, 301, 22), (70, 129, 64)])
+                                   (33, 301, 22), (70, 129, 64),
+                                   (1, 1023, 6), (2, 1024, 6), (3, 1025, 22),
+                                   (4, 2049, 32), (5, 1025, 6), (1, 3, 33)])
 def test_rbf_kernel_matches_plain_on_card(cuda, n, m, d):  # noqa: F811
     M = 4
     X = torch.as_tensor(_rows(n, (n, d)), device=cuda)
     Y = torch.as_tensor(_rows(m, (M, m, d)), device=cuda)
     for h in (0.5, 1.0):
+        ops.reset_launch_counts()
         got = ops.rbf_kernel(X, Y, h)
+        assert ops.launch_counts["rbf_kernel_rowvec"] == int(
+            rbf_mod.rowvec(n, d))
         testing.assert_close(got, ref.rbf_kernel(X, Y, h))
         Kxx = ops.rbf_kernel(Y, Y, h)
         assert bool(torch.all(torch.diagonal(Kxx, dim1=-2, dim2=-1) == 1.0))
+        # K(x, x) = 1 in the row vector too: X rows taken from each machine
+        i = min(n, m)
+        Kxy = ops.rbf_kernel(Y[:, :i], Y, h)
+        assert bool(torch.all(torch.diagonal(Kxy, dim1=-2, dim2=-1) == 1.0))

@@ -5,13 +5,16 @@ gone) at the shapes of ``tests/test_kernels.py::test_wkv6_kernel``,
 ragged T and Dk ≠ Dv, fp32 and bf16; its final state against
 ``layers.gla_chunked``'s and a ``layers.gla_step`` replay; one step from a
 non-zero state against ``gla_step``; state chaining; the dispatch on CPU
-tensors; and the CUDA kernel against its plain version on a card.
+tensors; and both CUDA kernels (recurrent and chunked) against the plain
+version on a card, over several chunks and at strong decays.
 
 Tolerance: ``repro_torch.testing`` — fp32 within RTOL = ATOL = 1e-5 (the
 same recurrence, sums in another order), bf16 outputs within one bf16 ulp
-more (``BF16_RTOL``).  On the card the kernel and its plain version share
-their arithmetic op for op, so they agree to the bit; the check there is
-the same tolerance.
+more (``BF16_RTOL``).  On the card the recurrent kernel and its plain
+version share their arithmetic op for op, so they agree to the bit; the
+check there is the same tolerance, and for the chunked kernel also the
+error model of ``testing.WKV_TERMS_RTOL``
+(``tests/test_torch_wkv6_chunked.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -33,15 +36,17 @@ SHAPES = [(2, 3, 16, 8, 8), (1, 2, 64, 16, 16), (2, 1, 32, 4, 8),
           (2, 2, 37, 16, 16), (1, 3, 45, 12, 20), (1, 1, 3, 64, 64)]
 
 
-def _inputs(seed, B, H, T, Dk, Dv, scale=0.3):
+def _inputs(seed, B, H, T, Dk, Dv, scale=0.3, decay=None):
     """r, k, v, w, u as tests/test_kernels.py draws them (w = sigmoid(N +
-    2) in (0, 1)), from NumPy."""
+    2) in (0, 1), or the constant ``decay``), from NumPy."""
     g = np.random.default_rng(seed)
     r = (scale * g.standard_normal((B, H, T, Dk))).astype(np.float32)
     k = (scale * g.standard_normal((B, H, T, Dk))).astype(np.float32)
     v = (scale * g.standard_normal((B, H, T, Dv))).astype(np.float32)
     w = (1.0 / (1.0 + np.exp(-(g.standard_normal((B, H, T, Dk)) + 2.0)))
          ).astype(np.float32)
+    if decay is not None:
+        w = np.full_like(w, decay)
     u = (0.1 * g.standard_normal((H, Dk))).astype(np.float32)
     return r, k, v, w, u
 
@@ -153,19 +158,36 @@ def test_plain_sums_in_the_kernels_order():
     assert float(want) == float(f(5.75))
 
 
+@pytest.mark.parametrize("route", ["ops.wkv6", "launch_chunked"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("B,H,T,Dk,Dv", [(2, 3, 37, 16, 16),
-                                         (1, 2, 100, 64, 64),
-                                         (2, 1, 9, 8, 16)])
-def test_kernel_matches_plain_on_card(cuda, dtype, B, H, T, Dk, Dv):  # noqa: F811
+@pytest.mark.parametrize("B,H,T,Dk,Dv,decay", [
+    (2, 3, 37, 16, 16, None), (1, 2, 100, 64, 64, None),
+    (2, 1, 9, 8, 16, None), (2, 3, 300, 64, 64, None),
+    (2, 3, 300, 64, 64, 0.05), (1, 2, 200, 32, 64, 1e-6)])
+def test_kernel_matches_plain_on_card(cuda, route, dtype, B, H, T, Dk, Dv,  # noqa: F811
+                                      decay):
+    """The routed call (ops.wkv6, which launches the recurrent kernel and
+    never the chunked one) and the chunked kernel (wkv6.launch_chunked)
+    against the plain version, over several 64-step chunks and at strong
+    decays; the chunked one also within the error model of
+    testing.WKV_TERMS_RTOL."""
     tdt = DTYPES[dtype][0]
-    r, k, v, w, u = _inputs(T, B, H, T, Dk, Dv)
+    r, k, v, w, u = _inputs(T, B, H, T, Dk, Dv, decay=decay)
     S0 = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (B, H, Dk, Dv)).astype(np.float32)).to(cuda)
     tr, tk, tv = (torch.from_numpy(a).to(cuda, tdt) for a in (r, k, v))
     tw, tu = (torch.from_numpy(a).to(cuda) for a in (w, u))
-    y, S = ops.wkv6(tr, tk, tv, tw, tu, S0)
+    ops.reset_launch_counts()
+    fn = ops.wkv6 if route == "ops.wkv6" else wkv_mod.launch_chunked
+    y, S = fn(tr, tk, tv, tw, tu, S0)
     torch.cuda.synchronize()
+    assert ops.launch_counts["wkv6_prefill"] == 1
+    assert ops.launch_counts["wkv6_chunked"] == (
+        0 if route == "ops.wkv6" else 3)
     y_p, S_p = ref.wkv6(tr, tk, tv, tw, tu, S0)
     testing.assert_attention_close(y, y_p, dtype == "bf16", "wkv6 y")
     testing.assert_close(S, S_p, "wkv6 state")
+    if route == "launch_chunked":
+        m_y, m_S = testing.wkv6_terms(tr, tk, tv, tw, tu, S0)
+        testing.assert_within_terms(y, y_p, m_y, dtype == "bf16", "y")
+        testing.assert_within_terms(S, S_p, m_S, False, "state")
