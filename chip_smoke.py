@@ -18,6 +18,12 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    M = 1 over more than 100 blocks, and the most partition groups a
    launch takes (one more raises); the HMMA instructions (the gain tile's
    TF32 products) in the SASS of the three libraries built on the tile;
+   then the narrow instantiations of the three (bf16 rows, int8 rows with
+   per-row scales that are not powers of two, the bf16 x·e contraction,
+   and the two combined) at d ∈ {6, 17, 64}, M ∈ {1, 7}, one constrained
+   and one weighted greedy, threshold levels at bn ∈ {16, 256}: each
+   against its plain version, to the bits of the fp32 kernel on the rows
+   it dequantizes to, and counted under its own launch counter;
 3. scan path — ``run_algorithm("greedy", fused=False)`` on one 22,500-row
    block, launching ``exemplar_gains``; its selections and the fused
    path's against the plain greedy under the near-tie rule;
@@ -31,7 +37,18 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    centralized greedy (ratio ≥ 0.9), THRESHOLD-BATCH TREE at ε = 0.5
    unconstrained and constrained (gap ≤ ε), every coreset feasible and
    re-scored, τ-ladder depth ≤ 1 + ⌈log(2k/ε)/ε⌉; the constrained
-   centralized selections against the plain constrained greedy;
+   centralized selections against the plain constrained greedy; then
+   streaming round 0 of the same deployment from phase 4's host array and
+   plan, waves under a 256 MiB byte budget: fp32 with dense and with
+   Feistel slots, each bit for bit as its resident TREE; bf16 and int8
+   (q_block_rows 4,096) sources bit for bit as a resident TREE on their
+   dequantized rows, their fp32 re-check / centralized ≥ 0.9;
+   THRESHOLD-BATCH on bf16 with score_dtype = bfloat16, and on int8 under
+   the knapsack ∩ partition with the attributes in the meta columns; the
+   streaming centralized greedy (chunks of 2^20 rows) against phase 4's;
+   score_dtype = bfloat16 on phase 3's block (fused and step-wise alike)
+   and in a TREE (/ centralized ≥ 0.9); every wave's gather, H2D and
+   solve seconds and bytes;
 6. other objectives — ActiveSetSelection (Parkinsons analog, Webscope),
    FacilityLocation and the weighted exemplar objective at Webscope;
 7. attention kernels (run after phase 2, as are 8 to 12) —
@@ -73,13 +90,15 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    against the plain gains on every round-0 machine after 0, 25 and 49
    plain greedy steps; one ``greedy_select`` call launching k kernels;
    ``rbf_kernel``'s update shapes on its row vector;
-   the share of blocks the threshold pre-pass flags at each timed level.
+   the share of blocks the threshold pre-pass flags at each timed level;
+   the narrow instantiations at round 0 beside the fp32 kernel there.
 
 Ends with one JSON line per kernel table and the ``ok`` line.  Imports
 nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import math
@@ -467,22 +486,22 @@ def webscope_constraint(k: int):
                          PartitionMatroid(caps=(k // 4,) * N_GROUPS, col=1)))
 
 
-def fold_cur_min(X, E, cm_in, acc, kmax: int):
+def fold_cur_min(X, E, cm_in, acc, kmax: int, cd=None):
     """The plain fold of each machine's own accept set (at most ``kmax``
-    rows) into ``cm_in``: the contraction-form distances' row-min."""
+    rows) into ``cm_in``: the contraction-form distances' row-min (x·e in
+    bf16 where ``cd`` says so, as the kernels fold)."""
     import torch
     from repro_torch.kernels import ref
     idx = torch.argsort(acc.to(torch.int8), dim=1, descending=True,
                         stable=True)[:, :kmax]
     ok = torch.take_along_dim(acc, idx, dim=1)
-    d2 = ref.pairwise_sqdist(torch.take_along_dim(X, idx[..., None], dim=1),
-                             E)
+    d2 = ref._sqdist(torch.take_along_dim(X, idx[..., None], dim=1), E, cd)
     d2 = torch.where(ok[..., None], d2, torch.full_like(d2, float("inf")))
     return torch.minimum(cm_in, torch.amin(d2, dim=1))
 
 
 def check_threshold(acc, cm, trace, X, E, cm_in, tau, avail, kmax, limit,
-                    what: str) -> tuple[int, int, float]:
+                    what: str, cd=None) -> tuple[int, int, float]:
     """threshold_select's output against the plain trace under the
     near-threshold rule; every machine's cur_min against the plain fold of
     its own accept set.  Returns (machines matching in full, near rows,
@@ -495,7 +514,7 @@ def check_threshold(acc, cm, trace, X, E, cm_in, tau, avail, kmax, limit,
     if not ok:
         fail(f"{what}: accept set differs from the plain version before any "
              f"near-threshold or near-budget row")
-    want = fold_cur_min(X, E, cm_in, acc, kmax)
+    want = fold_cur_min(X, E, cm_in, acc, kmax, cd)
     testing.assert_close(cm, want, f"{what}: cur_min, every machine")
     same = torch.all(acc == acc_p, dim=-1)
     testing.assert_close(cm[same], cm_p[same],
@@ -667,6 +686,196 @@ def threshold_group_limit() -> None:
     log(f"threshold_select at its group limit G = {G}: {full}/{M} machines "
         f"accept as plain ({int(acc.sum())} rows, near rows {near}); "
         f"G = {G + 1} raises")
+
+
+#: the narrow instantiations of the gain-tile kernels: (rows, bf16 dot)
+NARROW = (("bf16", False), ("q8", False), ("fp32", True), ("bf16", True),
+          ("q8", True))
+
+
+def narrow_rows(T, rows: str, dot: bool, seed: int):
+    """``T`` (M, n, d) fp32 as the operand of one instantiation: bf16 rows,
+    int8 rows with per-row scales that are not powers of two (the span /
+    254 times U(1, 1.3)) and zero-points at the midrange, or the fp32 rows;
+    the kwargs of the kernels (``compute_dtype`` for the bf16 dot), and the
+    fp32 rows the kernels dequantize them to.  Returns (X, kwargs, fp32
+    rows, launch counters the instantiation adds to)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    kw = {}
+    X = T
+    if rows == "bf16":
+        X = T.bfloat16()
+    elif rows == "q8":
+        lo, hi = T.amin(dim=-1), T.amax(dim=-1)
+        stretch = torch.as_tensor(
+            np.random.default_rng(seed).uniform(1.0, 1.3, tuple(lo.shape)),
+            dtype=torch.float32, device=T.device)
+        scale = torch.clamp_min(hi - lo, 1e-3) / 254.0 * stretch
+        zp = (lo + hi) * 0.5
+        if bool(torch.all(torch.frexp(scale).mantissa == 0.5)):
+            fail("narrow_rows: every scale is a power of two")
+        X = torch.clamp(torch.round((T - zp[..., None]) / scale[..., None]),
+                        -127, 127).to(torch.int8)
+        kw.update(x_scale=scale, x_zp=zp)
+    if dot:
+        kw["compute_dtype"] = torch.bfloat16
+    deq = ref.dequantize_rows(X, kw.get("x_scale"), kw.get("x_zp"))
+    counters = ([] if rows == "fp32" else [f"_{rows}"]) + (
+        ["_bf16dot"] if dot else [])
+    return X, kw, deq, counters
+
+
+def narrow_name(rows: str, dot: bool) -> str:
+    return rows + ("+bf16dot" if dot else "")
+
+
+def counted(fn, expect: dict):
+    """``fn()`` with the launch counts zeroed before it; fails unless each
+    counter of ``expect`` reads its value after it."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    for name, want in expect.items():
+        if ops.launch_counts[name] != want:
+            fail(f"{name}: {ops.launch_counts[name]} launches, {want} "
+                 f"expected")
+    return out
+
+
+def phase_kernels_narrow() -> None:
+    """The narrow instantiations of exemplar_gains, greedy_select and
+    threshold_select (bf16 rows, int8 rows with per-row scale and
+    zero-point, the bf16 x·e contraction, and the two combined) against
+    their plain versions at ragged shapes, d ∈ {6, 17, 64} (int8 and bf16
+    machine bases that are not 4-byte aligned at d = 17), M ∈ {1, 7}, one
+    constrained and one weighted greedy, threshold levels at bn ∈ {16, 256}
+    in mid-ladder state; each launch counted under its instantiation; and
+    each held to the bits of the fp32 kernel on the rows it dequantizes
+    to."""
+    import numpy as np
+    import torch
+    from repro_torch import testing
+    from repro_torch.core.algorithms import _fused_constraint_kwargs
+    from repro_torch.kernels import ops, ref
+    k = 10
+    cons = webscope_constraint(k)
+    cases = [(M, n, m, d, "none") for d, n, m in ((6, 1000, 300),
+                                                   (17, 777, 130),
+                                                   (64, 501, 99))
+             for M in (1, 7)]
+    cases += [(7, 1000, 300, 6, "both"), (7, 777, 130, 17, "weighted")]
+    ties = n_inst = 0
+    for M, n, m, d, kind in cases:
+        X32 = _dataset(d, M * n + m, seed=700 + d)
+        E = torch.as_tensor(X32[M * n:], device="cuda")
+        T = torch.as_tensor(X32[:M * n].reshape(M, n, d), device="cuda")
+        mask = torch.as_tensor(
+            np.random.default_rng(d * M + 7).random((M, n)) < 0.85,
+            device="cuda")
+        a = torch.as_tensor(make_attrs(M * n, seed=d + M + 7).reshape(
+            M, n, 2), device="cuda")
+        ckw = _fused_constraint_kwargs(cons, a) if kind == "both" else {}
+        if kind == "weighted":
+            ckw = {"eval_weights": eval_weights(m, seed=m + 7)}
+        e0 = torch.sum(E * E, dim=-1)
+        for rows, dot in NARROW:
+            X, kw, deq, ctr = narrow_rows(T, rows, dot, seed=n + d + M)
+            cd = kw.get("compute_dtype")
+            what = (f"{narrow_name(rows, dot)} M={M} n={n} m={m} d={d} "
+                    f"{kind}")
+            trace = ref.greedy_select_trace(X, E, e0, mask, k, **kw, **ckw)
+            ew = ckw.get("eval_weights")
+            for cm in (e0, trace[1]):
+                g = counted(lambda: ops.exemplar_gains(
+                    X, E, cm, eval_weights=ew, **kw),
+                    {f"exemplar_gains{c}": 1 for c in ctr})
+                testing.assert_close(g, ref.exemplar_gains(
+                    X, E, cm, eval_weights=ew, **kw),
+                    f"exemplar_gains {what}")
+                if not torch.equal(g, ops.exemplar_gains(
+                        deq, E, cm, eval_weights=ew, compute_dtype=cd)):
+                    fail(f"exemplar_gains {what}: differs from the fp32 "
+                         f"kernel on the dequantized rows")
+            sel, cm_out = counted(
+                lambda: ops.greedy_select(X, E, e0, mask, k, **kw, **ckw),
+                {f"greedy_select{c}": k for c in ctr})
+            n_tie, same, err = check_greedy(sel, cm_out, deq, E, e0, trace,
+                                            f"greedy_select {what}")
+            s32, c32 = ops.greedy_select(deq, E, e0, mask, k,
+                                         compute_dtype=cd, **ckw)
+            if not (torch.equal(sel, s32) and torch.equal(cm_out, c32)):
+                fail(f"greedy_select {what}: differs from the fp32 kernel "
+                     f"on the dequantized rows")
+            ties += n_tie
+            n_inst += 1
+            log(f"  narrow {what} k={k}: gains, sel, cur_min agree ({same}/"
+                f"{M} machines select as plain, max|dcm| {err:.3g}, near-tie "
+                f"steps {n_tie}); the fp32 kernel's bits on the dequantized "
+                f"rows; launches counted under {ctr}")
+    log(f"narrow exemplar_gains / greedy_select vs plain: {n_inst} cases "
+        f"agree; near-tie steps {ties}")
+
+    k = 12
+    cons = webscope_constraint(k)
+    tcases = [(3, 1000, 300, 6, 256, True, "q8", False),
+              (3, 1000, 300, 6, 16, True, "fp32", True),
+              (7, 777, 130, 17, 16, False, "bf16", False),
+              (7, 201, 130, 17, 256, False, "q8", True),
+              (2, 5_003, 64, 6, 16, True, "bf16", True),
+              (1, 2_001, 99, 64, 256, False, "q8", False),
+              (1, 30_000, 300, 6, 256, True, "bf16", False)]
+    full_all = m_all = 0
+    for M, n, m, d, bn, constrained, rows, dot in tcases:
+        X32 = _dataset(d, M * n + m, seed=800 + d)
+        E = torch.as_tensor(X32[M * n:], device="cuda")
+        T = torch.as_tensor(X32[:M * n].reshape(M, n, d), device="cuda")
+        r = np.random.default_rng(n + bn + 8)
+        mask = torch.as_tensor(r.random((M, n)) < 0.85, device="cuda")
+        a = torch.as_tensor(make_attrs(M * n, seed=n + 8).reshape(M, n, 2),
+                            device="cuda")
+        ckw = _fused_constraint_kwargs(cons, a) if constrained else {}
+        limit = ref.knapsack_limit(ckw["budget"]) if constrained else None
+        X, kw, deq, ctr = narrow_rows(T, rows, dot, seed=n + d)
+        cd = kw.get("compute_dtype")
+        e0 = torch.sum(E * E, dim=-1)
+        cm_in = (e0 * torch.as_tensor(0.6 + 0.4 * r.random((M, m)),
+                                      dtype=torch.float32, device="cuda"))
+        g = ref.exemplar_gains(X, E, cm_in, **kw)
+        tau = g.masked_fill(~mask, 0.0).amax(dim=1) * 0.4
+        st = {"count": torch.full((M,), 3, dtype=torch.int32, device="cuda")}
+        if constrained:
+            st["used"] = torch.full((M,), 0.2 * limit, device="cuda")
+            st["counts"] = torch.as_tensor(r.integers(0, 2, (M, N_GROUPS)),
+                                           dtype=torch.int32, device="cuda")
+        acc, cm = counted(lambda: ops.threshold_select(
+            X, E, cm_in, mask, tau, k, bn=bn, **kw, **st, **ckw),
+            {f"threshold_select{c}": 1 for c in ctr})
+        trace = ref.threshold_select_trace(X, E, cm_in, mask, tau, k,
+                                           bn=min(bn, max(8, n)), **kw, **st,
+                                           **ckw)
+        what = (f"threshold_select {narrow_name(rows, dot)} "
+                f"{'knapsack ∩ partition' if constrained else 'unconstrained'}"
+                f" M={M} n={n} m={m} d={d} bn={bn}")
+        full, near, _ = check_threshold(acc, cm, trace, deq, E, cm_in, tau,
+                                        mask, k, limit, what, cd)
+        a32, c32 = ops.threshold_select(deq, E, cm_in, mask, tau, k, bn=bn,
+                                        compute_dtype=cd, **st, **ckw)
+        if not (torch.equal(acc, a32) and torch.equal(cm, c32)):
+            fail(f"{what}: differs from the fp32 kernel on the dequantized "
+                 f"rows")
+        full_all, m_all = full_all + full, m_all + M
+        log(f"  {what}: {full}/{M} machines accept as plain, "
+            f"{int(acc.sum())} rows accepted, near rows {near}; the fp32 "
+            f"kernel's bits on the dequantized rows")
+    if full_all < FULL_SHARE * m_all:
+        fail(f"narrow threshold_select: only {full_all}/{m_all} machines "
+             f"compared in full")
+    log(f"narrow threshold_select vs plain: {len(tcases)} shapes agree under "
+        f"the near-threshold rule, {full_all}/{m_all} machines in full")
 
 
 def phase_constrained(main: dict) -> dict:
@@ -969,9 +1178,9 @@ def phase_main() -> dict:
     data = datasets.webscope(n=n, d=d)
     obj = objective_from_numpy(eval_rows(data, WEBSCOPE["n_eval"]), "cuda")
     X = torch.as_tensor(data, device="cuda")
-    del data
     log(f"main path data: webscope n={n} d={d} ({X.numel() * 4 / 1e9:.2f} GB "
-        f"on the card) in {time.perf_counter() - t0:.1f} s")
+        f"on the card, the host array kept for the streaming phase) in "
+        f"{time.perf_counter() - t0:.1f} s")
     cfg = TreeConfig(k=k, capacity=mu, seed=SEED)
     ops.reset_launch_counts()
     tree = tree_maximize(obj, X, cfg, device="cuda", plan=TorchPlan(SEED))
@@ -1033,8 +1242,271 @@ def phase_main() -> dict:
     log(f"centralized vs plain greedy over {n} rows: {int(same.sum())}/{k} "
         f"steps select the same row, near-tie steps {n_tie} (plain "
         f"{time.perf_counter() - t2:.1f} s)")
-    return {"X": X, "obj": obj, "cfg": cfg, "launches": counts,
-            "cent_value": cent_value, "tree": tree}
+    return {"X": X, "host": data, "obj": obj, "cfg": cfg, "launches": counts,
+            "cent_value": cent_value, "tree": tree, "cent": cent,
+            "plain_trace": (sel_p, gap, best)}
+
+
+# the streaming phase's device-byte budget of a round-0 wave
+STREAM_BYTES = 256 << 20
+# q_block_rows of the int8 source (its block affine's grid)
+Q_BLOCK_ROWS = 4096
+
+
+def same_tree(name: str, res, ref) -> None:
+    """Fail unless two TREE results agree bit for bit: rows, mask, value,
+    oracle calls, rounds, machines per round and depth per round."""
+    import numpy as np
+    diffs = [what for what, ok in (
+        ("rows", np.array_equal(res.sel_rows, ref.sel_rows)),
+        ("mask", np.array_equal(res.sel_mask, ref.sel_mask)),
+        ("value", res.value == ref.value),
+        ("oracle calls", res.oracle_calls == ref.oracle_calls),
+        ("rounds", res.rounds == ref.rounds),
+        ("machines per round",
+         res.machines_per_round == ref.machines_per_round),
+        ("depth per round", res.depth_per_round == ref.depth_per_round))
+        if not ok]
+    if diffs:
+        fail(f"{name}: {', '.join(diffs)} differ from the resident run "
+             f"(value {res.value!r} vs {ref.value!r}, calls "
+             f"{res.oracle_calls} vs {ref.oracle_calls})")
+
+
+def run_stream(name: str, obj, source, cfg, kernels, W: int, waves: int,
+               constraint=None, attrs=None):
+    """One streaming TREE on the card from a host source, launches counted
+    from zero; fails unless each kernel of ``kernels`` launched, W and the
+    wave count are as stated and no wave passed ``cfg.capacity_bytes``.
+    Logs each wave's gather, H2D and solve seconds and bytes."""
+    import torch
+    from repro_torch.core import TorchPlan, tree_maximize
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tree_maximize(obj, source, cfg, device="cuda", plan=TorchPlan(SEED),
+                        constraint=constraint, attrs=attrs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {key: v for key, v in ops.launch_counts.items() if v}
+    for kern in kernels:
+        if counts.get(kern, 0) == 0:
+            fail(f"{name} launched {kern} no time")
+    st = res.ingest
+    if st is None or st.wave_machines != W or st.waves != waves:
+        fail(f"{name}: W = {None if st is None else st.wave_machines}, "
+             f"{None if st is None else st.waves} waves; expected W = {W}, "
+             f"{waves} waves")
+    if st.peak_wave_bytes > cfg.capacity_bytes:
+        fail(f"{name}: a wave took {st.peak_wave_bytes} bytes, over "
+             f"{cfg.capacity_bytes}")
+    check_coreset(name, constraint, res.sel_attrs, res.sel_mask)
+    log(f"{name}: W = {st.wave_machines}, {st.waves} waves, peak wave "
+        f"{st.peak_wave_bytes} B of {cfg.capacity_bytes}, {st.total_bytes} B "
+        f"moved; rounds {res.rounds}, machines/round "
+        f"{res.machines_per_round}, depth/round {res.depth_per_round}, "
+        f"oracle calls {res.oracle_calls}, value {res.value!r}; round walls "
+        f"{res.round_walls}; whole run {wall:.3f} s; launches {counts}")
+    for t in st.traces:
+        log(f"  {name} wave {t.wave}: {t.machines} machines, gather "
+            f"{t.gather_s:.4f} s, H2D {t.h2d_s:.4f} s, solve {t.solve_s:.4f} "
+            f"s, {t.bytes_moved} B")
+    return res, counts
+
+
+def resident_on(name: str, obj, rows, cfg, constraint=None, attrs=None):
+    """A resident TREE on the card over host ``rows`` (a source's
+    dequantized rows), the card's copy freed after."""
+    import torch
+    from repro_torch.core import TorchPlan, tree_maximize
+    X = torch.as_tensor(rows, device="cuda")
+    res = tree_maximize(obj, X, cfg, device="cuda", plan=TorchPlan(SEED),
+                        constraint=constraint, attrs=attrs)
+    del X
+    torch.cuda.empty_cache()
+    log(f"{name} (resident): value {res.value!r}, round walls "
+        f"{res.round_walls}")
+    return res
+
+
+def phase_streaming(scan: dict, main: dict, constrained: dict) -> dict:
+    """Streaming round 0 at the Webscope deployment on phase 4's host array
+    and plan, under a 256 MiB wave budget: fp32 (dense and Feistel slots)
+    bit for bit as the resident TREE; bf16 and int8 bit for bit as a
+    resident TREE on their dequantized rows, with their fp32 re-check
+    within 0.9 of the centralized value; THRESHOLD-BATCH on int8 under
+    phase 5's knapsack ∩ partition (the attributes in the meta columns);
+    the streaming centralized greedy; and score_dtype = bfloat16 on phase
+    3's block and in a TREE."""
+    import numpy as np
+    import torch
+    from repro_torch import testing
+    from repro_torch.core import (ArraySource, ExemplarClustering,
+                                  QuantizedSource, TreeConfig,
+                                  streaming_centralized_greedy)
+    from repro_torch.core.algorithms import run_algorithm
+    from repro_torch.data.selection import fp32_recheck
+    from repro_torch.kernels import ops, ref
+    host, obj, cfg = main["host"], main["obj"], main["cfg"]
+    k, mu = cfg.k, cfg.capacity
+    L = main["tree"].machines_per_round[0]
+    out = {"walls": {"resident": main["tree"].round_walls[0]}, "waves": {}}
+
+    def wave_count(W):
+        return -(-L // W)
+
+    scfg = dataclasses.replace(cfg, capacity_bytes=STREAM_BYTES)
+    src = ArraySource(host)
+    W = STREAM_BYTES // (mu * 6 * 4)
+    res, cnt = run_stream("streaming TREE, fp32", obj, src, scfg,
+                          ("greedy_select",), W, wave_count(W))
+    same_tree("streaming TREE, fp32", res, main["tree"])
+    out["walls"]["fp32"], out["waves"]["fp32"] = res.round_walls[0], res.ingest
+    out["launches"] = {"fp32": cnt}
+
+    fcfg = dataclasses.replace(cfg, permutation="feistel")
+    feistel_res = resident_on("TREE, Feistel slots", obj, host, fcfg)
+    res, _ = run_stream("streaming TREE, fp32, Feistel slots", obj, src,
+                        dataclasses.replace(fcfg,
+                                            capacity_bytes=STREAM_BYTES),
+                        ("greedy_select",), W, wave_count(W))
+    same_tree("streaming TREE, Feistel slots", res, feistel_res)
+
+    quant = {}
+    for store, itemsize, meta in (("bf16", 2, 0), ("int8", 1, 2)):
+        t0 = time.perf_counter()
+        q = QuantizedSource(src, store, Q_BLOCK_ROWS)
+        deq = q.dequantized()
+        log(f"{store} source: parameters and dequantized rows "
+            f"{time.perf_counter() - t0:.1f} s")
+        W = STREAM_BYTES // (mu * (6 * itemsize + 4 * meta))
+        tag = "q8" if store == "int8" else store
+        res, cnt = run_stream(f"streaming TREE, {store}", obj, q, scfg,
+                              (f"greedy_select_{tag}",), W, wave_count(W))
+        same_tree(f"streaming TREE, {store}",
+                  res, resident_on(f"TREE on the {store} source's "
+                                   f"dequantized rows", obj, deq, cfg))
+        re = fp32_recheck(obj, q, res.sel_rows, res.sel_mask, res.value)
+        ratio = re.value / main["cent_value"]
+        log(f"streaming TREE, {store}: fp32 re-check {re.value!r} (solve "
+            f"{re.solve_value!r}), / centralized {ratio!r}")
+        if ratio < 0.9:
+            fail(f"{store} fp32 re-check / centralized {ratio} below 0.9")
+        out["walls"][store], out["waves"][store] = (res.round_walls[0],
+                                                    res.ingest)
+        out["launches"][store] = cnt
+        quant[store] = (q, deq)
+
+    # THRESHOLD-BATCH on bf16 rows with the bf16 x·e contraction
+    q, deq = quant["bf16"]
+    obj_b = ExemplarClustering(obj.eval_set, score_dtype="bfloat16")
+    tcfg = dataclasses.replace(cfg, algorithm="threshold_batch", eps=EPS)
+    W = STREAM_BYTES // (mu * 6 * 2)
+    res, cnt = run_stream(
+        "streaming THRESHOLD-BATCH TREE, bf16, score_dtype bfloat16", obj_b,
+        q, dataclasses.replace(tcfg, capacity_bytes=STREAM_BYTES),
+        ("threshold_select_bf16", "threshold_select_bf16dot",
+         "exemplar_gains_bf16", "exemplar_gains_bf16dot"), W, wave_count(W))
+    same_tree("streaming THRESHOLD-BATCH TREE, bf16, score_dtype", res,
+              resident_on("THRESHOLD-BATCH TREE on the bf16 source's "
+                          "dequantized rows, score_dtype bfloat16", obj_b,
+                          deq, tcfg))
+    out["launches"]["bf16 threshold"] = cnt
+
+    # THRESHOLD-BATCH on int8 with phase 5's attributes in the meta columns
+    q, deq = quant["int8"]
+    attrs, cons = constrained["attrs"], constrained["cons"]
+    W = STREAM_BYTES // (mu * (6 + 4 * 4))
+    res, cnt = run_stream("streaming THRESHOLD-BATCH TREE, int8, knapsack ∩ "
+                          "partition", obj, q,
+                          dataclasses.replace(tcfg,
+                                              capacity_bytes=STREAM_BYTES),
+                          ("threshold_select_q8", "exemplar_gains_q8"), W,
+                          wave_count(W), constraint=cons, attrs=attrs)
+    same_tree("streaming THRESHOLD-BATCH TREE, int8, constrained", res,
+              resident_on("THRESHOLD-BATCH TREE on the int8 source's "
+                          "dequantized rows, constrained", obj, deq, tcfg,
+                          constraint=cons, attrs=attrs))
+    ladder = 1 + math.ceil(math.log(2 * k / EPS) / EPS)
+    if max(res.depth_per_round) > ladder:
+        fail(f"streaming THRESHOLD-BATCH depth {res.depth_per_round} past "
+             f"1 + ⌈log(2k/ε)/ε⌉ = {ladder}")
+    out["launches"]["int8 threshold"] = cnt
+    del quant, deq
+
+    # streaming centralized greedy over the fp32 source, chunks of 2^20
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    sc = streaming_centralized_greedy(obj, src, k, chunk_rows=1 << 20,
+                                      device="cuda")
+    sc_value = float(sc.value)
+    sc_wall = time.perf_counter() - t0
+    cent = main["cent"]
+    same = torch.all(sc.sel_rows == cent.sel_rows, dim=-1) & sc.sel_mask
+    sel_p, gap, best = main["plain_trace"]
+    rows_p = main["X"][torch.clamp_min(sel_p, 0)]
+    as_plain = torch.where(sel_p >= 0, torch.all(sc.sel_rows == rows_p,
+                                                 dim=-1) & sc.sel_mask,
+                           ~sc.sel_mask)
+    ok, n_tie = testing.selections_agree(torch.where(as_plain, sel_p, -2),
+                                         sel_p, gap, best)
+    if not ok:
+        fail("streaming centralized greedy selects apart from the plain "
+             "greedy before any near tie")
+    ok, _ = testing.selections_agree(torch.where(same, sel_p, -2), sel_p,
+                                     gap, best)
+    if not ok:
+        fail("streaming centralized greedy selects apart from the resident "
+             "one before any near tie of the plain greedy")
+    testing.assert_close(sc_value, main["cent_value"],
+                         "streaming centralized value")
+    log(f"streaming centralized greedy (chunks of 2^20 rows): {int(same.sum())}"
+        f"/{k} steps select the resident centralized row, value {sc_value!r} "
+        f"(resident {main['cent_value']!r}), near-tie steps {n_tie}, wall "
+        f"{sc_wall:.3f} s, launches "
+        f"{ {key: v for key, v in ops.launch_counts.items() if v} }")
+
+    # score_dtype = bfloat16: the phase 3 block, fused and step-wise
+    T = scan["T"]
+    mask = torch.ones((T.shape[0],), dtype=torch.bool, device="cuda")
+    ops.reset_launch_counts()
+    step = run_algorithm("greedy", obj_b, T, mask, k, fused=False)
+    fused = run_algorithm("greedy", obj_b, T, mask, k)
+    torch.cuda.synchronize()
+    if (ops.launch_counts["exemplar_gains_bf16dot"] != k
+            or ops.launch_counts["greedy_select_bf16dot"] != k):
+        fail(f"score_dtype: launches {dict(ops.launch_counts)}")
+    out["launches"]["score_dtype scan"] = {
+        key: v for key, v in ops.launch_counts.items() if v}
+    seed = torch.sum(obj.eval_set ** 2, dim=-1)
+    _, _, gap, best = ref.greedy_select_trace(
+        T, obj.eval_set, seed, mask, k, compute_dtype=torch.bfloat16)
+    ok, n_tie = testing.selections_agree(step.sel_idx, fused.sel_idx, gap,
+                                         best)
+    if not ok:
+        fail("score_dtype: the step-wise and fused paths select apart "
+             "before any near tie")
+    testing.assert_close(step.value, fused.value, "score_dtype values")
+    log(f"score_dtype bfloat16, {T.shape[0]}-row block: step-wise and fused "
+        f"select alike ({int((step.sel_idx == fused.sel_idx).sum())}/{k} "
+        f"steps, near-tie steps {n_tie}), value {float(fused.value)!r}")
+    tree_b, cnt = run_tree("TREE, score_dtype bfloat16", obj_b, main["X"],
+                           cfg, ("greedy_select_bf16dot",))
+    ratio = tree_b.value / main["cent_value"]
+    log(f"TREE with score_dtype bfloat16 / centralized: {ratio!r}")
+    if ratio < 0.9:
+        fail(f"score_dtype TREE/centralized ratio {ratio} below 0.9")
+    out["launches"]["score_dtype"] = cnt
+    summary = {store: {"round0_wall_s": out["walls"][store],
+                       "waves": st.waves, "wave_machines": st.wave_machines,
+                       "bytes": st.total_bytes,
+                       "gather_s": [t.gather_s for t in st.traces],
+                       "h2d_s": [t.h2d_s for t in st.traces],
+                       "solve_s": [t.solve_s for t in st.traces]}
+               for store, st in out["waves"].items()}
+    summary["resident_round0_wall_s"] = out["walls"]["resident"]
+    log("streaming round 0 by dtype: " + json.dumps(summary))
+    return out
 
 
 def check_coreset(name: str, constraint, sel_attrs, sel_mask) -> None:
@@ -1423,8 +1895,139 @@ def tile_precision(blocks, E, seed, sel) -> dict:
     return errs
 
 
+def timed_once(fn):
+    """``fn()`` once between CUDA events: (its result, device ms)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def times_narrow(main: dict, streaming: dict, blocks, bmask) -> list[dict]:
+    """The narrow instantiations of the three gain-tile kernels at round 0
+    of the Webscope TREE (M = 2,000 machines of μ = 22,500 rows, m = 512,
+    d = 6): each against its plain version there, timed beside the fp32
+    kernel at the same shape, its plain version and its bound (the byte
+    bound counts d · itemsize a row, + 8 of scale and zero-point at int8;
+    the operations do not change).  exemplar_gains is the THRESHOLD-BATCH
+    d_max pass, threshold_select level 0 unconstrained, greedy_select one
+    call of k steps.  Launches: the streaming phase's runs."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import exemplar_gains as _eg
+    from repro_torch.kernels import ops, ref
+    obj, cfg = main["obj"], main["cfg"]
+    E = obj.eval_set
+    M, mu, d = blocks.shape
+    m, k = E.shape[0], cfg.k
+    seed = torch.sum(E * E, dim=-1)
+    Ep, cmp_ = ops._pad_eval(E, seed.expand(M, m))
+    launches: dict[str, int] = {}
+    for cnt in streaming["launches"].values():
+        for key, v in cnt.items():
+            launches[key] = launches.get(key, 0) + v
+    n_avail = torch.sum(bmask.long(), dim=1, keepdim=True)
+    calls = int(torch.sum(torch.clamp_min(
+        n_avail - torch.arange(k, device="cuda"), 0)))
+    n_rows = int(bmask.sum())
+    g32 = ops.exemplar_gains(blocks, E, seed)
+    fp32_ms = {
+        "exemplar_gains": cuda_ms(lambda: _eg.launch(blocks, Ep, cmp_),
+                                  runs=10),
+        "greedy_select": cuda_ms(lambda: ops.greedy_select(
+            blocks, E, seed, bmask, k), runs=3)}
+    tau32 = torch.amax(torch.where(bmask, g32, 0.0), dim=1)
+    fp32_ms["threshold_select"] = cuda_ms(lambda: ops.threshold_select(
+        blocks, E, seed, bmask, tau32, k), runs=5)
+    src = "src/repro_torch/kernels/csrc/"
+    rows = []
+    for kind, dot in (("bf16", False), ("q8", False), ("fp32", True)):
+        X, kw, deq, ctr = narrow_rows(blocks, kind, dot, seed=SEED)
+        tag = ctr[0]
+        card = {key: v for key, v in kw.items() if key != "compute_dtype"}
+        row_b = {"bf16": 2 * d, "q8": d + 8, "fp32": 4 * d}[kind]
+        what = f"{narrow_name(kind, dot)} at round 0"
+        # exemplar_gains, the d_max pass
+        g = ops.exemplar_gains(X, E, seed, **kw)
+        g_p, plain = timed_once(lambda: ref.exemplar_gains(X, E, seed, **kw))
+        testing.assert_close(g, g_p, f"exemplar_gains {what}")
+        err = testing.max_abs_err(g, g_p)
+        ms = cuda_ms(lambda: _eg.launch(X, Ep, cmp_, bf16dot=dot, **card),
+                     runs=10)
+        b, by, b32 = tile_bound(M * mu * m, d, M * mu * row_b + 4 * m * d
+                                + 4 * M * m + 4 * M * mu, 3)
+        rows.append({"name": f"exemplar_gains{tag}", "route": "cuda",
+                     "source": src + "exemplar_gains.cu",
+                     "replaces": "src/repro/kernels/exemplar_gains.py:107",
+                     "launches": launches.get(f"exemplar_gains{tag}", 0),
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "fp32_ms": fp32_ms["exemplar_gains"], "bound_ms": b,
+                     "bound_by": by, "bound_fp32_ms": b32,
+                     "library_ms": None})
+        # greedy_select, one call of k steps
+        sel, cm_out = ops.greedy_select(X, E, seed, bmask, k, **kw)
+        (sel_p, cm_p), plain = timed_once(
+            lambda: ref.greedy_select(X, E, seed, bmask, k, **kw))
+        if bool(torch.equal(sel, sel_p)):
+            testing.assert_close(cm_out, cm_p, f"greedy_select {what}")
+            err, same, n_tie = testing.max_abs_err(cm_out, cm_p), M, 0
+        else:
+            n_tie, same, err = check_greedy(
+                sel, cm_out, deq, E, seed, ref.greedy_select_trace(
+                    X, E, seed, bmask, k, **kw), f"greedy_select {what}")
+        log(f"greedy_select {what} vs plain: {same}/{M} machines select as "
+            f"plain, near-tie steps {n_tie}, max|dcm| {err:.3g}")
+        ms = cuda_ms(lambda: ops.greedy_select(X, E, seed, bmask, k, **kw),
+                     runs=3)
+        b, by, b32 = tile_bound(calls * m, d, M * mu * row_b + 4 * m * d
+                                + 4 * m + M * mu + 4 * M * k + 4 * M * m, 3)
+        rows.append({"name": f"greedy_select{tag}", "route": "cuda",
+                     "source": src + "greedy_select.cu",
+                     "replaces": "src/repro/kernels/greedy_select.py:265",
+                     "launches": launches.get(f"greedy_select{tag}", 0),
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "fp32_ms": fp32_ms["greedy_select"], "bound_ms": b,
+                     "bound_by": by, "bound_fp32_ms": b32,
+                     "library_ms": None})
+        # threshold_select, level 0 unconstrained (τ: the smaller d_max)
+        tau = torch.minimum(torch.amax(torch.where(bmask, g, 0.0), dim=1),
+                            torch.amax(torch.where(bmask, g_p, 0.0), dim=1))
+        acc, cm = ops.threshold_select(X, E, seed, bmask, tau, k, **kw)
+        _, plain = timed_once(lambda: ref.threshold_select(
+            X, E, seed, bmask, tau, k, **kw))
+        trace = ref.threshold_select_trace(X, E, seed, bmask, tau, k, **kw)
+        full, near, err = check_threshold(
+            acc, cm, trace, deq, E, seed.expand(M, m), tau, bmask, k, None,
+            f"threshold_select {what}", kw.get("compute_dtype"))
+        if full < FULL_SHARE * M:
+            fail(f"threshold_select {what}: only {full}/{M} machines "
+                 f"compared in full")
+        ms = cuda_ms(lambda: ops.threshold_select(X, E, seed, bmask, tau, k,
+                                                  **kw), runs=5)
+        b, by, b32 = tile_bound(n_rows * m, d, M * mu * (row_b + 2)
+                                + 4 * m * d + 8 * M * m + 16 * M, 3)
+        rows.append({"name": f"threshold_select{tag}", "route": "cuda",
+                     "source": src + "threshold_select.cu",
+                     "replaces": "src/repro/kernels/threshold_select.py:238",
+                     "launches": launches.get(f"threshold_select{tag}", 0),
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "fp32_ms": fp32_ms["threshold_select"], "bound_ms": b,
+                     "bound_by": by, "bound_fp32_ms": b32,
+                     "library_ms": None})
+        log(f"threshold_select {what}, level 0: {full}/{M} machines accept "
+            f"as plain, near rows {near}")
+        del X, deq
+    return rows
+
+
 def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
-                facility: dict, weighted: dict) -> list[dict]:
+                facility: dict, weighted: dict, streaming: dict
+                ) -> list[dict]:
     """Each kernel at its path's shapes: time, plain time, bound."""
     import torch
     from repro_torch import testing
@@ -1494,11 +2097,14 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
                  "library_ms": None})
     rows += times_constrained(main, constrained, blocks, bmask, part)
     rows += times_new(main, active, facility, weighted, blocks, bmask)
+    rows += times_narrow(main, streaming, blocks, bmask)
     for r in rows:
         per = (f" a call ({r['calls']} calls a run)" if "calls" in r else "")
         b32 = (f"; fp32-only bound {r['bound_fp32_ms']:.4f} ms, "
                f"{r['bound_fp32_ms'] / r['ms']:.1%}"
                if "bound_fp32_ms" in r else "")
+        if "fp32_ms" in r:
+            per += f" (the fp32 kernel there {r['fp32_ms']:.4f} ms)"
         log(f"time {r['name']}: {r['ms']:.4f} ms{per} (plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of bound{b32}), "
@@ -2389,6 +2995,7 @@ def main() -> None:
     phase_kernels_constrained()
     phase_kernels_rbf()
     phase_kernels_weighted()
+    phase_kernels_narrow()
     phase_kernels_attention()
     phase_kernels_wkv6()
     phase_lm_parity()
@@ -2400,12 +3007,13 @@ def main() -> None:
     scan = phase_scan()
     main_path = phase_main()
     constrained = phase_constrained(main_path)
+    streaming = phase_streaming(scan, main_path, constrained)
     phase_active_set_parkinsons()
     active = phase_active_set_webscope(main_path)
     facility = phase_facility(main_path)
     weighted = phase_weighted(main_path)
     rows = phase_times(scan, main_path, constrained, active, facility,
-                       weighted)
+                       weighted, streaming)
     rows += attn_rows + wkv_rows
     for r in attn_rows + wkv_rows:
         lib = ("no library call" if r["library_ms"] is None

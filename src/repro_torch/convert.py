@@ -18,11 +18,13 @@ __all__ = ["ArrayPlan", "constraint_from_jax", "objective_from_jax",
            "objective_from_numpy", "params_from_jax"]
 
 
-def objective_from_numpy(eval_set: np.ndarray, device="cuda"
+def objective_from_numpy(eval_set: np.ndarray, device="cuda",
+                         score_dtype: str | None = None
                          ) -> objs.ExemplarClustering:
     """The port's ``ExemplarClustering`` over a NumPy eval set."""
     return objs.ExemplarClustering(as_tensor(eval_set,
-                                             resolve_device(device)))
+                                             resolve_device(device)),
+                                   score_dtype=score_dtype)
 
 
 def objective_from_jax(obj, device="cuda"):
@@ -36,14 +38,12 @@ def objective_from_jax(obj, device="cuda"):
         return as_tensor(np.array(x), dev)
 
     if name in ("ExemplarClustering", "WeightedExemplarClustering"):
-        if getattr(obj, "score_dtype", None) is not None:
-            raise NotImplementedError(
-                "score_dtype= is not ported yet: ROADMAP queue 1 item 10 "
-                "(narrow operands)")
+        sd = getattr(obj, "score_dtype", None)
         if name == "ExemplarClustering":
-            return objs.ExemplarClustering(arr(obj.eval_set))
+            return objs.ExemplarClustering(arr(obj.eval_set), score_dtype=sd)
         return objs.WeightedExemplarClustering(
-            arr(obj.eval_set), eval_weights=arr(obj.eval_weights))
+            arr(obj.eval_set), score_dtype=sd,
+            eval_weights=arr(obj.eval_weights))
     if name == "ActiveSetSelection":
         return objs.ActiveSetSelection(k_max=int(obj.k_max), h=float(obj.h),
                                        sigma=float(obj.sigma), device=dev)

@@ -1,10 +1,12 @@
-"""repro_torch.core — tree-based compression on a resident ground set, with
+"""repro_torch.core — tree-based compression over a resident ground set or
+a streamed one (waves under a byte budget, fp32, bf16 or int8 rows), with
 GREEDY or THRESHOLD-BATCH on each machine, under hereditary constraints,
 for every objective of the paper (§4.2) and the package's extra ones."""
 from repro_torch.core.algorithms import (SelectResult, greedy, run_algorithm,
                                          threshold_batch)
 from repro_torch.core.baselines import (BaselineResult, centralized_greedy,
-                                        random_subset)
+                                        fp32_recheck_value, random_subset,
+                                        streaming_centralized_greedy)
 from repro_torch.core.constraints import (Intersection, Knapsack,
                                           PartitionMatroid, Unconstrained,
                                           attr_dim, check_feasible,
@@ -16,16 +18,28 @@ from repro_torch.core.objectives import (ActiveSetSelection,
                                          WeightedExemplarClustering)
 from repro_torch.core.partition import (balanced_partition, gather_partition,
                                         n_parts, repartition_rows)
+from repro_torch.core.permute import FeistelPermutation, feistel_slot_items
 from repro_torch.core.plan import ArrayPlan, TorchPlan
-from repro_torch.core.tree import TreeConfig, TreeResult, tree_maximize
+from repro_torch.core.sources import (STORAGE_DTYPES, ArraySource,
+                                      ChunkedSource, GroundSetSource,
+                                      QuantizedSource, SlicedSource,
+                                      as_source, dtype_itemsize,
+                                      prefetch_chunks)
+from repro_torch.core.tree import (IngestStats, TreeConfig, TreeResult,
+                                   tree_maximize)
 
 __all__ = [
     "SelectResult", "greedy", "run_algorithm", "threshold_batch",
-    "BaselineResult", "centralized_greedy", "random_subset",
+    "BaselineResult", "centralized_greedy", "fp32_recheck_value",
+    "random_subset", "streaming_centralized_greedy",
     "Intersection", "Knapsack", "PartitionMatroid", "Unconstrained",
     "attr_dim", "check_feasible", "constraint_from_spec", "from_spec",
     "RoundResult", "run_round", "ActiveSetSelection", "ExemplarClustering",
     "FacilityLocation", "WeightedCoverage", "WeightedExemplarClustering",
     "balanced_partition", "gather_partition", "n_parts", "repartition_rows",
-    "ArrayPlan", "TorchPlan", "TreeConfig", "TreeResult", "tree_maximize",
+    "FeistelPermutation", "feistel_slot_items", "ArrayPlan", "TorchPlan",
+    "STORAGE_DTYPES", "ArraySource", "ChunkedSource", "GroundSetSource",
+    "QuantizedSource", "SlicedSource", "as_source", "dtype_itemsize",
+    "prefetch_chunks", "IngestStats", "TreeConfig", "TreeResult",
+    "tree_maximize",
 ]

@@ -8,8 +8,9 @@ selected block positions per machine.  The leading machine axis is JAX's
 Ported: :func:`greedy` (1-nice, lowest-index tie-breaking; the step-wise
 scan under any hereditary constraint and the fused path under the
 knapsack / partition-matroid encodings) and :func:`threshold_batch` (the
-low-adaptivity τ-ladder).  ``stochastic_greedy`` and ``threshold_greedy``
-raise until ROADMAP queue 1 item 8.
+low-adaptivity τ-ladder), both on narrow blocks (``qmeta``: a streaming
+round 0's bf16 or int8 waves).  ``stochastic_greedy`` and
+``threshold_greedy`` raise until ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.core.constraints import (Intersection, Knapsack,
                                           PartitionMatroid, Unconstrained)
+from repro_torch.kernels import ref
 
 NEG_INF = -1e30
 
@@ -33,6 +35,26 @@ class SelectResult(NamedTuple):
     depth: torch.Tensor         # (...,) int64 sequential solve depth: the
     #   dependent launches the solve cannot parallelise away: k for greedy,
     #   1 + τ-levels run for threshold_batch
+
+
+def _dequant_block(T: torch.Tensor, qmeta) -> torch.Tensor:
+    """Narrow candidate block → fp32 (the upcast for fp32 and bf16).
+
+    ``qmeta`` ``(..., cap, qcols)`` holds the per-row dequant parameters a
+    source served out of band (scale, zero-point for int8; zero columns
+    for bf16).  The scan dequantizes once up front, so its rows are the
+    bits the fused kernels' in-kernel dequant gives the same bytes.
+    """
+    if qmeta is not None and qmeta.shape[-1] >= 2:
+        return ref.dequantize_rows(T, qmeta[..., 0], qmeta[..., 1])
+    return T.float()
+
+
+def _fused_quant_kwargs(qmeta) -> dict:
+    """The fused hooks' ``x_scale``/``x_zp`` of a quantized block."""
+    if qmeta is None or qmeta.shape[-1] < 2:
+        return {}
+    return {"x_scale": qmeta[..., 0], "x_zp": qmeta[..., 1]}
 
 
 def _fused_parts(constraint) -> tuple | None:
@@ -118,10 +140,12 @@ def greedy(obj, T: torch.Tensor, mask: torch.Tensor, k: int, *,
     too large to copy per step, updated in place where ``ok``), else
     through ``update`` and a per-machine select.  An objective with a
     ``k_max`` refuses ``k > k_max``.
+
+    ``qmeta`` marks a narrow block (``(..., cap, qcols)`` per-row dequant
+    parameters, zero columns for bf16): the fused path ships it narrow to
+    the kernel, the scan dequantizes it up front; both see the same fp32
+    rows.
     """
-    if qmeta is not None:
-        raise NotImplementedError("quantized blocks are not ported yet: "
-                                  "ROADMAP queue 1 item 10 (narrow operands)")
     k_max = getattr(obj, "k_max", None)
     if k_max is not None and k > k_max:
         raise ValueError(f"k = {k} exceeds {type(obj).__name__}.k_max = "
@@ -137,9 +161,12 @@ def greedy(obj, T: torch.Tensor, mask: torch.Tensor, k: int, *,
             "selection")
         ckw = (_fused_constraint_kwargs(constraint, attrs)
                if _constrained(constraint) else {})
-        sel_idx, sel_mask, value, calls = obj.fused_select(T, mask, k, **ckw)
+        sel_idx, sel_mask, value, calls = obj.fused_select(
+            T, mask, k, **ckw, **_fused_quant_kwargs(qmeta))
         return SelectResult(sel_idx, sel_mask, value, calls, depth)
 
+    if qmeta is not None:
+        T = _dequant_block(T, qmeta)
     constraint = constraint or Unconstrained()
     if attrs is None:
         attrs = torch.zeros(T.shape[:-1] + (1,), dtype=torch.float32,
@@ -185,10 +212,8 @@ def threshold_batch(obj, T: torch.Tensor, mask: torch.Tensor, k: int, *,
     Needs a row-wise objective with the ``fused_threshold_select`` hook,
     and a fused-encodable constraint (knapsack, partition matroid, one of
     each); anything else raises rather than degrading to a sequential path.
+    A narrow block (``qmeta``) goes to the kernels as it is.
     """
-    if qmeta is not None:
-        raise NotImplementedError("quantized blocks are not ported yet: "
-                                  "ROADMAP queue 1 item 10 (narrow operands)")
     if not (getattr(obj, "rowwise_gains", False)
             and hasattr(obj, "fused_threshold_select")):
         raise ValueError(
@@ -207,7 +232,7 @@ def threshold_batch(obj, T: torch.Tensor, mask: torch.Tensor, k: int, *,
                 "constrained threshold_batch needs per-item attrs")
         ckw = _fused_constraint_kwargs(constraint, attrs)
     sel_idx, sel_mask, value, calls, launches = obj.fused_threshold_select(
-        T, mask, k, eps=eps, **ckw)
+        T, mask, k, eps=eps, **ckw, **_fused_quant_kwargs(qmeta))
     # depth: the d_max init pass plus the launches the ladder ran
     return SelectResult(sel_idx, sel_mask, value, calls, 1 + launches)
 

@@ -3,8 +3,10 @@
 
 On one card the paper's machines are a leading axis of the round's blocks:
 the JAX package's ``vmap`` over machines becomes that axis, and the kernels
-take it directly, so a round is one batched solve.  The device mesh,
-``shard_map`` and wave staging wait for multi-GPU.
+take it directly, so a round is one batched solve.  A streaming round 0
+solves its waves of machines the same way; :func:`stage_wave_inputs`
+brings each wave from host memory to the card.  The device mesh and
+``shard_map`` wait for multi-GPU (ROADMAP queue 1 item 15).
 
 Fault model: ``dead_mask`` marks machines whose round output is lost.
 Algorithm 1 takes a max over machine solutions and Lemma 3.4 degrades
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import algorithms
@@ -28,8 +31,8 @@ class RoundResult(NamedTuple):
     depth: torch.Tensor         # (M,) int64 sequential solve depth
 
 
-def _solve_block(obj, T, mask, key=None, *, k: int, alg: str, eps: float,
-                 attr_dim: int = 0, constraint=None):
+def _solve_block(obj, T, mask, key=None, meta=None, *, k: int, alg: str,
+                 eps: float, attr_dim: int = 0, constraint=None):
     """Solve every machine block of ``T`` ``(M, cap, d + attr_dim)`` at once.
 
     ``T`` is the *carried* block: feature rows, optionally widened with
@@ -39,8 +42,32 @@ def _solve_block(obj, T, mask, key=None, *, k: int, alg: str, eps: float,
     every step or τ-level); the constraint sees only the attribute slice;
     the returned rows keep the full width, so attributes travel with their
     items into the next round's union.
+
+    A narrow round-0 wave instead ships ``T`` ``(M, cap, d)`` in its
+    storage dtype (bf16, int8) beside one fp32 ``meta`` ``(M, cap,
+    attr_dim + qcols)``, the attributes then the per-row dequant
+    parameters.  The solve runs on the narrow block (the kernels
+    dequantize), and the selected rows come back dequantized to fp32 with
+    their attributes appended, so rounds ≥ 1 carry fp32 rows as always.
     """
     dkw = algorithms.driver_kwargs(alg, key=key, eps=eps)
+    if meta is not None:
+        attrs = meta[..., :attr_dim] if attr_dim else None
+        qmeta = meta[..., attr_dim:]
+        res = algorithms.run_algorithm(alg, obj, T, mask, k,
+                                       constraint=constraint, attrs=attrs,
+                                       qmeta=qmeta, **dkw)
+        safe = torch.clamp_min(res.sel_idx, 0)[..., None]
+        wide = algorithms._dequant_block(
+            torch.take_along_dim(T, safe, dim=-2),
+            torch.take_along_dim(qmeta, safe, dim=-2))
+        if attr_dim:
+            wide = torch.cat([wide, torch.take_along_dim(attrs, safe, dim=-2)],
+                             dim=-1)
+        rows = torch.where(res.sel_mask[..., None], wide, 0.0)
+        value = torch.where(torch.any(res.sel_mask, dim=-1), res.value,
+                            torch.full_like(res.value, -torch.inf))
+        return rows, res.sel_mask, value, res.oracle_calls, res.depth
     if attr_dim:
         feat, attrs = T[..., :-attr_dim].contiguous(), T[..., -attr_dim:]
     else:
@@ -59,22 +86,71 @@ def _solve_block(obj, T, mask, key=None, *, k: int, alg: str, eps: float,
 def run_round(obj, blocks: torch.Tensor, bmask: torch.Tensor, *, k: int,
               alg: str = "greedy", eps: float = 0.5,
               dead_mask: torch.Tensor | None = None, attr_dim: int = 0,
-              constraint=None) -> RoundResult:
+              constraint=None, meta: torch.Tensor | None = None
+              ) -> RoundResult:
     """One round of Algorithm 1 over all M machine blocks.
 
     ``blocks`` ``(M, cap, d + attr_dim)`` items (the trailing ``attr_dim``
     columns are per-item constraint attributes that ride with the rows)
     and ``bmask`` ``(M, cap)`` validity; ``constraint`` applies to every
-    machine's solve.  Runs where the tensors lie (the kernels on a CUDA
-    device, their plain versions on the CPU).
+    machine's solve.  A narrow round-0 wave passes ``blocks`` ``(M, cap,
+    d)`` in its storage dtype and the fp32 ``meta`` (see
+    :func:`_solve_block`).  Runs where the tensors lie (the kernels on a
+    CUDA device, their plain versions on the CPU).
     """
     M = blocks.shape[0]
     dead = (torch.zeros((M,), dtype=torch.bool, device=blocks.device)
             if dead_mask is None else dead_mask.to(blocks.device))
     rows, smask, vals, calls, depth = _solve_block(
-        obj, blocks, bmask, k=k, alg=alg, eps=eps, attr_dim=attr_dim,
-        constraint=constraint)
+        obj, blocks, bmask, meta=meta, k=k, alg=alg, eps=eps,
+        attr_dim=attr_dim, constraint=constraint)
     alive = ~dead
     smask = smask & alive[:, None]
     vals = torch.where(alive, vals, torch.full_like(vals, -torch.inf))
     return RoundResult(rows, smask, vals, calls, depth)
+
+
+def _host_tensor(a: np.ndarray, pinned: bool) -> torch.Tensor:
+    """A host tensor holding ``a`` (bf16 bit patterns, uint16, as
+    ``torch.bfloat16``), in page-locked memory where ``pinned``."""
+    bf16 = a.dtype == np.uint16
+    src = torch.from_numpy(np.ascontiguousarray(a.view(np.int16) if bf16
+                                                else a))
+    if bf16:
+        src = src.view(torch.bfloat16)
+    if not pinned:
+        return src.clone()
+    out = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    return out.copy_(src)
+
+
+def stage_wave_inputs(device: torch.device, blocks_np: np.ndarray,
+                      bmask_np: np.ndarray, meta_np: np.ndarray | None = None,
+                      copy_stream=None) -> tuple[torch.Tensor, ...]:
+    """Host → device staging of one round-0 wave's gathered buffers:
+    ``(blocks, bmask)``, or ``(blocks, bmask, meta)`` for a narrow wave.
+
+    On the card each buffer is built in page-locked host memory and copied
+    with ``non_blocking`` on ``copy_stream`` (a ``torch.cuda.Stream`` the
+    caller keeps for its waves); that stream waits for the solve stream
+    first (the destination memory's earlier users), and the solve stream
+    waits on the copy's event, so a later solve never reads a partial wave
+    and the caller's stream is never blocked on the host.
+    bf16 blocks arrive as their uint16 bit patterns and land as
+    ``torch.bfloat16``.  On the CPU the buffers become tensors (copies:
+    the gathers may hand out read-only views).
+    """
+    arrays = [blocks_np, bmask_np] + ([] if meta_np is None else [meta_np])
+    if device.type != "cuda":
+        return tuple(_host_tensor(a, pinned=False) for a in arrays)
+    host = [_host_tensor(a, pinned=True) for a in arrays]
+    main = torch.cuda.current_stream(device)
+    out = [torch.empty(h.shape, dtype=h.dtype, device=device) for h in host]
+    copy_stream.wait_stream(main)
+    with torch.cuda.stream(copy_stream):
+        for dst, src in zip(out, host):
+            dst.copy_(src, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(copy_stream)
+    main.wait_event(done)
+    return tuple(out)

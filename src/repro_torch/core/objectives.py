@@ -11,13 +11,17 @@ Incremental-oracle interface used by :mod:`repro_torch.core.algorithms`:
 (the JAX package's ``vmap`` over machines, written out as a leading axis);
 ``mask`` and the state follow it.
 
-The port has every objective of the JAX package, in fp32:
+The port has every objective of the JAX package:
 
 * :class:`ExemplarClustering` and :class:`WeightedExemplarClustering`, with
   the fused hooks of GREEDY (``fused_select``, unconstrained and under the
   knapsack / partition-matroid encodings) and of THRESHOLD-BATCH
   (``fused_threshold_select``); the weighted one reweights every mean over
-  the eval set through the ``_ew`` / ``_mean_score`` hooks;
+  the eval set through the ``_ew`` / ``_mean_score`` hooks.  The fused
+  hooks take narrow blocks (bf16, or int8 with per-row ``x_scale``/
+  ``x_zp``: the kernels dequantize), and ``score_dtype="bfloat16"``
+  contracts x·e in bf16 on the fused and the step-wise paths alike (the
+  CPU reading of the JAX package's ``score_dtype``);
 * :class:`ActiveSetSelection` (the paper's information gain, §4.2): a
   running Cholesky state against every candidate, one ``rbf_kernel`` row
   per step; not row-wise, so GREEDY takes the step-wise scan and
@@ -25,8 +29,6 @@ The port has every objective of the JAX package, in fp32:
 * :class:`FacilityLocation`: gains from the RBF similarity of the eval set
   to every candidate, scored in candidate chunks;
 * :class:`WeightedCoverage`: plain tensor code, as in the JAX package.
-
-bf16 scoring (``score_dtype``) waits for ROADMAP queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -62,6 +64,7 @@ class ExemplarClustering:
     """
 
     eval_set: torch.Tensor  # (n_eval, d) fp32
+    score_dtype: str | None = None  # "bfloat16": x·e contracted in bf16
 
     rowwise_gains = True    # gains depend only on candidate rows
     fused_knapsack = True   # fused hooks take a weights/budget encoding
@@ -70,6 +73,15 @@ class ExemplarClustering:
     @property
     def device(self) -> torch.device:
         return self.eval_set.device
+
+    def __post_init__(self):
+        if self.score_dtype not in (None, "bfloat16"):
+            raise ValueError(f"score_dtype must be None or 'bfloat16', got "
+                             f"{self.score_dtype!r}")
+
+    def _cd(self):
+        """The gain kernels' ``compute_dtype``."""
+        return torch.bfloat16 if self.score_dtype == "bfloat16" else None
 
     # -- reweighting hooks (WeightedExemplarClustering overrides) ---------
     def _ew(self) -> torch.Tensor | None:
@@ -91,6 +103,7 @@ class ExemplarClustering:
     def gains(self, state, T: torch.Tensor, mask: torch.Tensor
               ) -> torch.Tensor:
         g = kops.exemplar_gains(T, self.eval_set, state["cur_min"],
+                                compute_dtype=self._cd(),
                                 eval_weights=self._ew())
         return _masked(g, mask)
 
@@ -107,8 +120,12 @@ class ExemplarClustering:
 
     # -- fused selection hook (algorithms.greedy fast path) ---------------
     def fused_select(self, T: torch.Tensor, mask: torch.Tensor, k: int, *,
-                     weights=None, budget=None, group_ids=None, caps=None):
+                     weights=None, budget=None, group_ids=None, caps=None,
+                     x_scale=None, x_zp=None):
         """Whole k-step greedy through ``ops.greedy_select``.
+
+        ``T`` may be narrow: bf16, or int8 with per-row ``x_scale``/``x_zp``
+        (dequantized in the kernel).
 
         Returns ``(sel_idx, sel_mask, value, oracle_calls)``.  Unconstrained,
         step t evaluates one gain per still-available candidate and succeeds
@@ -124,7 +141,9 @@ class ExemplarClustering:
         enc = Encoding(M, n, mask.device, weights, budget, group_ids, caps)
         sel_idx, cur_min = kops.greedy_select(T, self.eval_set, seed, mask,
                                               k, enc=enc,
-                                              eval_weights=self._ew())
+                                              eval_weights=self._ew(),
+                                              compute_dtype=self._cd(),
+                                              x_scale=x_scale, x_zp=x_zp)
         value = state["base"] - self._mean_score(cur_min)
         if enc.w is None and enc.gid is None:
             n_avail = torch.sum(mask.long(), dim=-1, keepdim=True)
@@ -151,7 +170,7 @@ class ExemplarClustering:
     def fused_threshold_select(self, T: torch.Tensor, mask: torch.Tensor,
                                k: int, *, eps: float = 0.5, weights=None,
                                budget=None, group_ids=None, caps=None,
-                               bn: int = 256):
+                               x_scale=None, x_zp=None, bn: int = 256):
         """τ-ladder threshold-batch selection on every machine at once.
 
         One ``exemplar_gains`` pass sets each machine's ``d_max``; then the
@@ -167,12 +186,16 @@ class ExemplarClustering:
 
         Returns ``(sel_idx, sel_mask, value, oracle_calls, launches)``;
         every launch (and the init pass) counts one oracle call per
-        available singly-feasible candidate.
+        available singly-feasible candidate.  ``T`` may be narrow (bf16,
+        or int8 with per-row ``x_scale``/``x_zp``).
         """
         batched = T.dim() == 3
         Tb = T if batched else T.unsqueeze(0)
         mb = (mask if batched else mask.unsqueeze(0)).bool()
         M, n, _ = Tb.shape
+        qkw = {} if x_scale is None else {
+            "x_scale": x_scale.reshape(M, n), "x_zp": x_zp.reshape(M, n)}
+        cd = self._cd()
         dev = Tb.device
         E = self.eval_set
         state = self.init_state(Tb, mb)
@@ -183,7 +206,8 @@ class ExemplarClustering:
         count = torch.zeros((M,), dtype=torch.int32, device=dev)
         cand = enc.feasible(mb, used, counts)
         ew = self._ew()
-        g0 = kops.exemplar_gains(Tb, E, cm, eval_weights=ew)
+        g0 = kops.exemplar_gains(Tb, E, cm, eval_weights=ew,
+                                 compute_dtype=cd, **qkw)
         d_max = torch.clamp_min(torch.amax(torch.where(cand, g0, 0.0),
                                            dim=-1), 1e-12)
         calls = torch.sum(cand.long(), dim=-1)
@@ -204,7 +228,7 @@ class ExemplarClustering:
             acc, cm = kops.threshold_select(
                 Tb, E, cm, avail, tau, k, used=used, counts=counts,
                 count=count, bn=bn, active=active, enc=enc,
-                eval_weights=ew)
+                eval_weights=ew, compute_dtype=cd, **qkw)
             # accepted block positions land in sel in index order; prefix
             # feasibility keeps them below k (column k drops the rest)
             order = count.unsqueeze(1) + torch.cumsum(acc.int(), dim=1) - 1

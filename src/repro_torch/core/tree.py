@@ -1,5 +1,5 @@
-"""TREE-BASED COMPRESSION — Algorithm 1 of the paper, resident ground set
-(counterpart of the resident branch of ``repro.core.tree``).
+"""TREE-BASED COMPRESSION — Algorithm 1 of the paper (counterpart of
+``repro.core.tree``).
 
   A₀ = V;  repeat: partition A_t into m_t = ⌈|A_t|/μ⌉ balanced parts →
   run the β-nice algorithm on every part in parallel → keep the best
@@ -17,8 +17,21 @@ so rows and attributes move together through the partition, the
 repartition, the fold and the union, and the returned coreset is checked
 by the independent NumPy checker.
 
-Streaming round 0, the Feistel slot scheme, checkpoints, the wave engine
-and telemetry wait for ROADMAP queue 1 items 10 and 11.
+Round 0 runs resident (the whole ``(n, d)`` ground set on the device,
+partitioned at once) or streams: given a :class:`GroundSetSource`,
+``wave_machines`` or ``cfg.capacity_bytes``, its machine blocks are
+gathered on the host and solved in waves of W machines, so at most W·μ
+candidate rows are on the device at once.  A narrow source (bf16, int8)
+ships its storage dtype, with the attributes and the dequant parameters
+beside it as one fp32 ``meta`` matrix; the kernels dequantize, and the
+selected rows come back as fp32, so later rounds do not change.  The
+round-0 slots come from the plan's permutation (``dense``, the same the
+resident round takes) or from a Feistel bijection evaluated per wave
+(``feistel``, O(1) host state; the resident round materializes it).  For
+one plan, streaming and resident give the same blocks, the same fold
+order and the same result.  The pipelined engine, ingestion hosts, the
+wave autotuner, faults, checkpoints and telemetry wait for ROADMAP queue 1
+item 11: their ``TreeConfig`` fields raise.
 """
 from __future__ import annotations
 
@@ -31,9 +44,23 @@ import torch
 
 from repro_torch.core import constraints as cons_lib
 from repro_torch.core import partition as part_lib
-from repro_torch.core.distributed import RoundResult, run_round
+from repro_torch.core.distributed import (RoundResult, run_round,
+                                          stage_wave_inputs)
+from repro_torch.core.permute import FeistelPermutation, feistel_slot_items
 from repro_torch.core.plan import TorchPlan
+from repro_torch.core.sources import (GroundSetSource, as_source,
+                                      dtype_itemsize, host_rows)
 from repro_torch.device import as_tensor, resolve_device
+from repro_torch.engine import HostWave, WaveTrace, run_waves
+
+PERMUTATIONS = ("dense", "feistel")
+
+#: TreeConfig fields of the JAX package's engine, at their defaults: any
+#: other value raises until ROADMAP queue 1 item 11 brings the engine
+_ENGINE_FIELDS = {"engine": "sync", "hosts": 1, "wave_autotune": False,
+                  "autotune_cache": None, "fault_policy": None,
+                  "checkpoint_dir": None, "resume": False,
+                  "async_checkpoint": False, "telemetry": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,15 +70,35 @@ class TreeConfig:
     algorithm: str = "greedy"          # greedy | threshold_batch
     eps: float = 0.5                   # for the stochastic/threshold variants
     seed: int = 0                      # seeds the default TorchPlan
-    permutation: str = "dense"         # round-0 slot scheme
+    permutation: str = "dense"         # round-0 slot scheme: dense | feistel
+    capacity_bytes: int | None = None  # device-byte wave budget (derives W)
+    prefetch_depth: int | None = None  # the source's chunk-prefetch depth
+    # the engine's knobs (ROADMAP queue 1 item 11): only these defaults run
+    engine: str = "sync"
+    hosts: int = 1
+    wave_autotune: bool = False
+    autotune_cache: str | None = None
+    fault_policy: object = None
+    checkpoint_dir: str | None = None
+    resume: bool = False
+    async_checkpoint: bool = False
+    telemetry: object = None
 
     def __post_init__(self):
         assert self.capacity > self.k, (
             f"paper requires μ > k (got μ={self.capacity}, k={self.k})")
-        if self.permutation != "dense":
-            raise NotImplementedError(
-                f"permutation={self.permutation!r} is not ported yet: "
-                "ROADMAP queue 1 item 10 (sources and streaming round 0)")
+        if self.permutation not in PERMUTATIONS:
+            raise ValueError(f"permutation={self.permutation!r} not in "
+                             f"{PERMUTATIONS}")
+        if self.capacity_bytes is not None and self.capacity_bytes <= 0:
+            raise ValueError(f"capacity_bytes={self.capacity_bytes} ≤ 0")
+        if self.prefetch_depth is not None and self.prefetch_depth < 1:
+            raise ValueError(f"prefetch_depth={self.prefetch_depth} < 1")
+        for name, default in _ENGINE_FIELDS.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"TreeConfig.{name}={getattr(self, name)!r} is not "
+                    "ported yet: ROADMAP queue 1 item 11 (engine)")
 
     def round_bound(self, n: int) -> int:
         """Prop. 3.1: r ≤ ⌈log_{μ/k}(n/μ)⌉ + 1."""
@@ -72,6 +119,23 @@ class TreeConfig:
 
 
 @dataclasses.dataclass
+class IngestStats:
+    """Accounting of a streaming round 0: the footprint bound's evidence
+    and each wave's gather, H2D and solve seconds and bytes."""
+    wave_machines: int          # W — machines per wave
+    waves: int                  # waves of round 0
+    peak_wave_rows: int         # most candidate rows of one wave
+    peak_wave_bytes: int        # peak_wave_rows · (width · itemsize + 4 · meta)
+    total_machines: int         # machines of round 0
+    attr_dim: int = 0           # a — attribute columns riding with each row
+    wave_seconds: list[float] = dataclasses.field(default_factory=list)
+    wave_bytes: list[int] = dataclasses.field(default_factory=list)
+    total_bytes: int = 0        # Σ wave_bytes (host → device)
+    wall_seconds: float = 0.0   # the whole round 0, host clock
+    traces: list[WaveTrace] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
 class TreeResult:
     sel_rows: np.ndarray        # (k, d) best solution rows (zero-padded)
     sel_mask: np.ndarray        # (k,)
@@ -86,6 +150,7 @@ class TreeResult:
     solve_depth: int            # Σ depth_per_round
     total_wall_s: float         # whole tree_maximize wall clock
     sel_attrs: np.ndarray | None = None  # (k, a) attributes of sel_rows
+    ingest: IngestStats | None = None    # set by a streaming round 0
 
 
 def _round_plan(M: int, t: int, fail_machines, device) -> torch.Tensor:
@@ -106,21 +171,22 @@ def _dispatch_round(obj, blocks, bmask, t, cfg: TreeConfig, fail_machines,
                      constraint=constraint)
 
 
-def _attr_setup(constraint, attrs, device) -> tuple[int, torch.Tensor | None]:
-    """The attribute width ``a`` and the ``(n, a)`` attribute tensor."""
+def _attr_setup(constraint, attrs, source_a: int = 0) -> int:
+    """The attribute width ``a``: of ``attrs`` ``(n, a)`` where given,
+    else of the source's own attributes (``source_a``)."""
     if constraint is None:
         if attrs is not None:
             raise ValueError("attrs without a constraint have no consumer")
-        return 0, None
+        return 0
     need = cons_lib.attr_dim(constraint)
-    attrs_t = None if attrs is None else as_tensor(attrs, device)
-    if attrs_t is not None and attrs_t.dim() != 2:
-        raise ValueError(f"attrs must be (n, a), got {tuple(attrs_t.shape)}")
-    a = 0 if attrs_t is None else attrs_t.shape[1]
+    if attrs is not None and len(attrs.shape) != 2:
+        raise ValueError(f"attrs must be (n, a), got {tuple(attrs.shape)}")
+    a = source_a if attrs is None else attrs.shape[1]
     if a < max(1, need):
         raise ValueError(f"constraint needs attrs with ≥ {max(1, need)} "
-                         f"columns, got {a} (pass attrs=)")
-    return a, attrs_t
+                         f"columns, got {a} (pass attrs= or an attributed "
+                         "source)")
+    return a
 
 
 def _finish_result(sel_wide: np.ndarray, sel_mask: np.ndarray, d: int,
@@ -152,6 +218,188 @@ def _fold_round(res: RoundResult, best_rows, best_mask, best_val,
     return best_rows, best_mask, best_val, total_calls, v_best
 
 
+def _round0_partition(plan, n: int, L: int, mu: int, scheme: str,
+                      device) -> part_lib.Partition:
+    """Round 0's partition for the resident round: the plan's dense slot
+    permutation, or the Feistel bijection of the plan's round-0 keys
+    materialized (the one a streaming round 0 evaluates per wave)."""
+    if scheme != "feistel":
+        return part_lib.balanced_partition(plan, 0, n, L, cap=mu,
+                                           device=device)
+    perm = FeistelPermutation.from_keys(plan.feistel_keys(0), L * mu)
+    idx = feistel_slot_items(perm, n, np.arange(L * mu, dtype=np.int64))
+    idx = torch.from_numpy(idx.reshape(L, mu)).to(device)
+    return part_lib.Partition(idx, idx >= 0)
+
+
+def _round0_slot_blocks(plan, n: int, L: int, mu: int, scheme: str):
+    """Round 0's slot assignment as ``slot_block(w0, w1) → (w1 − w0, μ)``
+    int64 item indices (−1 on empty slots) of machines ``[w0, w1)``:
+    slices of the plan's dense permutation (the resident round's, O(n)
+    host memory), or the Feistel bijection evaluated per slice (O(1))."""
+    if scheme == "feistel":
+        perm = FeistelPermutation.from_keys(plan.feistel_keys(0), L * mu)
+
+        def slot_block(w0: int, w1: int) -> np.ndarray:
+            slots = (np.arange(w0, w1, dtype=np.int64)[:, None] * mu
+                     + np.arange(mu, dtype=np.int64)[None, :])
+            return feistel_slot_items(perm, n, slots)
+        return slot_block
+    slot_item = part_lib.balanced_partition(plan, 0, n, L, cap=mu).idx.numpy()
+    return lambda w0, w1: slot_item[w0:w1]
+
+
+def _wave_row_bytes(mu: int, width: int, itemsize: int = 4,
+                    meta_cols: int = 0) -> int:
+    """Device bytes of one machine's block: μ rows of ``width`` feature
+    columns at the storage itemsize plus ``meta_cols`` fp32 columns
+    (attributes and dequant parameters of a narrow wave); ``μ·(d + a)·4``
+    on the fp32 path."""
+    return mu * (width * itemsize + meta_cols * 4)
+
+
+def _wave_size(cfg: TreeConfig, wave_machines, L: int, mu: int, width: int,
+               itemsize: int = 4, meta_cols: int = 0) -> int:
+    """W, the machines of a wave: ``wave_machines`` where given (checked
+    against ``cfg.capacity_bytes``, a hard bound), else the most machines
+    whose blocks fit ``cfg.capacity_bytes`` (rounded down; narrow rows fit
+    proportionally more), else one.  ``ValueError`` where the budget does
+    not hold one wave."""
+    row_bytes = _wave_row_bytes(mu, width, itemsize, meta_cols)
+    if wave_machines is not None:
+        if wave_machines < 1:
+            raise ValueError(f"wave_machines={wave_machines} < 1")
+        W = min(L, int(wave_machines))
+        if (cfg.capacity_bytes is not None
+                and W * row_bytes > cfg.capacity_bytes):
+            raise ValueError(
+                f"wave_machines={wave_machines} needs {W * row_bytes} bytes "
+                f"a wave, over capacity_bytes={cfg.capacity_bytes}")
+        return W
+    if cfg.capacity_bytes is not None:
+        if cfg.capacity_bytes < row_bytes:
+            raise ValueError(
+                f"capacity_bytes={cfg.capacity_bytes} cannot fit one wave: "
+                f"μ={mu} rows × ({width}×{itemsize} B + {meta_cols}×4 B) = "
+                f"{row_bytes} bytes")
+        return min(L, cfg.capacity_bytes // row_bytes)
+    return min(L, 1)
+
+
+def _stream_round0(obj, source: GroundSetSource, plan, L: int,
+                   cfg: TreeConfig, dev, fail_machines, wave_machines, best,
+                   constraint=None, attrs_np: np.ndarray | None = None):
+    """Round 0 in waves of W machines from ``source``.
+
+    Each wave's blocks are filled on the host from the round-0 slot
+    assignment (rows, and the attribute rows where constrained), staged
+    on the device and solved; its solutions fold into ``best`` = (rows,
+    mask, value, calls) in wave order, by strict improvement, so ties go
+    to the lowest machine index as in the resident round.  An fp32 source
+    ships ``(W, μ, d + a)`` fp32 blocks; a narrow one ``(W, μ, d)`` in its
+    storage dtype with the fp32 ``meta`` ``(W, μ, a + qcols)``.  Padded
+    slots are zero in both, so a masked row dequantizes to 0·0 + 0 = 0.
+    Returns (best, round depth, round value, A₁ rows, A₁ mask, stats).
+    """
+    n, d, mu = source.n, source.d, cfg.capacity
+    a = 0
+    if constraint is not None:
+        a = attrs_np.shape[1] if attrs_np is not None else source.a
+    feat_dtype = np.dtype(source.dtype)
+    narrow = feat_dtype != np.dtype(np.float32)
+    qcols = source.qcols if narrow else 0
+    itemsize = dtype_itemsize(feat_dtype) if narrow else 4
+    meta_cols = a + qcols if narrow else 0
+    width = d if narrow else d + a          # feature-block columns shipped
+    W = _wave_size(cfg, wave_machines, L, mu, width, itemsize, meta_cols)
+    slot_block = _round0_slot_blocks(plan, n, L, mu, cfg.permutation)
+    if cfg.prefetch_depth is not None:
+        source.prefetch_depth = cfg.prefetch_depth
+    dead = _round_plan(L, 0, fail_machines, dev)
+    cursor = [0]
+
+    def gather(i: int) -> HostWave | None:
+        w0 = cursor[0]
+        if w0 >= L:
+            return None
+        w1 = cursor[0] = min(L, w0 + W)
+        idx_w = slot_block(w0, w1)
+        idx_flat = np.maximum(idx_w, 0).reshape(-1)
+        valid = idx_w >= 0
+        if not a:
+            rows, row_attrs = source.gather(idx_flat), None
+        elif attrs_np is not None:
+            rows, row_attrs = source.gather(idx_flat), attrs_np[idx_flat]
+        else:
+            rows, row_attrs = source.gather_with_attrs(idx_flat)
+        if narrow:
+            feat = np.asarray(rows).reshape(w1 - w0, mu, d).copy()
+            feat[~valid] = 0
+            cols = [np.asarray(row_attrs, np.float32)] if a else []
+            if qcols:
+                cols.append(source.gather_qmeta(idx_flat))
+            meta = np.zeros((w1 - w0, mu, 0), np.float32)
+            if cols:
+                meta = np.where(valid[..., None], np.concatenate(
+                    cols, axis=1).reshape(w1 - w0, mu, meta_cols),
+                    np.float32(0.0))
+            return HostWave((feat, meta, valid, w0, w1), w1 - w0,
+                            (w1 - w0) * mu, feat.nbytes + meta.nbytes)
+        rows = np.asarray(rows, np.float32)
+        if a:
+            rows = np.concatenate([rows, np.asarray(row_attrs, np.float32)],
+                                  axis=1)
+        blocks = np.where(valid[..., None], rows.reshape(w1 - w0, mu, d + a),
+                          np.float32(0.0))
+        return HostWave((blocks, None, valid, w0, w1), w1 - w0,
+                        (w1 - w0) * mu, blocks.nbytes)
+
+    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def stage(payload):
+        blocks, meta, valid, w0, w1 = payload
+        staged = stage_wave_inputs(dev, blocks, valid, meta, copy_stream)
+        return staged, w0, w1
+
+    sol_rows, sol_mask = [], []
+    carry = {"best": best, "depth": 0, "v": float("-inf")}
+
+    def solve(i: int, staged) -> None:
+        tensors, w0, w1 = staged
+        res = run_round(obj, tensors[0], tensors[1], k=cfg.k,
+                        alg=cfg.algorithm, eps=cfg.eps, dead_mask=dead[w0:w1],
+                        attr_dim=a, constraint=constraint,
+                        meta=tensors[2] if len(tensors) == 3 else None)
+        *carry["best"], v_wave = _fold_round(res, *carry["best"])
+        carry["depth"] = max(carry["depth"], int(torch.max(res.depth)))
+        carry["v"] = max(carry["v"], float(v_wave))
+        sol_rows.append(res.sol_rows)
+        sol_mask.append(res.sol_mask)
+
+    t0 = time.perf_counter()
+    traces = run_waves(gather, stage, solve, dev)
+    wall = time.perf_counter() - t0
+    if cursor[0] != L or sum(t.machines for t in traces) != L:
+        raise RuntimeError(f"round 0 solved {cursor[0]} of {L} machines")
+    peak_rows = max(t.rows for t in traces)
+    stats = IngestStats(
+        wave_machines=W, waves=len(traces), peak_wave_rows=peak_rows,
+        peak_wave_bytes=peak_rows * (width * itemsize + meta_cols * 4),
+        total_machines=L, attr_dim=a,
+        wave_seconds=[t.gather_s + t.h2d_s + t.solve_s for t in traces],
+        wave_bytes=[t.bytes_moved for t in traces],
+        total_bytes=sum(t.bytes_moved for t in traces), wall_seconds=wall,
+        traces=traces)
+    if (cfg.capacity_bytes is not None
+            and stats.peak_wave_bytes > cfg.capacity_bytes):
+        raise RuntimeError(f"a wave took {stats.peak_wave_bytes} bytes, over "
+                           f"capacity_bytes={cfg.capacity_bytes}")
+    rows_in = torch.cat(sol_rows).reshape(-1, d + a)       # the union A₁
+    mask_in = torch.cat(sol_mask).reshape(-1)
+    return (carry["best"], carry["depth"], carry["v"], rows_in, mask_in,
+            stats)
+
+
 class _RoundClock:
     """Per-round wall times: CUDA events on the card, the host clock on
     the CPU."""
@@ -178,36 +426,51 @@ class _RoundClock:
 
 def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
                   fail_machines: dict[int, list[int]] | None = None,
-                  constraint=None, attrs=None) -> TreeResult:
-    """Run Algorithm 1 over a resident ``(n, d)`` ground set.
+                  constraint=None, attrs=None,
+                  wave_machines: int | None = None) -> TreeResult:
+    """Run Algorithm 1 over a ground set.
 
+    ``data`` is an ``(n, d)`` array (resident round 0) or a
+    :class:`GroundSetSource`; a source, ``wave_machines`` or
+    ``cfg.capacity_bytes`` streams round 0 in waves (see the module
+    docstring), with the result of the resident run for the same plan.
     Runs on the card unless ``device="cpu"``; with no card the default
-    raises.  ``plan`` supplies each round's slot permutation (default
-    ``TorchPlan(cfg.seed)``); ``fail_machines`` maps a round to the machine
-    ids whose output is dropped.  ``constraint`` (from
-    :mod:`repro_torch.core.constraints`) applies to every machine's solve,
-    with per-item ``attrs`` ``(n, a)``; the result carries ``sel_attrs``
-    and is asserted feasible by ``constraints.check_feasible``.
-    ``cfg.algorithm`` is ``"greedy"`` or ``"threshold_batch"`` (with
-    ``cfg.eps``).
+    raises.  ``plan`` supplies each round's slot permutation and round 0's
+    Feistel keys (default ``TorchPlan(cfg.seed)``); ``fail_machines`` maps
+    a round to the machine ids whose output is dropped.  ``constraint``
+    (from :mod:`repro_torch.core.constraints`) applies to every machine's
+    solve, with per-item ``attrs`` ``(n, a)`` or an attributed source; the
+    result carries ``sel_attrs`` and is asserted feasible by
+    ``constraints.check_feasible``.  ``cfg.algorithm`` is ``"greedy"`` or
+    ``"threshold_batch"`` (with ``cfg.eps``).  A streaming run sets
+    ``TreeResult.ingest``.
     """
     dev = resolve_device(device)
     if obj.device != dev:
         raise ValueError(f"objective lives on {obj.device}, run asks {dev}")
-    data = as_tensor(data, dev)
-    a, attrs_t = _attr_setup(constraint, attrs, dev)
+    streaming = (isinstance(data, GroundSetSource) or wave_machines is not None
+                 or cfg.capacity_bytes is not None)
+    if streaming:
+        source = as_source(data)
+        n, d = source.n, source.d
+        a = _attr_setup(constraint, attrs, source.a)
+        attrs_np = (None if attrs is None
+                    else np.asarray(host_rows(attrs), np.float32))
+    else:
+        data = as_tensor(data, dev)
+        n, d = data.shape
+        a = _attr_setup(constraint, attrs)
+        if a:   # attributes ride as trailing columns of the candidate matrix
+            data = torch.cat([data, as_tensor(attrs, dev)], dim=1)
     plan = TorchPlan(cfg.seed) if plan is None else plan
     fail_machines = fail_machines or {}
-    n, d = data.shape
-    if a:   # attributes ride as trailing columns of the candidate matrix
-        data = torch.cat([data, attrs_t], dim=1)
     mu, k = cfg.capacity, cfg.k
 
-    best_rows = torch.zeros((k, d + a), dtype=torch.float32, device=dev)
-    best_mask = torch.zeros((k,), dtype=torch.bool, device=dev)
-    best_val = torch.tensor(-torch.inf, device=dev)
-    total_calls = torch.zeros((), dtype=torch.long, device=dev)
-    rows_in = mask_in = None
+    best = (torch.zeros((k, d + a), dtype=torch.float32, device=dev),
+            torch.zeros((k,), dtype=torch.bool, device=dev),
+            torch.tensor(-torch.inf, device=dev),
+            torch.zeros((), dtype=torch.long, device=dev))
+    rows_in = mask_in = ingest = None
     n_items = n
     machines_per_round: list[int] = []
     round_values: list[float] = []
@@ -221,33 +484,40 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
         if t != 0:
             n_items = int(torch.sum(mask_in))
         L = part_lib.n_parts(n_items, mu)
-        if t == 0:
-            part = part_lib.balanced_partition(plan, 0, n, L, cap=mu,
-                                               device=dev)
-            blocks, bmask = part_lib.gather_partition(data, part)
+        if t == 0 and streaming:
+            machines_per_round.append(L)
+            best, depth, v_best, rows_in, mask_in, ingest = _stream_round0(
+                obj, source, plan, L, cfg, dev, fail_machines, wave_machines,
+                best, constraint=constraint, attrs_np=attrs_np)
         else:
-            blocks, bmask = part_lib.repartition_rows(rows_in, mask_in, plan,
-                                                      t, L, mu)
-        machines_per_round.append(blocks.shape[0])
-        res = _dispatch_round(obj, blocks, bmask, t, cfg, fail_machines,
-                              attr_dim=a, constraint=constraint)
-        best_rows, best_mask, best_val, total_calls, v_best = _fold_round(
-            res, best_rows, best_mask, best_val, total_calls)
-        # union of partial solutions = next A (device-resident)
-        rows_in = res.sol_rows.reshape(-1, d + a)
-        mask_in = res.sol_mask.reshape(-1)
+            if t == 0:
+                part = _round0_partition(plan, n, L, mu, cfg.permutation,
+                                         dev)
+                blocks, bmask = part_lib.gather_partition(data, part)
+            else:
+                blocks, bmask = part_lib.repartition_rows(rows_in, mask_in,
+                                                          plan, t, L, mu)
+            machines_per_round.append(blocks.shape[0])
+            res = _dispatch_round(obj, blocks, bmask, t, cfg, fail_machines,
+                                  attr_dim=a, constraint=constraint)
+            *best, v_best = _fold_round(res, *best)
+            depth = int(torch.max(res.depth))
+            # union of partial solutions = next A (device-resident)
+            rows_in = res.sol_rows.reshape(-1, d + a)
+            mask_in = res.sol_mask.reshape(-1)
         round_values.append(float(v_best))
-        depth_per_round.append(int(torch.max(res.depth)))
+        depth_per_round.append(depth)
         clock.mark()
         t += 1
         if L == 1:        # that was the final single-machine round
             break
         assert t <= r_bound + 1, (
             f"round bound violated: {t} > {r_bound} (Prop 3.1)")
+    best_rows, best_mask, best_val, total_calls = best
     return _finish_result(
         best_rows.cpu().numpy(), best_mask.cpu().numpy(), d, a, constraint,
         value=float(best_val), rounds=t, oracle_calls=int(total_calls),
         machines_per_round=machines_per_round, round_values=round_values,
         round_walls=clock.walls(), depth_per_round=depth_per_round,
         solve_depth=sum(depth_per_round),
-        total_wall_s=time.perf_counter() - t_run0)
+        total_wall_s=time.perf_counter() - t_run0, ingest=ingest)

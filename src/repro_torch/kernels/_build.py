@@ -33,13 +33,14 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # be cut to 32 bits), sizes as long long, fp32 constants as float, the rest
 # as int
 ARGTYPES = {
-    "exemplar_gains_launch": [_P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
+    "exemplar_gains_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _LL, _LL, _I,
+                              _I, _P, _P],
     "exemplar_tile_smem": [_I, _I, _I],
-    "greedy_select_launch": [_P] * 8 + [_LL, _LL, _I, _I, _I, _I, _LL, _P, _P,
-                                        _F, _P, _P, _P, _I, _P, _P],
-    "greedy_select_grid": [_LL, _LL, _I, _I, _I, _I],
-    "threshold_select_launch": [_P] * 20 + [_LL, _LL] + [_I] * 6
-    + [_F, _P, _P],
+    "greedy_select_launch": [_P, _I, _P, _P, _I] + [_P] * 7
+    + [_LL, _LL, _I, _I, _I, _I, _LL, _P, _P, _F, _P, _P, _P, _I, _P, _P],
+    "greedy_select_grid": [_LL, _LL, _I, _I, _I, _I, _I, _I],
+    "threshold_select_launch": [_P, _I, _P, _P, _I] + [_P] * 19
+    + [_LL, _LL] + [_I] * 6 + [_F, _P, _P],
     "threshold_select_max_groups": [_I, _I, _I, _I],
     "rbf_kernel_launch": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _F, _I,
                           _P],
@@ -72,12 +73,20 @@ RESTYPES = {"exemplar_tile_smem": _LL, "greedy_select_grid": _LL}
 #: prefill launches that take the tensor-core route are counted once more
 #: under flash_attention_prefill_wgmma), and wkv6's prefill (T > 1) and
 #: decode (T = 1) calls (either kernel), with the chunked kernel's launches
-#: (three a call) counted apart under wkv6_chunked
+#: (three a call) counted apart under wkv6_chunked.  The three gain-tile
+#: kernels' launches on narrow rows or with the bf16 x·e contraction are
+#: counted once more under <kernel>_bf16 (bf16 rows), <kernel>_q8 (int8
+#: rows with scale and zero-point) and <kernel>_bf16dot (threshold_select:
+#: its heads)
 launch_counts: dict[str, int] = {
     name: 0 for name in (
-        "exemplar_gains", "exemplar_gains_weighted", "greedy_select",
+        "exemplar_gains", "exemplar_gains_weighted", "exemplar_gains_bf16",
+        "exemplar_gains_q8", "exemplar_gains_bf16dot", "greedy_select",
         "greedy_select_constrained", "greedy_select_weighted",
+        "greedy_select_bf16", "greedy_select_q8", "greedy_select_bf16dot",
         "threshold_select", "threshold_select_weighted",
+        "threshold_select_bf16", "threshold_select_q8",
+        "threshold_select_bf16dot",
         "threshold_select_prepass", "threshold_select_tail", "rbf_kernel",
         "rbf_kernel_rowvec",
         "flash_attention_prefill", "flash_attention_prefill_wgmma",

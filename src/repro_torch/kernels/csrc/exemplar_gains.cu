@@ -12,14 +12,21 @@
 // pair on the clamp and the sum, which is the tighter bound.  Each CTA
 // stages e~ once and scores one 128-row tile.
 //
+// Narrow rows (bf16, or int8 with per-row scale and zero-point: the
+// quantized instantiation of the TPU kernel) and the bf16 x.e contraction
+// are the tile's Operand instantiations (exemplar_tile.cuh): the rows are
+// dequantized to fp32 as they are staged, before the gains.  A narrow row
+// moves d * itemsize bytes (+ 8 of scale and zero-point at int8) instead
+// of 4 d; the tile's operations do not change.
+//
 // Grid: (ceil(n / BN), M).  Block: 128 threads.  No atomics.
 #include "exemplar_tile.cuh"
 
 using namespace exemplar;
 
-template <bool kWeighted>
+template <class Op, bool kWeighted>
 __global__ void __launch_bounds__(THREADS)
-exemplar_gains_kernel(const float* __restrict__ X, const float* __restrict__ E,
+exemplar_gains_kernel(Rows<typename Op::T> X, const float* __restrict__ E,
                       const float* __restrict__ cm, float* __restrict__ out,
                       long long n, int d, int mp,
                       const float* __restrict__ ew) {
@@ -27,18 +34,18 @@ exemplar_gains_kernel(const float* __restrict__ X, const float* __restrict__ E,
   const Layout L(d, mp, kWeighted);
   const long long mach = blockIdx.y;
   const long long row0 = (long long)blockIdx.x * BN;
-  const float* Xm = X + mach * n * d;
+  const Rows<typename Op::T> Xm = X.from(mach * n, d);
   float* s_cm = reinterpret_cast<float*>(smem + L.cm);
   float* xs = reinterpret_cast<float*>(smem + L.xs);
   if (L.resident) load_rows(xs, Xm, n, d, row0);
   for (int j = threadIdx.x; j < mp; j += THREADS) s_cm[j] = cm[mach * mp + j];
-  stage_eval<kWeighted>(L, smem, E, d, mp, ew);
+  stage_eval<Op, kWeighted>(L, smem, E, d, mp, ew);
   cp_async_wait_all();
   __syncthreads();
   float sums[4];
-  row_gain_sums<kWeighted>(L, smem, Xm, E, n, d, mp, row0, s_cm,
-                           reinterpret_cast<const float*>(smem + L.ew), xs,
-                           sums);
+  row_gain_sums<Op, kWeighted>(L, smem, Xm, E, n, d, mp, row0, s_cm,
+                               reinterpret_cast<const float*>(smem + L.ew),
+                               xs, sums);
   if ((threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -48,33 +55,45 @@ exemplar_gains_kernel(const float* __restrict__ X, const float* __restrict__ E,
   }
 }
 
-// X (M, n, d), E (mp, d), cm (M, mp) fp32 contiguous; out (M, n) raw sums;
-// ew (mp,) fp32 eval weights, zero-padded, or null for the unweighted
-// instantiation.
-template <bool kWeighted>
-static int launch(const void* X, const void* E, const void* cm, void* out,
-                  long long M, long long n, int d, int mp, const void* ew,
-                  void* stream) {
+// X (M, n, d) contiguous, fp32, bf16 or int8 (xtype 0, 1, 2) with
+// x_scale, x_zp (M, n) fp32 for int8 (null otherwise); E (mp, d), cm
+// (M, mp) fp32 contiguous; out (M, n) raw sums; ew (mp,) fp32 eval weights,
+// zero-padded, or null for the unweighted instantiation; bf16dot selects
+// the bf16 x.e contraction.
+template <class Op, bool kWeighted>
+static int launch(const void* X, const void* xs, const void* xz,
+                  const void* E, const void* cm, void* out, long long M,
+                  long long n, int d, int mp, const void* ew, void* stream) {
   const size_t smem = Layout(d, mp, kWeighted).end;
   int err = (int)cudaFuncSetAttribute(
-      exemplar_gains_kernel<kWeighted>,
+      exemplar_gains_kernel<Op, kWeighted>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != 0) return err;
   const dim3 grid((unsigned)((n + BN - 1) / BN), (unsigned)M);
-  exemplar_gains_kernel<kWeighted><<<grid, THREADS, smem,
-                                     (cudaStream_t)stream>>>(
-      (const float*)X, (const float*)E, (const float*)cm, (float*)out, n, d,
-      mp, (const float*)ew);
+  const Rows<typename Op::T> R{(const typename Op::T*)X, (const float*)xs,
+                               (const float*)xz};
+  exemplar_gains_kernel<Op, kWeighted><<<grid, THREADS, smem,
+                                         (cudaStream_t)stream>>>(
+      R, (const float*)E, (const float*)cm, (float*)out, n, d, mp,
+      (const float*)ew);
   return (int)cudaGetLastError();
 }
 
-extern "C" int exemplar_gains_launch(const void* X, const void* E,
+extern "C" int exemplar_gains_launch(const void* X, int xtype,
+                                     const void* x_scale, const void* x_zp,
+                                     int bf16dot, const void* E,
                                      const void* cm, void* out, long long M,
                                      long long n, int d, int mp,
                                      const void* ew, void* stream) {
-  return ew == nullptr
-             ? launch<false>(X, E, cm, out, M, n, d, mp, ew, stream)
-             : launch<true>(X, E, cm, out, M, n, d, mp, ew, stream);
+  return with_operand(xtype, bf16dot, (int)cudaErrorInvalidValue,
+                      [&](auto op) {
+    using Op = decltype(op);
+    return ew == nullptr
+               ? launch<Op, false>(X, x_scale, x_zp, E, cm, out, M, n, d, mp,
+                                   ew, stream)
+               : launch<Op, true>(X, x_scale, x_zp, E, cm, out, M, n, d, mp,
+                                  ew, stream);
+  });
 }
 
 // Bytes of dynamic shared memory one CTA of the tile needs at (d, mp): the

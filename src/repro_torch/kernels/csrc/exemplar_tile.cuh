@@ -47,9 +47,31 @@
 // Each thread keeps 4 rows' sums over its 8 columns of every column tile in
 // column order; the 4 threads of a quad fold with a fixed butterfly.  No
 // atomics: a row's gain is the same bits from run to run.
+//
+// Narrow candidate rows (the Operand template parameter, one instantiation
+// each): X is fp32, bf16 (its 16-bit pattern) or int8 with a per-row
+// scale and zero-point.  Every read of X goes through Rows::at, which
+// dequantizes to fp32 before anything else sees the value: x * scale + zp
+// as __fmul_rn then __fadd_rn (two roundings, as the plain version and the
+// host compute it; nvcc would contract a*b+c into one FMA), and bf16 by
+// its exact upcast.  The staged tile holds the dequantized fp32 rows, so
+// the products, the norms and the callers' commits see the same values.
+// Narrow rows are staged by plain loads (their machine base need not be
+// 4-byte aligned: d = 17 at int8), fp32 rows by cp.async as before.
+//
+// bf16 dot (Operand::kBf16Dot, score_dtype = "bfloat16"): x.e is taken
+// over bf16(x) and bf16(e) (round to nearest even) with fp32 sums, while
+// |x|^2 and |e|^2 stay fp32 of the dequantized rows — the plain version's
+// X.bfloat16().float() @ E.bfloat16().float().T.  A bf16 value is exact in
+// TF32, so those columns split into hi = v, lo = 0 and the three products
+// carry them exactly; the norm columns keep their split.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace exemplar {
 
@@ -63,6 +85,55 @@ constexpr float NEG_INF = -1e30f;
 
 static_assert(THREADS / 32 * 32 == BN, "a warp owns 32 rows");
 static_assert(BM % BMT == 0, "column tiles divide the padding");
+
+// The candidate operand of one instantiation: the row type XT (float,
+// uint16_t for bf16, int8_t with scale and zero-point) and whether x.e is
+// contracted in bf16.
+template <class XT, bool kBf16>
+struct Operand {
+  using T = XT;
+  static constexpr bool kBf16Dot = kBf16;
+  static constexpr bool kNarrow = !std::is_same<XT, float>::value;
+};
+
+__device__ __forceinline__ float dequant(float v, const float*, const float*,
+                                         long long) {
+  return v;
+}
+__device__ __forceinline__ float dequant(uint16_t v, const float*,
+                                         const float*, long long) {
+  return __uint_as_float(static_cast<unsigned>(v) << 16);  // exact upcast
+}
+__device__ __forceinline__ float dequant(int8_t v, const float* scale,
+                                         const float* zp, long long row) {
+  return __fadd_rn(__fmul_rn(static_cast<float>(v), scale[row]), zp[row]);
+}
+
+// Rows of X (row-major, d wide) with their per-row dequant parameters
+// (int8 only; row indices address both)
+template <class XT>
+struct Rows {
+  const XT* x;
+  const float* scale;
+  const float* zp;
+  __device__ __forceinline__ float at(long long row, int c, int d) const {
+    return dequant(x[row * d + c], scale, zp, row);
+  }
+  // the same rows from row `rows` on (a machine's block)
+  __device__ __forceinline__ Rows from(long long rows, int d) const {
+    return {x + rows * d, scale == nullptr ? nullptr : scale + rows,
+            zp == nullptr ? nullptr : zp + rows};
+  }
+};
+
+// bf16(v) (round to nearest even) where x.e is contracted in bf16, else v
+template <bool kBf16Dot>
+__device__ __forceinline__ float dot_operand(float v) {
+  if constexpr (kBf16Dot)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
 
 // Byte offsets of the tile's dynamic shared memory (host and device agree):
 // e~ fragments, two X stages, the machine's cur_min and the eval weights.
@@ -120,11 +191,24 @@ __device__ __forceinline__ float sq_norm(const float* v, int d) {
   return s;
 }
 
+// the same of a row of R, dequantized
+template <class XT>
+__device__ __forceinline__ float sq_norm(const Rows<XT>& R, long long row,
+                                         int d) {
+  float s = 0.f;
+  for (int c = 0; c < d; ++c) {
+    const float v = R.at(row, c, d);
+    s = fmaf(v, v, s);
+  }
+  return s;
+}
+
 // e~[j][k] of eval row j (E zero-padded to mp rows)
+template <bool kBf16Dot>
 __device__ __forceinline__ float eval_aug(const float* __restrict__ E, int d,
                                           int j, int k) {
   const float* e = E + (long long)j * d;
-  if (k < d) return -2.f * e[k];
+  if (k < d) return -2.f * dot_operand<kBf16Dot>(e[k]);
   if (k == d) return 1.f;
   if (k == d + 1) return sq_norm(e, d);
   return 0.f;
@@ -132,26 +216,27 @@ __device__ __forceinline__ float eval_aug(const float* __restrict__ E, int d,
 
 // The fragment float4 of lane `lane` for k-step ks and n8 chunk `ch` (global
 // column chunk): b0 = e~[8 ch + lane / 4][8 ks + lane % 4], b1 four deeper.
+template <bool kBf16Dot>
 __device__ __forceinline__ float4 eval_frag(const float* __restrict__ E,
                                             int d, int ks, int ch, int lane) {
   const int j = ch * 8 + (lane >> 2), k = ks * 8 + (lane & 3);
   unsigned h0, l0, h1, l1;
-  split(eval_aug(E, d, j, k), h0, l0);
-  split(eval_aug(E, d, j, k + 4), h1, l1);
+  split(eval_aug<kBf16Dot>(E, d, j, k), h0, l0);
+  split(eval_aug<kBf16Dot>(E, d, j, k + 4), h1, l1);
   return make_float4(__uint_as_float(h0), __uint_as_float(h1),
                      __uint_as_float(l0), __uint_as_float(l1));
 }
 
 // Once per CTA: every column's e~ fragments where resident, and the eval
 // weights (kWeighted).  Ends with a barrier.
-template <bool kWeighted>
+template <class Op, bool kWeighted>
 __device__ void stage_eval(const Layout& L, unsigned char* smem,
                            const float* __restrict__ E, int d, int mp,
                            const float* __restrict__ ew) {
   if (L.resident) {
     float4* ef = reinterpret_cast<float4*>(smem + L.ef);
     for (int q = threadIdx.x; q < mp / 8 * 32; q += THREADS)
-      ef[q] = eval_frag(E, d, 0, q >> 5, q & 31);
+      ef[q] = eval_frag<Op::kBf16Dot>(E, d, 0, q >> 5, q & 31);
   }
   if constexpr (kWeighted) {
     float* s_ew = reinterpret_cast<float*>(smem + L.ew);
@@ -160,21 +245,29 @@ __device__ void stage_eval(const Layout& L, unsigned char* smem,
   __syncthreads();
 }
 
-// The caller's half of the resident path: cp.async the tile's rows
-// [row0, row0 + BN) of this machine's (n, d) block into xs (row-major,
-// rows at or past n zero-filled) and commit the group.  Rows are
-// contiguous, so the tile is one run of BN * d floats.
-__device__ __forceinline__ void load_rows(float* xs,
-                                          const float* __restrict__ X,
+// The caller's half of the resident path: stage the tile's rows
+// [row0, row0 + BN) of this machine's (n, d) block R into xs (row-major
+// fp32, rows at or past n zero-filled) and commit the group.  Rows are
+// contiguous, so the tile is one run of BN * d values: fp32 by cp.async,
+// narrow rows by plain loads, dequantized as they are stored.
+template <class XT>
+__device__ __forceinline__ void load_rows(float* xs, const Rows<XT>& R,
                                           long long n, int d,
                                           long long row0) {
   const long long avail = (n - row0) * d;
-  const float* src = X + row0 * d;
-  for (int q = threadIdx.x; q < BN * d; q += THREADS) {
-    if (q < avail)
-      cp_async4(xs + q, src + q);
-    else
-      xs[q] = 0.f;
+  if constexpr (std::is_same<XT, float>::value) {
+    const float* src = R.x + row0 * d;
+    for (int q = threadIdx.x; q < BN * d; q += THREADS) {
+      if (q < avail)
+        cp_async4(xs + q, src + q);
+      else
+        xs[q] = 0.f;
+    }
+  } else {
+    for (int q = threadIdx.x; q < BN * d; q += THREADS) {
+      const int r = q / d;
+      xs[q] = q < avail ? R.at(row0 + r, q - r * d, d) : 0.f;
+    }
   }
   cp_async_commit();
 }
@@ -185,9 +278,9 @@ __device__ __forceinline__ void load_rows(float* xs,
 // cur_min and the eval weights in shared memory (mp each, zero-padded).
 // xs holds the staged rows (load_rows) on the resident path and is not
 // read otherwise.  Every thread of the CTA calls it.
-template <bool kWeighted>
+template <class Op, bool kWeighted>
 __device__ void row_gain_sums(const Layout& L, unsigned char* smem,
-                              const float* __restrict__ X,
+                              const Rows<typename Op::T>& X,
                               const float* __restrict__ E, long long n,
                               int d, int mp, long long row0,
                               const float* cm, const float* s_ew,
@@ -207,7 +300,7 @@ __device__ void row_gain_sums(const Layout& L, unsigned char* smem,
     if (L.resident)
       x2[r] = sq_norm(xs + rl * d, d);
     else
-      x2[r] = row0 + rl < n ? sq_norm(X + (row0 + rl) * d, d) : 0.f;
+      x2[r] = row0 + rl < n ? sq_norm(X, row0 + rl, d) : 0.f;
   }
 
   // the row fragments of k-step ks: a[mt][0..3] hi, a[mt][4..7] lo; on the
@@ -221,7 +314,8 @@ __device__ void row_gain_sums(const Layout& L, unsigned char* smem,
         const int h = q & 1, kk = tig + (q >> 1) * 4;  // a0..a3 of m16n8k8
         const int rl = warp * 32 + mt * 16 + h * 8 + g;
         const int k = ks * 8 + kk;
-        const float v = k < d        ? src[rl * pitch + k - kbase]
+        const float v = k < d ? dot_operand<Op::kBf16Dot>(
+                                    src[rl * pitch + k - kbase])
                         : k == d     ? x2[mt * 2 + h]
                         : k == d + 1 ? 1.f
                                      : 0.f;  // x~ = (x, |x|^2, 1, 0 ..)
@@ -248,10 +342,11 @@ __device__ void row_gain_sums(const Layout& L, unsigned char* smem,
         for (int q = threadIdx.x; q < BN * 8; q += THREADS) {
           const int rl = q >> 3, k = ks * 8 + (q & 7);
           const long long row = row0 + rl;
-          xc[q] = row < n && k < d ? X[row * d + k] : 0.f;
+          xc[q] = row < n && k < d ? X.at(row, k, d) : 0.f;
         }
         for (int q = threadIdx.x; q < NCH * 32; q += THREADS)
-          ef[q] = eval_frag(E, d, ks, j0 / 8 + (q >> 5), q & 31);
+          ef[q] = eval_frag<Op::kBf16Dot>(E, d, ks, j0 / 8 + (q >> 5),
+                                          q & 31);
         __syncthreads();
         build_a(ks, xc, 8, ks * 8);
         eb = ef;
@@ -323,9 +418,10 @@ __device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
 // skip the machine; tiles wholly before it are skipped.  on_rows(mach, row0,
 // sums) sees every scored tile; on_leave(mach) runs when the CTA leaves a
 // machine's segment (all threads, barriers allowed).
-template <bool kWeighted, class FirstRow, class OnRows, class OnLeave>
+template <class Op, bool kWeighted, class FirstRow, class OnRows,
+          class OnLeave>
 __device__ void persistent_tiles(const Layout& L, unsigned char* smem,
-                                 const float* __restrict__ X,
+                                 const Rows<typename Op::T>& X,
                                  const float* __restrict__ E, const float* cm,
                                  const float* __restrict__ ew, long long M,
                                  long long n, int d, int mp, long long ntiles,
@@ -334,7 +430,7 @@ __device__ void persistent_tiles(const Layout& L, unsigned char* smem,
   float* s_cm = reinterpret_cast<float*>(smem + L.cm);
   const float* s_ew = reinterpret_cast<const float*>(smem + L.ew);
   float* xs = reinterpret_cast<float*>(smem + L.xs);
-  stage_eval<kWeighted>(L, smem, E, d, mp, ew);
+  stage_eval<Op, kWeighted>(L, smem, E, d, mp, ew);
   const long long T = M * ntiles, P = gridDim.x, c = blockIdx.x;
   const long long t0 = c * T / P, t1 = (c + 1) * T / P;
   auto scored = [&](long long t) {
@@ -343,7 +439,7 @@ __device__ void persistent_tiles(const Layout& L, unsigned char* smem,
   };
   auto prefetch = [&](long long t) {
     if (L.resident && t < t1 && scored(t))
-      load_rows(xs + (t & 1) * BN * 8, X + (t / ntiles) * n * d, n, d,
+      load_rows(xs + (t & 1) * BN * 8, X.from((t / ntiles) * n, d), n, d,
                 (t % ntiles) * BN);
   };
   prefetch(t0);
@@ -366,8 +462,9 @@ __device__ void persistent_tiles(const Layout& L, unsigned char* smem,
     if (!now) continue;
     const long long row0 = (t % ntiles) * BN;
     float sums[4];
-    row_gain_sums<kWeighted>(L, smem, X + mach * n * d, E, n, d, mp, row0,
-                             s_cm, s_ew, xs + (t & 1) * BN * 8, sums);
+    row_gain_sums<Op, kWeighted>(L, smem, X.from(mach * n, d), E, n, d, mp,
+                                 row0, s_cm, s_ew, xs + (t & 1) * BN * 8,
+                                 sums);
     on_rows(mach, row0, sums);
   }
   if (cur >= 0) on_leave(cur);
@@ -396,6 +493,21 @@ inline long long persistent_grid(K kernel, size_t smem, long long T) {
     return 0;
   const long long P = (long long)per * sms;
   return P < T ? P : T;
+}
+
+// f(Operand<XT, kBf16Dot>{}) for the row type xtype (0 fp32, 1 bf16,
+// 2 int8) and bf16dot; `bad` for an unknown xtype.
+template <class R, class F>
+inline R with_operand(int xtype, int bf16dot, R bad, F&& f) {
+  switch (xtype * 2 + (bf16dot != 0)) {
+    case 0: return f(Operand<float, false>{});
+    case 1: return f(Operand<float, true>{});
+    case 2: return f(Operand<uint16_t, false>{});
+    case 3: return f(Operand<uint16_t, true>{});
+    case 4: return f(Operand<int8_t, false>{});
+    case 5: return f(Operand<int8_t, true>{});
+    default: return bad;
+  }
 }
 
 }  // namespace exemplar

@@ -43,6 +43,12 @@
 // kWeighted instantiation); the commit is unchanged, since cur_min does
 // not depend on the weights.
 //
+// Narrow rows and the bf16 x.e contraction (the TPU kernel's quantized and
+// compute_dtype instantiations) are the tile's Operand instantiations: the
+// step kernel scores dequantized fp32 rows, and the commit dequantizes the
+// winner's row the same way (Rows::at) before the difference-form refresh,
+// which stays fp32 (the plain version refreshes with the fp32 row).
+//
 // Bound on the H100: the tile's CUDA-core epilogue, four fp32 issue slots
 // per (candidate, eval column) pair per step, beside three TF32 products
 // per 128 pairs and 8-deep k-step; the commit is O(m d) per machine per
@@ -105,9 +111,9 @@ __device__ __forceinline__ void cta_best(float& v, int& i, float* s_v,
     }
 }
 
-template <bool kConstrained, bool kWeighted>
+template <class Op, bool kConstrained, bool kWeighted>
 __global__ void __launch_bounds__(THREADS)
-greedy_step_kernel(const float* __restrict__ X, const float* __restrict__ E,
+greedy_step_kernel(Rows<typename Op::T> X, const float* __restrict__ E,
                    float* cm, unsigned char* avail, float* win_v, int* win_i,
                    int* ticket, int* __restrict__ sel, long long M,
                    long long n, int d, int mp, int m_true, int k, int step,
@@ -169,12 +175,12 @@ greedy_step_kernel(const float* __restrict__ X, const float* __restrict__ E,
     }
     cta_best(v, i, s_v, s_i);
     if (v > NEG_INF / 2) {
-      const float* x = X + (mach * n + i) * d;
+      const long long row = mach * n + i;
       for (int j = tid; j < mp; j += THREADS) {
         const float* e = E + (long long)j * d;
         float s = 0.f;
         for (int q = 0; q < d; ++q) {
-          const float df = e[q] - x[q];
+          const float df = e[q] - X.at(row, q, d);
           s = fmaf(df, df, s);
         }
         cm[mach * mp + j] = fminf(cm[mach * mp + j], s);
@@ -196,32 +202,37 @@ greedy_step_kernel(const float* __restrict__ X, const float* __restrict__ E,
     }
   };
 
-  persistent_tiles<kWeighted>(
+  persistent_tiles<Op, kWeighted>(
       L, smem, X, E, cm, ew, M, n, d, mp, ntiles,
       [](long long) { return 0LL; }, on_rows, on_leave);
 }
 
-template <bool kConstrained, bool kWeighted>
+template <class Op, bool kConstrained, bool kWeighted>
 static long long grid_of(long long M, long long n, int d, int mp) {
   const long long T = M * ((n + BN - 1) / BN);
-  return persistent_grid(greedy_step_kernel<kConstrained, kWeighted>,
+  return persistent_grid(greedy_step_kernel<Op, kConstrained, kWeighted>,
                          Layout(d, mp, kWeighted).end, T);
 }
 
-// The persistent grid of one step at this shape (0 on error): the wrapper
-// sizes the segment-winner scratch, M + grid slots, from it.
+// The persistent grid of one step at this shape and instantiation (0 on
+// error): the wrapper sizes the segment-winner scratch, M + grid slots,
+// from it.
 extern "C" long long greedy_select_grid(long long M, long long n, int d,
-                                        int mp, int constrained,
-                                        int weighted) {
-  if (weighted)
-    return constrained ? grid_of<true, true>(M, n, d, mp)
-                       : grid_of<false, true>(M, n, d, mp);
-  return constrained ? grid_of<true, false>(M, n, d, mp)
-                     : grid_of<false, false>(M, n, d, mp);
+                                        int mp, int constrained, int weighted,
+                                        int xtype, int bf16dot) {
+  return with_operand(xtype, bf16dot, 0LL, [&](auto op) {
+    using Op = decltype(op);
+    if (weighted)
+      return constrained ? grid_of<Op, true, true>(M, n, d, mp)
+                         : grid_of<Op, false, true>(M, n, d, mp);
+    return constrained ? grid_of<Op, true, false>(M, n, d, mp)
+                       : grid_of<Op, false, false>(M, n, d, mp);
+  });
 }
 
-template <bool kConstrained, bool kWeighted>
-static int run_steps(const void* X, const void* E, void* cm, void* avail,
+template <class Op, bool kConstrained, bool kWeighted>
+static int run_steps(const Rows<typename Op::T>& X, const void* E, void* cm,
+                     void* avail,
                      void* win_v, void* win_i, void* ticket, void* sel,
                      long long M, long long n, int d, int mp, int m_true,
                      int k, long long P, const Constraint& con,
@@ -229,12 +240,12 @@ static int run_steps(const void* X, const void* E, void* cm, void* avail,
   const cudaStream_t s = (cudaStream_t)stream;
   const long long ntiles = (n + BN - 1) / BN;
   const size_t smem = Layout(d, mp, kWeighted).end;
-  if (P != grid_of<kConstrained, kWeighted>(M, n, d, mp))
+  if (P != grid_of<Op, kConstrained, kWeighted>(M, n, d, mp))
     return (int)cudaErrorInvalidConfiguration;
   for (int t = 0; t < k; ++t) {
-    greedy_step_kernel<kConstrained, kWeighted><<<(unsigned)P, THREADS,
-                                                  smem, s>>>(
-        (const float*)X, (const float*)E, (float*)cm, (unsigned char*)avail,
+    greedy_step_kernel<Op, kConstrained, kWeighted><<<(unsigned)P, THREADS,
+                                                      smem, s>>>(
+        X, (const float*)E, (float*)cm, (unsigned char*)avail,
         (float*)win_v, (int*)win_i, (int*)ticket, (int*)sel, M, n, d, mp,
         m_true, k, t, ntiles, con, (const float*)ew);
     const int err = (int)cudaGetLastError();
@@ -243,7 +254,9 @@ static int run_steps(const void* X, const void* E, void* cm, void* avail,
   return 0;
 }
 
-// X (M, n, d), E (mp, d) fp32; cm (M, mp) fp32 and avail (M, n) uint8 are
+// X (M, n, d) fp32, bf16 or int8 (xtype 0, 1, 2) with x_scale, x_zp (M, n)
+// fp32 for int8 (null otherwise); bf16dot the bf16 x.e contraction; E
+// (mp, d) fp32; cm (M, mp) fp32 and avail (M, n) uint8 are
 // the running state, updated in place; win_v/win_i (M + P,) and ticket
 // (M,) int32, zero on entry, are scratch (P = greedy_select_grid(...));
 // sel (M, k) int32.  Constraint operands: w (M, n) fp32 with used (M,)
@@ -251,7 +264,9 @@ static int run_steps(const void* X, const void* E, void* cm, void* avail,
 // (M, G) int32 scratch; null w / gid switch a part off.  ew (mp,) fp32
 // eval weights, zero-padded, or null (unweighted).  Launches k kernels on
 // `stream`.
-extern "C" int greedy_select_launch(const void* X, const void* E, void* cm,
+extern "C" int greedy_select_launch(const void* X, int xtype,
+                                    const void* x_scale, const void* x_zp,
+                                    int bf16dot, const void* E, void* cm,
                                     void* avail, void* win_v, void* win_i,
                                     void* ticket, void* sel, long long M,
                                     long long n, int d, int mp, int m_true,
@@ -262,19 +277,19 @@ extern "C" int greedy_select_launch(const void* X, const void* E, void* cm,
   const Constraint con{(const float*)w, (const int*)gid, (const int*)caps,
                        (float*)used, (int*)counts, limit, G};
   const bool constrained = w != nullptr || gid != nullptr;
-  if (ew == nullptr)
-    return constrained
-               ? run_steps<true, false>(X, E, cm, avail, win_v, win_i, ticket,
-                                        sel, M, n, d, mp, m_true, k, P, con,
-                                        ew, stream)
-               : run_steps<false, false>(X, E, cm, avail, win_v, win_i,
-                                         ticket, sel, M, n, d, mp, m_true, k,
-                                         P, con, ew, stream);
-  return constrained
-             ? run_steps<true, true>(X, E, cm, avail, win_v, win_i, ticket,
-                                     sel, M, n, d, mp, m_true, k, P, con, ew,
-                                     stream)
-             : run_steps<false, true>(X, E, cm, avail, win_v, win_i, ticket,
-                                      sel, M, n, d, mp, m_true, k, P, con, ew,
-                                      stream);
+  return with_operand(xtype, bf16dot, (int)cudaErrorInvalidValue,
+                      [&](auto op) {
+    using Op = decltype(op);
+    const Rows<typename Op::T> R{(const typename Op::T*)X,
+                                 (const float*)x_scale, (const float*)x_zp};
+    auto run = [&](auto c, auto wt) {
+      return run_steps<Op, decltype(c)::value, decltype(wt)::value>(
+          R, E, cm, avail, win_v, win_i, ticket, sel, M, n, d, mp, m_true, k,
+          P, con, ew, stream);
+    };
+    using T = std::true_type;
+    using F = std::false_type;
+    if (ew == nullptr) return constrained ? run(T{}, F{}) : run(F{}, F{});
+    return constrained ? run(T{}, T{}) : run(F{}, T{});
+  });
 }

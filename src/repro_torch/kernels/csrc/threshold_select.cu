@@ -60,6 +60,13 @@
 // outside [0, G) belongs to no open group.  A machine whose ladder has
 // ended (active == 0) is left alone.
 //
+// Narrow rows and the bf16 x.e contraction (the TPU kernel's quantized and
+// compute_dtype instantiations) are the tile's Operand instantiations: the
+// head, pre-pass and tail score dequantized fp32 rows, and the fold
+// dequantizes the accepted rows the same way (Rows::at); under bf16 dot
+// its x.e is taken over bf16(x), bf16(e) as the gains' is, with |x|^2 and
+// |e|^2 in fp32 (the plain version folds the same contraction).
+//
 // Bound on the H100: the tile, four fp32 issue slots per (candidate, eval
 // column) pair scored, beside three TF32 products per 128 pairs.  Where few
 // rows qualify (the ladder's first level), the pre-pass scores a machine's
@@ -87,9 +94,9 @@ struct Resume {
 
 // The pre-pass: gains and block flags (M, nblk, zero on entry) of the
 // pending machines from their next block on, at the head's exit state.
-template <bool kWeighted>
+template <class Op, bool kWeighted>
 __global__ void __launch_bounds__(THREADS)
-threshold_prepass_kernel(const float* __restrict__ X,
+threshold_prepass_kernel(Rows<typename Op::T> X,
                          const float* __restrict__ E,
                          const float* __restrict__ cm,
                          const unsigned char* __restrict__ avail,
@@ -123,7 +130,7 @@ threshold_prepass_kernel(const float* __restrict__ X,
       if (q) flags[mach * nblk + row / bn] = 1;
     }
   };
-  persistent_tiles<kWeighted>(
+  persistent_tiles<Op, kWeighted>(
       L, smem, X, E, cm, ew, M, n, d, mp, ntiles,
       [&](long long mach) {
         return rs.pending[mach] ? (long long)rs.next[mach] * bn : -1LL;
@@ -134,9 +141,9 @@ threshold_prepass_kernel(const float* __restrict__ X,
 // The walk: the head (kTail false) from block 0 and the level's entry
 // state, or the tail (kTail true) of the pending machines from their next
 // block and the head's exit state, over the flagged blocks only.
-template <bool kWeighted, bool kTail>
+template <class Op, bool kWeighted, bool kTail>
 __global__ void __launch_bounds__(THREADS)
-threshold_walk_kernel(const float* __restrict__ X,
+threshold_walk_kernel(Rows<typename Op::T> X,
                       const float* __restrict__ E, float* cm,
                       const unsigned char* __restrict__ avail,
                       const float* __restrict__ tau,
@@ -165,7 +172,7 @@ threshold_walk_kernel(const float* __restrict__ X,
   const long long mach = blockIdx.x;
   if (kTail ? !rs.pending[mach] : !active[mach]) return;
   const int tid = threadIdx.x;
-  const float* Xm = X + mach * n * d;
+  const Rows<typename Op::T> Xm = X.from(mach * n, d);
   const long long base = mach * n;
   float* cmm = cm + mach * mp;
   const float t = tau[mach];
@@ -196,7 +203,7 @@ threshold_walk_kernel(const float* __restrict__ X,
       for (int i = tid; i < nb; i += THREADS) s_g[i] = gains[base + b0 + i];
     } else {
       if (!staged) {
-        stage_eval<kWeighted>(L, smem, E, d, mp, ew);
+        stage_eval<Op, kWeighted>(L, smem, E, d, mp, ew);
         staged = true;
       }
       for (int r0 = 0; r0 < nb; r0 += BN) {
@@ -205,9 +212,9 @@ threshold_walk_kernel(const float* __restrict__ X,
         cp_async_wait_all();
         __syncthreads();
         float sums[4];
-        row_gain_sums<kWeighted>(L, smem, Xm, E, b1, d, mp, b0 + r0, s_cm,
-                                 reinterpret_cast<const float*>(smem + L.ew),
-                                 xs, sums);
+        row_gain_sums<Op, kWeighted>(
+            L, smem, Xm, E, b1, d, mp, b0 + r0, s_cm,
+            reinterpret_cast<const float*>(smem + L.ew), xs, sums);
         if ((tid & 3) == 0) {
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
@@ -278,11 +285,13 @@ threshold_walk_kernel(const float* __restrict__ X,
         for (int c = 0; c < d; ++c) e2 = fmaf(e[c], e[c], e2);
         float v = s_cm[j];
         for (int a = 0; a < na; ++a) {
-          const float* x = Xm + (b0 + s_acc[a]) * d;
+          const long long row = b0 + s_acc[a];
           float x2 = 0.f, xy = 0.f;
           for (int c = 0; c < d; ++c) {
-            x2 = fmaf(x[c], x[c], x2);
-            xy = fmaf(x[c], e[c], xy);
+            const float x = Xm.at(row, c, d);
+            x2 = fmaf(x, x, x2);
+            xy = fmaf(dot_operand<Op::kBf16Dot>(x),
+                      dot_operand<Op::kBf16Dot>(e[c]), xy);
           }
           v = fminf(v, fmaxf(x2 + e2 - 2.f * xy, 0.f));
         }
@@ -317,7 +326,9 @@ static size_t walk_smem(int d, int mp, bool weighted, int G) {
   return Layout(d, mp, weighted).end + (size_t)G * sizeof(int);
 }
 
-// X (M, n, d), E (mp, d) fp32 contiguous; cm (M, mp) fp32, updated in
+// X (M, n, d) contiguous, fp32, bf16 or int8 (xtype 0, 1, 2) with
+// x_scale, x_zp (M, n) fp32 for int8 (null otherwise); bf16dot the bf16 x.e
+// contraction; E (mp, d) fp32 contiguous; cm (M, mp) fp32, updated in
 // place; avail (M, n) uint8; tau, used (M,) fp32; count (M,) int32;
 // counts (M, G) int32; active (M,) uint8; w (M, n) fp32 or null; gid
 // (M, n) int32 or null with caps (G,) int32; accept (M, n) uint8, zero on
@@ -327,14 +338,14 @@ static size_t walk_smem(int d, int mp, bool weighted, int G) {
 // launches on `stream`: the head and the tail on M blocks, the pre-pass
 // between them on a persistent grid; G must not exceed
 // threshold_select_max_groups() for the same weighting, d and mp.
-template <bool kWeighted>
-static int launch(const void* X, const void* E, void* cm, const void* avail,
-                  const void* tau, const void* used, const void* count,
-                  const void* counts, const void* active, const void* w,
-                  const void* gid, const void* caps, void* accept,
-                  void* gains, void* flags, const Resume& rs, long long M,
-                  long long n, int d, int mp, int m_true, int k, int bn,
-                  int G, float limit, const void* ew, void* stream) {
+template <class Op, bool kWeighted>
+static int launch(const Rows<typename Op::T>& X, const void* E, void* cm,
+                  const void* avail, const void* tau, const void* used,
+                  const void* count, const void* counts, const void* active,
+                  const void* w, const void* gid, const void* caps,
+                  void* accept, void* gains, void* flags, const Resume& rs,
+                  long long M, long long n, int d, int mp, int m_true, int k,
+                  int bn, int G, float limit, const void* ew, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const long long ntiles = (n + BN - 1) / BN, nblk = (n + bn - 1) / bn;
   const size_t smem = walk_smem(d, mp, kWeighted, gid != nullptr ? G : 0);
@@ -344,35 +355,35 @@ static int launch(const void* X, const void* E, void* cm, const void* avail,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != 0) return;
     kernel<<<(unsigned)M, THREADS, smem, s>>>(
-        (const float*)X, (const float*)E, (float*)cm,
-        (const unsigned char*)avail, (const float*)tau, (const float*)used,
-        (const int*)count, (const int*)counts, (const unsigned char*)active,
-        rs, (const float*)w, (const int*)gid, (const int*)caps,
-        (const float*)gains, (const unsigned char*)flags,
-        (unsigned char*)accept, n, d, mp, m_true, k, bn, G, limit,
-        (const float*)ew, nblk);
+        X, (const float*)E, (float*)cm, (const unsigned char*)avail,
+        (const float*)tau, (const float*)used, (const int*)count,
+        (const int*)counts, (const unsigned char*)active, rs, (const float*)w,
+        (const int*)gid, (const int*)caps, (const float*)gains,
+        (const unsigned char*)flags, (unsigned char*)accept, n, d, mp, m_true,
+        k, bn, G, limit, (const float*)ew, nblk);
     err = (int)cudaGetLastError();
   };
-  walk(threshold_walk_kernel<kWeighted, false>);
+  walk(threshold_walk_kernel<Op, kWeighted, false>);
   if (err != 0) return err;
   const size_t pre_smem = Layout(d, mp, kWeighted).end;
-  const long long P = persistent_grid(threshold_prepass_kernel<kWeighted>,
+  const long long P = persistent_grid(threshold_prepass_kernel<Op, kWeighted>,
                                       pre_smem, M * ntiles);
   if (P <= 0) return (int)cudaErrorInvalidConfiguration;
-  threshold_prepass_kernel<kWeighted><<<(unsigned)P, THREADS, pre_smem, s>>>(
-      (const float*)X, (const float*)E, (const float*)cm,
-      (const unsigned char*)avail, (const float*)tau, rs, (const float*)w,
-      (const int*)gid, (const int*)caps, (float*)gains,
-      (unsigned char*)flags, M, n, d, mp, m_true, bn, G, limit,
-      (const float*)ew, ntiles, nblk);
+  threshold_prepass_kernel<Op, kWeighted><<<(unsigned)P, THREADS, pre_smem,
+                                            s>>>(
+      X, (const float*)E, (const float*)cm, (const unsigned char*)avail,
+      (const float*)tau, rs, (const float*)w, (const int*)gid,
+      (const int*)caps, (float*)gains, (unsigned char*)flags, M, n, d, mp,
+      m_true, bn, G, limit, (const float*)ew, ntiles, nblk);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  walk(threshold_walk_kernel<kWeighted, true>);
+  walk(threshold_walk_kernel<Op, kWeighted, true>);
   return err;
 }
 
 extern "C" int threshold_select_launch(
-    const void* X, const void* E, void* cm, const void* avail,
+    const void* X, int xtype, const void* x_scale, const void* x_zp,
+    int bf16dot, const void* E, void* cm, const void* avail,
     const void* tau, const void* used, const void* count, const void* counts,
     const void* active, const void* w, const void* gid, const void* caps,
     void* accept, void* gains, void* flags, void* pending, void* next,
@@ -381,27 +392,39 @@ extern "C" int threshold_select_launch(
     float limit, const void* ew, void* stream) {
   const Resume rs{(unsigned char*)pending, (int*)next, (int*)count_mid,
                   (float*)used_mid, (int*)counts_mid};
-  return ew == nullptr
-             ? launch<false>(X, E, cm, avail, tau, used, count, counts, active,
-                             w, gid, caps, accept, gains, flags, rs, M, n, d,
-                             mp, m_true, k, bn, G, limit, ew, stream)
-             : launch<true>(X, E, cm, avail, tau, used, count, counts, active,
-                            w, gid, caps, accept, gains, flags, rs, M, n, d,
-                            mp, m_true, k, bn, G, limit, ew, stream);
+  return with_operand(xtype, bf16dot, (int)cudaErrorInvalidValue,
+                      [&](auto op) {
+    using Op = decltype(op);
+    const Rows<typename Op::T> R{(const typename Op::T*)X,
+                                 (const float*)x_scale, (const float*)x_zp};
+    return ew == nullptr
+               ? launch<Op, false>(R, E, cm, avail, tau, used, count, counts,
+                                   active, w, gid, caps, accept, gains, flags,
+                                   rs, M, n, d, mp, m_true, k, bn, G, limit,
+                                   ew, stream)
+               : launch<Op, true>(R, E, cm, avail, tau, used, count, counts,
+                                  active, w, gid, caps, accept, gains, flags,
+                                  rs, M, n, d, mp, m_true, k, bn, G, limit,
+                                  ew, stream);
+  });
 }
 
 // The most partition groups one launch takes on `device` at (d, mp): the
 // group counts live in the walk's dynamic shared memory after the tile's,
 // which with the kernel's static shared memory must fit the opt-in maximum
-// per block (the weighted instantiation stages its eval weights there too).
+// per block (the weighted instantiation stages its eval weights there too;
+// the operand instantiations have the same static shared memory).
 extern "C" int threshold_select_max_groups(int device, int weighted, int d,
                                            int mp) {
   cudaFuncAttributes attr;
   int optin = 0;
   const cudaError_t got =
       weighted
-          ? cudaFuncGetAttributes(&attr, threshold_walk_kernel<true, false>)
-          : cudaFuncGetAttributes(&attr, threshold_walk_kernel<false, false>);
+          ? cudaFuncGetAttributes(
+                &attr, threshold_walk_kernel<Operand<float, false>, true, false>)
+          : cudaFuncGetAttributes(
+                &attr,
+                threshold_walk_kernel<Operand<float, false>, false, false>);
   if (got != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess)

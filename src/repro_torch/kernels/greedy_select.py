@@ -37,6 +37,14 @@ eval column's contribution in the step kernel's gains (its own template
 instantiation, with or without a constraint); the commit does not depend
 on them.  Its launches count as ``greedy_select_weighted``.
 
+Narrow rows (bf16, or int8 with per-row ``x_scale``/``x_zp``: the TPU
+kernel's ``quantized`` instantiation) and the bf16 x·e contraction
+(``compute_dtype``) are the gain tile's operand instantiations, with or
+without a constraint or eval weights: the step kernel scores the
+dequantized rows, the commit refreshes ``cur_min`` from the winner's
+dequantized fp32 row.  Their launches count once more as
+``greedy_select_bf16``, ``_q8`` and ``_bf16dot``.
+
 The plain version is :func:`repro_torch.kernels.ref.greedy_select`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
 """
@@ -45,7 +53,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.exemplar_gains import BM, check_tile
+from repro_torch.kernels.exemplar_gains import (BM, check_tile,
+                                                count_launches, row_operand)
 from repro_torch.kernels.ref import greedy_select as plain  # noqa: F401
 
 
@@ -53,13 +62,15 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
            avail: torch.Tensor, k: int, m_true: int, *,
            w: torch.Tensor | None = None, limit: float = 0.0,
            gid: torch.Tensor | None = None, caps: torch.Tensor | None = None,
-           ew: torch.Tensor | None = None
-           ) -> tuple[torch.Tensor, torch.Tensor]:
+           ew: torch.Tensor | None = None, x_scale=None, x_zp=None,
+           bf16dot: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Run k greedy steps on the card; returns ``(sel (M, k) int32,
     cur_min (M, mp))``.
 
-    X ``(M, n, d)`` and E ``(mp, d)`` fp32 with ``mp % BM == 0`` (zero
-    rows past ``m_true``); cur_min ``(M, mp)`` fp32 and avail ``(M, n)``
+    X ``(M, n, d)`` fp32, bf16, or int8 with ``x_scale``/``x_zp`` ``(M, n)``
+    fp32, and E ``(mp, d)`` fp32 with ``mp % BM == 0`` (zero rows past
+    ``m_true``); ``bf16dot`` contracts x·e in bf16; cur_min ``(M, mp)``
+    fp32 and avail ``(M, n)``
     uint8 are the running state and are updated in place.  ``w`` ``(M, n)``
     fp32 with ``limit``, and ``gid`` ``(M, n)`` int32 with ``caps`` ``(G,)``
     int32, encode the constraint (``None`` switches a part off).  ``ew``
@@ -69,7 +80,8 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     M, n, d = X.shape
     mp = E.shape[0]
     G = 0 if caps is None else caps.shape[0]
-    checks = [(X, (M, n, d), torch.float32), (E, (mp, d), torch.float32),
+    xtype = row_operand(X, x_scale, x_zp, "greedy_select")
+    checks = [(X, (M, n, d), X.dtype), (E, (mp, d), torch.float32),
               (cur_min, (M, mp), torch.float32), (avail, (M, n), torch.uint8)]
     if w is not None:
         checks.append((w, (M, n), torch.float32))
@@ -95,7 +107,7 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     check_tile(X.device, d, mp, ew is not None, "greedy_select")
     lib = _build.load("greedy_select")
     P = lib.greedy_select_grid(M, n, d, mp, int(constrained),
-                               int(ew is not None))
+                               int(ew is not None), xtype, int(bf16dot))
     if P <= 0:
         raise RuntimeError("greedy_select: occupancy query failed")
     # one winner per (CTA, machine segment): segment (c, mach) has slot
@@ -109,7 +121,10 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                              device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _build.check(lib.greedy_select_launch(
-                    X.data_ptr(), E.data_ptr(), cur_min.data_ptr(),
+                    X.data_ptr(), xtype,
+                    None if x_scale is None else x_scale.data_ptr(),
+                    None if x_zp is None else x_zp.data_ptr(), int(bf16dot),
+                    E.data_ptr(), cur_min.data_ptr(),
                     avail.data_ptr(), win_v.data_ptr(), win_i.data_ptr(),
                     ticket.data_ptr(), sel.data_ptr(), M, n, d, mp, m_true,
                     k, P, None if w is None else w.data_ptr(),
@@ -122,5 +137,5 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     name = ("greedy_select_weighted" if ew is not None
             else "greedy_select_constrained" if constrained
             else "greedy_select")
-    _build.launch_counts[name] += k
+    count_launches("greedy_select", name, xtype, bf16dot, k)
     return sel, cur_min

@@ -28,6 +28,16 @@ weight.  A weighted call launches the kernels' weighted instantiation (the
 JAX package sends it to its jnp reference instead: on the card the port
 has no plain path).
 
+Narrow candidate rows (bf16, or int8 with per-row ``x_scale``/``x_zp``)
+go to the three selection kernels as they are, with the scale and
+zero-point as contiguous ``(M, n)`` fp32; the kernels dequantize on the
+card.  ``compute_dtype=torch.bfloat16`` launches their bf16-dot
+instantiation, on every path alike, so the fused and the step-wise paths
+score a row with the same bits (the JAX package's Pallas kernels take no
+``compute_dtype`` and score in fp32 on the TPU, while its jnp reference,
+the CPU's path, honours it everywhere; the port follows the reference).
+Other row types are cast to fp32 first, as before.
+
 ``rbf_kernel`` takes a machine axis on either operand: an operand without
 one (or with one machine) is shared by every machine at machine stride 0,
 never copied per machine.
@@ -43,8 +53,6 @@ the cache's state, decode updates it in place through ``state_out``), and
 any T: the kernel masks the ragged chunk (the ``T % bt`` rule belongs to
 the Pallas launch only).
 
-Every argument of the JAX signatures that the port lacks raises
-:class:`NotImplementedError` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -160,21 +168,41 @@ def exemplar_gains(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                    eval_weights=None) -> torch.Tensor:
     """Marginal gains of exemplar clustering for every row of ``X``.
 
-    ``X`` is ``(n, d)`` or ``(M, n, d)``; ``cur_min`` is ``(m,)`` (shared)
-    or ``(M, m)``; ``eval_weights`` ``(m,)`` weigh the eval columns.
-    Returns ``(n,)`` or ``(M, n)``.
+    ``X`` is ``(n, d)`` or ``(M, n, d)`` (bf16, or int8 with ``x_scale``/
+    ``x_zp`` following its leading axes, or fp32); ``cur_min`` is ``(m,)``
+    (shared) or ``(M, m)``; ``eval_weights`` ``(m,)`` weigh the eval
+    columns; ``compute_dtype`` the x·e contraction.  Returns ``(n,)`` or
+    ``(M, n)``.
     """
-    ref.reject_unported(compute_dtype=compute_dtype, x_scale=x_scale,
-                        x_zp=x_zp)
+    bf16dot = ref.check_compute_dtype(compute_dtype)
     if not _on_card(X):
-        return ref.exemplar_gains(X, E, cur_min, eval_weights=eval_weights)
-    batched = X.dim() == 3
-    Xb = (X if batched else X.unsqueeze(0)).float().contiguous()
+        return ref.exemplar_gains(X, E, cur_min, compute_dtype=compute_dtype,
+                                  x_scale=x_scale, x_zp=x_zp,
+                                  eval_weights=eval_weights)
+    Xb, rows = _card_rows(X, x_scale, x_zp)
     M, m = Xb.shape[0], E.shape[0]
     cm = cur_min.reshape(-1, m).expand(M, m)
     Ep, cmp_ = _pad_eval(E.float(), cm)
-    g = _eg.launch(Xb, Ep, cmp_, _pad_weights(eval_weights, m)) / m
-    return g if batched else g[0]
+    g = _eg.launch(Xb, Ep, cmp_, _pad_weights(eval_weights, m),
+                   bf16dot=bf16dot, **rows) / m
+    return g if X.dim() == 3 else g[0]
+
+
+def _card_rows(X: torch.Tensor, x_scale, x_zp) -> tuple[torch.Tensor, dict]:
+    """The candidate rows with a machine axis as the kernels take them
+    (bf16 and int8 kept narrow, any other type as fp32; contiguous) and
+    the kernels' ``x_scale``/``x_zp`` as contiguous ``(M, n)`` fp32."""
+    Xb = X if X.dim() == 3 else X.unsqueeze(0)
+    if Xb.dtype not in (torch.bfloat16, torch.int8):
+        Xb = Xb.float()
+    M, n = Xb.shape[:2]
+    if (x_scale is None) != (x_zp is None):
+        raise ValueError("x_scale and x_zp pair up")
+    if x_scale is None:
+        return Xb.contiguous(), {}
+    return Xb.contiguous(), {
+        "x_scale": x_scale.float().reshape(M, n).contiguous(),
+        "x_zp": x_zp.float().reshape(M, n).contiguous()}
 
 
 def _card_encoding(enc: ref.Encoding) -> dict:
@@ -199,21 +227,24 @@ def greedy_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     go to the lowest index.  ``weights``/``budget`` (a knapsack) and
     ``group_ids``/``caps`` (a partition matroid) constrain every step, as
     :func:`repro_torch.kernels.ref.greedy_select` says; ``eval_weights``
-    ``(m,)`` weigh the eval columns of every step's gains.  On the CPU the
+    ``(m,)`` weigh the eval columns of every step's gains.  Narrow ``X``
+    (bf16, or int8 with ``x_scale``/``x_zp``) is dequantized in the kernel;
+    ``compute_dtype`` is the gains' contraction.  On the CPU the
     result is bit-identical to the step-wise greedy with
     ``ExemplarClustering``; on the card both score a row with the same
     kernel tile, and only the difference-form ``cur_min`` refresh may round
     apart (fma in the kernel).
     """
-    ref.reject_unported(compute_dtype=compute_dtype, x_scale=x_scale,
-                        x_zp=x_zp)
+    bf16dot = ref.check_compute_dtype(compute_dtype)
     if not _on_card(X):
         return ref.greedy_select(X, E, cur_min, mask, k, weights=weights,
                                  budget=budget, group_ids=group_ids,
                                  caps=caps, enc=enc,
-                                 eval_weights=eval_weights)
+                                 eval_weights=eval_weights,
+                                 compute_dtype=compute_dtype,
+                                 x_scale=x_scale, x_zp=x_zp)
     batched = X.dim() == 3
-    Xb = (X if batched else X.unsqueeze(0)).float().contiguous()
+    Xb, rows = _card_rows(X, x_scale, x_zp)
     M, n, m = Xb.shape[0], Xb.shape[1], E.shape[0]
     avail = mask.reshape(M, -1).to(torch.uint8, copy=True)  # kernel state
     cm = cur_min.reshape(-1, m).expand(M, m)
@@ -221,7 +252,7 @@ def greedy_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     enc = ref.encoding(M, n, X.device, enc, weights, budget, group_ids, caps)
     sel, cm_out = _gs.launch(Xb, Ep, cmp_, avail, k, m,
                              ew=_pad_weights(eval_weights, m),
-                             **_card_encoding(enc))
+                             bf16dot=bf16dot, **rows, **_card_encoding(enc))
     sel, cm_out = sel.long(), cm_out[:, :m]
     return (sel, cm_out) if batched else (sel[0], cm_out[0])
 
@@ -242,19 +273,21 @@ def threshold_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     ``eval_weights`` ``(m,)`` weigh the gains' eval columns.  The semantics
     are block-sequential at ``bn``, which is part of the function's
     meaning: as in ``repro.kernels.ops``, ``bn = min(bn, max(8, n))``.
+    Narrow ``X`` (bf16, or int8 with ``x_scale``/``x_zp``) is dequantized
+    in the kernels; ``compute_dtype`` is the contraction of the gains and
+    of the fold.
     """
-    ref.reject_unported(compute_dtype=compute_dtype, x_scale=x_scale,
-                        x_zp=x_zp)
+    bf16dot = ref.check_compute_dtype(compute_dtype)
     n = X.shape[-2]
     bn = min(bn, max(8, n))
     if not _on_card(X):
         return ref.threshold_select(
             X, E, cur_min, mask, tau, k, used=used, counts=counts,
-            count=count, bn=bn, weights=weights, budget=budget,
-            group_ids=group_ids, caps=caps, active=active, enc=enc,
-            eval_weights=eval_weights)
+            count=count, bn=bn, compute_dtype=compute_dtype, weights=weights,
+            budget=budget, group_ids=group_ids, caps=caps, x_scale=x_scale,
+            x_zp=x_zp, eval_weights=eval_weights, active=active, enc=enc)
     batched = X.dim() == 3
-    Xb = (X if batched else X.unsqueeze(0)).float().contiguous()
+    Xb, rows = _card_rows(X, x_scale, x_zp)
     M, m = Xb.shape[0], E.shape[0]
     dev = X.device
     enc = ref.encoding(M, n, dev, enc, weights, budget, group_ids, caps)
@@ -276,6 +309,7 @@ def threshold_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
         per_machine(count, torch.int32, (M,)),
         per_machine(counts, torch.int32, (M, enc.G)),
         per_machine(True if active is None else active, torch.uint8, (M,)),
-        k, bn, m, ew=_pad_weights(eval_weights, m), **_card_encoding(enc))
+        k, bn, m, ew=_pad_weights(eval_weights, m), bf16dot=bf16dot, **rows,
+        **_card_encoding(enc))
     acc, cm_out = acc.bool(), cmp_[:, :m]
     return (acc, cm_out) if batched else (acc[0], cm_out[0])

@@ -7,12 +7,16 @@ against the JAX package's ``ref`` functions, and ``chip_smoke.py`` holds the
 CUDA kernels against them on the card.  On a CPU tensor the dispatch in
 :mod:`repro_torch.kernels.ops` runs them as the production path.
 
-Scope: fp32, no ``compute_dtype`` and no ``x_scale``/``x_zp`` dequant; each
-of those raises :class:`NotImplementedError` naming the ROADMAP item that
-brings it.  ``eval_weights`` ``(m,)`` reweights the eval columns of every
-exemplar gain (``WeightedExemplarClustering``): each column's clamped
-contribution is multiplied by its weight before the sum, so a weight of
-exactly 1.0 gives the unweighted bits.
+Narrow candidate rows: ``X`` may be bf16, or int8 with per-row
+``x_scale``/``x_zp``; every selection kernel first takes
+:func:`dequantize_rows` (``x·scale + zp`` in fp32, two roundings), so
+every later read of a row sees those fp32 values.  ``compute_dtype=
+torch.bfloat16`` contracts x·e over bf16 rows and eval rows with fp32
+sums, while ‖x‖² and ‖e‖² stay fp32 (:func:`_sqdist`).  ``eval_weights``
+``(m,)`` reweights the eval columns of every exemplar gain
+(``WeightedExemplarClustering``): each column's clamped contribution is
+multiplied by its weight before the sum, so a weight of exactly 1.0 gives
+the unweighted bits.
 
 Every function takes an optional leading machine axis: ``X`` is ``(n, d)``
 or ``(M, n, d)``; per-machine state (``cur_min``, ``mask``, constraint
@@ -37,19 +41,30 @@ NEG_INF = -1e30
 # elements at a time (machine chunks), so a full tree round fits the card
 _CHUNK_ELEMS = 1 << 28
 
-_ROADMAP_ITEM = {
-    "compute_dtype": "ROADMAP queue 1 item 10 (narrow operands)",
-    "x_scale": "ROADMAP queue 1 item 10 (narrow operands)",
-    "x_zp": "ROADMAP queue 1 item 10 (narrow operands)",
-}
+
+def check_compute_dtype(compute_dtype) -> bool:
+    """Whether x·e is contracted in bf16: ``compute_dtype`` is None (fp32)
+    or ``torch.bfloat16``; anything else raises."""
+    if compute_dtype is None:
+        return False
+    if compute_dtype is torch.bfloat16:
+        return True
+    raise ValueError(f"compute_dtype must be None or torch.bfloat16, got "
+                     f"{compute_dtype!r}")
 
 
-def reject_unported(**kwargs) -> None:
-    """Raise for any argument of the JAX signature the port lacks."""
-    for name, value in kwargs.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet: {_ROADMAP_ITEM[name]}")
+def dequantize_rows(X: torch.Tensor, x_scale=None, x_zp=None
+                    ) -> torch.Tensor:
+    """Narrow candidate rows → fp32: ``X.float() * scale + zp`` per row
+    (``x_scale``/``x_zp`` follow X's leading axes), two roundings, as
+    ``repro.kernels.ref.dequantize_rows`` and the hosts' NumPy compute it;
+    the plain upcast for bf16 and fp32 rows."""
+    if (x_scale is None) != (x_zp is None):
+        raise ValueError("x_scale and x_zp pair up")
+    Xf = X.float()
+    if x_scale is not None:
+        Xf = Xf * x_scale.float().unsqueeze(-1) + x_zp.float().unsqueeze(-1)
+    return Xf
 
 
 def knapsack_limit(budget) -> float:
@@ -139,9 +154,17 @@ def rbf_kernel(X: torch.Tensor, Y: torch.Tensor, h: float) -> torch.Tensor:
 
 def _sqdist(X: torch.Tensor, E: torch.Tensor,
             compute_dtype=None) -> torch.Tensor:
-    """The contraction shared by every gain here (fp32 only)."""
-    reject_unported(compute_dtype=compute_dtype)
-    return pairwise_sqdist(X, E)
+    """The contraction shared by every gain here: fp32, or with
+    ``compute_dtype=torch.bfloat16`` x·e over bf16 operands with fp32 sums
+    (the bf16 products are exact in fp32; ``X.bfloat16() @ …`` would
+    round the product to bf16 once more) and ‖x‖², ‖e‖² in fp32."""
+    if not check_compute_dtype(compute_dtype):
+        return pairwise_sqdist(X, E)
+    exact_fp32(X)
+    x2 = torch.sum(X * X, dim=-1, keepdim=True)
+    e2 = torch.sum(E * E, dim=-1)
+    xy = X.bfloat16().float() @ E.bfloat16().float().T
+    return torch.clamp_min(x2 + e2 - 2.0 * xy, 0.0)
 
 
 def exemplar_gains(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
@@ -153,9 +176,10 @@ def exemplar_gains(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     ``eval_weights`` ``(m,)`` are the w_j (1 where None).  A
     ``(M, n, d)`` stack whose ``(M, n, m)`` distances exceed the chunk
     size is scored a machine chunk at a time (a row's gain does not depend
-    on the chunk).
+    on the chunk).  ``X`` may be narrow (see :func:`dequantize_rows`);
+    ``compute_dtype`` is the contraction's (see :func:`_sqdist`).
     """
-    reject_unported(x_scale=x_scale, x_zp=x_zp)
+    X = dequantize_rows(X, x_scale, x_zp)
     m = E.shape[0]
     if (X.dim() == 3 and X.shape[0] > 1
             and X.shape[0] * X.shape[1] * m > _CHUNK_ELEMS):
@@ -260,12 +284,13 @@ def commit_state(enc: Encoding, used, counts, best, ok):
 # -- greedy -------------------------------------------------------------------
 
 
-def _greedy_chunk(X, E, cm, avail, k, enc: Encoding, ew=None):
-    """Plain k-step greedy over a (C, n, d) machine chunk; returns
-    (sel (C, k), cur_min (C, m), top-2 gain gap (C, k), best gain (C, k))."""
+def _greedy_chunk(X, E, cm, avail, k, enc: Encoding, ew=None, cd=None):
+    """Plain k-step greedy over a (C, n, d) machine chunk of fp32 rows,
+    contracted as ``cd`` says; returns (sel (C, k), cur_min (C, m), top-2
+    gain gap (C, k), best gain (C, k))."""
     C, n, _ = X.shape
     m = E.shape[0]
-    d2 = _sqdist(X, E)                                     # step-invariant
+    d2 = _sqdist(X, E, cd)                                 # step-invariant
     rows = torch.arange(C, device=X.device)
     sel = torch.full((C, k), -1, dtype=torch.long, device=X.device)
     gaps = torch.full((C, k), float("inf"), dtype=torch.float32,
@@ -296,7 +321,7 @@ def _greedy_chunk(X, E, cm, avail, k, enc: Encoding, ew=None):
     return sel, cm, gaps, tops
 
 
-def _greedy_rows(X, E, cm, avail, k, enc: Encoding, ew=None):
+def _greedy_rows(X, E, cm, avail, k, enc: Encoding, ew=None, cd=None):
     """:func:`_greedy_chunk` for one machine ``(1, n, d)`` whose ``(n, m)``
     distance tensor is too large to hold: each step recomputes the gains
     in row chunks and merges the chunks' winners (lowest index on ties)."""
@@ -314,7 +339,7 @@ def _greedy_rows(X, E, cm, avail, k, enc: Encoding, ew=None):
         best_v, best_i, top = [], [], []
         for r0 in range(0, n, rows):
             sl = (slice(None), slice(r0, r0 + rows))
-            g = _gain_sums(cm, _sqdist(X[sl], E), ew)[0] / m
+            g = _gain_sums(cm, _sqdist(X[sl], E, cd), ew)[0] / m
             cand = enc.rows(sl).feasible(avail[sl], used, counts)[0]
             g = torch.where(cand, g, torch.full_like(g, NEG_INF))
             i = torch.argmax(g)                            # lowest in chunk
@@ -352,24 +377,29 @@ def _batched(X, mask, cur_min, m):
 def greedy_select_trace(X: torch.Tensor, E: torch.Tensor,
                         cur_min: torch.Tensor, mask: torch.Tensor, k: int,
                         *, weights=None, budget=None, group_ids=None,
-                        caps=None, enc=None, eval_weights=None):
+                        caps=None, enc=None, eval_weights=None,
+                        compute_dtype=None, x_scale=None, x_zp=None):
     """:func:`greedy_select` plus, per step, the top-2 gain gap among the
     step's candidates (inf where at most one remained) and the best gain —
     what the near-tie rule of :mod:`repro_torch.testing` needs.  Returns
     ``(sel, cur_min, gap, best)``."""
     m = E.shape[0]
+    X = dequantize_rows(X, x_scale, x_zp)
+    check_compute_dtype(compute_dtype)
     batched, X, mask, cm = _batched(X, mask, cur_min, m)
     M, n, _ = X.shape
     enc = encoding(M, n, X.device, enc, weights, budget, group_ids, caps)
     if n * m > _CHUNK_ELEMS:            # one machine's distances do not fit
         parts = [_greedy_rows(X[i:i + 1], E, cm[i:i + 1], mask[i:i + 1], k,
-                              enc.rows(slice(i, i + 1)), eval_weights)
+                              enc.rows(slice(i, i + 1)), eval_weights,
+                              compute_dtype)
                  for i in range(M)]
     else:
         step = _CHUNK_ELEMS // max(1, n * m)
         parts = [_greedy_chunk(X[i:i + step], E, cm[i:i + step],
                                mask[i:i + step], k,
-                               enc.rows(slice(i, i + step)), eval_weights)
+                               enc.rows(slice(i, i + step)), eval_weights,
+                               compute_dtype)
                  for i in range(0, M, step)]
     out = tuple(torch.cat([p[j] for p in parts]) for j in range(4))
     return out if batched else tuple(o[0] for o in out)
@@ -415,13 +445,17 @@ def greedy_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     ``Intersection`` does.  ``weights`` and ``group_ids`` follow ``X``'s
     machine axis; ``budget`` and ``caps`` are shared.  ``enc`` is the
     same operands as an :class:`Encoding` already built; ``eval_weights``
-    ``(m,)`` weigh the eval columns of every step's gains.
+    ``(m,)`` weigh the eval columns of every step's gains.  Narrow ``X``
+    (``x_scale``/``x_zp``) is dequantized once up front, so the gains and
+    the refresh see the same fp32 rows; ``compute_dtype`` applies to the
+    gains' contraction only (the refresh is fp32).
     """
-    reject_unported(compute_dtype=compute_dtype, x_scale=x_scale, x_zp=x_zp)
     sel, cm, _, _ = greedy_select_trace(X, E, cur_min, mask, k,
                                         weights=weights, budget=budget,
                                         group_ids=group_ids, caps=caps,
-                                        enc=enc, eval_weights=eval_weights)
+                                        enc=enc, eval_weights=eval_weights,
+                                        compute_dtype=compute_dtype,
+                                        x_scale=x_scale, x_zp=x_zp)
     return sel, cm
 
 
@@ -429,13 +463,14 @@ def greedy_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
 
 
 def _threshold_chunk(X, E, cm, avail, tau, k, used, counts, count, bn,
-                     enc: Encoding, active, ew=None):
-    """One τ-level over a (C, n, d) machine chunk, block-sequential at
-    ``bn``.  Returns (accept, cur_min, gains as scored, knapsack load
-    ``used + cumw`` per row)."""
+                     enc: Encoding, active, ew=None, cd=None):
+    """One τ-level over a (C, n, d) machine chunk of fp32 rows,
+    block-sequential at ``bn``, contracted as ``cd`` says.  Returns
+    (accept, cur_min, gains as scored, knapsack load ``used + cumw`` per
+    row)."""
     C, n, _ = X.shape
     m = E.shape[0]
-    d2 = _sqdist(X, E) if n * m <= _CHUNK_ELEMS else None
+    d2 = _sqdist(X, E, cd) if n * m <= _CHUNK_ELEMS else None
     cm = cm.clone()
     used, counts, count = used.clone(), counts.clone(), count.clone().long()
     stopped = torch.zeros((C,), dtype=torch.bool, device=X.device)
@@ -443,7 +478,8 @@ def _threshold_chunk(X, E, cm, avail, tau, k, used, counts, count, bn,
     accepts, gains, loads = [], [], []
     for b0 in range(0, n, bn):
         b1 = min(b0 + bn, n)
-        d2b = d2[:, b0:b1] if d2 is not None else _sqdist(X[:, b0:b1], E)
+        d2b = (d2[:, b0:b1] if d2 is not None
+               else _sqdist(X[:, b0:b1], E, cd))
         g = _gain_sums(cm.unsqueeze(1), d2b, ew) / m
         q = avail[:, b0:b1] & (g >= tau.unsqueeze(1)) & active.unsqueeze(1)
         blk = enc.rows((slice(None), slice(b0, b1)))
@@ -483,12 +519,15 @@ def threshold_select_trace(X: torch.Tensor, E: torch.Tensor,
                            k: int, *, used=None, counts=None, count=None,
                            bn: int = 256, weights=None, budget=None,
                            group_ids=None, caps=None, active=None,
-                           enc=None, eval_weights=None):
+                           enc=None, eval_weights=None, compute_dtype=None,
+                           x_scale=None, x_zp=None):
     """:func:`threshold_select` plus what the near-threshold rule of
     :mod:`repro_torch.testing` needs: each row's gain as its block scored
     it, and its knapsack load ``used + cumw`` (``None`` without a
     knapsack).  Returns ``(accept, cur_min, gains, load)``."""
     m = E.shape[0]
+    X = dequantize_rows(X, x_scale, x_zp)
+    check_compute_dtype(compute_dtype)
     batched, X, mask, cm = _batched(X, mask, cur_min, m)
     M, n, _ = X.shape
     dev = X.device
@@ -512,7 +551,8 @@ def threshold_select_trace(X: torch.Tensor, E: torch.Tensor,
         sl = slice(i, i + step)
         parts.append(_threshold_chunk(
             X[sl], E, cm[sl], mask[sl], tau[sl], k, used[sl], counts[sl],
-            count[sl], bn, enc.rows(sl), active[sl], eval_weights))
+            count[sl], bn, enc.rows(sl), active[sl], eval_weights,
+            compute_dtype))
     acc, cm, g = (torch.cat([p[j] for p in parts]) for j in range(3))
     load = (None if parts[0][3] is None
             else torch.cat([p[3] for p in parts]))
@@ -548,12 +588,14 @@ def threshold_select(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     ladder still runs: the others accept nothing and keep ``cur_min``.
     ``enc`` is the constraint operands as an :class:`Encoding` already
     built; ``eval_weights`` ``(m,)`` weigh the eval columns of the gains.
+    Narrow ``X`` (``x_scale``/``x_zp``) is dequantized once up front;
+    ``compute_dtype`` applies to the gains and to the fold's contraction.
     """
-    reject_unported(compute_dtype=compute_dtype, x_scale=x_scale, x_zp=x_zp)
     acc, cm, _, _ = threshold_select_trace(
         X, E, cur_min, mask, tau, k, used=used, counts=counts, count=count,
         bn=bn, weights=weights, budget=budget, group_ids=group_ids,
-        caps=caps, active=active, enc=enc, eval_weights=eval_weights)
+        caps=caps, active=active, enc=enc, eval_weights=eval_weights,
+        compute_dtype=compute_dtype, x_scale=x_scale, x_zp=x_zp)
     return acc, cm
 
 

@@ -45,7 +45,13 @@ Eval weights (``WeightedExemplarClustering``)
 weigh the gains' eval columns in the kernels' own weighted instantiations;
 their heads count as ``threshold_select_weighted``.  Every pre-pass counts
 as ``threshold_select_prepass`` and every tail as
-``threshold_select_tail``.
+``threshold_select_tail``.  Narrow rows (bf16, or int8 with per-row
+``x_scale``/``x_zp``: the TPU kernel's ``quantized`` instantiation) and the
+bf16 x·e contraction (``compute_dtype``) are the gain tile's operand
+instantiations of all three kernels; the fold dequantizes the accepted
+rows and, under the bf16 dot, takes their x·e in bf16 as the gains do.
+Their heads count once more as ``threshold_select_bf16``, ``_q8`` and
+``_bf16dot``.
 
 The plain version is :func:`repro_torch.kernels.ref.threshold_select`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
@@ -55,7 +61,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.exemplar_gains import BM, check_tile
+from repro_torch.kernels.exemplar_gains import (BM, check_tile,
+                                                count_launches, row_operand)
 from repro_torch.kernels.ref import threshold_select as plain  # noqa: F401
 
 MAX_BN = 256  # rows per block the kernel takes (its block buffers)
@@ -89,11 +96,14 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
            limit: float = 0.0, gid: torch.Tensor | None = None,
            caps: torch.Tensor | None = None,
            ew: torch.Tensor | None = None,
-           flags_out: torch.Tensor | None = None) -> torch.Tensor:
+           flags_out: torch.Tensor | None = None, x_scale=None, x_zp=None,
+           bf16dot: bool = False) -> torch.Tensor:
     """Run one level on the card; returns ``accept`` ``(M, n)`` uint8.
 
-    X ``(M, n, d)`` and E ``(mp, d)`` fp32 with ``mp % BM == 0`` (zero
-    rows past ``m_true``); cur_min ``(M, mp)`` fp32 is updated in place;
+    X ``(M, n, d)`` fp32, bf16, or int8 with ``x_scale``/``x_zp`` ``(M, n)``
+    fp32, and E ``(mp, d)`` fp32 with ``mp % BM == 0`` (zero rows past
+    ``m_true``); ``bf16dot`` contracts x·e in bf16; cur_min ``(M, mp)``
+    fp32 is updated in place;
     avail ``(M, n)`` and active ``(M,)`` uint8; tau, used ``(M,)`` fp32;
     count ``(M,)`` int32; counts ``(M, G)`` int32.  ``w`` ``(M, n)`` fp32
     with ``limit``, and ``gid`` ``(M, n)`` int32 with ``caps`` ``(G,)``
@@ -106,7 +116,8 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     M, n, d = X.shape
     mp = E.shape[0]
     G = 0 if caps is None else caps.shape[0]
-    checks = [(X, (M, n, d), torch.float32), (E, (mp, d), torch.float32),
+    xtype = row_operand(X, x_scale, x_zp, "threshold_select")
+    checks = [(X, (M, n, d), X.dtype), (E, (mp, d), torch.float32),
               (cur_min, (M, mp), torch.float32), (avail, (M, n), torch.uint8),
               (tau, (M,), torch.float32), (used, (M,), torch.float32),
               (count, (M,), torch.int32), (active, (M,), torch.uint8),
@@ -151,7 +162,10 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     counts_mid = torch.empty_like(counts)
     fn = _build.load("threshold_select").threshold_select_launch
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    _build.check(fn(X.data_ptr(), E.data_ptr(), cur_min.data_ptr(),
+    _build.check(fn(X.data_ptr(), xtype,
+                    None if x_scale is None else x_scale.data_ptr(),
+                    None if x_zp is None else x_zp.data_ptr(), int(bf16dot),
+                    E.data_ptr(), cur_min.data_ptr(),
                     avail.data_ptr(), tau.data_ptr(), used.data_ptr(),
                     count.data_ptr(), counts.data_ptr(), active.data_ptr(),
                     None if w is None else w.data_ptr(),
@@ -162,8 +176,8 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                     counts_mid.data_ptr(), M, n, d, mp, m_true, k, bn, G,
                     limit, None if ew is None else ew.data_ptr(), stream),
                  "threshold_select")
-    _build.launch_counts["threshold_select" if ew is None
-                         else "threshold_select_weighted"] += 1
+    count_launches("threshold_select", "threshold_select" if ew is None
+                   else "threshold_select_weighted", xtype, bf16dot)
     _build.launch_counts["threshold_select_prepass"] += 1
     _build.launch_counts["threshold_select_tail"] += 1
     return accept

@@ -132,15 +132,27 @@ def test_near_tie_rule():
                                      ({"x_scale": 1}, "10"),
                                      ({"x_zp": 1}, "10")])
 def test_unported_arguments_name_their_roadmap_item(kw, item):
+    """The arguments of ROADMAP queue 1 item 10 are ported: the bf16 dot
+    runs on every entry point like the plain version it reaches, and a
+    dequant scale or zero-point alone is refused (they pair up)."""
     X, E, mask = make_inputs(1, 9, 5, 3, seed=0)
     args = (torch.from_numpy(X[0]), torch.from_numpy(E),
             torch.ones(5), torch.from_numpy(mask[0]), 2)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-        ops.greedy_select(*args, **kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-        ops.threshold_select(*args[:4], 0.1, 2, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.exemplar_gains(*args[:3], **kw)
+    if "compute_dtype" not in kw:
+        kw = {key: torch.ones(9) for key in kw}
+        for call in (lambda: ops.greedy_select(*args, **kw),
+                     lambda: ops.threshold_select(*args[:4], 0.1, 2, **kw),
+                     lambda: ops.exemplar_gains(*args[:3], **kw)):
+            with pytest.raises(ValueError, match="pair up"):
+                call()
+        return
+    sel, cm = ops.greedy_select(*args, **kw)
+    sel_p, cm_p = ref.greedy_select(*args, **kw)
+    assert torch.equal(sel, sel_p) and torch.equal(cm, cm_p)
+    acc, _ = ops.threshold_select(*args[:4], 0.1, 2, **kw)
+    assert torch.equal(acc, ref.threshold_select(*args[:4], 0.1, 2, **kw)[0])
+    assert torch.equal(ops.exemplar_gains(*args[:3], **kw),
+                       ref.exemplar_gains(*args[:3], **kw))
 
 
 def test_non_cpu_tensor_never_falls_back_to_plain():
@@ -184,11 +196,23 @@ def test_launch_counts_untouched_by_plain_path():
     ops.wkv6(q, q, q, q, q[0, :, 0])
     ops.wkv6(q[:, :, :1], q[:, :, :1], q[:, :, :1], q[:, :, :1], q[0, :, 0],
              torch.zeros((1, 2, 16, 16)))
+    Xq = torch.from_numpy(X).to(torch.int8)
+    ones = torch.ones((2, 20))
+    ops.greedy_select(Xq, torch.from_numpy(E), torch.ones(7),
+                      torch.from_numpy(mask), 3, x_scale=ones, x_zp=ones,
+                      compute_dtype=torch.bfloat16)
+    ops.exemplar_gains(torch.from_numpy(X).bfloat16(), torch.from_numpy(E),
+                       torch.ones(7))
     assert ops.launch_counts == {
         "exemplar_gains": 0, "exemplar_gains_weighted": 0,
+        "exemplar_gains_bf16": 0, "exemplar_gains_q8": 0,
+        "exemplar_gains_bf16dot": 0,
         "greedy_select": 0, "greedy_select_constrained": 0,
-        "greedy_select_weighted": 0, "threshold_select": 0,
-        "threshold_select_weighted": 0, "threshold_select_prepass": 0,
+        "greedy_select_weighted": 0, "greedy_select_bf16": 0,
+        "greedy_select_q8": 0, "greedy_select_bf16dot": 0,
+        "threshold_select": 0, "threshold_select_weighted": 0,
+        "threshold_select_bf16": 0, "threshold_select_q8": 0,
+        "threshold_select_bf16dot": 0, "threshold_select_prepass": 0,
         "threshold_select_tail": 0, "rbf_kernel": 0, "rbf_kernel_rowvec": 0,
         "flash_attention_prefill": 0, "flash_attention_prefill_wgmma": 0,
         "flash_attention_decode": 0, "wkv6_prefill": 0, "wkv6_decode": 0,

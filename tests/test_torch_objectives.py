@@ -327,9 +327,13 @@ def test_active_set_refuses_k_above_k_max():
 
 
 def test_objective_from_jax_refuses_what_it_cannot_port():
+    """``score_dtype`` is ported (ROADMAP queue 1 item 10) and carried
+    across; a score dtype the JAX package has no path for is refused."""
     E = jnp.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        objective_from_jax(JExemplar(E, score_dtype="bfloat16"), "cpu")
+    assert objective_from_jax(JExemplar(E, score_dtype="bfloat16"),
+                              "cpu").score_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="score_dtype"):
+        objective_from_jax(JExemplar(E, score_dtype="float16"), "cpu")
     with pytest.raises(ValueError, match="no port of objective"):
         objective_from_jax(object(), "cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
