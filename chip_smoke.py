@@ -10,7 +10,10 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    ``src/repro_torch/kernels/csrc`` (one nvcc per source);
 2. kernels — ``exemplar_gains`` and ``greedy_select`` against their plain
    PyTorch versions on the card, d ∈ {6, 17, 64, 3072}, ragged n and m,
-   M ∈ {1, 7}, and one M = 1 machine of more than 512 candidate tiles;
+   M ∈ {1, 7}, one M = 1 machine of more than 512 candidate tiles, and
+   more (machine, tile) pairs than the persistent grid has CTAs (M = 7
+   and 3 at d = 6, d = 17 and m = 1,100: CTAs that walk several tiles and
+   cross machines, on the resident and the chunked layout);
    ``greedy_select`` under knapsack, partition and both (d ∈ {6, 17},
    M ∈ {1, 7}, G ∈ {1, 8}, budgets that bind); ``threshold_select``
    unconstrained and under knapsack ∩ partition at bn ∈ {16, 256}, ragged
@@ -74,11 +77,16 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    (recurrent) kernel and through the chunked one, which is held by the
    error model of ``testing.WKV_TERMS_RTOL`` (its elements outside the
    recurrent kernel's tolerance counted); the HMMA in the chunked
-   kernel's SASS;
+   kernel's SASS; every T = 1 call of ``ops.wkv6`` on the decode kernel
+   (112 cases: fp32/bf16, D 16/64, Dk ≠ Dv, Dk = 40 with Dv = 72, u and y
+   in both types, a given state in place) equal to the plain version and
+   to the recurrent kernel with ``torch.equal``, counted under
+   wkv6_decode, ptxas's registers and spills of the decode kernel;
 11. RWKV parity — rwkv6-1.6b at full width and 2 layers, card against the
    CPU's plain path, as phase 8;
 12. RWKV serving — rwkv6-1.6b at full width and depth (24 layers) as
-   phase 9, every ``wkv6`` launch counted (24 prefill, 24 × 31 decode);
+   phase 9, every ``wkv6`` launch counted (24 prefill on the recurrent
+   kernel, 24 × 31 on the decode kernel);
    then phases 11 and 12 once more with every prefill call on the chunked
    kernel (three launches a call);
 13. times — each kernel at its path's shapes, held against its plain
@@ -91,7 +99,10 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    plain greedy steps; one ``greedy_select`` call launching k kernels;
    ``rbf_kernel``'s update shapes on its row vector;
    the share of blocks the threshold pre-pass flags at each timed level;
-   the narrow instantiations at round 0 beside the fp32 kernel there.
+   ``exemplar_gains`` at round 0's d_max pass (unweighted and weighted)
+   and at one 2²⁰-row chunk of the streaming centralized greedy; the
+   narrow instantiations at round 0 beside the fp32 kernel there; the
+   ``wkv6`` decode kernel beside the recurrent kernel at T = 1.
 
 Ends with one JSON line per kernel table and the ``ok`` line.  Imports
 nothing of the JAX package.
@@ -266,6 +277,11 @@ def phase_kernels() -> None:
     # one machine of 782 candidate tiles: the commit's reduction loop over
     # tile winners goes round more than once (512 threads)
     cases.append((1, 100_003, 300, 6, 10))
+    # more (machine, tile) pairs than the persistent grid has CTAs, with
+    # ragged machines: CTAs that walk several tiles and cross machines, on
+    # the resident layout and on the chunked one (d = 17; mp = 1,152)
+    cases += [(7, 20_011, 300, 6, 5), (7, 30_011, 130, 17, 5),
+              (3, 30_011, 1100, 6, 3)]
     ties = 0
     for M, n, m, d, k in cases:
         X = _dataset(d, M * n + m, seed=100 + d)
@@ -963,7 +979,9 @@ def phase_constrained(main: dict) -> dict:
         "threshold_select_tail": runs["knapsack ∩ partition"].get(
             "threshold_select_tail", 0),
         "threshold_select_unconstrained":
-            runs["unconstrained"].get("threshold_select", 0)}}
+            runs["unconstrained"].get("threshold_select", 0),
+        "exemplar_gains_threshold": sum(
+            cnt.get("exemplar_gains", 0) for cnt in runs.values())}}
 
 
 def times_constrained(main: dict, constrained: dict, blocks, bmask, part
@@ -1465,6 +1483,7 @@ def phase_streaming(scan: dict, main: dict, constrained: dict) -> dict:
         f"(resident {main['cent_value']!r}), near-tie steps {n_tie}, wall "
         f"{sc_wall:.3f} s, launches "
         f"{ {key: v for key, v in ops.launch_counts.items() if v} }")
+    out["central_launches"] = dict(ops.launch_counts)
 
     # score_dtype = bfloat16: the phase 3 block, fused and step-wise
     T = scan["T"]
@@ -1719,11 +1738,12 @@ def phase_weighted(main: dict) -> dict:
         fail(f"weighted GREEDY TREE ratio {ratio} below 0.9")
     cfg_t = TreeConfig(k=cfg.k, capacity=cfg.capacity, seed=SEED,
                        algorithm="threshold_batch", eps=EPS)
-    res, _ = run_tree(f"weighted THRESHOLD-BATCH TREE eps={EPS}, Webscope",
-                      obj, X, cfg_t, ("exemplar_gains_weighted",
-                                      "threshold_select_weighted",
-                                      "threshold_select_prepass",
-                                      "threshold_select_tail"))
+    res, cnt_t = run_tree(f"weighted THRESHOLD-BATCH TREE eps={EPS}, "
+                          f"Webscope", obj, X, cfg_t, (
+                              "exemplar_gains_weighted",
+                              "threshold_select_weighted",
+                              "threshold_select_prepass",
+                              "threshold_select_tail"))
     gap = 1.0 - res.value / cent
     depth_cap = 1 + math.ceil(math.log(2 * cfg.k / EPS) / EPS)
     log(f"weighted THRESHOLD-BATCH TREE: gap 1 - tree/central = {gap!r} "
@@ -1742,7 +1762,9 @@ def phase_weighted(main: dict) -> dict:
              "and value to the bit")
     log(f"w = 1.0 GREEDY TREE: the unweighted TREE's {cfg.k} rows and value "
         f"{one.value!r}, to the bit")
-    return {"w": w, "launches": counts.get("greedy_select_weighted", 0)}
+    return {"w": w, "launches": counts.get("greedy_select_weighted", 0),
+            "exemplar_gains_weighted": cnt_t.get("exemplar_gains_weighted",
+                                                 0)}
 
 
 def times_new(main: dict, active: dict, facility: dict, weighted: dict,
@@ -1906,6 +1928,59 @@ def timed_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def times_exemplar(main: dict, constrained: dict, weighted: dict,
+                   streaming: dict, blocks) -> list[dict]:
+    """exemplar_gains' kernel alone (operands padded once, as the scan
+    block's row) at the THRESHOLD-BATCH d_max pass of round 0 (M = 2,000
+    machines of μ = 22,500 rows, m = 512, d = 6), unweighted and with the
+    weighted phase's eval weights, and at one chunk of the streaming
+    centralized greedy (M = 1, n = 2²⁰): each against its plain version
+    there, timed beside it and its bound.  Launches: the THRESHOLD-BATCH
+    TREE runs (unconstrained and knapsack ∩ partition; the weighted one)
+    and the streaming centralized greedy."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import exemplar_gains as _eg
+    from repro_torch.kernels import ops, ref
+    E = main["obj"].eval_set
+    m, d = E.shape
+    seed = torch.sum(E * E, dim=-1)
+    w = weighted["w"]
+    chunk = main["X"][:1 << 20].unsqueeze(0).contiguous()
+    rows = []
+    for name, X, ew, n_launch in (
+            ("exemplar_gains (round 0 d_max)", blocks, None,
+             constrained["launches"]["exemplar_gains_threshold"]),
+            ("exemplar_gains_weighted (round 0 d_max)", blocks, w,
+             weighted["exemplar_gains_weighted"]),
+            ("exemplar_gains (2^20-row chunk)", chunk, None,
+             streaming["central_launches"]["exemplar_gains"])):
+        M, n, _ = X.shape
+        Ep, cmp_ = ops._pad_eval(E, seed.expand(M, m))
+        ewp = ops._pad_weights(ew, m)
+        g = ops.exemplar_gains(X, E, seed, eval_weights=ew)
+        g_p, plain = timed_once(lambda: ref.exemplar_gains(
+            X, E, seed, eval_weights=ew))
+        testing.assert_close(g, g_p, f"{name}")
+        err = testing.max_abs_err(g, g_p)
+        del g, g_p
+        ms = cuda_ms(lambda: _eg.launch(X, Ep, cmp_, ewp),
+                     runs=10 if M > 1 else 50)
+        b, by, b32 = tile_bound(M * n * m, d, 4 * (M * n * d + m * d + M * m
+                                                   + M * n), 3 if ew is None
+                                else 4)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "exemplar_gains.cu",
+                     "replaces": "src/repro/kernels/exemplar_gains.py:107",
+                     "launches": n_launch, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                     "bound_fp32_ms": b32, "library_ms": None})
+    del chunk
+    torch.cuda.empty_cache()
+    return rows
 
 
 def times_narrow(main: dict, streaming: dict, blocks, bmask) -> list[dict]:
@@ -2096,6 +2171,7 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
                  "bound_ms": b, "bound_by": by, "bound_fp32_ms": b32,
                  "library_ms": None})
     rows += times_constrained(main, constrained, blocks, bmask, part)
+    rows += times_exemplar(main, constrained, weighted, streaming, blocks)
     rows += times_new(main, active, facility, weighted, blocks, bmask)
     rows += times_narrow(main, streaming, blocks, bmask)
     for r in rows:
@@ -2464,6 +2540,13 @@ def phase_lm_serve(arch: str = LM_ARCH) -> dict:
         if counts[name] != n:
             fail(f"LM serve ({arch}): {name} launched {counts[name]} times, "
                  f"not {n}")
+    if kern == "wkv6" and (counts["wkv6_recurrent"]
+                           + counts["wkv6_chunked"] // 3
+                           != counts["wkv6_prefill"]):
+        fail(f"LM serve ({arch}): the recurrent kernel launched "
+             f"{counts['wkv6_recurrent']} times for "
+             f"{counts['wkv6_prefill']} prefill calls (every decode step "
+             f"belongs to the decode kernel)")
     if (kern == "flash_attention" and counts["flash_attention_prefill_wgmma"]
             != counts["flash_attention_prefill"]):
         fail(f"LM serve ({arch}): {counts['flash_attention_prefill_wgmma']} "
@@ -2824,16 +2907,25 @@ def phase_kernels_wkv6() -> None:
     if st is not state or y.dtype != torch.float32:
         fail("wkv6 decode: the state was not updated in place")
     check(y, st, y_p, st_p, False, "wkv6 decode in place")
+    n_dec = check_wkv6_decode()
     for Dk, dtype in ((128, torch.bfloat16), (4, torch.bfloat16)):
-        r, k, v, w, u = _wkv_inputs(1, 1, 3, Dk, 16, dtype, 0)
-        for fn in (ops.wkv6, wk.launch_chunked):
-            try:
-                fn(r, k, v, w, u)
-            except ValueError:
-                pass
-            else:
-                fail(f"wkv6 took Dk={Dk} in {dtype}, which it has no "
-                     "instantiation of")
+        for T in (3, 1):
+            r, k, v, w, u = _wkv_inputs(1, 1, T, Dk, 16, dtype, 0)
+            for fn in (ops.wkv6, wk.launch_chunked):
+                try:
+                    fn(r, k, v, w, u)
+                except ValueError:
+                    pass
+                else:
+                    fail(f"wkv6 took Dk={Dk} in {dtype} at T={T}, which it "
+                         "has no instantiation of")
+    r, k, v, w, u = _wkv_inputs(1, 1, 2, 16, 16, torch.bfloat16, 0)
+    try:
+        wk.launch_decode(r, k, v, w, u)
+    except ValueError:
+        pass
+    else:
+        fail("the wkv6 decode kernel took T = 2")
     smem = {Dk: (wk.smem_bytes(Dk, False), wk.smem_bytes(Dk, True))
             for Dk in (16, 32, 64)}
     log(f"  shared memory per CTA (fp32, bf16 operands) by Dk, from the "
@@ -2854,7 +2946,72 @@ def phase_kernels_wkv6() -> None:
         f"cases within the error model (max |d|/m: y {ratio['y']!r}, state "
         f"{ratio['state']!r}; bound {testing.WKV_TERMS_RTOL!r}), elements "
         f"outside that tolerance by decay and type {outside}; chaining over "
-        f"parts of T and the in-place decode step checked")
+        f"parts of T and the in-place decode step checked; the decode "
+        f"kernel in {n_dec} T = 1 cases to the bit")
+
+
+def check_wkv6_decode() -> int:
+    """Every T = 1 call of ``ops.wkv6`` launches the decode kernel (counted
+    under wkv6_decode, the recurrent kernel not at all) and gives the plain
+    version's y and state to the bit (``torch.equal``), and the recurrent
+    kernel's at T = 1: fp32 and bf16 r/k/v, Dk = Dv ∈ {16, 64}, Dk ≠ Dv,
+    Dk = 40 with Dv = 72 (rows padded, a second 64-column block part
+    filled), the smallest Dk, B × H = 1 and 256, strided views and
+    contiguous, zeros in and a given state, u in r's type and in fp32, y
+    in r's type and in fp32, and each given state updated in place.
+    Returns the number of cases; logs ptxas's registers and spills of the
+    decode kernel."""
+    import torch
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import wkv6 as wk
+    n = 0
+    seed = 200
+    for dtype in (torch.float32, torch.bfloat16):
+        small = 4 if dtype == torch.float32 else 8
+        for B, H, Dk, Dv, strided in (
+                (2, 3, 16, 16, True), (1, 1, 64, 64, True),
+                (8, 32, 64, 64, True), (2, 2, 16, 64, True),
+                (2, 2, 64, 16, False), (1, 2, small, 2 * small, False),
+                (2, 2, 40, 72, True)):
+            seed += 1
+            r, k, v, w, u = _wkv_inputs(B, H, 1, Dk, Dv, dtype, seed,
+                                        "fast", strided)
+            s0 = torch.randn((B, H, Dk, Dv), device="cuda")
+            for given in (False, True):
+                for uu in (u, u.float()):
+                    for od in (None, torch.float32):
+                        what = (f"wkv6 decode {dtype} B={B} H={H} Dk={Dk} "
+                                f"Dv={Dv} strided={strided} state={given} "
+                                f"u {uu.dtype} y {od}")
+                        st_in = s0 if given else None
+                        y_p, st_p = ref.wkv6(r, k, v, w, uu, st_in,
+                                             out_dtype=od)
+                        y_r, st_r = wk.launch_recurrent(r, k, v, w, uu,
+                                                        st_in, out_dtype=od)
+                        state = s0.clone() if given else None
+                        ops.reset_launch_counts()
+                        y, st = ops.wkv6(r, k, v, w, uu, state,
+                                         state_out=state, out_dtype=od)
+                        torch.cuda.synchronize()
+                        if (ops.launch_counts["wkv6_decode"] != 1
+                                or ops.launch_counts["wkv6_recurrent"]):
+                            fail(f"{what}: launches "
+                                 f"{dict(ops.launch_counts)}")
+                        if given and st is not state:
+                            fail(f"{what}: the state was not updated in "
+                                 "place")
+                        for a, b, name in ((y, y_p, "y vs plain"),
+                                           (st, st_p, "state vs plain"),
+                                           (y, y_r, "y vs recurrent"),
+                                           (st, st_r,
+                                            "state vs recurrent")):
+                            if a.dtype != b.dtype or not torch.equal(a, b):
+                                fail(f"{what}: {name} differ")
+                        n += 1
+    for line in _ptxas_report(_build.build_log.get("wkv6_decode", ""),
+                              "wkv6_decode_kernel"):
+        log(f"  ptxas wkv6_decode {line}")
+    return n
 
 
 def times_wkv6(serve: dict, chunked_serve: dict) -> list[dict]:
@@ -2879,6 +3036,9 @@ def times_wkv6(serve: dict, chunked_serve: dict) -> list[dict]:
     cfg = get_config(RWKV_ARCH)
     H, D = cfg.n_heads, cfg.rwkv_head_dim
     launches = serve["launches"]
+    if launches["wkv6_recurrent"] != cfg.n_layers:
+        fail(f"rwkv6 serving: {launches['wkv6_recurrent']} recurrent wkv6 "
+             f"launches, not one prefill a layer ({cfg.n_layers})")
     shapes = [("prefill", c["batch"], c["prompt"], False,
                launches["wkv6_prefill"], 20, 2),
               ("decode", c["batch"], 1, True, launches["wkv6_decode"], 50,
@@ -2914,11 +3074,27 @@ def times_wkv6(serve: dict, chunked_serve: dict) -> list[dict]:
             f"w, state {'in and out' if given else 'out'}; the check's "
             f"plain run {t_plain:.1f} s")
         row = {"name": f"wkv6 ({what})", "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+               "source": "src/repro_torch/kernels/csrc/"
+                         + ("wkv6_decode.cu" if T == 1 else "wkv6.cu"),
                "replaces": "src/repro/kernels/wkv6.py:69",
                "launches": n_launch, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                "bound_fp32_ms": b32, "library_ms": None}
+        if T == 1:
+            # the recurrent kernel at T = 1 (the route before the decode
+            # kernel), timed beside it: the same bits
+            y_r, st_r = kernel(wk.launch_recurrent)
+            st_r = st_r.clone()
+            y, _ = kernel()
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y_r) and torch.equal(st, st_r)):
+                fail("wkv6 decode: the decode kernel and the recurrent "
+                     "kernel differ at T = 1")
+            row["recurrent_ms"] = cuda_ms(
+                lambda: kernel(wk.launch_recurrent), runs=runs)
+            log(f"wkv6 decode: decode kernel {ms:.5f} ms, recurrent kernel "
+                f"at T = 1 {row['recurrent_ms']:.5f} ms, the same bits")
+            del y_r, st_r
         rows.append(row)
         if T > 1:
             y, _ = kernel(wk.launch_chunked)
@@ -2947,7 +3123,7 @@ def times_wkv6(serve: dict, chunked_serve: dict) -> list[dict]:
     for T in (16, 32, 64, 128, 256, 512):
         r, k, v, w, u = _wkv_inputs(8, H, T, D, D, torch.bfloat16, 18)
         sweep[T] = {name: cuda_ms(lambda fn=fn: fn(r, k, v, w, u), runs=20)
-                    for name, fn in (("recurrent", wk.launch),
+                    for name, fn in (("recurrent", wk.launch_recurrent),
                                      ("chunked", wk.launch_chunked))}
     log(f"wkv6 by T at B=8 H={H} (ms, recurrent and chunked): {sweep}")
     return rows
@@ -2955,17 +3131,17 @@ def times_wkv6(serve: dict, chunked_serve: dict) -> list[dict]:
 
 def phase_rwkv_chunked() -> dict:
     """rwkv6-1.6b as phases 11 and 12 with every prefill call's wkv6 on the
-    chunked kernel, which ``ops.wkv6`` dispatches no call to (the
-    recurrent ``wkv6.launch`` swapped for these runs only and restored;
-    decode stays on it): card against CPU within LM_PARITY_TOL at 2
+    chunked kernel, which ``ops.wkv6`` dispatches no call to
+    (``wkv6.launch`` swapped for these runs only and restored; decode
+    stays on the decode kernel): card against CPU within LM_PARITY_TOL at 2
     layers; serving at 24 layers with three chunked launches per layer,
     the last decode step against forward within LM_SERVE_TOL, prefill
     time beside phase 12's."""
     from repro_torch.kernels import wkv6 as wk
-    recurrent = wk.launch
+    routed = wk.launch
 
     def prefill_chunked(r, *args, **kwargs):
-        fn = wk.launch_chunked if r.shape[2] > 1 else recurrent
+        fn = wk.launch_chunked if r.shape[2] > 1 else routed
         return fn(r, *args, **kwargs)
 
     wk.launch = prefill_chunked
@@ -2973,7 +3149,7 @@ def phase_rwkv_chunked() -> dict:
         phase_lm_parity(RWKV_ARCH)
         res = phase_lm_serve(RWKV_ARCH)
     finally:
-        wk.launch = recurrent
+        wk.launch = routed
     n = res["launches"]["wkv6_chunked"]
     if n != 3 * res["launches"]["wkv6_prefill"]:
         fail(f"rwkv6 serving on the chunked route: {n} chunked launches for "

@@ -23,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("exemplar_gains", "greedy_select", "threshold_select",
-           "rbf_kernel", "flash_attention", "wkv6", "wkv6_chunked")
+           "rbf_kernel", "flash_attention", "wkv6", "wkv6_decode",
+           "wkv6_chunked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,6 +55,7 @@ ARGTYPES = {
     "flash_attention_smem": [_I, _I],
     "wkv6_launch": [_P] * 8 + [_LL] * 15 + [_I] * 8 + [_P],
     "wkv6_smem": [_I, _I],
+    "wkv6_decode_launch": [_P] * 8 + [_LL] * 10 + [_I] * 7 + [_P],
     "wkv6_chunked_launch": [_P] * 11 + [_LL] * 15 + [_I] * 8 + [_P],
     "wkv6_chunked_smem": [_I],
 }
@@ -71,9 +73,10 @@ RESTYPES = {"exemplar_tile_smem": _LL, "greedy_select_grid": _LL}
 #: take the row vector are counted once more (rbf_kernel_rowvec);
 #: flash_attention's prefill (S > 1) and decode (S = 1) launches apart (the
 #: prefill launches that take the tensor-core route are counted once more
-#: under flash_attention_prefill_wgmma), and wkv6's prefill (T > 1) and
-#: decode (T = 1) calls (either kernel), with the chunked kernel's launches
-#: (three a call) counted apart under wkv6_chunked.  The three gain-tile
+#: under flash_attention_prefill_wgmma); wkv6's decode kernel's launches
+#: (wkv6_decode), its recurrent kernel's (wkv6_recurrent), every call of
+#: T > 1 on either prefill kernel (wkv6_prefill) and the chunked kernel's
+#: launches (three a call, wkv6_chunked).  The three gain-tile
 #: kernels' launches on narrow rows or with the bf16 x·e contraction are
 #: counted once more under <kernel>_bf16 (bf16 rows), <kernel>_q8 (int8
 #: rows with scale and zero-point) and <kernel>_bf16dot (threshold_select:
@@ -91,7 +94,7 @@ launch_counts: dict[str, int] = {
         "rbf_kernel_rowvec",
         "flash_attention_prefill", "flash_attention_prefill_wgmma",
         "flash_attention_decode",
-        "wkv6_prefill", "wkv6_decode", "wkv6_chunked")}
+        "wkv6_prefill", "wkv6_decode", "wkv6_recurrent", "wkv6_chunked")}
 #: ptxas register/shared-memory report of each library built in this process
 build_log: dict[str, str] = {}
 

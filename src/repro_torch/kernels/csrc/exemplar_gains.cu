@@ -9,8 +9,7 @@
 // Bound on the H100: the shared tile (exemplar_tile.cuh) forms each pair's
 // distance on the tensor cores (three TF32 products per 8-deep k-step,
 // the split that keeps fp32's accuracy) and spends four fp32 issue slots a
-// pair on the clamp and the sum, which is the tighter bound.  Each CTA
-// stages e~ once and scores one 128-row tile.
+// pair on the clamp and the sum, which is the tighter bound.
 //
 // Narrow rows (bf16, or int8 with per-row scale and zero-point: the
 // quantized instantiation of the TPU kernel) and the bf16 x.e contraction
@@ -19,7 +18,28 @@
 // moves d * itemsize bytes (+ 8 of scale and zero-point at int8) instead
 // of 4 d; the tile's operations do not change.
 //
-// Grid: (ceil(n / BN), M).  Block: 128 threads.  No atomics.
+// Grid: the tile's persistent grid (persistent_tiles / persistent_grid, as
+// greedy_select scores a step): resident CTAs per SM x 132 CTAs, each
+// walking a contiguous range of the flattened (machine, 128-row tile)
+// space.  One CTA per tile (352,000 at round 0) made every CTA rebuild e~'s
+// fragments for all eval columns, load its machine's cur_min and wait on
+// its row copy before a single product, for 128 rows; here e~ is staged
+// once per CTA, cur_min when the CTA enters a machine, and the row tiles
+// are double-buffered by cp.async, so the staging hides behind the tile.
+// Each row's sum is the same call of row_gain_sums on the same operands as
+// before, so the same bits (and the bits the fused kernels compute).  The
+// gains are written straight from the quad leaders' registers: 4 B a row,
+// 8 consecutive rows (one 32-byte sector) per store instruction, 180 MB
+// at round 0 against the tile's ~9 ms.  Block: 128 threads.  No atomics.
+//
+// Small calls (the scan block: M = 1, 176 tiles) get a grid of P = T
+// CTAs, one tile each, as before: the call lasts one CTA's prologue and
+// one tile, and the tile's column loop (latency, not rows: one 64-row
+// tile takes 10.5 us where one 128-row tile takes 11.7) is most of it.
+// A 64-row tile for such calls and a staging of e~ that loads |e|^2 first
+// were measured on the H100 and left out: the first saved nothing at the
+// scan block, the second 3 us there but cost the persistent kernels 5-23%
+// at round 0 (PERF.md §6).
 #include "exemplar_tile.cuh"
 
 using namespace exemplar;
@@ -28,31 +48,22 @@ template <class Op, bool kWeighted>
 __global__ void __launch_bounds__(THREADS)
 exemplar_gains_kernel(Rows<typename Op::T> X, const float* __restrict__ E,
                       const float* __restrict__ cm, float* __restrict__ out,
-                      long long n, int d, int mp,
-                      const float* __restrict__ ew) {
+                      long long M, long long n, int d, int mp,
+                      long long ntiles, const float* __restrict__ ew) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L(d, mp, kWeighted);
-  const long long mach = blockIdx.y;
-  const long long row0 = (long long)blockIdx.x * BN;
-  const Rows<typename Op::T> Xm = X.from(mach * n, d);
-  float* s_cm = reinterpret_cast<float*>(smem + L.cm);
-  float* xs = reinterpret_cast<float*>(smem + L.xs);
-  if (L.resident) load_rows(xs, Xm, n, d, row0);
-  for (int j = threadIdx.x; j < mp; j += THREADS) s_cm[j] = cm[mach * mp + j];
-  stage_eval<Op, kWeighted>(L, smem, E, d, mp, ew);
-  cp_async_wait_all();
-  __syncthreads();
-  float sums[4];
-  row_gain_sums<Op, kWeighted>(L, smem, Xm, E, n, d, mp, row0, s_cm,
-                               reinterpret_cast<const float*>(smem + L.ew),
-                               xs, sums);
-  if ((threadIdx.x & 3) == 0) {
+  persistent_tiles<Op, kWeighted>(
+      L, smem, X, E, cm, ew, M, n, d, mp, ntiles,
+      [](long long) { return 0LL; },
+      [&](long long mach, long long row0, const float sums[4]) {
+        if ((threadIdx.x & 3) != 0) return;  // the quad holds the same sums
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const long long row = row0 + sum_row(r);
-      if (row < n) out[mach * n + row] = sums[r];
-    }
-  }
+        for (int r = 0; r < 4; ++r) {
+          const long long row = row0 + sum_row(r);
+          if (row < n) out[mach * n + row] = sums[r];
+        }
+      },
+      [](long long) {});
 }
 
 // X (M, n, d) contiguous, fp32, bf16 or int8 (xtype 0, 1, 2) with
@@ -65,16 +76,18 @@ static int launch(const void* X, const void* xs, const void* xz,
                   const void* E, const void* cm, void* out, long long M,
                   long long n, int d, int mp, const void* ew, void* stream) {
   const size_t smem = Layout(d, mp, kWeighted).end;
-  int err = (int)cudaFuncSetAttribute(
-      exemplar_gains_kernel<Op, kWeighted>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != 0) return err;
-  const dim3 grid((unsigned)((n + BN - 1) / BN), (unsigned)M);
+  const long long ntiles = (n + BN - 1) / BN;
+  const long long P = persistent_grid(exemplar_gains_kernel<Op, kWeighted>,
+                                      smem, M * ntiles);
+  if (P < 1) {
+    const int err = (int)cudaGetLastError();
+    return err != 0 ? err : (int)cudaErrorInvalidConfiguration;
+  }
   const Rows<typename Op::T> R{(const typename Op::T*)X, (const float*)xs,
                                (const float*)xz};
-  exemplar_gains_kernel<Op, kWeighted><<<grid, THREADS, smem,
+  exemplar_gains_kernel<Op, kWeighted><<<(unsigned)P, THREADS, smem,
                                          (cudaStream_t)stream>>>(
-      R, (const float*)E, (const float*)cm, (float*)out, n, d, mp,
+      R, (const float*)E, (const float*)cm, (float*)out, M, n, d, mp, ntiles,
       (const float*)ew);
   return (int)cudaGetLastError();
 }

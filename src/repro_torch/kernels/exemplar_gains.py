@@ -10,8 +10,13 @@ round_up(d + 2, 8) and runs it on the tensor cores as three TF32 products
 per 8-deep k-step (hi·hi, hi·lo, lo·hi of each operand's TF32 split, which
 keeps fp32's accuracy; one unsplit TF32 product does not).  What bounds it
 on the H100 is then the CUDA-core epilogue, four fp32 issue slots per
-(candidate, eval column) pair (clamp, subtract, clamp, add).  A leading
-machine axis on the grid scores every machine of a round in one launch.
+(candidate, eval column) pair (clamp, subtract, clamp, add).  One launch
+scores every machine of a round on the tile's persistent grid (as
+``greedy_select`` scores a step): resident CTAs per SM × 132, each walking
+a contiguous range of the flattened (machine, 128-row tile) space with e~
+staged once, a machine's cur_min when it enters the machine and the row
+tiles double-buffered by ``cp.async``; a row's sum is the same tile call
+as before and as the fused kernels', so the same bits.
 Eval weights (``WeightedExemplarClustering``) are the tile's weighted
 instantiation, a kernel of their own: the add becomes an fma with the
 weight, so unit weights give the unweighted bits.

@@ -3,8 +3,9 @@ version.
 
 Replaces the TPU kernel ``repro.kernels.wkv6.wkv6_pallas``
 (``src/repro/kernels/wkv6.py:52``, ``pl.pallas_call`` at ``:69``).
-Sources: ``csrc/wkv6.cu`` (the recurrent kernel) and
-``csrc/wkv6_chunked.cu`` (the chunked kernel).
+Sources: ``csrc/wkv6.cu`` (the recurrent kernel), ``csrc/wkv6_decode.cu``
+(the decode kernel, T = 1) and ``csrc/wkv6_chunked.cu`` (the chunked
+kernel).
 
 ``y_t = r_t·(S + diag(u)·k_tᵀv_t)``, ``S ← diag(w_t)·S + k_tᵀv_t`` from an
 initial state (zeros, or a given ``(B, H, Dk, Dv)`` fp32 state), returning
@@ -17,15 +18,22 @@ boundaries; a view that is not is copied first); ``y`` is allocated ``(B,
 T, H, Dv)`` in memory and returned as its ``(B, H, T, Dv)`` view, so the
 model's ``transpose(1, 2).reshape(B, T, H·Dv)`` copies nothing.
 
-Two kernels:
+:func:`launch`, which :func:`repro_torch.kernels.ops.wkv6` takes for
+every call, sends a call by T alone (:func:`route`): T = 1 to the decode
+kernel, any longer T to the recurrent kernel.  There is no fallback: a
+kernel that fails to build or launch raises.
 
-* :func:`launch`, the recurrent kernel, which :func:`repro_torch.kernels.
-  ops.wkv6` takes for every call: one CTA per (b, h, 16 columns of the
-  state) walks all of T with the state in registers, chunks of 32 steps
-  staged by ``cp.async``; unfused fp32 products on the CUDA cores in the
-  plain version's order, so the two agree to the bit.  Bound: operations
-  at prefill (5·Dk·Dv per step and head at the fp32 rate), bytes at
-  decode.
+* :func:`launch_recurrent`, the recurrent kernel: one CTA per (b, h, 16
+  columns of the state) walks all of T with the state in registers,
+  chunks of 32 steps staged by ``cp.async``; unfused fp32 products on
+  the CUDA cores in the plain version's order, so the two agree to the
+  bit.  Bound: operations at prefill (5·Dk·Dv per step and head).
+* :func:`launch_decode`, the decode kernel: one step, no staging and no
+  shared memory, each thread holding 4 columns of 8 state rows loaded
+  and stored 16 bytes at a time, every CTA resident at once; the same
+  order of the sums, so the same bits as the plain version and as the
+  recurrent kernel at T = 1.  Bound: bytes (the fp32 state read and
+  written).
 * :func:`launch_chunked`, the chunked kernel: chunks of 64 steps with
   their products on the tensor cores (every fp32 operand split in three
   bf16 pieces), in three launches — each chunk's own state, a scan over
@@ -41,9 +49,13 @@ No call is dispatched to the chunked kernel.  The port's checks of
 own rounding where the decay is slow and the terms cancel: at the model's
 init decay (w ≈ 0.9975) with N(0, 1) operands even the exact sum parts
 from the plain version by more than they allow, from T = 70 at B × H =
-256 on (``tests/test_torch_wkv6_chunked.py``).  Only the recurrent
-kernel, which repeats the plain version's order, meets them at the
-model's shapes.
+256 on (``tests/test_torch_wkv6_chunked.py``).  Only the kernels that
+repeat the plain version's order meet them at the model's shapes.
+
+Launches are counted under ``wkv6_decode`` (the decode kernel),
+``wkv6_recurrent`` (the recurrent kernel), ``wkv6_prefill`` (every call of
+T > 1, on either prefill kernel) and ``wkv6_chunked`` (three a chunked
+call).
 
 The plain version is :func:`repro_torch.kernels.ref.wkv6`; the dispatch in
 :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
@@ -56,7 +68,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import _bhs
 from repro_torch.kernels.ref import wkv6 as plain  # noqa: F401
 
-MAX_DK = 64          # the largest instantiation of csrc/wkv6.cu
+MAX_DK = 64          # the largest instantiation of csrc/wkv6.cu and
+                     # csrc/wkv6_decode.cu
 CHUNK = 64           # steps per chunk of csrc/wkv6_chunked.cu
 CHUNKED_MAX_D = 64   # Dk and Dv the chunked kernel takes
 _GRID_YZ = 65535
@@ -117,13 +130,29 @@ def _operands(r, k, v, w, u, state, state_out, out_dtype):
     return (B, H, T, Dk, Dv), state, state_out, y
 
 
+def route(T: int) -> str:
+    """The kernel a call of T steps takes: ``"decode"`` at T = 1,
+    ``"recurrent"`` otherwise."""
+    return "decode" if T == 1 else "recurrent"
+
+
 def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            w: torch.Tensor, u: torch.Tensor, state=None, *, state_out=None,
            out_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The recurrent kernel's (``csrc/wkv6.cu``) ``(y, final_state)`` for
-    r, k, w ``(B, H, T, Dk)``, v ``(B, H, T, Dv)``, u ``(H, Dk)`` on the
-    card.  ``state_out`` (which may be ``state``) receives the final state
-    in place; a new tensor does otherwise."""
+    """``(y, final_state)`` for r, k, w ``(B, H, T, Dk)``, v ``(B, H, T,
+    Dv)``, u ``(H, Dk)`` on the card, by the kernel :func:`route` names
+    for T.  ``state_out`` (which may be ``state``) receives the final
+    state in place; a new tensor does otherwise."""
+    T = r.shape[2] if r.dim() == 4 else 0
+    fn = launch_decode if route(T) == "decode" else launch_recurrent
+    return fn(r, k, v, w, u, state, state_out=state_out,
+              out_dtype=out_dtype)
+
+
+def launch_recurrent(r, k, v, w, u, state=None, *, state_out=None,
+                     out_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`launch`'s function on the recurrent kernel
+    (``csrc/wkv6.cu``), any T."""
     (B, H, T, Dk, Dv), state, state_out, y = _operands(
         r, k, v, w, u, state, state_out, out_dtype)
     r, *sr = _bhs(r)
@@ -140,7 +169,35 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y.stride(0), y.stride(1), y.stride(2), B, H, T, Dk, Dv,
         int(r.dtype == torch.bfloat16), int(u.dtype == torch.bfloat16),
         int(y.dtype == torch.float32), stream), "wkv6")
-    _build.launch_counts["wkv6_decode" if T == 1 else "wkv6_prefill"] += 1
+    _build.launch_counts["wkv6_recurrent"] += 1
+    if T > 1:
+        _build.launch_counts["wkv6_prefill"] += 1
+    return y, state_out
+
+
+def launch_decode(r, k, v, w, u, state=None, *, state_out=None,
+                  out_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`launch`'s function at T = 1 on the decode kernel
+    (``csrc/wkv6_decode.cu``); any other T raises."""
+    (B, H, T, Dk, Dv), state, state_out, y = _operands(
+        r, k, v, w, u, state, state_out, out_dtype)
+    if T != 1:
+        raise ValueError(f"wkv6 decode kernel: T={T}, it takes T = 1")
+    r, *sr = _bhs(r)
+    k, *sk = _bhs(k)
+    v, *sv = _bhs(v)
+    w, *sw = _bhs(w)
+    u = u.contiguous()
+    lib = _build.load("wkv6_decode")
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    _build.check(lib.wkv6_decode_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), 0 if state is None else state.data_ptr(),
+        state_out.data_ptr(), y.data_ptr(), *sr[:2], *sk[:2], *sv[:2],
+        *sw[:2], y.stride(0), y.stride(1), B, H, Dk, Dv,
+        int(r.dtype == torch.bfloat16), int(u.dtype == torch.bfloat16),
+        int(y.dtype == torch.float32), stream), "wkv6 decode")
+    _build.launch_counts["wkv6_decode"] += 1
     return y, state_out
 
 
@@ -177,7 +234,8 @@ def launch_chunked(r, k, v, w, u, state=None, *, state_out=None,
         Dk, Dv, int(r.dtype == torch.bfloat16),
         int(u.dtype == torch.bfloat16), int(y.dtype == torch.float32),
         stream), "wkv6 chunked")
-    _build.launch_counts["wkv6_decode" if T == 1 else "wkv6_prefill"] += 1
+    if T > 1:
+        _build.launch_counts["wkv6_prefill"] += 1
     _build.launch_counts["wkv6_chunked"] += 3
     return y, state_out
 

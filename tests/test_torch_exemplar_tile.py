@@ -19,6 +19,13 @@ visits only the blocks in which some row qualifies there;
 :func:`prepass_walk` is that walk in plain PyTorch, held against
 ``ref.threshold_select`` (which scores every block) on every constraint
 encoding.  Inputs are made with NumPy from a seed.
+
+``exemplar_gains``, ``greedy_select``'s steps and the threshold pre-pass
+launch the tile's persistent grid (``persistent_tiles`` /
+``persistent_grid`` / ``cta_of``): P = min(resident CTAs, T) CTAs over
+the T = M · ntiles flattened (machine, 128-row tile) pairs, CTA c walking
+[c·T/P, (c+1)·T/P).  :func:`persistent_ranges` and
+:func:`gains_writes` model the ranges and ``exemplar_gains``' writes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -452,3 +459,79 @@ def test_flagged_block_that_no_longer_qualifies_after_the_first_accept():
     acc_p, cm_p = ref.threshold_select(Xt, Et, cm, mask, tau, k, bn=bn)
     assert torch.equal(acc, acc_p) and torch.equal(cm_out, cm_p)
     assert torch.nonzero(acc[0]).flatten().tolist() == [2 * bn + 6]
+
+
+# ---------------------------------------------------------------------------
+# The persistent grid of csrc/exemplar_tile.cuh, as exemplar_gains launches it
+# ---------------------------------------------------------------------------
+
+BN = 128   # rows of a tile (csrc/exemplar_tile.cuh)
+
+
+def persistent_ranges(T: int, resident: int) -> np.ndarray:
+    """``persistent_grid``'s P = min(resident, T) CTAs and each CTA c's
+    tile range [c·T/P, (c+1)·T/P) of ``persistent_tiles``, in int64:
+    (P, 2)."""
+    P = min(resident, T)
+    c = np.arange(P + 1, dtype=np.int64)
+    edges = c * T // P
+    return np.stack([edges[:-1], edges[1:]], axis=1)
+
+
+def cta_of(t, P: int, T: int):
+    """``cta_of``: the CTA whose range holds flattened tile t."""
+    return ((np.asarray(t, np.int64) + 1) * P - 1) // T
+
+
+def gains_writes(M: int, n: int, resident: int) -> np.ndarray:
+    """How many times ``exemplar_gains``' kernel writes each (machine, row)
+    of its (M, n) output: every CTA walks its range in order; a tile t is
+    machine t // ntiles, rows (t % ntiles)·BN + [0, BN), and on_rows
+    writes the rows below n."""
+    R = BN
+    ntiles = -(-n // R)
+    writes = np.zeros((M, n), np.int64)
+    for t0, t1 in persistent_ranges(M * ntiles, resident):
+        t = np.arange(t0, t1)
+        mach, row0 = t // ntiles, (t % ntiles) * R
+        rows = row0[:, None] + np.arange(R)[None, :]
+        keep = rows < n
+        np.add.at(writes, (np.broadcast_to(mach[:, None], rows.shape)[keep],
+                           rows[keep]), 1)
+    return writes
+
+
+@pytest.mark.parametrize("M", [1, 7, 2000])
+@pytest.mark.parametrize("ntiles", [1, 176])
+def test_persistent_ranges_cover_every_tile_once_in_order(M, ntiles):
+    """At every grid size from 1 past T: no CTA's range is empty, the
+    ranges follow one another from 0 to T (so every (machine, tile) is
+    walked once, in order), cta_of names the CTA that walks each tile,
+    and cur_min is staged at most once per (CTA, machine) met."""
+    T = M * ntiles
+    sizes = sorted({1, 2, 3, 131, 132, 527, 528, 660, max(1, T // 2),
+                    max(1, T - 1), T, T + 1, 2 * T, 10 ** 6} - {0})
+    t = np.arange(T, dtype=np.int64)
+    for resident in sizes:
+        rg = persistent_ranges(T, resident)
+        P = len(rg)
+        assert P == min(resident, T)
+        assert rg[0, 0] == 0 and rg[-1, 1] == T
+        assert np.all(rg[:, 1] > rg[:, 0])
+        assert np.array_equal(rg[1:, 0], rg[:-1, 1])
+        owner = np.repeat(np.arange(P), rg[:, 1] - rg[:, 0])
+        assert np.array_equal(cta_of(t, P, T), owner)
+        # a CTA enters each machine of its range once (cur_min staged once
+        # a machine): the grid stages cur_min at most P + M − 1 times
+        first, last = rg[:, 0] // ntiles, (rg[:, 1] - 1) // ntiles
+        assert np.all(last >= first)
+        assert int(np.sum(last - first + 1)) <= P + M - 1
+
+
+@pytest.mark.parametrize("M,n,resident", [
+    (1, 22_500, 528), (7, 300, 5), (7, 20_011, 528), (3, 129, 1),
+    (2, 1, 528), (1, 128, 528), (40, 22_500, 528)])
+def test_gains_writes_every_row_once(M, n, resident):
+    """Each row of each machine's output is written exactly once by the
+    persistent grid, ragged last tiles included."""
+    assert np.all(gains_writes(M, n, resident) == 1)

@@ -216,19 +216,26 @@ def test_launch_counts_untouched_by_plain_path():
         "threshold_select_tail": 0, "rbf_kernel": 0, "rbf_kernel_rowvec": 0,
         "flash_attention_prefill": 0, "flash_attention_prefill_wgmma": 0,
         "flash_attention_decode": 0, "wkv6_prefill": 0, "wkv6_decode": 0,
-        "wkv6_chunked": 0}
+        "wkv6_recurrent": 0, "wkv6_chunked": 0}
 
 
 @pytest.mark.parametrize("M,n,m,d", [(1, 300, 70, 6), (7, 333, 130, 17),
-                                     (2, 129, 65, 3072)])
+                                     (2, 129, 65, 3072), (7, 20_011, 130, 6),
+                                     (5, 30_011, 1100, 6)])
 def test_kernels_match_plain_on_card(cuda, M, n, m, d):  # noqa: F811
+    """exemplar_gains (one launch of the persistent grid; the last two
+    shapes have more (machine, tile) pairs than the grid has CTAs, so CTAs
+    walk several tiles and cross machines, resident and chunked) and
+    greedy_select against their plain versions."""
     X, E, mask = make_inputs(M, n, m, d, seed=M + n)
     X /= np.sqrt(d)
     E /= np.sqrt(d)
     Xt, Et, mt = (torch.as_tensor(a, device=cuda) for a in (X, E, mask))
     e0 = torch.sum(Et * Et, dim=-1)
+    ops.reset_launch_counts()
     testing.assert_close(ops.exemplar_gains(Xt, Et, e0),
                          ref.exemplar_gains(Xt, Et, e0))
+    assert ops.launch_counts["exemplar_gains"] == 1
     sel, cm = ops.greedy_select(Xt, Et, e0, mt, 9)
     sel_p, cm_p, gap, best = ref.greedy_select_trace(Xt, Et, e0, mt, 9)
     ok, _ = testing.selections_agree(sel, sel_p, gap, best)

@@ -5,8 +5,11 @@ gone) at the shapes of ``tests/test_kernels.py::test_wkv6_kernel``,
 ragged T and Dk ≠ Dv, fp32 and bf16; its final state against
 ``layers.gla_chunked``'s and a ``layers.gla_step`` replay; one step from a
 non-zero state against ``gla_step``; state chaining; the dispatch on CPU
-tensors; and both CUDA kernels (recurrent and chunked) against the plain
-version on a card, over several chunks and at strong decays.
+tensors and the route by T (T = 1 to the decode kernel, longer T to the
+recurrent one); a model of the decode kernel's thread mapping and
+summation order (``csrc/wkv6_decode.cu``) against the plain version, to
+the bit; and the three CUDA kernels (recurrent, decode, chunked) against
+the plain version on a card, over several chunks and at strong decays.
 
 Tolerance: ``repro_torch.testing`` — fp32 within RTOL = ATOL = 1e-5 (the
 same recurrence, sums in another order), bf16 outputs within one bf16 ulp
@@ -14,7 +17,8 @@ more (``BF16_RTOL``).  On the card the recurrent kernel and its plain
 version share their arithmetic op for op, so they agree to the bit; the
 check there is the same tolerance, and for the chunked kernel also the
 error model of ``testing.WKV_TERMS_RTOL``
-(``tests/test_torch_wkv6_chunked.py``).
+(``tests/test_torch_wkv6_chunked.py``).  The decode kernel and its model
+are held to the bit (``torch.equal``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -139,6 +143,7 @@ def test_ops_on_cpu_takes_the_plain_version(monkeypatch):
         wkv_mod.launch(r, k, v, w, u)
     assert ops.launch_counts["wkv6_prefill"] == 0
     assert ops.launch_counts["wkv6_decode"] == 0
+    assert ops.launch_counts["wkv6_recurrent"] == 0
 
 
 def test_plain_sums_in_the_kernels_order():
@@ -158,7 +163,142 @@ def test_plain_sums_in_the_kernels_order():
     assert float(want) == float(f(5.75))
 
 
-@pytest.mark.parametrize("route", ["ops.wkv6", "launch_chunked"])
+def _decode_model(r, k, v, w, u, state, out_dtype=None):
+    """csrc/wkv6_decode.cu's arithmetic at T = 1, thread by thread: a CTA of
+    4 warps × 32 lanes per (b, h, 64 columns); lane ``l·4 + q`` of warp
+    ``wp`` holds columns ``j = 64·cb + 4·(4·wp + q) + c`` (c < 4) of rows
+    ``l + 8·i`` (i < EPT, zeros past Dk), sums ``r_k·S_kj`` over its rows
+    in order and meets the other row classes in xor shuffles over lane
+    bits 2, 3, 4; every warp sums the bonus over 32 lanes of rows
+    ``lane + 32·m`` and the xor tree over all 5 lane bits.  Tensors of the
+    model: (B, H, column blocks, warps, lanes, c).  Returns (y, state)."""
+    B, H, _, Dk = r.shape
+    Dv = v.shape[-1]
+    ept = 2 if Dk <= 16 else 4 if Dk <= 32 else 8
+    nb = -(-Dv // 64)
+    f32 = torch.float32
+    lane = torch.arange(32)
+    l, q = lane // 4, lane % 4
+    j = ((torch.arange(nb)[:, None, None, None] * 64
+          + 4 * (4 * torch.arange(4)[None, :, None, None] + q[None, None, :,
+                                                              None]))
+         + torch.arange(4)[None, None, None, :])           # (nb, 4, 32, 4)
+    col = j < Dv
+    jc = j.clamp(max=Dv - 1)
+    S0 = (torch.zeros((B, H, Dk, Dv), dtype=f32) if state is None
+          else state.float())
+    r1, k1, v1, w1 = (x[:, :, 0].float() for x in (r, k, v, w))
+
+    def rows(x, kk):                      # x (B, H, Dk) at rows kk, 0 past
+        return torch.where(kk < Dk, x[..., kk.clamp(max=Dk - 1)],
+                           torch.zeros((), dtype=f32))
+
+    vj = torch.where(col, v1[..., jc], torch.zeros((), dtype=f32))
+    # the bonus, as one warp sums it
+    bonus = torch.zeros((B, H, 32), dtype=f32)
+    uf = u.float()
+    for m in range(-(-8 * ept // 32)):
+        kk = lane + 32 * m
+        p = rows(r1, kk) * torch.where(
+            kk < Dk, uf[:, kk.clamp(max=Dk - 1)],
+            torch.zeros((), dtype=f32))[None] * rows(k1, kk)
+        p = torch.where(kk < 8 * ept, p, torch.zeros((), dtype=f32))
+        bonus = p if m == 0 else bonus + p
+    for off in (1, 2, 4, 8, 16):
+        bonus = bonus + bonus[..., lane ^ off]
+    # y: the lane's rows in order, then the tree over lane bits 2, 3, 4
+    part = None
+    S_new = S0.clone()
+    for i in range(ept):
+        kk = (l + 8 * i)[None, None, :, None].expand_as(j)   # the row
+        s = torch.where((kk < Dk) & col,
+                        S0[:, :, kk.clamp(max=Dk - 1), jc],
+                        torch.zeros((), dtype=f32))
+        rr = torch.where(kk < Dk, r1[..., kk.clamp(max=Dk - 1)],
+                         torch.zeros((), dtype=f32))
+        p = rr * s
+        part = p if i == 0 else part + p
+        kr = torch.where(kk < Dk, k1[..., kk.clamp(max=Dk - 1)],
+                         torch.zeros((), dtype=f32))
+        wr = torch.where(kk < Dk, w1[..., kk.clamp(max=Dk - 1)],
+                         torch.zeros((), dtype=f32))
+        upd = wr * s + kr * vj
+        keep = (kk < Dk) & col
+        S_new[:, :, kk[keep], j[keep]] = upd[:, :, keep]
+    for off in (4, 8, 16):
+        part = part + part[:, :, :, :, lane ^ off]
+    yv = part + vj * bonus[:, :, None, None, :, None]
+    lead = (l == 0)[None, None, :, None].expand_as(j) & col   # lanes 0..3
+    y = torch.empty((B, H, 1, Dv), dtype=f32)
+    y[:, :, 0, j[lead]] = yv[:, :, lead]
+    return y.to(out_dtype or r.dtype), S_new
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("u_dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,Dk,Dv", [(2, 3, 16, 16), (1, 2, 64, 64),
+                                       (2, 2, 16, 64), (2, 1, 64, 16),
+                                       (1, 2, 40, 72), (2, 1, 8, 8)])
+def test_decode_model_equals_plain_to_the_bit(dtype, u_dtype, B, H, Dk, Dv):
+    """The decode kernel's thread mapping and order (``_decode_model``) give
+    the plain version's y and state bit for bit at T = 1: zeros in and a
+    given state, y in r's type and in fp32, u in bf16 and fp32; and the
+    state written in place through ``ops.wkv6`` (the plain path on the
+    CPU) is the model's."""
+    tdt = DTYPES[dtype][0]
+    r, k, v, w, u = _inputs(Dk * Dv + B, B, H, 1, Dk, Dv, scale=1.0)
+    tr, tk, tv = (torch.from_numpy(a).to(tdt) for a in (r, k, v))
+    tw = torch.from_numpy(w)
+    tu = torch.from_numpy(u).to(DTYPES[u_dtype][0])
+    S0 = torch.from_numpy(np.random.default_rng(Dk).standard_normal(
+        (B, H, Dk, Dv)).astype(np.float32))
+    for state in (None, S0):
+        for od in (None, torch.float32):
+            y_m, S_m = _decode_model(tr, tk, tv, tw, tu, state, od)
+            y_p, S_p = ref.wkv6(tr, tk, tv, tw, tu, state, out_dtype=od)
+            assert y_m.dtype == y_p.dtype
+            assert torch.equal(y_m, y_p) and torch.equal(S_m, S_p)
+    st = S0.clone()
+    y, S = ops.wkv6(tr, tk, tv, tw, tu, st, state_out=st,
+                    out_dtype=torch.float32)
+    y_m, S_m = _decode_model(tr, tk, tv, tw, tu, S0, torch.float32)
+    assert S is st and torch.equal(st, S_m) and torch.equal(y, y_m)
+
+
+@pytest.mark.parametrize("T,kernel", [(1, "decode"), (2, "recurrent"),
+                                      (3, "recurrent"), (64, "recurrent"),
+                                      (2100, "recurrent")])
+def test_route_by_t(monkeypatch, T, kernel):
+    """ops.wkv6 on card tensors (here: the card check patched to say so)
+    reaches wkv6.launch, which sends T = 1 to the decode kernel and every
+    longer T to the recurrent kernel, by T alone; nothing reaches the
+    chunked kernel or the plain version."""
+    from repro_torch.kernels import ops as ops_mod
+    called = []
+
+    def kernel_of(name):
+        def fn(r, *args, **kwargs):
+            called.append((name, r.shape[2]))
+            return "y", "state"
+        return fn
+
+    def never(*args, **kwargs):
+        raise AssertionError("the card path reached another route")
+
+    monkeypatch.setattr(ops_mod, "_on_card", lambda t: True)
+    monkeypatch.setattr(ref, "wkv6", never)
+    monkeypatch.setattr(wkv_mod, "launch_chunked", never)
+    monkeypatch.setattr(wkv_mod, "launch_decode", kernel_of("decode"))
+    monkeypatch.setattr(wkv_mod, "launch_recurrent", kernel_of("recurrent"))
+    r, k, v, w, u = _torch(_inputs(T, 1, 2, T, 8, 8))
+    assert wkv_mod.route(T) == kernel
+    assert ops.wkv6(r, k, v, w, u) == ("y", "state")
+    assert wkv_mod.launch(r, k, v, w, u, state_out=None) == ("y", "state")
+    assert called == [(kernel, T), (kernel, T)]
+
+
+@pytest.mark.parametrize("route", ["ops.wkv6", "launch_chunked",
+                                   "launch_decode"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("B,H,T,Dk,Dv,decay", [
     (2, 3, 37, 16, 16, None), (1, 2, 100, 64, 64, None),
@@ -166,11 +306,13 @@ def test_plain_sums_in_the_kernels_order():
     (2, 3, 300, 64, 64, 0.05), (1, 2, 200, 32, 64, 1e-6)])
 def test_kernel_matches_plain_on_card(cuda, route, dtype, B, H, T, Dk, Dv,  # noqa: F811
                                       decay):
-    """The routed call (ops.wkv6, which launches the recurrent kernel and
-    never the chunked one) and the chunked kernel (wkv6.launch_chunked)
-    against the plain version, over several 64-step chunks and at strong
-    decays; the chunked one also within the error model of
-    testing.WKV_TERMS_RTOL."""
+    """The routed call (ops.wkv6, which launches the recurrent kernel for
+    T > 1 and never the chunked one) and the chunked kernel
+    (wkv6.launch_chunked) against the plain version, over several 64-step
+    chunks and at strong decays; the chunked one also within the error
+    model of testing.WKV_TERMS_RTOL.  The decode route runs the same T
+    steps as T decode launches through ops.wkv6, the state updated in
+    place, each step to the bit of the plain version's."""
     tdt = DTYPES[dtype][0]
     r, k, v, w, u = _inputs(T, B, H, T, Dk, Dv, decay=decay)
     S0 = torch.from_numpy(np.random.default_rng(1).standard_normal(
@@ -178,12 +320,28 @@ def test_kernel_matches_plain_on_card(cuda, route, dtype, B, H, T, Dk, Dv,  # no
     tr, tk, tv = (torch.from_numpy(a).to(cuda, tdt) for a in (r, k, v))
     tw, tu = (torch.from_numpy(a).to(cuda) for a in (w, u))
     ops.reset_launch_counts()
-    fn = ops.wkv6 if route == "ops.wkv6" else wkv_mod.launch_chunked
-    y, S = fn(tr, tk, tv, tw, tu, S0)
-    torch.cuda.synchronize()
-    assert ops.launch_counts["wkv6_prefill"] == 1
-    assert ops.launch_counts["wkv6_chunked"] == (
-        0 if route == "ops.wkv6" else 3)
+    if route == "launch_decode":
+        st = S0.clone()
+        ys = []
+        for t in range(T):
+            step = [a[:, :, t:t + 1] for a in (tr, tk, tv, tw)]
+            y_p, S_p = ref.wkv6(*step, tu, st)
+            y, S = ops.wkv6(*step, tu, st, state_out=st)
+            torch.cuda.synchronize()
+            assert S is st and torch.equal(y, y_p) and torch.equal(st, S_p)
+            ys.append(y)
+        assert ops.launch_counts["wkv6_decode"] == T
+        assert ops.launch_counts["wkv6_recurrent"] == 0
+        y, S = torch.cat(ys, dim=2), st
+    else:
+        fn = ops.wkv6 if route == "ops.wkv6" else wkv_mod.launch_chunked
+        y, S = fn(tr, tk, tv, tw, tu, S0)
+        torch.cuda.synchronize()
+        assert ops.launch_counts["wkv6_prefill"] == 1
+        assert ops.launch_counts["wkv6_recurrent"] == (
+            1 if route == "ops.wkv6" else 0)
+        assert ops.launch_counts["wkv6_chunked"] == (
+            0 if route == "ops.wkv6" else 3)
     y_p, S_p = ref.wkv6(tr, tk, tv, tw, tu, S0)
     testing.assert_attention_close(y, y_p, dtype == "bf16", "wkv6 y")
     testing.assert_close(S, S_p, "wkv6 state")
