@@ -51,7 +51,20 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    streaming centralized greedy (chunks of 2^20 rows) against phase 4's;
    score_dtype = bfloat16 on phase 3's block (fused and step-wise alike)
    and in a TREE (/ centralized ≥ 0.9); every wave's gather, H2D and
-   solve seconds and bytes;
+   solve seconds and bytes; then the round-0 engine on the same array,
+   plan and budget: the pipelined fp32 TREE (2 wave buffers) bit for bit
+   as the sync streaming run and the resident TREE, the same
+   ``greedy_select`` launches, its overlap, buffer high-water mark,
+   memory peak beside the sync run's, and round 0's wall beside the
+   engine's (the set-up before the first wave; the slot permutation
+   timed alone); fp32 and bf16 pipelined over 4 ingestion hosts as their
+   sync runs (per-host rows summing to each wave's); 4 hosts under a
+   ``FaultPolicy`` with transient faults (rate 0.2) and host 2 lost from
+   wave 1, as the fault-free run with one lossless eviction; wave 1
+   killed, as the resident TREE with its machines failed, with exactly
+   their oracle calls fewer, within the dropped-fraction budget; async
+   round checkpoints (deltas every 2 rounds) as the unchecked run, and a
+   run stopped after its round-1 checkpoint and resumed, as the whole;
 6. other objectives — ActiveSetSelection (Parkinsons analog, Webscope),
    FacilityLocation and the weighted exemplar objective at Webscope;
 7. attention kernels (run after phase 2, as are 8 to 12) —
@@ -1269,6 +1282,9 @@ def phase_main() -> dict:
 STREAM_BYTES = 256 << 20
 # q_block_rows of the int8 source (its block affine's grid)
 Q_BLOCK_ROWS = 4096
+# the engine phase's fault injector seed: at a rate of 0.2 its transient
+# draws fire on waves 0 and 4 of the 5 fp32 waves (seed 0's fire on none)
+FAULT_SEED = 2
 
 
 def same_tree(name: str, res, ref) -> None:
@@ -1376,9 +1392,12 @@ def phase_streaming(scan: dict, main: dict, constrained: dict) -> dict:
     scfg = dataclasses.replace(cfg, capacity_bytes=STREAM_BYTES)
     src = ArraySource(host)
     W = STREAM_BYTES // (mu * 6 * 4)
+    torch.cuda.reset_peak_memory_stats()
     res, cnt = run_stream("streaming TREE, fp32", obj, src, scfg,
                           ("greedy_select",), W, wave_count(W))
+    out["peak_mem"] = torch.cuda.max_memory_allocated()
     same_tree("streaming TREE, fp32", res, main["tree"])
+    out["result"] = {"fp32": res}
     out["walls"]["fp32"], out["waves"]["fp32"] = res.round_walls[0], res.ingest
     out["launches"] = {"fp32": cnt}
 
@@ -1413,6 +1432,7 @@ def phase_streaming(scan: dict, main: dict, constrained: dict) -> dict:
         out["walls"][store], out["waves"][store] = (res.round_walls[0],
                                                     res.ingest)
         out["launches"][store] = cnt
+        out["result"][store] = res
         quant[store] = (q, deq)
 
     # THRESHOLD-BATCH on bf16 rows with the bf16 x·e contraction
@@ -1525,6 +1545,227 @@ def phase_streaming(scan: dict, main: dict, constrained: dict) -> dict:
                for store, st in out["waves"].items()}
     summary["resident_round0_wall_s"] = out["walls"]["resident"]
     log("streaming round 0 by dtype: " + json.dumps(summary))
+    return out
+
+
+def run_engine(name: str, obj, source, cfg, kernels, **kw):
+    """One streaming TREE through the round-0 engine on the card, launch
+    counts zeroed just before and read just after; fails unless each kernel
+    of ``kernels`` launched.  Logs each wave's gather, H2D, solve and stall
+    seconds and the engine's summary.  Returns the result, the non-zero
+    counts and the device memory peak of the run."""
+    import torch
+    from repro_torch.core import TorchPlan, tree_maximize
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tree_maximize(obj, source, cfg, device="cuda", plan=TorchPlan(SEED),
+                        **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {key: v for key, v in ops.launch_counts.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    for kern in kernels:
+        if counts.get(kern, 0) == 0:
+            fail(f"{name} launched {kern} no time")
+    es = res.engine_stats
+    if es is None or es.engine != cfg.engine or es.hosts != cfg.hosts:
+        fail(f"{name}: engine stats {es and (es.engine, es.hosts)}, asked "
+             f"{cfg.engine}, {cfg.hosts} hosts")
+    if not 1 <= es.max_in_flight <= cfg.max_in_flight:
+        fail(f"{name}: {es.max_in_flight} live wave buffers, bound "
+             f"{cfg.max_in_flight}")
+    if res.ingest.peak_wave_bytes > cfg.capacity_bytes:
+        fail(f"{name}: a wave took {res.ingest.peak_wave_bytes} bytes")
+    summary = {key: v for key, v in es.summary().items() if key != "faults"}
+    log(f"{name}: rounds {res.rounds}, machines/round "
+        f"{res.machines_per_round}, depth/round {res.depth_per_round}, "
+        f"oracle calls {res.oracle_calls}, value {res.value!r}; round walls "
+        f"(CUDA events) {res.round_walls}; round 0 by the engine "
+        f"{es.wall_s!r} s, before its first wave "
+        f"{res.round_walls[0] - es.wall_s!r} s; whole run {wall:.3f} s; "
+        f"device memory peak {peak} B; launches {counts}")
+    log(f"  {name} engine: {json.dumps(summary)}")
+    for t in es.traces:
+        log(f"  {name} wave {t.wave}: {t.machines} machines, gather "
+            f"{t.gather_s:.4f} s, H2D {t.h2d_s:.4f} s, solve {t.solve_s:.4f} "
+            f"s, stall {t.stall_s:.4f} s, per host {t.per_host_rows}")
+    return res, counts, peak
+
+
+def phase_engine(main: dict, streaming: dict) -> dict:
+    """The round-0 engine at the Webscope deployment, on phase 4's host
+    array and plan under phase 5's 256 MiB wave budget: the pipelined fp32
+    TREE as phase 5's sync streaming run and the resident TREE; fp32 and
+    bf16 pipelined over 4 ingestion hosts as their sync runs; 4 hosts under
+    a fault policy with transient faults (rate 0.2) and host 2 lost from
+    wave 1, as the fault-free run; wave 1 killed, as the resident TREE with
+    that wave's machines failed, with exactly their oracle calls fewer;
+    async round checkpoints (deltas every 2 rounds) as the unchecked run,
+    and a run stopped after its round-1 checkpoint and resumed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import (ArraySource, QuantizedSource, TorchPlan,
+                                  run_round, tree_maximize)
+    from repro_torch.core import partition as part_lib
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.engine import (FaultInjector, FaultPolicy,
+                                    FaultProfile, list_round_checkpoints)
+    host, obj, cfg = main["host"], main["obj"], main["cfg"]
+    n, mu = len(host), cfg.capacity
+    L = main["tree"].machines_per_round[0]
+    sync = streaming["result"]
+    scfg = dataclasses.replace(cfg, capacity_bytes=STREAM_BYTES)
+    pcfg = dataclasses.replace(scfg, engine="pipelined", max_in_flight=2)
+    src = ArraySource(host)
+    out = {"walls": {"sync": sync["fp32"].round_walls[0]}, "launches": {}}
+
+    # the set-up before round 0's first wave: the plan's slot permutation
+    t0 = time.perf_counter()
+    tree_lib._round0_slot_blocks(TorchPlan(SEED), n, L, mu, "dense")
+    log(f"round 0's slot assignment alone (the {L * mu}-slot permutation on "
+        f"the host): {time.perf_counter() - t0:.4f} s")
+
+    res, cnt, peak = run_engine("pipelined streaming TREE, fp32", obj, src,
+                                pcfg, ("greedy_select",))
+    same_tree("pipelined streaming TREE, fp32 vs sync", res, sync["fp32"])
+    same_tree("pipelined streaming TREE, fp32 vs resident", res,
+              main["tree"])
+    if cnt.get("greedy_select") != streaming["launches"]["fp32"].get(
+            "greedy_select"):
+        fail(f"pipelined fp32: greedy_select launches {cnt} against the "
+             f"sync run's {streaming['launches']['fp32']}")
+    es = res.engine_stats
+    log(f"pipelined fp32: overlap {es.overlap_ratio!r} (span "
+        f"{es.span_wall_s!r} s), high-water mark {es.max_in_flight} of "
+        f"{pcfg.max_in_flight}; device memory peak {peak} B against the "
+        f"sync run's {streaming['peak_mem']} B; round 0 {res.round_walls[0]!r}"
+        f" s against sync {sync['fp32'].round_walls[0]!r} s")
+    out["walls"]["pipelined"] = res.round_walls[0]
+    out["engine"] = {"pipelined": es}
+    out["launches"]["pipelined"] = cnt
+    out["peak_mem"] = peak
+
+    hcfg = dataclasses.replace(pcfg, hosts=4)
+    res, cnt, _ = run_engine("pipelined streaming TREE, fp32, 4 hosts", obj,
+                             src, hcfg, ("greedy_select",))
+    same_tree("pipelined fp32, 4 hosts", res, sync["fp32"])
+    out["walls"]["hosts4"] = res.round_walls[0]
+    out["engine"]["hosts4"] = res.engine_stats
+    q = QuantizedSource(src, "bf16", Q_BLOCK_ROWS)
+    res, cnt, _ = run_engine("pipelined streaming TREE, bf16, 4 hosts", obj,
+                             q, hcfg, ("greedy_select_bf16",))
+    same_tree("pipelined bf16, 4 hosts", res, sync["bf16"])
+    for t in res.engine_stats.traces:
+        if len(t.per_host_rows) != 4 or sum(t.per_host_rows) != t.rows:
+            fail(f"bf16, 4 hosts: wave {t.wave} per-host rows "
+                 f"{t.per_host_rows} do not sum to its {t.rows} rows")
+    out["walls"]["bf16 hosts4"] = res.round_walls[0]
+    out["launches"]["bf16 hosts4"] = cnt
+
+    policy = FaultPolicy(backoff_s=0.01)
+    inj = FaultInjector(FaultProfile(transient_rate=0.2, dead_host=2,
+                                     dead_host_wave=1, seed=FAULT_SEED))
+    fcfg = dataclasses.replace(hcfg, fault_policy=policy)
+    res, cnt, _ = run_engine("pipelined fp32, 4 hosts, faults", obj, src,
+                             fcfg, ("greedy_select",), fault_injector=inj)
+    same_tree("fp32 with transient faults and a lost host", res,
+              sync["fp32"])
+    fs = res.fault_stats
+    if (fs is None or fs.evictions != 1 or fs.retries == 0
+            or fs.dropped_rows != 0):
+        fail(f"faults: {fs and fs.summary()}; want retries, one eviction "
+             f"and no drop")
+    log(f"faults: {json.dumps(fs.summary())}; replay signature "
+        f"{json.dumps(fs.replay_signature())}")
+    out["faults"] = fs
+
+    W = res.ingest.wave_machines
+    killed = list(range(W, min(2 * W, L)))
+    res, cnt, _ = run_engine(
+        "pipelined fp32, wave 1 killed", obj, src,
+        dataclasses.replace(pcfg, fault_policy=FaultPolicy(
+            max_retries=1, backoff_s=0.01)), ("greedy_select",),
+        fault_injector=FaultInjector(FaultProfile(kill_waves=(1,))))
+    fs = res.fault_stats
+    ref = tree_maximize(obj, main["X"], cfg, device="cuda",
+                        plan=TorchPlan(SEED), fail_machines={0: killed})
+    part = tree_lib._round0_partition(TorchPlan(SEED), n, L, mu, "dense",
+                                      torch.device("cuda"))
+    blocks, bmask = part_lib.gather_partition(
+        main["X"], part_lib.Partition(part.idx[killed], part.mask[killed]))
+    calls = int(run_round(obj, blocks, bmask, k=cfg.k).oracle_calls.sum())
+    del blocks, bmask, part
+    if (not np.array_equal(res.sel_rows, ref.sel_rows)
+            or not np.array_equal(res.sel_mask, ref.sel_mask)
+            or res.value != ref.value or res.rounds != ref.rounds):
+        fail(f"wave 1 killed: value {res.value!r} against the resident "
+             f"TREE with machines {killed[0]}..{killed[-1]} failed "
+             f"{ref.value!r}")
+    if ref.oracle_calls - res.oracle_calls != calls:
+        fail(f"wave 1 killed: {res.oracle_calls} oracle calls, resident "
+             f"with the machines failed {ref.oracle_calls}, their calls "
+             f"{calls}")
+    if (fs.dropped_waves, fs.dropped_machines) != (1, len(killed)) or (
+            fs.dropped_fraction > FaultPolicy().max_dropped_fraction):
+        fail(f"wave 1 killed: {fs.summary()}")
+    log(f"wave 1 killed: {fs.dropped_machines} machines, "
+        f"{fs.dropped_rows} rows dropped ({fs.dropped_fraction!r} of round "
+        f"0); value {res.value!r} as the resident TREE with them failed; "
+        f"oracle calls {res.oracle_calls} = {ref.oracle_calls} − {calls}")
+
+    ROOT.joinpath("build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ccfg = dataclasses.replace(pcfg, checkpoint_dir=f"{tmp}/full",
+                                   async_checkpoint=True,
+                                   checkpoint_delta_every=2)
+        res, _, _ = run_engine("pipelined fp32, async checkpoints", obj, src,
+                               ccfg, ("greedy_select",))
+        same_tree("checkpointed run", res, sync["fp32"])
+        cs = res.checkpoint_stats
+        log(f"checkpoints: {json.dumps(cs.summary())}")
+        real = tree_lib._save_round
+
+        def crash_after_round_1(d, round_idx, *a):
+            real(d, round_idx, *a)
+            if round_idx == 1:
+                raise KeyboardInterrupt("stopped after round 1")
+
+        kcfg = dataclasses.replace(ccfg, checkpoint_dir=f"{tmp}/cut")
+        tree_lib._save_round = crash_after_round_1
+        try:
+            tree_maximize(obj, src, kcfg, device="cuda", plan=TorchPlan(SEED))
+            fail("the run meant to stop after round 1 did not stop")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            tree_lib._save_round = real
+        kept = [r for r, _ in list_round_checkpoints(f"{tmp}/cut")]
+        if kept != [1]:
+            fail(f"stopped run left checkpoints {kept}, want [1]")
+        resumed = tree_maximize(
+            obj, src, dataclasses.replace(kcfg, resume=True), device="cuda",
+            plan=TorchPlan(SEED))
+        full = sync["fp32"]
+        if (not np.array_equal(resumed.sel_rows, full.sel_rows)
+                or resumed.value != full.value
+                or resumed.oracle_calls != full.oracle_calls
+                or resumed.rounds != full.rounds
+                or resumed.round_values != full.round_values[1:]):
+            fail(f"resumed run: value {resumed.value!r}, calls "
+                 f"{resumed.oracle_calls}, rounds {resumed.rounds}; "
+                 f"uninterrupted {full.value!r}, {full.oracle_calls}, "
+                 f"{full.rounds}")
+        log(f"resumed at round 1: value {resumed.value!r}, rounds "
+            f"{resumed.rounds}, machines/round {resumed.machines_per_round},"
+            f" as the uninterrupted run; checkpoints "
+            f"{json.dumps(resumed.checkpoint_stats.summary())}")
+        out["checkpoints"] = cs
+    log("engine round-0 walls (CUDA events, s): " + json.dumps(out["walls"]))
     return out
 
 
@@ -3184,6 +3425,7 @@ def main() -> None:
     main_path = phase_main()
     constrained = phase_constrained(main_path)
     streaming = phase_streaming(scan, main_path, constrained)
+    phase_engine(main_path, streaming)
     phase_active_set_parkinsons()
     active = phase_active_set_webscope(main_path)
     facility = phase_facility(main_path)

@@ -22,6 +22,7 @@ from repro_torch.core.permute import FeistelPermutation, feistel_slot_items
 from repro_torch.core.plan import ArrayPlan, TorchPlan
 from repro_torch.core.sources import (STORAGE_DTYPES, ArraySource,
                                       ChunkedSource, GroundSetSource,
+                                      HostLostError,
                                       QuantizedSource, SlicedSource,
                                       as_source, dtype_itemsize,
                                       prefetch_chunks)
@@ -39,6 +40,7 @@ __all__ = [
     "balanced_partition", "gather_partition", "n_parts", "repartition_rows",
     "FeistelPermutation", "feistel_slot_items", "ArrayPlan", "TorchPlan",
     "STORAGE_DTYPES", "ArraySource", "ChunkedSource", "GroundSetSource",
+    "HostLostError",
     "QuantizedSource", "SlicedSource", "as_source", "dtype_itemsize",
     "prefetch_chunks", "IngestStats", "TreeConfig", "TreeResult",
     "tree_maximize",

@@ -110,40 +110,73 @@ def run_round(obj, blocks: torch.Tensor, bmask: torch.Tensor, *, k: int,
     return RoundResult(rows, smask, vals, calls, depth)
 
 
-def _host_tensor(a: np.ndarray, pinned: bool) -> torch.Tensor:
-    """A host tensor holding ``a`` (bf16 bit patterns, uint16, as
-    ``torch.bfloat16``), in page-locked memory where ``pinned``."""
-    bf16 = a.dtype == np.uint16
-    src = torch.from_numpy(np.ascontiguousarray(a.view(np.int16) if bf16
-                                                else a))
-    if bf16:
-        src = src.view(torch.bfloat16)
-    if not pinned:
-        return src.clone()
-    out = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-    return out.copy_(src)
+def dead_wave_result(machines: int, k: int, width: int,
+                     device: torch.device) -> RoundResult:
+    """The fold contribution of machines that never ran.
 
-
-def stage_wave_inputs(device: torch.device, blocks_np: np.ndarray,
-                      bmask_np: np.ndarray, meta_np: np.ndarray | None = None,
-                      copy_stream=None) -> tuple[torch.Tensor, ...]:
-    """Host → device staging of one round-0 wave's gathered buffers:
-    ``(blocks, bmask)``, or ``(blocks, bmask, meta)`` for a narrow wave.
-
-    On the card each buffer is built in page-locked host memory and copied
-    with ``non_blocking`` on ``copy_stream`` (a ``torch.cuda.Stream`` the
-    caller keeps for its waves); that stream waits for the solve stream
-    first (the destination memory's earlier users), and the solve stream
-    waits on the copy's event, so a later solve never reads a partial wave
-    and the caller's stream is never blocked on the host.
-    bf16 blocks arrive as their uint16 bit patterns and land as
-    ``torch.bfloat16``.  On the CPU the buffers become tensors (copies:
-    the gathers may hand out read-only views).
+    A wave the fault supervisor drops past its budget folds like
+    ``dead_mask`` machines (value −inf, which never wins the best-solution
+    max; solutions masked out, which the next repartition drops) but with
+    zero oracle calls and depth: unlike a declared ``fail_machines``
+    failure, which loses a machine's output after its work, a dropped
+    wave's machines never received their blocks.
     """
-    arrays = [blocks_np, bmask_np] + ([] if meta_np is None else [meta_np])
+    return RoundResult(
+        sol_rows=torch.zeros((machines, k, width), dtype=torch.float32,
+                             device=device),
+        sol_mask=torch.zeros((machines, k), dtype=torch.bool, device=device),
+        values=torch.full((machines,), -torch.inf, dtype=torch.float32,
+                          device=device),
+        oracle_calls=torch.zeros((machines,), dtype=torch.int64,
+                                 device=device),
+        depth=torch.zeros((machines,), dtype=torch.int64, device=device))
+
+
+def host_tensor(a: np.ndarray, pinned: bool) -> torch.Tensor:
+    """A host tensor holding a copy of ``a``, in page-locked memory where
+    ``pinned``."""
+    src = torch.from_numpy(np.ascontiguousarray(a))
+    return torch.empty(src.shape, dtype=src.dtype,
+                       pin_memory=pinned).copy_(src)
+
+
+def pack_wave(x: np.ndarray, valid: np.ndarray, pinned: bool
+              ) -> torch.Tensor:
+    """A wave's ``(W, μ, c)`` block ``x`` as a fresh host tensor with the
+    rows of empty slots (``~valid``) zeroed, in page-locked memory where
+    ``pinned``: one pass of torch's multi-threaded ``where`` into the
+    buffer the copy to the card reads.  bf16 bit patterns (uint16) land as
+    ``torch.bfloat16``; a zeroed slot holds +0 in every dtype."""
+    bf16 = x.dtype == np.uint16
+    if not x.flags.writeable:           # torch.from_numpy wants to own it
+        x = x.copy()
+    src = torch.from_numpy(np.ascontiguousarray(x.view(np.int16) if bf16
+                                                else x))
+    out = torch.empty(src.shape, dtype=src.dtype, pin_memory=pinned)
+    torch.where(torch.from_numpy(valid)[..., None], src,
+                torch.zeros((), dtype=src.dtype), out=out)
+    return out.view(torch.bfloat16) if bf16 else out
+
+
+def stage_wave_inputs(device: torch.device, blocks: torch.Tensor,
+                      bmask: torch.Tensor, meta: torch.Tensor | None = None,
+                      copy_stream=None) -> tuple[torch.Tensor, ...]:
+    """Host → device staging of one round-0 wave's packed host tensors
+    (:func:`pack_wave`): ``(blocks, bmask)``, or ``(blocks, bmask, meta)``
+    for a narrow wave.
+
+    On the card each tensor is copied with ``non_blocking`` on
+    ``copy_stream`` (a ``torch.cuda.Stream`` the caller keeps for its
+    waves): that stream waits for the solve stream first (the destination
+    memory's earlier users), and the solve stream waits on the copy's
+    event, so a later solve never reads a partial wave and the caller's
+    stream is never blocked on the host.  PyTorch's caching host allocator
+    keeps a page-locked block from reuse until the copy that reads it has
+    completed.  On the CPU the host tensors are the wave.
+    """
+    host = [blocks, bmask] + ([] if meta is None else [meta])
     if device.type != "cuda":
-        return tuple(_host_tensor(a, pinned=False) for a in arrays)
-    host = [_host_tensor(a, pinned=True) for a in arrays]
+        return tuple(host)
     main = torch.cuda.current_stream(device)
     out = [torch.empty(h.shape, dtype=h.dtype, device=device) for h in host]
     copy_stream.wait_stream(main)

@@ -26,9 +26,10 @@ Sources stay on the host, in NumPy.  NumPy has no bfloat16 without
 ``ml_dtypes``, so bf16 rows are held as their 16-bit patterns
 (:data:`BF16`, uint16): the cast is torch's fp32 → bf16 (round to nearest
 even, the bits ``ml_dtypes`` gives), and :func:`bf16_to_fp32` is the exact
-upcast.  What only the multi-host planner and the autotuner read
-(``host_split_points``, ``mark_lost``, ``fingerprint``) waits for them,
-ROADMAP queue 1 item 11.
+upcast.  The ingestion hosts of :mod:`repro_torch.engine.planner` split a
+source at ``host_split_points`` into ``slice`` views; a view marked lost
+raises :class:`HostLostError`.  ``fingerprint`` (the autotuner's cache
+key) waits for ROADMAP queue 1 item 11 part 4.
 """
 from __future__ import annotations
 
@@ -100,6 +101,19 @@ def host_rows(x) -> np.ndarray:
     return np.asarray(x)
 
 
+class HostLostError(RuntimeError):
+    """An ingestion host (its :class:`SlicedSource` view) is gone for good.
+
+    Unlike a transient error, retrying the same host is pointless: the
+    fault supervisor evicts it (``IngestionPlan.evict`` re-routes its range
+    to the survivors) and retries against them.
+    """
+
+    def __init__(self, host: int, msg: str = ""):
+        super().__init__(msg or f"ingestion host {host} lost")
+        self.host = int(host)
+
+
 class GroundSetSource:
     """Abstract capacity-bounded view of the ground set V (n items, d dims)."""
 
@@ -114,6 +128,10 @@ class GroundSetSource:
     # do not depend on it.  ``tree_maximize`` sets it from
     # TreeConfig.prefetch_depth.
     prefetch_depth: int = 2
+    # may gather() run on several threads at once?  The sources here keep
+    # no state between calls; one over a shared non-reentrant reader says
+    # False, and the ingestion hosts then gather one after another
+    supports_concurrent_gather: bool = True
 
     def iter_chunks(self, chunk_rows: int = 8192
                     ) -> Iterator[Tuple[int, np.ndarray]]:
@@ -173,6 +191,18 @@ class GroundSetSource:
         """The full (n, a) host attribute matrix — tests only."""
         return np.concatenate([a for _, _, a in self.iter_chunks_attrs()],
                               axis=0)
+
+    def host_split_points(self, hosts: int) -> list[int]:
+        """``hosts + 1`` bounds from 0 to n of contiguous host-owned
+        ranges, near-equal (shard-backed sources align them to their
+        shards, so each lazy shard belongs to one host)."""
+        if not 1 <= hosts <= self.n:
+            raise ValueError(f"hosts={hosts} outside [1, n={self.n}]")
+        return [round(p * self.n / hosts) for p in range(hosts + 1)]
+
+    def slice(self, lo: int, hi: int) -> "SlicedSource":
+        """A host-local view of items ``[lo, hi)``, globally indexed."""
+        return SlicedSource(self, lo, hi)
 
 
 def _as_attrs(attrs) -> np.ndarray:
@@ -273,7 +303,8 @@ class SlicedSource(GroundSetSource):
     """A contiguous ``[lo, hi)`` window of a parent source: the local shard
     one ingestion host owns.  Indices stay global, and a gather refuses
     any index outside the window (the locality a multi-host deployment
-    relies on).  Gathers delegate to the parent."""
+    relies on).  Gathers delegate to the parent; a view marked lost
+    raises :class:`HostLostError` on every gather."""
 
     def __init__(self, parent: GroundSetSource, lo: int, hi: int):
         if not 0 <= lo < hi <= parent.n:
@@ -283,8 +314,22 @@ class SlicedSource(GroundSetSource):
         self.n = parent.n                 # global addressing
         self.d, self.a, self.qcols = parent.d, parent.a, parent.qcols
         self.dtype = parent.dtype
+        self.supports_concurrent_gather = parent.supports_concurrent_gather
+        self._lost: int | None = None     # host id once marked lost
+
+    @property
+    def local_n(self) -> int:
+        return self.hi - self.lo
+
+    def mark_lost(self, host: int) -> None:
+        """Declare the host behind this view dead: every later gather
+        raises :class:`HostLostError` (a machine that stopped answering
+        and stays stopped across retries)."""
+        self._lost = int(host)
 
     def _check_local(self, idx: np.ndarray) -> np.ndarray:
+        if self._lost is not None:
+            raise HostLostError(self._lost)
         idx = np.asarray(idx, np.int64).reshape(-1)
         if idx.size and (idx.min() < self.lo or idx.max() >= self.hi):
             raise ValueError(f"non-local gather: the view holds [{self.lo}, "
@@ -347,6 +392,7 @@ class QuantizedSource(GroundSetSource):
         self.store_dtype = store_dtype
         self.q_block_rows = int(q_block_rows)
         self.n, self.d, self.a = parent.n, parent.d, parent.a
+        self.supports_concurrent_gather = parent.supports_concurrent_gather
         self.qcols = 2 if store_dtype == "int8" else 0
         self._scale = self._zp = None
         if store_dtype == "int8":
@@ -406,6 +452,9 @@ class QuantizedSource(GroundSetSource):
         q = rows.astype(np.float32)
         return q * qmeta[..., 0:1].astype(np.float32) \
             + qmeta[..., 1:2].astype(np.float32)
+
+    def host_split_points(self, hosts: int) -> list[int]:
+        return self._parent.host_split_points(hosts)
 
     def iter_chunks(self, chunk_rows: int = 8192):
         for start, rows in self._parent.iter_chunks(chunk_rows):

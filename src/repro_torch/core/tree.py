@@ -29,38 +29,56 @@ round-0 slots come from the plan's permutation (``dense``, the same the
 resident round takes) or from a Feistel bijection evaluated per wave
 (``feistel``, O(1) host state; the resident round materializes it).  For
 one plan, streaming and resident give the same blocks, the same fold
-order and the same result.  The pipelined engine, ingestion hosts, the
-wave autotuner, faults, checkpoints and telemetry wait for ROADMAP queue 1
-item 11: their ``TreeConfig`` fields raise.
+order and the same result.
+
+How round 0's waves execute is :mod:`repro_torch.engine`'s: ``cfg.engine``
+picks the sync scheduler or the pipelined one (wave t + 1 gathered on a
+producer thread while wave t is staged and solved), ``cfg.hosts`` shards
+each gather over ingestion hosts, and a ``cfg.fault_policy`` or a
+``fault_injector`` supervises the gathers (retries, hedges, host eviction,
+waves dropped under the Lemma 3.4 budget and folded as machines that never
+ran).  All of these are execution only: the result is the sync engine's,
+bit for bit, but for dropped waves.  ``cfg.checkpoint_dir`` snapshots
+every round boundary (inline, or on a writer thread with
+``cfg.async_checkpoint``), and ``cfg.resume`` restarts from the newest
+snapshot.  The wave autotuner and telemetry wait for ROADMAP queue 1 item
+11 part 4: their ``TreeConfig`` fields raise.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from repro_torch.core import constraints as cons_lib
 from repro_torch.core import partition as part_lib
-from repro_torch.core.distributed import (RoundResult, run_round,
+from repro_torch.core.distributed import (RoundResult, dead_wave_result,
+                                          host_tensor, pack_wave, run_round,
                                           stage_wave_inputs)
 from repro_torch.core.permute import FeistelPermutation, feistel_slot_items
 from repro_torch.core.plan import TorchPlan
 from repro_torch.core.sources import (GroundSetSource, as_source,
                                       dtype_itemsize, host_rows)
 from repro_torch.device import as_tensor, resolve_device
-from repro_torch.engine import HostWave, WaveTrace, run_waves
+from repro_torch.engine import (ENGINES, AsyncCheckpointWriter,
+                                CheckpointStats, EngineConfig, EngineStats,
+                                FaultInjector, FaultPolicy, FaultStats,
+                                FaultSupervisor, FixedWidthPlanner, HostWave,
+                                IngestionPlan, RoundCheckpoint, WaveTrace,
+                                clean_stale_tmp, latest_round_checkpoint,
+                                load_round_checkpoint, run_waves,
+                                write_round_checkpoint)
 
 PERMUTATIONS = ("dense", "feistel")
 
-#: TreeConfig fields of the JAX package's engine, at their defaults: any
-#: other value raises until ROADMAP queue 1 item 11 brings the engine
-_ENGINE_FIELDS = {"engine": "sync", "hosts": 1, "wave_autotune": False,
-                  "autotune_cache": None, "fault_policy": None,
-                  "checkpoint_dir": None, "resume": False,
-                  "async_checkpoint": False, "telemetry": None}
+#: TreeConfig fields of the JAX package's autotuner and telemetry, at their
+#: defaults: any other value raises until ROADMAP queue 1 item 11 part 4
+_UNPORTED_FIELDS = {"wave_autotune": False, "autotune_cache": None,
+                    "telemetry": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,15 +91,20 @@ class TreeConfig:
     permutation: str = "dense"         # round-0 slot scheme: dense | feistel
     capacity_bytes: int | None = None  # device-byte wave budget (derives W)
     prefetch_depth: int | None = None  # the source's chunk-prefetch depth
-    # the engine's knobs (ROADMAP queue 1 item 11): only these defaults run
-    engine: str = "sync"
-    hosts: int = 1
+    engine: str = "sync"               # round-0 wave engine: sync | pipelined
+    hosts: int = 1                     # ingestion hosts sharding the gather
+    max_in_flight: int = 2             # pipelined host wave buffers (≥ 2)
+    fault_policy: FaultPolicy | None = None  # supervise round 0's gathers
+    checkpoint_dir: str | None = None  # snapshot every round boundary here
+    resume: bool = False               # restart from its newest snapshot
+    async_checkpoint: bool = False     # write snapshots on a writer thread
+    checkpoint_keep: int = 3           # rotated rounds kept (≤ 0: all)
+    checkpoint_delta_every: int = 0    # K > 0: full snapshot every K rounds,
+    #                                    row-index deltas between
+    # the autotuner and telemetry (ROADMAP queue 1 item 11 part 4): only
+    # these defaults run
     wave_autotune: bool = False
     autotune_cache: str | None = None
-    fault_policy: object = None
-    checkpoint_dir: str | None = None
-    resume: bool = False
-    async_checkpoint: bool = False
     telemetry: object = None
 
     def __post_init__(self):
@@ -94,11 +117,24 @@ class TreeConfig:
             raise ValueError(f"capacity_bytes={self.capacity_bytes} ≤ 0")
         if self.prefetch_depth is not None and self.prefetch_depth < 1:
             raise ValueError(f"prefetch_depth={self.prefetch_depth} < 1")
-        for name, default in _ENGINE_FIELDS.items():
+        if self.engine not in ENGINES:
+            raise ValueError(f"engine={self.engine!r} not in {ENGINES}")
+        if self.hosts < 1:
+            raise ValueError(f"hosts={self.hosts} < 1")
+        if self.max_in_flight < 2:
+            raise ValueError(f"max_in_flight={self.max_in_flight} < 2")
+        if self.checkpoint_delta_every < 0:
+            raise ValueError(f"checkpoint_delta_every="
+                             f"{self.checkpoint_delta_every} < 0")
+        if self.async_checkpoint and not self.checkpoint_dir:
+            raise ValueError("async_checkpoint=True without checkpoint_dir "
+                             "would write nothing")
+        for name, default in _UNPORTED_FIELDS.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"TreeConfig.{name}={getattr(self, name)!r} is not "
-                    "ported yet: ROADMAP queue 1 item 11 (engine)")
+                    "ported yet: ROADMAP queue 1 item 11 part 4 (the "
+                    "autotuner and telemetry)")
 
     def round_bound(self, n: int) -> int:
         """Prop. 3.1: r ≤ ⌈log_{μ/k}(n/μ)⌉ + 1."""
@@ -151,6 +187,10 @@ class TreeResult:
     total_wall_s: float         # whole tree_maximize wall clock
     sel_attrs: np.ndarray | None = None  # (k, a) attributes of sel_rows
     ingest: IngestStats | None = None    # set by a streaming round 0
+    engine_stats: EngineStats | None = None  # round 0's wave engine record
+    checkpoint_stats: CheckpointStats | None = None  # per-round writes
+    fault_stats: FaultStats | None = None  # supervision record (retries,
+    #                                        hedges, evictions, drops)
 
 
 def _round_plan(M: int, t: int, fail_machines, device) -> torch.Tensor:
@@ -288,8 +328,9 @@ def _wave_size(cfg: TreeConfig, wave_machines, L: int, mu: int, width: int,
 
 def _stream_round0(obj, source: GroundSetSource, plan, L: int,
                    cfg: TreeConfig, dev, fail_machines, wave_machines, best,
-                   constraint=None, attrs_np: np.ndarray | None = None):
-    """Round 0 in waves of W machines from ``source``.
+                   constraint=None, attrs_np: np.ndarray | None = None,
+                   fault_injector: FaultInjector | None = None):
+    """Round 0 in waves of machines from ``source``.
 
     Each wave's blocks are filled on the host from the round-0 slot
     assignment (rows, and the attribute rows where constrained), staged
@@ -299,7 +340,15 @@ def _stream_round0(obj, source: GroundSetSource, plan, L: int,
     ships ``(W, μ, d + a)`` fp32 blocks; a narrow one ``(W, μ, d)`` in its
     storage dtype with the fp32 ``meta`` ``(W, μ, a + qcols)``.  Padded
     slots are zero in both, so a masked row dequantizes to 0·0 + 0 = 0.
-    Returns (best, round depth, round value, A₁ rows, A₁ mask, stats).
+
+    The waves' spans come from a :class:`FixedWidthPlanner` of W
+    machines; ``cfg.engine`` runs them (:func:`repro_torch.engine.run_waves`),
+    ``cfg.hosts > 1`` gathers each through an :class:`IngestionPlan`, and a
+    fault policy or injector supervises the gathers: a wave dropped past
+    its budget folds :func:`dead_wave_result`.  The round's depth and best
+    value are carried on the device and read once by the caller.
+    Returns (best, round depth, round value, A₁ rows, A₁ mask, ingest
+    stats, engine stats).
     """
     n, d, mu = source.n, source.d, cfg.capacity
     a = 0
@@ -315,72 +364,141 @@ def _stream_round0(obj, source: GroundSetSource, plan, L: int,
     slot_block = _round0_slot_blocks(plan, n, L, mu, cfg.permutation)
     if cfg.prefetch_depth is not None:
         source.prefetch_depth = cfg.prefetch_depth
+    ecfg = EngineConfig(mode=cfg.engine, max_in_flight=cfg.max_in_flight,
+                        hosts=cfg.hosts)
+    planner = FixedWidthPlanner(W)
+    pinned = dev.type == "cuda"
     dead = _round_plan(L, 0, fail_machines, dev)
-    cursor = [0]
+    # the cursor and the host plan (swapped on an eviction) are touched by
+    # the gather side only, one wave at a time
+    state = {"w0": 0, "hosts": (IngestionPlan.build(source, cfg.hosts)
+                                if cfg.hosts > 1 else None)}
+    supervisor = None
+    if cfg.fault_policy is not None or fault_injector is not None:
+        def evict_host(host: int) -> bool:
+            hp = state["hosts"]
+            if hp is None or hp.hosts < 2 or host not in hp.host_ids:
+                return False
+            state["hosts"] = hp.evict(host)
+            return True
 
-    def gather(i: int) -> HostWave | None:
-        w0 = cursor[0]
+        supervisor = FaultSupervisor(
+            cfg.fault_policy or FaultPolicy(), total_rows=n,
+            injector=fault_injector, rate_hint=planner.gather_rate,
+            concurrent_ok=source.supports_concurrent_gather,
+            evict_cb=evict_host)
+
+    def next_span():
+        w0 = state["w0"]
         if w0 >= L:
             return None
-        w1 = cursor[0] = min(L, w0 + W)
+        w1 = state["w0"] = w0 + min(planner.next_width(L - w0), L - w0)
+        return w0, w1
+
+    def gather_rows(idx_flat: np.ndarray, fault_hook=None):
+        """Rows (and attribute rows) of one wave in one pass of the source
+        (a sequential source is not re-streamed per matrix), host by host
+        where there are ingestion hosts."""
+        hp = state["hosts"]
+        if hp is not None:
+            rows, src_attrs, per_host = hp.gather(
+                idx_flat, with_attrs=bool(a) and attrs_np is None,
+                parallel=ecfg.mode == "pipelined", fault_hook=fault_hook)
+            if a and attrs_np is not None:
+                src_attrs = attrs_np[idx_flat]
+            return rows, src_attrs, per_host
+        if not a:
+            return source.gather(idx_flat), None, None
+        if attrs_np is not None:
+            return source.gather(idx_flat), attrs_np[idx_flat], None
+        rows, row_attrs = source.gather_with_attrs(idx_flat)
+        return rows, row_attrs, None
+
+    def gather(i: int) -> HostWave | None:
+        """The host side of wave i: source reads and block assembly (on
+        the producer thread under the pipelined engine: no launches)."""
+        span = next_span()
+        if span is None:
+            return None
+        w0, w1 = span
         idx_w = slot_block(w0, w1)
         idx_flat = np.maximum(idx_w, 0).reshape(-1)
         valid = idx_w >= 0
-        if not a:
-            rows, row_attrs = source.gather(idx_flat), None
-        elif attrs_np is not None:
-            rows, row_attrs = source.gather(idx_flat), attrs_np[idx_flat]
+        if supervisor is None:
+            rows, row_attrs, per_host = gather_rows(idx_flat)
         else:
-            rows, row_attrs = source.gather_with_attrs(idx_flat)
+            def attempt_fn(attempt: int):
+                hook = (fault_injector.host_hook(i, attempt)
+                        if fault_injector is not None else None)
+                return gather_rows(idx_flat, fault_hook=hook)
+
+            got, dropped = supervisor.gather(
+                i, machines=w1 - w0, rows=int(valid.sum()),
+                attempt_fn=attempt_fn)
+            if dropped:         # folds as machines that never ran
+                return HostWave((None, None, None, w0, w1), w1 - w0,
+                                (w1 - w0) * mu, 0)
+            rows, row_attrs, per_host = got
+        # the blocks are packed here, on the producer side, straight into
+        # the page-locked buffers the copy to the card reads
+        mask = host_tensor(valid, pinned)
         if narrow:
-            feat = np.asarray(rows).reshape(w1 - w0, mu, d).copy()
-            feat[~valid] = 0
+            feat = pack_wave(np.asarray(rows).reshape(w1 - w0, mu, d), valid,
+                             pinned)
             cols = [np.asarray(row_attrs, np.float32)] if a else []
             if qcols:
                 cols.append(source.gather_qmeta(idx_flat))
-            meta = np.zeros((w1 - w0, mu, 0), np.float32)
-            if cols:
-                meta = np.where(valid[..., None], np.concatenate(
-                    cols, axis=1).reshape(w1 - w0, mu, meta_cols),
-                    np.float32(0.0))
-            return HostWave((feat, meta, valid, w0, w1), w1 - w0,
-                            (w1 - w0) * mu, feat.nbytes + meta.nbytes)
+            meta = (pack_wave(np.concatenate(cols, axis=1).reshape(
+                w1 - w0, mu, meta_cols), valid, pinned) if cols
+                else torch.zeros((w1 - w0, mu, 0)))
+            return HostWave((feat, meta, mask, w0, w1), w1 - w0,
+                            (w1 - w0) * mu, feat.nbytes + meta.nbytes,
+                            per_host)
         rows = np.asarray(rows, np.float32)
         if a:
             rows = np.concatenate([rows, np.asarray(row_attrs, np.float32)],
                                   axis=1)
-        blocks = np.where(valid[..., None], rows.reshape(w1 - w0, mu, d + a),
-                          np.float32(0.0))
-        return HostWave((blocks, None, valid, w0, w1), w1 - w0,
-                        (w1 - w0) * mu, blocks.nbytes)
+        blocks = pack_wave(rows.reshape(w1 - w0, mu, d + a), valid, pinned)
+        return HostWave((blocks, None, mask, w0, w1), w1 - w0,
+                        (w1 - w0) * mu, blocks.nbytes, per_host)
 
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def stage(payload):
         blocks, meta, valid, w0, w1 = payload
+        if blocks is None:                  # a dropped wave moves nothing
+            return None, w0, w1
         staged = stage_wave_inputs(dev, blocks, valid, meta, copy_stream)
         return staged, w0, w1
 
     sol_rows, sol_mask = [], []
-    carry = {"best": best, "depth": 0, "v": float("-inf")}
+    carry = {"best": best,
+             "depth": torch.zeros((), dtype=torch.long, device=dev),
+             "v": torch.tensor(-torch.inf, device=dev)}
 
     def solve(i: int, staged) -> None:
         tensors, w0, w1 = staged
-        res = run_round(obj, tensors[0], tensors[1], k=cfg.k,
-                        alg=cfg.algorithm, eps=cfg.eps, dead_mask=dead[w0:w1],
-                        attr_dim=a, constraint=constraint,
-                        meta=tensors[2] if len(tensors) == 3 else None)
+        if tensors is None:
+            res = dead_wave_result(w1 - w0, cfg.k, d + a, dev)
+        else:
+            res = run_round(obj, tensors[0], tensors[1], k=cfg.k,
+                            alg=cfg.algorithm, eps=cfg.eps,
+                            dead_mask=dead[w0:w1], attr_dim=a,
+                            constraint=constraint,
+                            meta=tensors[2] if len(tensors) == 3 else None)
         *carry["best"], v_wave = _fold_round(res, *carry["best"])
-        carry["depth"] = max(carry["depth"], int(torch.max(res.depth)))
-        carry["v"] = max(carry["v"], float(v_wave))
+        carry["depth"] = torch.maximum(carry["depth"], torch.max(res.depth))
+        carry["v"] = torch.maximum(carry["v"], v_wave)
         sol_rows.append(res.sol_rows)
         sol_mask.append(res.sol_mask)
 
-    t0 = time.perf_counter()
-    traces = run_waves(gather, stage, solve, dev)
-    wall = time.perf_counter() - t0
-    if cursor[0] != L or sum(t.machines for t in traces) != L:
-        raise RuntimeError(f"round 0 solved {cursor[0]} of {L} machines")
+    estats = run_waves(gather, stage, solve, ecfg, dev,
+                       on_trace=planner.observe)
+    if supervisor is not None:
+        estats.fault_stats = supervisor.stats
+    traces = estats.traces
+    if state["w0"] != L or sum(t.machines for t in traces) != L:
+        raise RuntimeError(f"round 0 solved {state['w0']} of {L} machines")
     peak_rows = max(t.rows for t in traces)
     stats = IngestStats(
         wave_machines=W, waves=len(traces), peak_wave_rows=peak_rows,
@@ -388,7 +506,7 @@ def _stream_round0(obj, source: GroundSetSource, plan, L: int,
         total_machines=L, attr_dim=a,
         wave_seconds=[t.gather_s + t.h2d_s + t.solve_s for t in traces],
         wave_bytes=[t.bytes_moved for t in traces],
-        total_bytes=sum(t.bytes_moved for t in traces), wall_seconds=wall,
+        total_bytes=estats.bytes_moved, wall_seconds=estats.wall_s,
         traces=traces)
     if (cfg.capacity_bytes is not None
             and stats.peak_wave_bytes > cfg.capacity_bytes):
@@ -397,7 +515,50 @@ def _stream_round0(obj, source: GroundSetSource, plan, L: int,
     rows_in = torch.cat(sol_rows).reshape(-1, d + a)       # the union A₁
     mask_in = torch.cat(sol_mask).reshape(-1)
     return (carry["best"], carry["depth"], carry["v"], rows_in, mask_in,
-            stats)
+            stats, estats)
+
+
+def _host_copy(x: torch.Tensor) -> np.ndarray:
+    """A NumPy copy of ``x`` that nothing else holds (a checkpoint writer
+    thread owns it); a synchronous copy from the card."""
+    return x.detach().to("cpu", copy=True).numpy()
+
+
+def _save_round(d: str, round_idx: int, rows, mask, best_rows, best_mask,
+                best_val, calls, keep: int = 3, delta_every: int = 0):
+    """One round-boundary snapshot: the rotated per-round file and the
+    latest pointer, both atomic (:mod:`repro_torch.engine.checkpoint`
+    owns the layout, the JAX package's)."""
+    write_round_checkpoint(d, round_idx, keep=keep, delta_every=delta_every,
+                           rows=rows, mask=mask, best_rows=best_rows,
+                           best_mask=best_mask, best_val=best_val,
+                           calls=calls)
+
+
+def _resume_path(d: str) -> str | None:
+    """The newest complete checkpoint, after sweeping a crashed writer's
+    tmp files."""
+    removed = clean_stale_tmp(d)
+    if removed:
+        warnings.warn(f"removed {len(removed)} stale checkpoint tmp file(s) "
+                      f"left by a crashed writer in {d}", RuntimeWarning)
+    return latest_round_checkpoint(d)
+
+
+def _load_resume(path: str, width: int, dev):
+    """Round, A_t rows and mask, and the fold state of a checkpoint."""
+    ck = load_round_checkpoint(path)
+    if ck["rows"].ndim != 2 or ck["rows"].shape[1] != width:
+        raise ValueError(f"checkpoint {path} holds rows {ck['rows'].shape}, "
+                         f"the run carries {width} columns")
+    rows = torch.from_numpy(np.asarray(ck["rows"], np.float32)).to(dev)
+    mask = torch.from_numpy(np.asarray(ck["mask"], bool)).to(dev)
+    best = (torch.from_numpy(np.asarray(ck["best_rows"], np.float32)).to(dev),
+            torch.from_numpy(np.asarray(ck["best_mask"], bool)).to(dev),
+            torch.tensor(float(ck["best_val"]), dtype=torch.float32,
+                         device=dev),
+            torch.tensor(int(ck["calls"]), dtype=torch.long, device=dev))
+    return int(ck["round"]), rows, mask, best
 
 
 class _RoundClock:
@@ -427,12 +588,14 @@ class _RoundClock:
 def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
                   fail_machines: dict[int, list[int]] | None = None,
                   constraint=None, attrs=None,
-                  wave_machines: int | None = None) -> TreeResult:
+                  wave_machines: int | None = None,
+                  fault_injector: FaultInjector | None = None) -> TreeResult:
     """Run Algorithm 1 over a ground set.
 
     ``data`` is an ``(n, d)`` array (resident round 0) or a
-    :class:`GroundSetSource`; a source, ``wave_machines`` or
-    ``cfg.capacity_bytes`` streams round 0 in waves (see the module
+    :class:`GroundSetSource`.  A source, ``wave_machines``,
+    ``cfg.capacity_bytes``, a pipelined engine, ``cfg.hosts > 1``, a fault
+    policy or a ``fault_injector`` streams round 0 in waves (see the module
     docstring), with the result of the resident run for the same plan.
     Runs on the card unless ``device="cpu"``; with no card the default
     raises.  ``plan`` supplies each round's slot permutation and round 0's
@@ -442,14 +605,28 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
     solve, with per-item ``attrs`` ``(n, a)`` or an attributed source; the
     result carries ``sel_attrs`` and is asserted feasible by
     ``constraints.check_feasible``.  ``cfg.algorithm`` is ``"greedy"`` or
-    ``"threshold_batch"`` (with ``cfg.eps``).  A streaming run sets
-    ``TreeResult.ingest``.
+    ``"threshold_batch"`` (with ``cfg.eps``).  ``fault_injector`` is the
+    seeded chaos harness of :mod:`repro_torch.engine.faults`.
+
+    With ``cfg.checkpoint_dir`` every round boundary is snapshotted on the
+    caller thread and written inline or, with ``cfg.async_checkpoint``, on
+    a writer thread whose barrier is joined before the result (drained on
+    an error).  ``cfg.resume`` restarts from the newest snapshot.  The plan
+    is indexed by round, so a run resumed at round t asks
+    ``plan.slot_permutation(t, ·)`` and needs no key fast-forward: it ends
+    as the uninterrupted run would.
+
+    A streaming run sets ``TreeResult.ingest`` and ``engine_stats`` (and
+    ``fault_stats`` under supervision); a checkpointed one
+    ``checkpoint_stats``.
     """
     dev = resolve_device(device)
     if obj.device != dev:
         raise ValueError(f"objective lives on {obj.device}, run asks {dev}")
     streaming = (isinstance(data, GroundSetSource) or wave_machines is not None
-                 or cfg.capacity_bytes is not None)
+                 or cfg.capacity_bytes is not None or cfg.engine != "sync"
+                 or cfg.hosts > 1 or cfg.fault_policy is not None
+                 or fault_injector is not None)
     if streaming:
         source = as_source(data)
         n, d = source.n, source.d
@@ -470,49 +647,90 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
             torch.zeros((k,), dtype=torch.bool, device=dev),
             torch.tensor(-torch.inf, device=dev),
             torch.zeros((), dtype=torch.long, device=dev))
-    rows_in = mask_in = ingest = None
+    rows_in = mask_in = ingest = engine_stats = None
+    t = 0
+    ckpt = cfg.checkpoint_dir
+    if ckpt is not None:
+        resume_from = _resume_path(ckpt) if cfg.resume else None
+        if resume_from is not None:
+            t, rows_in, mask_in, best = _load_resume(resume_from, d + a, dev)
+        elif not cfg.resume:
+            clean_stale_tmp(ckpt)           # a crashed writer's litter
+    # the writer calls the module's _save_round when it runs, so the two
+    # paths share one serializer
+    writer = (AsyncCheckpointWriter(lambda *wa: _save_round(*wa))
+              if cfg.async_checkpoint else None)
+    ckpt_rounds: list[RoundCheckpoint] = []
     n_items = n
     machines_per_round: list[int] = []
     round_values: list[float] = []
     depth_per_round: list[int] = []
     r_bound = cfg.round_bound_exact(n)
     clock = _RoundClock(dev)
-    t = 0
     t_run0 = time.perf_counter()
-    while True:
-        clock.mark()
-        if t != 0:
-            n_items = int(torch.sum(mask_in))
-        L = part_lib.n_parts(n_items, mu)
-        if t == 0 and streaming:
-            machines_per_round.append(L)
-            best, depth, v_best, rows_in, mask_in, ingest = _stream_round0(
-                obj, source, plan, L, cfg, dev, fail_machines, wave_machines,
-                best, constraint=constraint, attrs_np=attrs_np)
-        else:
-            if t == 0:
-                part = _round0_partition(plan, n, L, mu, cfg.permutation,
-                                         dev)
-                blocks, bmask = part_lib.gather_partition(data, part)
+    try:
+        while True:
+            clock.mark()
+            if t != 0:
+                n_items = int(torch.sum(mask_in))
+            L = part_lib.n_parts(n_items, mu)
+            if t == 0 and streaming:
+                machines_per_round.append(L)
+                (best, depth, v_best, rows_in, mask_in, ingest,
+                 engine_stats) = _stream_round0(
+                    obj, source, plan, L, cfg, dev, fail_machines,
+                    wave_machines, best, constraint=constraint,
+                    attrs_np=attrs_np, fault_injector=fault_injector)
             else:
-                blocks, bmask = part_lib.repartition_rows(rows_in, mask_in,
-                                                          plan, t, L, mu)
-            machines_per_round.append(blocks.shape[0])
-            res = _dispatch_round(obj, blocks, bmask, t, cfg, fail_machines,
-                                  attr_dim=a, constraint=constraint)
-            *best, v_best = _fold_round(res, *best)
-            depth = int(torch.max(res.depth))
-            # union of partial solutions = next A (device-resident)
-            rows_in = res.sol_rows.reshape(-1, d + a)
-            mask_in = res.sol_mask.reshape(-1)
-        round_values.append(float(v_best))
-        depth_per_round.append(depth)
-        clock.mark()
-        t += 1
-        if L == 1:        # that was the final single-machine round
-            break
-        assert t <= r_bound + 1, (
-            f"round bound violated: {t} > {r_bound} (Prop 3.1)")
+                if t == 0:
+                    part = _round0_partition(plan, n, L, mu, cfg.permutation,
+                                             dev)
+                    blocks, bmask = part_lib.gather_partition(data, part)
+                else:
+                    blocks, bmask = part_lib.repartition_rows(
+                        rows_in, mask_in, plan, t, L, mu)
+                machines_per_round.append(blocks.shape[0])
+                res = _dispatch_round(obj, blocks, bmask, t, cfg,
+                                      fail_machines, attr_dim=a,
+                                      constraint=constraint)
+                *best, v_best = _fold_round(res, *best)
+                depth = torch.max(res.depth)
+                # union of partial solutions = next A (device-resident)
+                rows_in = res.sol_rows.reshape(-1, d + a)
+                mask_in = res.sol_mask.reshape(-1)
+            round_values.append(float(v_best))
+            depth_per_round.append(int(depth))
+            t += 1
+            if ckpt is not None:
+                # the snapshot: synchronous copies into arrays the writer
+                # owns; then the write, inline or under the next round
+                snap = (ckpt, t, _host_copy(rows_in), _host_copy(mask_in),
+                        _host_copy(best[0]), _host_copy(best[1]),
+                        float(best[2]), int(best[3]), cfg.checkpoint_keep,
+                        cfg.checkpoint_delta_every)
+                if writer is not None:
+                    writer.submit(t, *snap)
+                else:
+                    t0 = time.perf_counter()
+                    _save_round(*snap)
+                    dt = time.perf_counter() - t0
+                    ckpt_rounds.append(RoundCheckpoint(round=t, write_s=dt,
+                                                       wait_s=dt))
+            clock.mark()
+            if L == 1:        # that was the final single-machine round
+                break
+            assert t <= r_bound + 1, (
+                f"round bound violated: {t} > {r_bound} (Prop 3.1)")
+    except BaseException:
+        if writer is not None:
+            writer.abort()    # drain the write in flight; keep the cause
+        raise
+    ckpt_stats = None
+    if writer is not None:
+        writer.wait()         # the final barrier: every round is on disk
+        ckpt_stats = writer.stats()
+    elif ckpt is not None:
+        ckpt_stats = CheckpointStats(mode="sync", rounds=ckpt_rounds)
     best_rows, best_mask, best_val, total_calls = best
     return _finish_result(
         best_rows.cpu().numpy(), best_mask.cpu().numpy(), d, a, constraint,
@@ -520,4 +738,6 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
         machines_per_round=machines_per_round, round_values=round_values,
         round_walls=clock.walls(), depth_per_round=depth_per_round,
         solve_depth=sum(depth_per_round),
-        total_wall_s=time.perf_counter() - t_run0, ingest=ingest)
+        total_wall_s=time.perf_counter() - t_run0, ingest=ingest,
+        engine_stats=engine_stats, checkpoint_stats=ckpt_stats,
+        fault_stats=None if engine_stats is None else engine_stats.fault_stats)

@@ -64,6 +64,22 @@ class ShardedSource(GroundSetSource):
                    [len(x) for x in arrays], arrays[0].shape[1],
                    arrays[0].dtype, attr_loaders=attr_loaders, a=a)
 
+    def host_split_points(self, hosts: int) -> list[int]:
+        """Host bounds at shard boundaries (a lazy shard then belongs to
+        one host): for each near-equal target the nearest interior shard
+        start after the previous bound; the near-equal item split where
+        there are fewer shards than hosts or the starts run out."""
+        if hosts > len(self._sizes):
+            return super().host_split_points(hosts)
+        bounds = [0]
+        for p in range(1, hosts):
+            target = p * self.n / hosts
+            cands = [int(s) for s in self._starts[1:-1] if s > bounds[-1]]
+            if not cands:
+                return super().host_split_points(hosts)
+            bounds.append(min(cands, key=lambda s: abs(s - target)))
+        return bounds + [self.n]
+
     def _shard(self, i: int) -> np.ndarray:
         rows = host_rows(self._loaders[i]())
         if len(rows) != self._sizes[i]:

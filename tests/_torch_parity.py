@@ -65,3 +65,25 @@ def jax_gain_trace(jobj, T, mask, sel) -> np.ndarray:
             state = jobj.update(state, jnp.asarray(T), jnp.int32(s))
             avail[s] = False
     return np.stack(out)
+
+
+def tree_inputs(n=601, d=8, ne=128, seed=0):
+    """Seeded ``(n, d)`` rows and ``ne`` eval rows drawn from them, the
+    inputs of the JAX package's engine tests."""
+    r = np.random.default_rng(seed)
+    data = r.standard_normal((n, d)).astype(np.float32)
+    return data, data[r.choice(n, ne, replace=False)]
+
+
+def assert_same_tree(a, b, work=True):
+    """Two TREE results agree bit for bit; ``work=False`` leaves out the
+    oracle calls and depth (a dropped wave's machines did no work)."""
+    np.testing.assert_array_equal(a.sel_rows, np.asarray(b.sel_rows))
+    np.testing.assert_array_equal(a.sel_mask, np.asarray(b.sel_mask))
+    assert a.value == b.value
+    assert a.rounds == b.rounds
+    assert list(a.machines_per_round) == list(b.machines_per_round)
+    assert list(a.round_values) == list(b.round_values)
+    if work:
+        assert a.oracle_calls == int(b.oracle_calls)
+        assert list(a.depth_per_round) == list(b.depth_per_round)

@@ -274,9 +274,7 @@ def test_score_dtype_carries_across_and_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("engine", "pipelined"), ("hosts", 2), ("wave_autotune", True),
-    ("autotune_cache", "x.json"), ("fault_policy", object()),
-    ("checkpoint_dir", "ckpt"), ("resume", True), ("async_checkpoint", True),
+    ("wave_autotune", True), ("autotune_cache", "x.json"),
     ("telemetry", object())])
 def test_engine_knobs_name_item_11(field, value):
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
