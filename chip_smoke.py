@@ -65,6 +65,24 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    their oracle calls fewer, within the dropped-fraction budget; async
    round checkpoints (deltas every 2 rounds) as the unchecked run, and a
    run stopped after its round-1 checkpoint and resumed, as the whole;
+   then the wave autotuner and telemetry on the same array, plan and
+   budget (ladder 1, 2, 4, …, 256, 497): a pipelined autotuned run with a
+   ``Tracer``, an autotune cache and checkpoints, the same run seeded from
+   the cache (traced, and untraced from the same seed), and a forced
+   schedule of rungs and ragged widths inside a ``torch.profiler``
+   session, each bit for bit as the sync fixed-width run, the autotuned
+   widths rungs and no more distinct than ``shape_bound``, the Chrome
+   trace and JSONL parsed (a gather, stage and solve span per wave) and
+   giving the engine's overlap back to 1e-9, each manifest valid and its
+   report printed; stochastic-greedy TREE (ε = 0.5, a sample of 312) and
+   threshold-greedy TREE (ε = 0.5, 11 τ-levels), resident, each with
+   round 0's first 8 machines on the card held against the plain gains on
+   the card (the same draws; the near-tie and near-threshold rules) and
+   to the algorithm's definition (k·s oracle calls a full machine; each
+   threshold take within 1 − ε of the best gain left), and its value at
+   least 0.9 of the centralized greedy's; RandGreedI at m = 2,000
+   from the card's array and from a host source in chunks of 45
+   machines, the two equal bit for bit;
 6. other objectives — ActiveSetSelection (Parkinsons analog, Webscope),
    FacilityLocation and the weighted exemplar objective at Webscope;
 7. attention kernels (run after phase 2, as are 8 to 12) —
@@ -148,6 +166,10 @@ EPS = 0.5
 # share of machines whose accept sets must match the plain version's in
 # full under the near-threshold rule
 FULL_SHARE = 0.9
+# stochastic- and threshold-greedy TREE / centralized greedy: 0.984 and
+# 0.973 at Webscope on an H100 80GB HBM3 at 700 W, far above the
+# guarantee 1 − 1/e − ε = 0.132, which near-random picks would pass
+ALG_FLOOR = 0.9
 # LM logits, card against the CPU's plain path at full width (2 layers):
 # bf16 matmuls round at other places in cuBLAS and on the CPU, as between
 # the two packages on the CPU (testing.LM_ATOL: four bf16 ulps of a logit
@@ -1766,6 +1788,330 @@ def phase_engine(main: dict, streaming: dict) -> dict:
             f"{json.dumps(resumed.checkpoint_stats.summary())}")
         out["checkpoints"] = cs
     log("engine round-0 walls (CUDA events, s): " + json.dumps(out["walls"]))
+    return out
+
+
+# the forced wave schedule of the autotune phase: rungs and ragged widths
+WAVE_SCHEDULE = [1, 497, 3, 256, 64]
+# round-0 machines whose card solve is held against the plain version
+N_ALG_CHECK = 8
+# RandGreedI's machines at Webscope: cap = ⌈45M / 2,000⌉ = 22,500 = μ
+RANDGREEDI_M = 2000
+
+
+def check_trace_files(name: str, tracer, res, tmp: str) -> None:
+    """The Chrome trace and the JSONL of a traced streaming run parse, hold
+    one gather, stage and solve span per wave, and give the engine's
+    overlap back to 1e-9; the manifest validates and its report prints."""
+    from repro_torch.engine import (format_report, read_jsonl_events,
+                                    wave_overlap_from_spans)
+    es = res.engine_stats
+    chrome, jsonl = f"{tmp}/{name}.trace.json", f"{tmp}/{name}.jsonl"
+    tracer.export_chrome_trace(chrome)
+    tracer.export_jsonl(jsonl)
+    doc = json.load(open(chrome))["traceEvents"]
+    recs = read_jsonl_events(jsonl)
+
+    def chrome_spans(what):
+        return [(e["ts"] / 1e6, (e["ts"] + e["dur"]) / 1e6) for e in doc
+                if e["ph"] == "X" and e["cat"] == "wave"
+                and e["name"] == what]
+
+    for what in ("gather", "stage", "solve"):
+        n_chrome = len(chrome_spans(what))
+        n_jsonl = sum(1 for r in recs if r["type"] == "span"
+                      and r["cat"] == "wave" and r["name"] == what)
+        if not n_chrome == n_jsonl == es.waves:
+            fail(f"{name}: {n_chrome} / {n_jsonl} {what} spans (Chrome / "
+                 f"JSONL) for {es.waves} waves")
+    _, ov = wave_overlap_from_spans(chrome_spans("gather"),
+                                    chrome_spans("stage")
+                                    + chrome_spans("solve"))
+    if abs(ov - es.overlap_ratio) > 1e-9:
+        fail(f"{name}: overlap from the trace {ov!r}, the engine's "
+             f"{es.overlap_ratio!r}")
+    m = res.manifest
+    if m is None or m.validate():
+        fail(f"{name}: manifest {m and m.validate()}")
+    for line in format_report(m):
+        log(f"  {name} report: {line}")
+    log(f"{name}: trace {len(doc)} Chrome events, {len(recs)} JSONL "
+        f"records; overlap from the trace {ov!r} = engine "
+        f"{es.overlap_ratio!r}")
+
+
+def phase_autotune(main: dict, streaming: dict) -> dict:
+    """The wave autotuner and telemetry at Webscope on phase 5's host
+    array, plan and 256 MiB budget (one card: ladder 1, 2, 4, …, 256,
+    497): a pipelined autotuned run with a tracer, an autotune cache and
+    checkpoints; the same run seeded from the cache, traced, and once more
+    from the same seed untraced; a forced schedule mixing rungs and ragged
+    widths inside a ``torch.profiler`` session.  Each run equals the sync
+    fixed-width run bit for bit; the autotuned widths are rungs, no more
+    distinct than ``shape_bound``; the traces parse and give the engine's
+    overlap back; the manifests validate."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import ArraySource
+    from repro_torch.engine import (AutotuneCache, Tracer, bucket_ladder,
+                                    profiler_session, shape_bound)
+    from repro_torch.engine.telemetry import PROFILE_TRACE_NAME
+    host, obj, cfg = main["host"], main["obj"], main["cfg"]
+    sync = streaming["result"]["fp32"]
+    W = sync.ingest.wave_machines
+    ladder = bucket_ladder(1, W)
+    bound = shape_bound(1, W)
+    pcfg = dataclasses.replace(cfg, capacity_bytes=STREAM_BYTES,
+                               engine="pipelined")
+    src = ArraySource(host)
+    out = {"walls": {}, "widths": {}, "launches": {}}
+    ROOT.joinpath("build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        cache = f"{tmp}/autotune.json"
+
+        def run(name, tracer, cache_path, **kw):
+            acfg = dataclasses.replace(
+                pcfg, wave_autotune=True, telemetry=tracer,
+                autotune_cache=cache_path,
+                checkpoint_dir=f"{tmp}/{name}")
+            res, cnt, _ = run_engine(name, obj, src, acfg,
+                                     ("greedy_select",), **kw)
+            same_tree(f"{name} vs the sync fixed-width run", res, sync)
+            widths = res.engine_stats.width_trajectory
+            if not set(widths) <= set(ladder) or len(set(widths)) > bound:
+                fail(f"{name}: widths {widths} off the ladder {ladder} or "
+                     f"over the bound {bound}")
+            out["walls"][name] = res.round_walls[0]
+            out["widths"][name] = widths
+            out["launches"][name] = cnt
+            log(f"{name}: widths {widths} (ladder {ladder}, bound {bound});"
+                f" cache {json.dumps(AutotuneCache(cache_path)._load())}")
+            return res
+
+        tr = Tracer()
+        res = run("autotuned", tr, cache)
+        check_trace_files("autotuned", tr, res, tmp)
+        shutil.copy(cache, f"{tmp}/seed.json")
+        tr = Tracer()
+        res = run("autotuned, seeded", tr, cache)
+        seeded = AutotuneCache(f"{tmp}/seed.json")._load()
+        if res.engine_stats.width_trajectory[0] != min(
+                list(seeded.values())[0], W):
+            fail(f"seeded run started at "
+                 f"{res.engine_stats.width_trajectory[0]}, cache {seeded}")
+        check_trace_files("autotuned-seeded", tr, res, tmp)
+        run("autotuned, seeded, untraced", None, f"{tmp}/seed.json")
+        prof_dir = f"{tmp}/profile"
+        tr = Tracer()
+        scfg = dataclasses.replace(pcfg, telemetry=tr,
+                                   checkpoint_dir=f"{tmp}/schedule")
+        with profiler_session(prof_dir):
+            res, cnt, _ = run_engine("scheduled", obj, src, scfg,
+                                     ("greedy_select",),
+                                     wave_schedule=WAVE_SCHEDULE)
+        same_tree("scheduled vs the sync fixed-width run", res, sync)
+        check_trace_files("scheduled", tr, res, tmp)
+        widths = res.engine_stats.width_trajectory
+        if widths[:len(WAVE_SCHEDULE)] != WAVE_SCHEDULE[:len(widths)]:
+            fail(f"scheduled widths {widths}, asked {WAVE_SCHEDULE}")
+        prof = Path(prof_dir) / PROFILE_TRACE_NAME
+        if not prof.exists() or not json.load(open(prof)).get("traceEvents"):
+            fail(f"profiler_session left no trace in {prof_dir}")
+        out["walls"]["scheduled, profiled"] = res.round_walls[0]
+        out["widths"]["scheduled"] = widths
+        out["launches"]["scheduled"] = cnt
+        log(f"profiler_session: {prof.stat().st_size} B of Chrome trace")
+    log("autotune round-0 walls (CUDA events, s): "
+        + json.dumps(out["walls"]))
+    log("autotune width trajectories: " + json.dumps(out["widths"]))
+    return out
+
+
+class _PlainGains:
+    """``ExemplarClustering`` with its gains from the plain PyTorch version
+    on the card's tensors (the kernel's reference, same inputs)."""
+
+    def __init__(self, obj):
+        self._obj = obj
+
+    def __getattr__(self, name):
+        return getattr(self._obj, name)
+
+    def gains(self, state, T, mask):
+        from repro_torch.core.objectives import _masked
+        from repro_torch.kernels import ref
+        return _masked(ref.exemplar_gains(T, self._obj.eval_set,
+                                          state["cur_min"]), mask)
+
+
+def phase_stochastic(main: dict) -> dict:
+    """Stochastic-greedy TREE at Webscope (ε = 0.5: a sample of s = 312 of
+    each machine's 22,500 candidates a step, scored by ``exemplar_gains``
+    at (M, s) rows), resident, draws from ``TorchPlan``; round 0's first
+    machines on the card held against the plain gains on the card with the
+    same draws under the near-tie rule, and to k·s oracle calls each."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.core import TorchPlan, algorithms, round_draws
+    X, obj, cfg = main["X"], main["obj"], main["cfg"]
+    k, mu = cfg.k, cfg.capacity
+    scfg = dataclasses.replace(cfg, algorithm="stochastic_greedy", eps=EPS)
+    tree, counts = run_tree("stochastic-greedy TREE", obj, X, scfg,
+                            ("exemplar_gains",))
+    s = algorithms.sample_size(mu, k, EPS)
+    if tree.depth_per_round != [k] * tree.rounds:
+        fail(f"stochastic TREE: depth {tree.depth_per_round}")
+    log(f"stochastic greedy: a sample of s = {s} of {mu} candidates a step")
+    ratio = tree.value / main["cent_value"]
+    log(f"stochastic-greedy TREE / centralized greedy: {ratio!r} (floor "
+        f"{ALG_FLOOR}; the algorithm's per-machine guarantee 1 − 1/e − ε = "
+        f"{1 - 1 / math.e - EPS:.4f})")
+    if ratio < ALG_FLOOR:
+        fail(f"stochastic TREE ratio {ratio} below {ALG_FLOOR}")
+    blocks, bmask, _ = round0_blocks(main)
+    T, mk = blocks[:N_ALG_CHECK].contiguous(), bmask[:N_ALG_CHECK]
+    del blocks, bmask
+    draws = round_draws(TorchPlan(SEED), 0, 0, N_ALG_CHECK, mu, "cuda")
+    card = algorithms.stochastic_greedy(obj, T, mk, k, draws, eps=EPS)
+    # a full block keeps ≥ s candidates at every step: s oracle calls each
+    if not (bool(torch.all(mk.sum(-1) >= s + k))
+            and bool(torch.all(card.oracle_calls == k * s))):
+        fail(f"stochastic greedy: oracle calls {card.oracle_calls.tolist()}"
+             f", the definition gives k·s = {k * s} a full machine")
+    plain_obj = _PlainGains(obj)
+    plain = algorithms.stochastic_greedy(plain_obj, T, mk, k, draws, eps=EPS)
+    trace = testing.sample_gain_trace(plain_obj, T, mk, plain.sel_idx, draws,
+                                      EPS)
+    ok, ties, excused = testing.picks_agree(card.sel_idx.cpu(),
+                                            plain.sel_idx.cpu(), trace.cpu())
+    same = torch.all(card.sel_idx == plain.sel_idx, dim=-1)
+    if not ok or not torch.equal(card.oracle_calls[same],
+                                 plain.oracle_calls[same]):
+        fail("stochastic greedy on the card parts from the plain gains "
+             "beyond the near-tie rule")
+    testing.assert_close(card.value[same], plain.value[same],
+                         "stochastic round-0 values, same picks")
+    log(f"stochastic greedy, round 0's first {N_ALG_CHECK} machines: card "
+        f"(exemplar_gains at ({N_ALG_CHECK}, {s}) rows) vs plain gains on "
+        f"the card, same draws: {int(same.sum())}/{N_ALG_CHECK} machines "
+        f"pick alike, exact ties {ties}, excused {excused}")
+    return {"tree": tree, "launches": counts}
+
+
+def phase_threshold_greedy(main: dict) -> dict:
+    """Threshold-greedy TREE at Webscope (ε = 0.5: 11 τ-levels, depth 12 a
+    round), resident; round 0's first machines on the card held against
+    the plain gains on the card under the near-threshold rule, and each of
+    their takes within 1 − ε of the best gain left."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.core import algorithms
+    X, obj, cfg = main["X"], main["obj"], main["cfg"]
+    k = cfg.k
+    tcfg = dataclasses.replace(cfg, algorithm="threshold_greedy", eps=EPS)
+    tree, counts = run_tree("threshold-greedy TREE", obj, X, tcfg,
+                            ("exemplar_gains",))
+    n_levels = math.ceil(math.log(2 * k / EPS) / EPS)
+    if tree.depth_per_round != [1 + n_levels] * tree.rounds:
+        fail(f"threshold TREE: {n_levels} levels, depth "
+             f"{tree.depth_per_round}")
+    log(f"threshold greedy: {n_levels} τ-levels, depth {1 + n_levels} a "
+        f"round")
+    ratio = tree.value / main["cent_value"]
+    log(f"threshold-greedy TREE / centralized greedy: {ratio!r} (floor "
+        f"{ALG_FLOOR}; the algorithm's guarantee 1 − 1/e − ε = "
+        f"{1 - 1 / math.e - EPS:.4f})")
+    if ratio < ALG_FLOOR:
+        fail(f"threshold TREE ratio {ratio} below {ALG_FLOOR}")
+    blocks, bmask, _ = round0_blocks(main)
+    T, mk = blocks[:N_ALG_CHECK].contiguous(), bmask[:N_ALG_CHECK]
+    del blocks, bmask
+    card = algorithms.threshold_greedy(obj, T, mk, k, eps=EPS)
+    plain_obj = _PlainGains(obj)
+    plain = algorithms.threshold_greedy(plain_obj, T, mk, k, eps=EPS)
+    trace = testing.gain_trace(plain_obj, T, mk, plain.sel_idx)
+    d_max = torch.amax(trace[..., 0, :], dim=-1)
+    ratio_t = torch.tensor(1.0 - EPS, dtype=torch.float32, device="cuda")
+    taus = torch.stack([d_max * torch.pow(ratio_t, torch.tensor(
+        float(lv), device="cuda")) for lv in range(n_levels)], dim=-1)
+    ok, excused = testing.sweep_agree(card.sel_idx.cpu(),
+                                      plain.sel_idx.cpu(), trace.cpu(),
+                                      taus.cpu())
+    if not ok:
+        fail("threshold greedy on the card parts from the plain gains "
+             "beyond the near-threshold rule")
+    same = torch.all(card.sel_idx == plain.sel_idx, dim=-1)
+    if not torch.equal(card.oracle_calls[same], plain.oracle_calls[same]):
+        fail("threshold greedy: the same takes with other oracle calls")
+    # the definition, independent of the sweep's code: a take at level τ
+    # meets τ, and every row left was below τ/(1 − ε) at the level before,
+    # so each of the card's takes is within 1 − ε of the best gain left
+    ctrace = testing.gain_trace(plain_obj, T, mk, card.sel_idx)
+    took = card.sel_idx >= 0
+    g_take = torch.take_along_dim(
+        ctrace, torch.clamp_min(card.sel_idx, 0)[..., None], dim=-1)[..., 0]
+    g_best = torch.amax(ctrace, dim=-1)
+    low = took & (g_take < (1 - EPS) * g_best * (1 - testing.RTOL)
+                  - testing.ATOL)
+    if bool(torch.any(low)):
+        fail(f"threshold greedy: {int(low.sum())} takes below (1 − ε) of "
+             f"the best gain left")
+    log(f"threshold greedy: each of {int(took.sum())} takes on the card "
+        f"within 1 − ε of the best gain left (least share "
+        f"{float(torch.amin(torch.where(took, g_take / g_best, 1.0))):.4f})")
+    testing.assert_close(card.value[same], plain.value[same],
+                         "threshold round-0 values, same takes")
+    log(f"threshold greedy, round 0's first {N_ALG_CHECK} machines: card vs "
+        f"plain gains on the card: {int(same.sum())}/{N_ALG_CHECK} machines "
+        f"take alike, excused partings {excused}")
+    return {"tree": tree, "launches": counts}
+
+
+def phase_randgreedi(main: dict) -> dict:
+    """RandGreedI at Webscope with m = 2,000 machines (cap = 22,500; the
+    union 100,000 rows): from the card's array and from a host source in
+    chunks of ⌈√m⌉ = 45 machines, the two equal bit for bit; each run's
+    launches counted; the value against the centralized greedy's."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.core import ArraySource, TorchPlan, randgreedi
+    from repro_torch.kernels import ops
+    X, host, obj, cfg = main["X"], main["host"], main["obj"], main["cfg"]
+    k = cfg.k
+    out = {"walls": {}, "launches": {}}
+    res = {}
+    for name, data in (("array", X), ("source", ArraySource(host))):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = randgreedi(obj, data, k, RANDGREEDI_M, TorchPlan(SEED),
+                       device="cuda")
+        value = float(r.value)
+        out["walls"][name] = time.perf_counter() - t0
+        counts = {key: v for key, v in ops.launch_counts.items() if v}
+        if counts.get("greedy_select", 0) == 0:
+            fail(f"RandGreedI ({name}) launched greedy_select no time")
+        out["launches"][name] = counts
+        testing.assert_close(value, float(obj.evaluate(r.sel_rows,
+                                                       r.sel_mask)),
+                             f"RandGreedI ({name}) re-scored")
+        res[name] = r
+        log(f"RandGreedI from the {name}, m = {RANDGREEDI_M}: value "
+            f"{value!r}, wall {out['walls'][name]:.3f} s (host clock, "
+            f"synchronized), launches {counts}")
+    a, b = res["array"], res["source"]
+    if not (torch.equal(a.sel_rows, b.sel_rows)
+            and torch.equal(a.sel_mask, b.sel_mask)
+            and float(a.value) == float(b.value)):
+        fail("RandGreedI: the source path's result differs from the "
+             "array path's")
+    ratio = float(a.value) / main["cent_value"]
+    log(f"RandGreedI / centralized greedy: {ratio!r}; TREE / centralized "
+        f"{main['tree'].value / main['cent_value']!r}")
+    if ratio < 0.9:
+        fail(f"RandGreedI ratio {ratio} below 0.9")
+    out["ratio"] = ratio
     return out
 
 
@@ -3426,6 +3772,10 @@ def main() -> None:
     constrained = phase_constrained(main_path)
     streaming = phase_streaming(scan, main_path, constrained)
     phase_engine(main_path, streaming)
+    phase_autotune(main_path, streaming)
+    phase_stochastic(main_path)
+    phase_threshold_greedy(main_path)
+    phase_randgreedi(main_path)
     phase_active_set_parkinsons()
     active = phase_active_set_webscope(main_path)
     facility = phase_facility(main_path)

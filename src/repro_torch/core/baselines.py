@@ -1,17 +1,21 @@
 """Baselines the paper compares against (§4.3) (counterpart of
 ``repro.core.baselines``): centralized GREEDY under any hereditary
 constraint, over a resident array or, chunk by chunk, over a
-:class:`GroundSetSource`; RANDOM-k; and the fp32 re-score of a coreset.
-RandGreedI stays open under ROADMAP queue 1 item 6.
+:class:`GroundSetSource`; RandGreedI (two rounds over a random partition,
+from an array or a source); RANDOM-k; and the fp32 re-score of a coreset.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import algorithms
+from repro_torch.core import partition as part_lib
+from repro_torch.core.distributed import _solve_block, pack_wave
 from repro_torch.core.sources import (GroundSetSource, QuantizedSource,
                                       host_rows, prefetch_chunks)
 from repro_torch.device import as_tensor, resolve_device
@@ -85,7 +89,8 @@ def streaming_centralized_greedy(obj, source: GroundSetSource, k: int, *,
     on the chunk it is scored in, so the selection, value and attribute
     rows are those of the resident pass.  Host memory is O(chunk + k) rows,
     device memory O(chunk).  Needs a row-wise objective.  bf16 rows are
-    upcast exactly; other rows are read as their fp32 values.
+    upcast exactly, int8 rows dequantized with their ``gather_qmeta``
+    parameters: the rows ``QuantizedSource.dequantized`` holds.
     """
     if not getattr(obj, "rowwise_gains", False):
         raise ValueError("streaming centralized greedy needs a row-wise "
@@ -124,7 +129,8 @@ def streaming_centralized_greedy(obj, source: GroundSetSource, k: int, *,
         for start, rows, chunk_attrs in chunks():
             if bounds.get(start, np.inf) <= best_g:
                 continue                     # lazily skipped, bound stale-safe
-            rows32 = QuantizedSource.dequantize(rows, None)
+            rows32 = QuantizedSource.dequantize(rows, source.gather_qmeta(
+                np.arange(start, start + len(rows))) if source.qcols else None)
             cand = np.ones((len(rows),), bool)
             for g_idx in taken:              # k is small: mask the selected
                 if start <= g_idx < start + len(rows):
@@ -156,6 +162,108 @@ def streaming_centralized_greedy(obj, source: GroundSetSource, k: int, *,
                           torch.as_tensor(sel_mask, device=dev),
                           obj.value(state),
                           as_tensor(sel_attrs, dev) if a else None)
+
+
+def randgreedi(obj, data, k: int, m: int, plan, *, constraint=None,
+               attrs=None, machine_chunk: int | None = None,
+               device="cuda") -> BaselineResult:
+    """Two-round RandGreedI (Barbosa et al. 2015; the paper's §4.3
+    comparison): a random partition of the n items to m machines of
+    ``cap = ⌈n/m⌉`` slots, GREEDY(k) on each, GREEDY(k) on the union of
+    the m·k partial solutions; the better of the union's solution and the
+    best machine's ((1 − 1/e)/2 in expectation).
+
+    The partition is ``balanced_partition`` with round 0's slot
+    permutation of ``plan`` (a ``TorchPlan``; the parity tests replay the
+    JAX package's key through an ``ArrayPlan``).  ``data`` is an ``(n, d)``
+    array, solved at once, or a :class:`GroundSetSource`, whose machine
+    blocks are gathered on the host and solved ``machine_chunk`` machines
+    at a time (default ⌈√m⌉), so the card holds O(chunk · cap · d) rows.
+    A narrow source (bf16, int8) ships its storage dtype with its dequant
+    parameters, as TREE's streaming waves do, and the kernels dequantize;
+    both paths give the bits of the array path on the rows the solve sees
+    (``QuantizedSource.dequantized``).  The machines and the union go
+    through ``greedy_select`` on the card (a constraint takes the fused
+    path where it has an encoding).  A hereditary constraint applies to
+    both rounds, with ``attrs`` ``(n, a)`` or an attributed source.  Runs
+    on the card unless ``device="cpu"``.
+    """
+    dev = _check_device(obj, device)
+    source = data if isinstance(data, GroundSetSource) else None
+    n, d = (source.n, source.d) if source is not None else tuple(
+        data.shape)
+    attrs_np = (None if attrs is None
+                else np.asarray(host_rows(attrs), np.float32))
+    a = 0
+    if constraint is not None:
+        a = attrs_np.shape[1] if attrs_np is not None else (
+            source.a if source is not None else 0)
+        if a <= 0:
+            raise ValueError("constraint needs attrs (pass attrs= or an "
+                             "attributed source)")
+    solve = functools.partial(_solve_block, obj, k=k, alg="greedy",
+                              eps=None, attr_dim=a, constraint=constraint)
+    cap = math.ceil(n / m)
+    part = part_lib.balanced_partition(plan, 0, n, m, cap=cap)
+    if source is None:
+        wide = as_tensor(data, dev)
+        if a:
+            wide = torch.cat([wide, as_tensor(attrs_np, dev)], dim=1)
+        blocks, bmask = part_lib.gather_partition(
+            wide, part_lib.Partition(part.idx.to(dev), part.mask.to(dev)))
+        rows, smask, vals = solve(blocks, bmask)[:3]
+        del blocks, bmask
+    else:
+        narrow = np.dtype(source.dtype) != np.dtype(np.float32)
+        qcols = source.qcols if narrow else 0
+        slot_item = part.idx.numpy()
+        chunk = machine_chunk or math.isqrt(m - 1) + 1
+        out = []
+        for c0 in range(0, m, chunk):
+            idx_c = slot_item[c0:c0 + chunk]
+            flat = np.maximum(idx_c, 0).reshape(-1)
+            valid = idx_c >= 0
+            if a and attrs_np is None:    # one pass of the source
+                rows_np, att = source.gather_with_attrs(flat)
+            else:
+                rows_np = source.gather(flat)
+                att = attrs_np[flat] if a else None
+            shape = (len(idx_c), cap)
+            meta = None
+            if narrow:
+                cols = ([np.asarray(att, np.float32)] if a else []) + (
+                    [source.gather_qmeta(flat)] if qcols else [])
+                blocks = pack_wave(np.asarray(rows_np).reshape(*shape, d),
+                                   valid, False)
+                meta = (pack_wave(np.concatenate(cols, axis=1).reshape(
+                    *shape, a + qcols), valid, False) if cols
+                    else torch.zeros(shape + (0,))).to(dev)
+            else:
+                rows_np = np.asarray(rows_np, np.float32)
+                if a:
+                    rows_np = np.concatenate(
+                        [rows_np, np.asarray(att, np.float32)], axis=1)
+                blocks = pack_wave(rows_np.reshape(*shape, d + a), valid,
+                                   False)
+            out.append(solve(blocks.to(dev), torch.from_numpy(valid).to(dev),
+                             meta=meta)[:3])
+        rows, smask, vals = (torch.cat(parts) for parts in zip(*out))
+    union_rows = rows.reshape(m * k, d + a)
+    union_mask = smask.reshape(m * k)
+    feat = union_rows[:, :-a].contiguous() if a else union_rows
+    res = algorithms.greedy(obj, feat, union_mask, k, constraint=constraint,
+                            attrs=union_rows[:, -a:] if a else None)
+    safe = torch.clamp_min(res.sel_idx, 0)
+    final_rows = torch.where(res.sel_mask[:, None], union_rows[safe], 0.0)
+    i = torch.argmax(vals)                          # lowest index on ties
+    use_final = res.value >= vals[i]
+    sel_wide = torch.where(use_final, final_rows, rows[i])
+    sel_mask = torch.where(use_final, res.sel_mask, smask[i])
+    value = torch.maximum(res.value, vals[i])
+    if a:
+        return BaselineResult(sel_wide[:, :-a], sel_mask, value,
+                              sel_wide[:, -a:])
+    return BaselineResult(sel_wide, sel_mask, value)
 
 
 def random_subset(obj, data, k: int, generator: torch.Generator

@@ -49,6 +49,11 @@ def _solve_block(obj, T, mask, key=None, meta=None, *, k: int, alg: str,
     parameters.  The solve runs on the narrow block (the kernels
     dequantize), and the selected rows come back dequantized to fp32 with
     their attributes appended, so rounds ≥ 1 carry fp32 rows as always.
+
+    ``key`` is ``stochastic_greedy``'s draws for these machines (step →
+    ``(M, cap)`` scores, :func:`repro_torch.core.plan.round_draws`), in
+    place of the JAX package's per-machine PRNG keys; other algorithms
+    take none.
     """
     dkw = algorithms.driver_kwargs(alg, key=key, eps=eps)
     if meta is not None:
@@ -86,8 +91,8 @@ def _solve_block(obj, T, mask, key=None, meta=None, *, k: int, alg: str,
 def run_round(obj, blocks: torch.Tensor, bmask: torch.Tensor, *, k: int,
               alg: str = "greedy", eps: float = 0.5,
               dead_mask: torch.Tensor | None = None, attr_dim: int = 0,
-              constraint=None, meta: torch.Tensor | None = None
-              ) -> RoundResult:
+              constraint=None, meta: torch.Tensor | None = None,
+              draws=None) -> RoundResult:
     """One round of Algorithm 1 over all M machine blocks.
 
     ``blocks`` ``(M, cap, d + attr_dim)`` items (the trailing ``attr_dim``
@@ -95,14 +100,16 @@ def run_round(obj, blocks: torch.Tensor, bmask: torch.Tensor, *, k: int,
     and ``bmask`` ``(M, cap)`` validity; ``constraint`` applies to every
     machine's solve.  A narrow round-0 wave passes ``blocks`` ``(M, cap,
     d)`` in its storage dtype and the fp32 ``meta`` (see
-    :func:`_solve_block`).  Runs where the tensors lie (the kernels on a
-    CUDA device, their plain versions on the CPU).
+    :func:`_solve_block`).  ``draws`` is ``stochastic_greedy``'s scores of
+    these machines (:func:`repro_torch.core.plan.round_draws`).  Runs
+    where the tensors lie (the kernels on a CUDA device, their plain
+    versions on the CPU).
     """
     M = blocks.shape[0]
     dead = (torch.zeros((M,), dtype=torch.bool, device=blocks.device)
             if dead_mask is None else dead_mask.to(blocks.device))
     rows, smask, vals, calls, depth = _solve_block(
-        obj, blocks, bmask, meta=meta, k=k, alg=alg, eps=eps,
+        obj, blocks, bmask, key=draws, meta=meta, k=k, alg=alg, eps=eps,
         attr_dim=attr_dim, constraint=constraint)
     alive = ~dead
     smask = smask & alive[:, None]

@@ -7,18 +7,24 @@ bits.  So the port's partitioning takes its permutations from a *plan*:
     perm = plan.slot_permutation(t, n_slots)   # LongTensor on the CPU
     keys = plan.feistel_keys(t)                # Feistel round keys
     idx = plan.eval_indices(n, m)              # select_coreset's eval rows
+    u = plan.stochastic_scores(t, m0, m1, j, cap, device)  # (m1 − m0, cap)
 
 * :class:`TorchPlan` draws them from an explicit ``torch.Generator`` seeded
-  per round from ``(seed, t)`` — the default of native runs.
+  per round from ``(seed, t)`` — the default of native runs — and the
+  stochastic-greedy scores from a counter-based hash.
 * :class:`ArrayPlan` replays given arrays — the parity tests build one from
   the JAX package's keys, so both packages partition identically.
 
-GREEDY takes no per-machine key, so on the greedy path the slot
-permutations (or round 0's Feistel keys) are the whole plan.
+GREEDY and the threshold algorithms take no per-machine key, so on their
+paths the slot permutations (or round 0's Feistel keys) are the whole
+plan.  ``stochastic_greedy`` draws, at step j of round t, one uniform score
+per slot of each machine (the JAX package's ``uniform(key_j, (cap,))``
+from keys split per machine); ``stochastic_scores`` gives them for
+machines [m0, m1), so a wave of machines asks for its own rows only.
 """
 from __future__ import annotations
 
-from typing import Protocol, Sequence
+from typing import Callable, Protocol, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +35,36 @@ class Plan(Protocol):
 
     def feistel_keys(self, t: int, rounds: int = 4) -> tuple[int, ...]: ...
 
+    def stochastic_scores(self, t: int, m0: int, m1: int, j: int, cap: int,
+                          device) -> torch.Tensor: ...
+
+
+def round_draws(plan, t: int, m0: int, m1: int, cap: int, device
+                ) -> Callable[[int], torch.Tensor]:
+    """``stochastic_greedy``'s ``key`` for machines [m0, m1) of round t:
+    step j → the ``(m1 − m0, cap)`` fp32 scores on ``device``."""
+    return lambda j: plan.stochastic_scores(t, m0, m1, j, cap, device)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x · c mod 2³²`` for uint32 values held in int64 (a Python int or a
+    tensor): the product is split at bit 16, so no partial product passes
+    2⁴⁸ and nothing overflows."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(x):
+    """MurmurHash3's 32-bit finalizer, a bijection of uint32 (a Python int
+    or an int64 tensor)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
 #: the Feistel round keys are drawn in [0, 2³¹ − 1), as the JAX package
 #: draws them (``randint(key, (rounds,), 0, int32 max)``)
 KEY_HIGH = 2 ** 31 - 1
@@ -36,7 +72,9 @@ KEY_HIGH = 2 ** 31 - 1
 
 class TorchPlan:
     """Uniform slot permutations from a CPU ``torch.Generator`` seeded with
-    ``seed`` and the round index (the same bits on any device)."""
+    ``seed`` and the round index, and stochastic-greedy scores from an
+    integer hash evaluated where they are used: the same bits on any
+    device."""
 
     def __init__(self, seed: int = 0):
         self.seed = int(seed)
@@ -52,6 +90,25 @@ class TorchPlan:
         return tuple(int(v) for v in torch.randint(
             0, KEY_HIGH, (rounds,), generator=self._gen(t, stream=1)))
 
+    def stochastic_scores(self, t: int, m0: int, m1: int, j: int, cap: int,
+                          device) -> torch.Tensor:
+        """Step j's uniform scores in [0, 1) of machines [m0, m1) of round
+        t: a counter-based hash of (seed, t, machine, j, slot), evaluated
+        with int64 tensor ops on ``device``, its top 23 bits scaled by
+        2⁻²³ (exact in fp32, the JAX draw's resolution).  The same bits on
+        any device, and a machine's row does not depend on which machines
+        share the call (a wave's width cannot change a result)."""
+        seed = self.seed & ((1 << 64) - 1)
+        key = _fmix32(_fmix32(_fmix32((seed & _M32) ^ 0x5BD1E995)
+                              ^ (seed >> 32)) ^ (int(t) & _M32))
+        key = _fmix32(key ^ _mul32(int(j) + 1, 0x9E3779B1))
+        mach = torch.arange(m0, m1, dtype=torch.int64,
+                            device=device)[:, None]
+        slot = torch.arange(cap, dtype=torch.int64, device=device)[None, :]
+        h = _fmix32(key ^ _mul32(mach & _M32, 0x27D4EB2F))
+        h = _fmix32(h ^ _mul32(slot, 0x165667B1))
+        return (h >> 9).to(torch.float32) * (2.0 ** -23)
+
     def eval_indices(self, n: int, m: int) -> np.ndarray:
         """``min(m, n)`` distinct indices of [0, n), uniform."""
         g = torch.Generator().manual_seed((self.seed * 1_000_003 + 104_729)
@@ -61,17 +118,33 @@ class TorchPlan:
 
 class ArrayPlan:
     """Replays one given permutation per round (``perms[t]``), and where
-    given the Feistel round keys per round (``feistel[t]``) and the eval
-    indices (``eval_idx``)."""
+    given the Feistel round keys per round (``feistel[t]``), the eval
+    indices (``eval_idx``) and the stochastic-greedy scores per round
+    (``stochastic[t]``, ``(machines, k, cap)`` fp32: what the JAX package
+    draws, M·k·μ floats a round, so a replay is for parity shapes only)."""
 
     def __init__(self, perms: Sequence[np.ndarray],
                  feistel: Sequence[Sequence[int]] | None = None,
-                 eval_idx: np.ndarray | None = None):
+                 eval_idx: np.ndarray | None = None,
+                 stochastic: Sequence[np.ndarray] | None = None):
         self.perms = [np.asarray(p, dtype=np.int64) for p in perms]
         self.feistel = None if feistel is None else [
             tuple(int(v) for v in keys) for keys in feistel]
         self.eval_idx = (None if eval_idx is None
                          else np.asarray(eval_idx, np.int64))
+        self.stochastic = None if stochastic is None else [
+            np.asarray(u, np.float32) for u in stochastic]
+
+    def stochastic_scores(self, t: int, m0: int, m1: int, j: int, cap: int,
+                          device) -> torch.Tensor:
+        if self.stochastic is None or t >= len(self.stochastic):
+            raise IndexError(f"plan holds no stochastic scores of round {t}")
+        u = self.stochastic[t]
+        if u.ndim != 3 or m1 > u.shape[0] or j >= u.shape[1] \
+                or u.shape[2] != cap:
+            raise ValueError(f"round {t}: scores {u.shape}, asked machines "
+                             f"[{m0}, {m1}), step {j}, cap {cap}")
+        return torch.from_numpy(u[m0:m1, j].copy()).to(device)
 
     def feistel_keys(self, t: int, rounds: int = 4) -> tuple[int, ...]:
         if self.feistel is None or t >= len(self.feistel):

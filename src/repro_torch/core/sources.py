@@ -28,8 +28,8 @@ Sources stay on the host, in NumPy.  NumPy has no bfloat16 without
 even, the bits ``ml_dtypes`` gives), and :func:`bf16_to_fp32` is the exact
 upcast.  The ingestion hosts of :mod:`repro_torch.engine.planner` split a
 source at ``host_split_points`` into ``slice`` views; a view marked lost
-raises :class:`HostLostError`.  ``fingerprint`` (the autotuner's cache
-key) waits for ROADMAP queue 1 item 11 part 4.
+raises :class:`HostLostError`.  ``fingerprint`` is the autotuner's cache
+key, letter for letter the JAX package's for the same source.
 """
 from __future__ import annotations
 
@@ -182,6 +182,16 @@ class GroundSetSource:
         (zero columns here)."""
         idx = np.asarray(idx, np.int64).reshape(-1)
         return np.zeros((idx.size, self.qcols), np.float32)
+
+    def fingerprint(self) -> str:
+        """Stable identity of the source for the autotuner's cache key:
+        class name, shape and dtype (a wrapper appends its transform, so
+        the bf16 and fp32 views of one ground set never share an entry).
+        bf16 bit patterns (:data:`BF16`) are named ``bfloat16``, as the
+        JAX package names them, so a cache file serves both packages."""
+        name = ("bfloat16" if np.dtype(self.dtype) == BF16
+                else np.dtype(self.dtype).name)
+        return f"{type(self).__name__}:{self.n}x{self.d}:{name}"
 
     def materialize(self) -> np.ndarray:
         """The full (n, d) host array — tests and small references only."""
@@ -455,6 +465,10 @@ class QuantizedSource(GroundSetSource):
 
     def host_split_points(self, hosts: int) -> list[int]:
         return self._parent.host_split_points(hosts)
+
+    def fingerprint(self) -> str:
+        return (f"{self._parent.fingerprint()}|q={self.store_dtype}"
+                f":B={self.q_block_rows}")
 
     def iter_chunks(self, chunk_rows: int = 8192):
         for start, rows in self._parent.iter_chunks(chunk_rows):

@@ -41,15 +41,22 @@ ran).  All of these are execution only: the result is the sync engine's,
 bit for bit, but for dropped waves.  ``cfg.checkpoint_dir`` snapshots
 every round boundary (inline, or on a writer thread with
 ``cfg.async_checkpoint``), and ``cfg.resume`` restarts from the newest
-snapshot.  The wave autotuner and telemetry wait for ROADMAP queue 1 item
-11 part 4: their ``TreeConfig`` fields raise.
+snapshot.  Each wave's width comes from a planner: a fixed W, a forced
+``wave_schedule``, or with ``cfg.wave_autotune`` the rate-tuned
+controller on a ladder of power-of-two widths (seeded from
+``cfg.autotune_cache``); every trajectory gives the same result.
+``cfg.telemetry`` (a :class:`repro_torch.engine.Tracer`) receives spans
+from every seam and makes ``TreeResult.manifest``, written next to the
+checkpoints; it observes only.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 import warnings
+from typing import Any
 
 import numpy as np
 import torch
@@ -60,32 +67,33 @@ from repro_torch.core.distributed import (RoundResult, dead_wave_result,
                                           host_tensor, pack_wave, run_round,
                                           stage_wave_inputs)
 from repro_torch.core.permute import FeistelPermutation, feistel_slot_items
-from repro_torch.core.plan import TorchPlan
+from repro_torch.core.plan import TorchPlan, round_draws
 from repro_torch.core.sources import (GroundSetSource, as_source,
                                       dtype_itemsize, host_rows)
 from repro_torch.device import as_tensor, resolve_device
-from repro_torch.engine import (ENGINES, AsyncCheckpointWriter,
-                                CheckpointStats, EngineConfig, EngineStats,
-                                FaultInjector, FaultPolicy, FaultStats,
-                                FaultSupervisor, FixedWidthPlanner, HostWave,
-                                IngestionPlan, RoundCheckpoint, WaveTrace,
-                                clean_stale_tmp, latest_round_checkpoint,
+from repro_torch.engine import (ENGINES, MANIFEST_NAME,
+                                AsyncCheckpointWriter, AutotuneCache,
+                                AutotunePlanner, CheckpointStats,
+                                EngineConfig, EngineStats, FaultInjector,
+                                FaultPolicy, FaultStats, FaultSupervisor,
+                                FixedWidthPlanner, HostWave, IngestionPlan,
+                                RoundCheckpoint, ScheduledWidthPlanner,
+                                WavePlanner, WaveTrace, bucket_ladder,
+                                build_manifest, clean_stale_tmp, dtype_label,
+                                feed_result_metrics, latest_round_checkpoint,
                                 load_round_checkpoint, run_waves,
+                                shape_bound, snap_down,
                                 write_round_checkpoint)
 
 PERMUTATIONS = ("dense", "feistel")
-
-#: TreeConfig fields of the JAX package's autotuner and telemetry, at their
-#: defaults: any other value raises until ROADMAP queue 1 item 11 part 4
-_UNPORTED_FIELDS = {"wave_autotune": False, "autotune_cache": None,
-                    "telemetry": None}
 
 
 @dataclasses.dataclass(frozen=True)
 class TreeConfig:
     k: int
     capacity: int                      # μ — max items per machine
-    algorithm: str = "greedy"          # greedy | threshold_batch
+    algorithm: str = "greedy"          # greedy | stochastic_greedy |
+    #                                    threshold_greedy | threshold_batch
     eps: float = 0.5                   # for the stochastic/threshold variants
     seed: int = 0                      # seeds the default TorchPlan
     permutation: str = "dense"         # round-0 slot scheme: dense | feistel
@@ -101,11 +109,12 @@ class TreeConfig:
     checkpoint_keep: int = 3           # rotated rounds kept (≤ 0: all)
     checkpoint_delta_every: int = 0    # K > 0: full snapshot every K rounds,
     #                                    row-index deltas between
-    # the autotuner and telemetry (ROADMAP queue 1 item 11 part 4): only
-    # these defaults run
-    wave_autotune: bool = False
-    autotune_cache: str | None = None
-    telemetry: object = None
+    wave_autotune: bool = False        # rate-tuned per-wave width controller
+    autotune_cache: str | None = None  # JSON file of converged rungs per
+    #                                    (source fingerprint, μ, devices)
+    telemetry: Any = None              # an engine.Tracer: spans from every
+    #                                    seam and TreeResult.manifest;
+    #                                    observation only
 
     def __post_init__(self):
         assert self.capacity > self.k, (
@@ -129,12 +138,6 @@ class TreeConfig:
         if self.async_checkpoint and not self.checkpoint_dir:
             raise ValueError("async_checkpoint=True without checkpoint_dir "
                              "would write nothing")
-        for name, default in _UNPORTED_FIELDS.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"TreeConfig.{name}={getattr(self, name)!r} is not "
-                    "ported yet: ROADMAP queue 1 item 11 part 4 (the "
-                    "autotuner and telemetry)")
 
     def round_bound(self, n: int) -> int:
         """Prop. 3.1: r ≤ ⌈log_{μ/k}(n/μ)⌉ + 1."""
@@ -191,6 +194,8 @@ class TreeResult:
     checkpoint_stats: CheckpointStats | None = None  # per-round writes
     fault_stats: FaultStats | None = None  # supervision record (retries,
     #                                        hedges, evictions, drops)
+    manifest: Any = None        # engine.RunManifest where cfg.telemetry is
+    #                             set (also written next to the checkpoints)
 
 
 def _round_plan(M: int, t: int, fail_machines, device) -> torch.Tensor:
@@ -202,13 +207,23 @@ def _round_plan(M: int, t: int, fail_machines, device) -> torch.Tensor:
     return dead.to(device)
 
 
+def _draws(plan, cfg: TreeConfig, t: int, m0: int, m1: int, device):
+    """Round t's stochastic draws of machines [m0, m1) (None unless the
+    algorithm is stochastic_greedy)."""
+    if cfg.algorithm != "stochastic_greedy":
+        return None
+    return round_draws(plan, t, m0, m1, cfg.capacity, device)
+
+
 def _dispatch_round(obj, blocks, bmask, t, cfg: TreeConfig, fail_machines,
-                    attr_dim: int = 0, constraint=None) -> RoundResult:
+                    plan, attr_dim: int = 0, constraint=None) -> RoundResult:
     """Apply failure injection and solve one round."""
-    dead = _round_plan(blocks.shape[0], t, fail_machines, blocks.device)
+    M = blocks.shape[0]
+    dead = _round_plan(M, t, fail_machines, blocks.device)
     return run_round(obj, blocks, bmask, k=cfg.k, alg=cfg.algorithm,
                      eps=cfg.eps, dead_mask=dead, attr_dim=attr_dim,
-                     constraint=constraint)
+                     constraint=constraint,
+                     draws=_draws(plan, cfg, t, 0, M, blocks.device))
 
 
 def _attr_setup(constraint, attrs, source_a: int = 0) -> int:
@@ -326,10 +341,40 @@ def _wave_size(cfg: TreeConfig, wave_machines, L: int, mu: int, width: int,
     return min(L, 1)
 
 
+def _wave_planner(cfg: TreeConfig, W0: int, L: int, mu: int, width: int,
+                  wave_machines, wave_schedule, itemsize: int = 4,
+                  meta_cols: int = 0
+                  ) -> tuple[WavePlanner, list[int] | None]:
+    """The width policy of one round-0 run: ``(planner, ladder or None)``.
+
+    A ``wave_schedule`` first (forced trajectories), then
+    ``cfg.wave_autotune`` (the rate controller on the bucket ladder), then
+    the fixed width ``W0``.  The ladder's cap is the caller's statement of
+    capacity: ``cfg.capacity_bytes`` (through :func:`_wave_size`, so the
+    byte rule is the fixed path's), else an explicit ``wave_machines``
+    (waves may shrink below it, never grow past it), else the machine
+    count.  One device: the rungs are 1, 2, 4, ….  The ladder comes back
+    so the caller can assert the shape bound.
+    """
+    if wave_schedule is not None:
+        return ScheduledWidthPlanner(list(wave_schedule)), None
+    if not cfg.wave_autotune:
+        return FixedWidthPlanner(W0), None
+    if cfg.capacity_bytes is not None:
+        w_cap = _wave_size(cfg, None, L, mu, width, itemsize, meta_cols)
+    elif wave_machines is not None:
+        w_cap = W0
+    else:
+        w_cap = L
+    ladder = bucket_ladder(1, max(w_cap, 1))
+    return AutotunePlanner(ladder, snap_down(ladder, max(W0, 1))), ladder
+
+
 def _stream_round0(obj, source: GroundSetSource, plan, L: int,
                    cfg: TreeConfig, dev, fail_machines, wave_machines, best,
                    constraint=None, attrs_np: np.ndarray | None = None,
-                   fault_injector: FaultInjector | None = None):
+                   fault_injector: FaultInjector | None = None,
+                   wave_schedule=None):
     """Round 0 in waves of machines from ``source``.
 
     Each wave's blocks are filled on the host from the round-0 slot
@@ -341,8 +386,10 @@ def _stream_round0(obj, source: GroundSetSource, plan, L: int,
     storage dtype with the fp32 ``meta`` ``(W, μ, a + qcols)``.  Padded
     slots are zero in both, so a masked row dequantizes to 0·0 + 0 = 0.
 
-    The waves' spans come from a :class:`FixedWidthPlanner` of W
-    machines; ``cfg.engine`` runs them (:func:`repro_torch.engine.run_waves`),
+    The waves' spans come from :func:`_wave_planner` (a fixed W, a
+    schedule, or the autotuner, seeded from and stored to
+    ``cfg.autotune_cache`` under the source's fingerprint, μ and the device
+    count); ``cfg.engine`` runs them (:func:`repro_torch.engine.run_waves`),
     ``cfg.hosts > 1`` gathers each through an :class:`IngestionPlan`, and a
     fault policy or injector supervises the gathers: a wave dropped past
     its budget folds :func:`dead_wave_result`.  The round's depth and best
@@ -366,7 +413,18 @@ def _stream_round0(obj, source: GroundSetSource, plan, L: int,
         source.prefetch_depth = cfg.prefetch_depth
     ecfg = EngineConfig(mode=cfg.engine, max_in_flight=cfg.max_in_flight,
                         hosts=cfg.hosts)
-    planner = FixedWidthPlanner(W)
+    planner, ladder = _wave_planner(cfg, W, L, mu, width, wave_machines,
+                                    wave_schedule, itemsize, meta_cols)
+    tracer = cfg.telemetry
+    if tracer is not None and isinstance(planner, AutotunePlanner):
+        planner.tracer = tracer       # rung moves → "autotune" instants
+    cache = cache_key = None
+    if cfg.autotune_cache and isinstance(planner, AutotunePlanner):
+        cache = AutotuneCache(cfg.autotune_cache)
+        cache_key = f"{source.fingerprint()}|mu={mu}|ndev=1"
+        seeded = cache.get(cache_key)
+        if seeded is not None and seeded >= ladder[0]:
+            planner.seed(snap_down(ladder, min(int(seeded), ladder[-1])))
     pinned = dev.type == "cuda"
     dead = _round_plan(L, 0, fail_machines, dev)
     # the cursor and the host plan (swapped on an eviction) are touched by
@@ -386,7 +444,7 @@ def _stream_round0(obj, source: GroundSetSource, plan, L: int,
             cfg.fault_policy or FaultPolicy(), total_rows=n,
             injector=fault_injector, rate_hint=planner.gather_rate,
             concurrent_ok=source.supports_concurrent_gather,
-            evict_cb=evict_host)
+            evict_cb=evict_host, tracer=tracer)
 
     def next_span():
         w0 = state["w0"]
@@ -395,7 +453,7 @@ def _stream_round0(obj, source: GroundSetSource, plan, L: int,
         w1 = state["w0"] = w0 + min(planner.next_width(L - w0), L - w0)
         return w0, w1
 
-    def gather_rows(idx_flat: np.ndarray, fault_hook=None):
+    def gather_rows(idx_flat: np.ndarray, wave: int, fault_hook=None):
         """Rows (and attribute rows) of one wave in one pass of the source
         (a sequential source is not re-streamed per matrix), host by host
         where there are ingestion hosts."""
@@ -403,7 +461,8 @@ def _stream_round0(obj, source: GroundSetSource, plan, L: int,
         if hp is not None:
             rows, src_attrs, per_host = hp.gather(
                 idx_flat, with_attrs=bool(a) and attrs_np is None,
-                parallel=ecfg.mode == "pipelined", fault_hook=fault_hook)
+                parallel=ecfg.mode == "pipelined", fault_hook=fault_hook,
+                tracer=tracer, wave=wave)
             if a and attrs_np is not None:
                 src_attrs = attrs_np[idx_flat]
             return rows, src_attrs, per_host
@@ -425,12 +484,12 @@ def _stream_round0(obj, source: GroundSetSource, plan, L: int,
         idx_flat = np.maximum(idx_w, 0).reshape(-1)
         valid = idx_w >= 0
         if supervisor is None:
-            rows, row_attrs, per_host = gather_rows(idx_flat)
+            rows, row_attrs, per_host = gather_rows(idx_flat, i)
         else:
             def attempt_fn(attempt: int):
                 hook = (fault_injector.host_hook(i, attempt)
                         if fault_injector is not None else None)
-                return gather_rows(idx_flat, fault_hook=hook)
+                return gather_rows(idx_flat, i, fault_hook=hook)
 
             got, dropped = supervisor.gather(
                 i, machines=w1 - w0, rows=int(valid.sum()),
@@ -485,7 +544,8 @@ def _stream_round0(obj, source: GroundSetSource, plan, L: int,
                             alg=cfg.algorithm, eps=cfg.eps,
                             dead_mask=dead[w0:w1], attr_dim=a,
                             constraint=constraint,
-                            meta=tensors[2] if len(tensors) == 3 else None)
+                            meta=tensors[2] if len(tensors) == 3 else None,
+                            draws=_draws(plan, cfg, 0, w0, w1, dev))
         *carry["best"], v_wave = _fold_round(res, *carry["best"])
         carry["depth"] = torch.maximum(carry["depth"], torch.max(res.depth))
         carry["v"] = torch.maximum(carry["v"], v_wave)
@@ -493,12 +553,23 @@ def _stream_round0(obj, source: GroundSetSource, plan, L: int,
         sol_mask.append(res.sol_mask)
 
     estats = run_waves(gather, stage, solve, ecfg, dev,
-                       on_trace=planner.observe)
+                       on_trace=planner.observe, tracer=tracer)
     if supervisor is not None:
         estats.fault_stats = supervisor.stats
     traces = estats.traces
     if state["w0"] != L or sum(t.machines for t in traces) != L:
         raise RuntimeError(f"round 0 solved {state['w0']} of {L} machines")
+    if ladder is not None:
+        # every width a rung: at most shape_bound distinct wave widths
+        if not set(estats.width_trajectory) <= set(ladder):
+            raise RuntimeError(f"widths {estats.width_trajectory} off the "
+                               f"ladder {ladder}")
+        if estats.distinct_shapes > shape_bound(1, ladder[-1]):
+            raise RuntimeError(f"{estats.distinct_shapes} distinct widths, "
+                               f"over the bound "
+                               f"{shape_bound(1, ladder[-1])}")
+    if cache is not None:
+        cache.put(cache_key, planner.converged_width())
     peak_rows = max(t.rows for t in traces)
     stats = IngestStats(
         wave_machines=W, waves=len(traces), peak_wave_rows=peak_rows,
@@ -589,7 +660,8 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
                   fail_machines: dict[int, list[int]] | None = None,
                   constraint=None, attrs=None,
                   wave_machines: int | None = None,
-                  fault_injector: FaultInjector | None = None) -> TreeResult:
+                  fault_injector: FaultInjector | None = None,
+                  wave_schedule: list[int] | None = None) -> TreeResult:
     """Run Algorithm 1 over a ground set.
 
     ``data`` is an ``(n, d)`` array (resident round 0) or a
@@ -604,9 +676,15 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
     (from :mod:`repro_torch.core.constraints`) applies to every machine's
     solve, with per-item ``attrs`` ``(n, a)`` or an attributed source; the
     result carries ``sel_attrs`` and is asserted feasible by
-    ``constraints.check_feasible``.  ``cfg.algorithm`` is ``"greedy"`` or
-    ``"threshold_batch"`` (with ``cfg.eps``).  ``fault_injector`` is the
+    ``constraints.check_feasible``.  ``cfg.algorithm`` is ``"greedy"``,
+    ``"stochastic_greedy"`` (its draws from ``plan.stochastic_scores``, a
+    function of the machine index, so streaming and resident agree),
+    ``"threshold_greedy"`` or ``"threshold_batch"`` (with ``cfg.eps``).
+    ``fault_injector`` is the
     seeded chaos harness of :mod:`repro_torch.engine.faults`.
+    ``wave_schedule`` forces round 0's wave widths (an exhausted schedule
+    repeats its last width); ``cfg.wave_autotune`` hands them to the
+    autotuner.  Either streams round 0 and gives the fixed-width result.
 
     With ``cfg.checkpoint_dir`` every round boundary is snapshotted on the
     caller thread and written inline or, with ``cfg.async_checkpoint``, on
@@ -618,7 +696,7 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
 
     A streaming run sets ``TreeResult.ingest`` and ``engine_stats`` (and
     ``fault_stats`` under supervision); a checkpointed one
-    ``checkpoint_stats``.
+    ``checkpoint_stats``; one with ``cfg.telemetry`` ``manifest``.
     """
     dev = resolve_device(device)
     if obj.device != dev:
@@ -626,7 +704,8 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
     streaming = (isinstance(data, GroundSetSource) or wave_machines is not None
                  or cfg.capacity_bytes is not None or cfg.engine != "sync"
                  or cfg.hosts > 1 or cfg.fault_policy is not None
-                 or fault_injector is not None)
+                 or fault_injector is not None or cfg.wave_autotune
+                 or wave_schedule is not None)
     if streaming:
         source = as_source(data)
         n, d = source.n, source.d
@@ -658,7 +737,9 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
             clean_stale_tmp(ckpt)           # a crashed writer's litter
     # the writer calls the module's _save_round when it runs, so the two
     # paths share one serializer
-    writer = (AsyncCheckpointWriter(lambda *wa: _save_round(*wa))
+    tracer = cfg.telemetry
+    writer = (AsyncCheckpointWriter(lambda *wa: _save_round(*wa),
+                                    tracer=tracer)
               if cfg.async_checkpoint else None)
     ckpt_rounds: list[RoundCheckpoint] = []
     n_items = n
@@ -671,6 +752,7 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
     try:
         while True:
             clock.mark()
+            rt0 = time.perf_counter()
             if t != 0:
                 n_items = int(torch.sum(mask_in))
             L = part_lib.n_parts(n_items, mu)
@@ -680,7 +762,8 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
                  engine_stats) = _stream_round0(
                     obj, source, plan, L, cfg, dev, fail_machines,
                     wave_machines, best, constraint=constraint,
-                    attrs_np=attrs_np, fault_injector=fault_injector)
+                    attrs_np=attrs_np, fault_injector=fault_injector,
+                    wave_schedule=wave_schedule)
             else:
                 if t == 0:
                     part = _round0_partition(plan, n, L, mu, cfg.permutation,
@@ -691,7 +774,7 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
                         rows_in, mask_in, plan, t, L, mu)
                 machines_per_round.append(blocks.shape[0])
                 res = _dispatch_round(obj, blocks, bmask, t, cfg,
-                                      fail_machines, attr_dim=a,
+                                      fail_machines, plan, attr_dim=a,
                                       constraint=constraint)
                 *best, v_best = _fold_round(res, *best)
                 depth = torch.max(res.depth)
@@ -704,19 +787,32 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
             if ckpt is not None:
                 # the snapshot: synchronous copies into arrays the writer
                 # owns; then the write, inline or under the next round
+                ts0 = time.perf_counter()
                 snap = (ckpt, t, _host_copy(rows_in), _host_copy(mask_in),
                         _host_copy(best[0]), _host_copy(best[1]),
                         float(best[2]), int(best[3]), cfg.checkpoint_keep,
                         cfg.checkpoint_delta_every)
+                if tracer is not None:
+                    tracer.emit("ckpt-snapshot", "ckpt", ts0,
+                                time.perf_counter(), round=t)
                 if writer is not None:
                     writer.submit(t, *snap)
                 else:
                     t0 = time.perf_counter()
                     _save_round(*snap)
                     dt = time.perf_counter() - t0
+                    if tracer is not None:
+                        tracer.emit("ckpt-write", "ckpt", t0, t0 + dt,
+                                    round=t)
                     ckpt_rounds.append(RoundCheckpoint(round=t, write_s=dt,
                                                        wait_s=dt))
             clock.mark()
+            if tracer is not None:
+                # the round's depth rides on its span: the τ-levels and
+                # greedy steps run inside its launches
+                tracer.emit("round", "round", rt0, time.perf_counter(),
+                            round=t - 1, machines=machines_per_round[-1],
+                            depth=depth_per_round[-1])
             if L == 1:        # that was the final single-machine round
                 break
             assert t <= r_bound + 1, (
@@ -732,12 +828,44 @@ def tree_maximize(obj, data, cfg: TreeConfig, *, device="cuda", plan=None,
     elif ckpt is not None:
         ckpt_stats = CheckpointStats(mode="sync", rounds=ckpt_rounds)
     best_rows, best_mask, best_val, total_calls = best
-    return _finish_result(
-        best_rows.cpu().numpy(), best_mask.cpu().numpy(), d, a, constraint,
-        value=float(best_val), rounds=t, oracle_calls=int(total_calls),
+    sel_wide, sel_mask = best_rows.cpu().numpy(), best_mask.cpu().numpy()
+    value = float(best_val)
+    t_run1 = time.perf_counter()
+    if tracer is not None:
+        tracer.emit("run", "run", t_run0, t_run1, rounds=t, value=value)
+    result = _finish_result(
+        sel_wide, sel_mask, d, a, constraint,
+        value=value, rounds=t, oracle_calls=int(total_calls),
         machines_per_round=machines_per_round, round_values=round_values,
         round_walls=clock.walls(), depth_per_round=depth_per_round,
         solve_depth=sum(depth_per_round),
-        total_wall_s=time.perf_counter() - t_run0, ingest=ingest,
+        total_wall_s=t_run1 - t_run0, ingest=ingest,
         engine_stats=engine_stats, checkpoint_stats=ckpt_stats,
         fault_stats=None if engine_stats is None else engine_stats.fault_stats)
+    if tracer is not None:
+        result.manifest = _build_run_manifest(
+            cfg, result, n, d, source if streaming else None, tracer)
+    return result
+
+
+def _build_run_manifest(cfg: TreeConfig, result: TreeResult, n: int, d: int,
+                        source, tracer):
+    """The run's :class:`repro_torch.engine.RunManifest`: built from the
+    result, the result's stats fed to the tracer's registry, and written
+    atomically next to the checkpoints where there is a checkpoint
+    directory.  ``source`` is the streamed source (None: resident)."""
+    if source is not None:
+        feat_dtype = np.dtype(source.dtype)
+        narrow = feat_dtype != np.dtype(np.float32)
+        itemsize = dtype_itemsize(feat_dtype) if narrow else 4
+        qcols = source.qcols if narrow else 0
+        label, fingerprint = dtype_label(feat_dtype), source.fingerprint()
+    else:
+        itemsize, qcols, label, fingerprint = 4, 0, "fp32", None
+    manifest = build_manifest(cfg, result, n=n, d=d, dtype_label=label,
+                              itemsize=itemsize, qcols=qcols,
+                              source_fingerprint=fingerprint)
+    feed_result_metrics(tracer.metrics, result)
+    if cfg.checkpoint_dir:
+        manifest.write(os.path.join(cfg.checkpoint_dir, MANIFEST_NAME))
+    return manifest

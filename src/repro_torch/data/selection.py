@@ -30,7 +30,8 @@ class SelectionConfig:
     k: int                       # exemplars to keep
     capacity: int                # per-machine item capacity μ
     n_eval: int = 2_048          # eval subsample of the exemplar objective
-    algorithm: str = "greedy"    # greedy | threshold_batch
+    algorithm: str = "greedy"    # greedy | stochastic_greedy |
+    #                              threshold_greedy | threshold_batch
     eps: float = 0.5
     seed: int = 0
 
@@ -115,8 +116,8 @@ def select_coreset(features, sel_cfg: SelectionConfig, *, device="cuda",
     (streamed).  The eval rows are ``plan.eval_indices`` of the pool
     (default ``TorchPlan(sel_cfg.seed)``), read at fp32 (dequantized from
     a quantized source).  TREE returns rows; they map back to pool indices
-    by :func:`match_rows`.  ``algorithm="stochastic_greedy"`` raises until
-    ROADMAP queue 1 item 8.
+    by :func:`match_rows`.  ``algorithm="stochastic_greedy"`` draws its
+    samples from the same plan (``plan.stochastic_scores``).
     """
     dev = resolve_device(device)
     plan = TorchPlan(sel_cfg.seed) if plan is None else plan

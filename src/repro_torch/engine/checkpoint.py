@@ -207,10 +207,12 @@ class AsyncCheckpointWriter:
     thread.  ``wait()`` is the barrier before the result and re-raises a
     write's error on the caller; ``abort()`` drains on an error path and
     keeps the caller's exception.  Either way no write is in flight when
-    the run returns or raises.
+    the run returns or raises.  ``tracer`` gets a ``ckpt-write`` span per
+    write (on the writer thread's track) and a ``ckpt-wait`` span per
+    barrier that waited on one (on the caller's).
     """
 
-    def __init__(self, write_fn: Callable[..., None]):
+    def __init__(self, write_fn: Callable[..., None], tracer=None):
         self._write_fn = write_fn
         self._thread: threading.Thread | None = None
         self._pending_round: int | None = None
@@ -218,15 +220,20 @@ class AsyncCheckpointWriter:
         self._write_s: dict[int, float] = {}
         self._wait_s: dict[int, float] = {}
         self._order: list[int] = []
+        self.tracer = tracer
 
     def _join_pending(self) -> None:
         if self._thread is None:
             return
         t0 = time.perf_counter()
         self._thread.join()
+        t1 = time.perf_counter()
         self._thread = None
         if self._pending_round is not None:
-            self._wait_s[self._pending_round] = time.perf_counter() - t0
+            self._wait_s[self._pending_round] = t1 - t0
+            if self.tracer is not None:
+                self.tracer.emit("ckpt-wait", "ckpt", t0, t1,
+                                 round=self._pending_round)
             self._pending_round = None
 
     def wait(self) -> None:
@@ -254,7 +261,11 @@ class AsyncCheckpointWriter:
             except BaseException as exc:  # re-raised at the next barrier
                 self._exc = exc
             finally:
-                self._write_s[round_idx] = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                self._write_s[round_idx] = t1 - t0
+                if self.tracer is not None:
+                    self.tracer.emit("ckpt-write", "ckpt", t0, t1,
+                                     round=round_idx)
 
         self._pending_round = round_idx
         self._order.append(round_idx)

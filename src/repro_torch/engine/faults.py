@@ -246,7 +246,8 @@ class FaultSupervisor:
                  monitor: StragglerMonitor | None = None,
                  rate_hint: Callable[[], float | None] | None = None,
                  concurrent_ok: bool = False,
-                 evict_cb: Callable[[int], bool] | None = None):
+                 evict_cb: Callable[[int], bool] | None = None,
+                 tracer=None):
         self.policy = policy
         self.injector = injector
         self.monitor = monitor or StragglerMonitor(
@@ -255,6 +256,7 @@ class FaultSupervisor:
         self.concurrent_ok = concurrent_ok
         self.evict_cb = evict_cb
         self.stats = FaultStats(total_rows=total_rows)
+        self.tracer = tracer    # decisions become "fault" spans/instants
 
     def gather(self, wave: int, machines: int, rows: int,
                attempt_fn: Callable[[int], Any]) -> tuple[Any, bool]:
@@ -295,13 +297,23 @@ class FaultSupervisor:
                 st.record(FaultEvent(
                     kind="transient-retry", wave=wave, attempt=attempt,
                     detail=f"{type(exc).__name__}: {exc}", seconds=pause))
+                ts = time.perf_counter() if self.tracer is not None else 0.0
                 time.sleep(pause)
+                if self.tracer is not None:
+                    self.tracer.emit("retry-backoff", "fault", ts,
+                                     time.perf_counter(), wave=wave,
+                                     attempt=attempt,
+                                     error=type(exc).__name__)
                 retries_left -= 1
                 attempt += 1
                 continue
             self.monitor.observe(time.perf_counter() - t0, machines)
             if t_first_fail is not None:
                 st.recovered_s += time.perf_counter() - t_first_fail
+                if self.tracer is not None:
+                    self.tracer.emit("recovery", "fault", t_first_fail,
+                                     time.perf_counter(), wave=wave,
+                                     attempts=attempt + 1)
             return result, False
 
     def _evict(self, host: int, wave: int) -> bool:
@@ -313,6 +325,8 @@ class FaultSupervisor:
         self.stats.record(FaultEvent(
             kind="evict", wave=wave, attempt=0,
             detail=f"host {host} re-routed to survivors"))
+        if self.tracer is not None:
+            self.tracer.instant("evict", "fault", wave=wave, host=host)
         return True
 
     def _drop(self, wave: int, machines: int, rows: int, why: str) -> None:
@@ -323,6 +337,9 @@ class FaultSupervisor:
         st.record(FaultEvent(kind="drop", wave=wave, attempt=0,
                              detail=f"{machines} machines ({rows} rows): "
                                     f"{why}"))
+        if self.tracer is not None:
+            self.tracer.instant("drop", "fault", wave=wave,
+                                machines=machines, rows=rows, why=why)
         if st.dropped_fraction > self.policy.max_dropped_fraction:
             raise DroppedFractionExceeded(
                 f"dropped {st.dropped_rows}/{st.total_rows} rows "
@@ -372,11 +389,16 @@ class FaultSupervisor:
                     seconds=now - t0))
                 st.record(FaultEvent(kind="hedge", wave=wave,
                                      attempt=attempt | _HEDGE_BIT))
+                if self.tracer is not None:
+                    self.tracer.instant("hedge", "fault", wave=wave,
+                                        threshold_s=thr)
                 self._spawn(race, run, attempt | _HEDGE_BIT, tag="hedge")
         if race.winner is None:
             raise race.errors[0]
         if race.winner == "hedge":
             self.stats.hedges_won += 1
+            if self.tracer is not None:
+                self.tracer.instant("hedge-won", "fault", wave=wave)
         return race.result
 
     def _instrumented(self, wave: int, attempt_fn):

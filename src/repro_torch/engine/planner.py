@@ -22,6 +22,7 @@ on threads, as hosts would read their shards at once.
 from __future__ import annotations
 
 import dataclasses
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import TYPE_CHECKING, Callable
 
@@ -116,7 +117,8 @@ class IngestionPlan:
 
     def gather(self, idx: np.ndarray, *, with_attrs: bool = False,
                parallel: bool = False,
-               fault_hook: Callable[[HostShard], None] | None = None
+               fault_hook: Callable[[HostShard], None] | None = None,
+               tracer=None, wave: int | None = None,
                ) -> tuple[np.ndarray, np.ndarray | None, list[int]]:
         """Rows (and attribute rows) of global ``idx``, host by host.
 
@@ -128,6 +130,11 @@ class IngestionPlan:
         gathers.  ``fault_hook(shard)`` is called on the pulling thread
         just before a host's gather, where a real deployment's request to
         that host would fail.
+
+        ``tracer`` (a :class:`repro_torch.engine.telemetry.Tracer`) gets one
+        ``host-gather`` span per host that served rows, on the named track
+        ``host-<id>`` whichever pool thread served it, labelled with
+        ``wave``.
 
         Each host finds its positions with torch's multi-threaded
         ``nonzero`` of its owner mask (in ``idx`` order), and its rows are
@@ -149,10 +156,16 @@ class IngestionPlan:
             if fault_hook is not None:
                 fault_hook(shard)
             local = idx_t.index_select(0, sel).numpy()
+            t0 = time.perf_counter() if tracer is not None else 0.0
             if with_attrs:
                 r, a = shard.source.gather_with_attrs(local)
             else:
                 r, a = shard.source.gather(local), None
+            if tracer is not None:
+                tracer.emit("host-gather", "host", t0, time.perf_counter(),
+                            track=f"host-{shard.host}", host=shard.host,
+                            rows=int(local.size),
+                            **({} if wave is None else {"wave": wave}))
             return sel, r, a
 
         parallel = parallel and len(self.shards) > 1 and all(

@@ -31,6 +31,11 @@ Contract, for both engines:
   * **Timing** — the stage and the solve each end in a device
     synchronize in both engines, so their host-clock seconds are the
     card's work and the two engines' columns compare like with like.
+  * **Telemetry** — a ``tracer`` gets a ``gather`` span per wave from the
+    thread that gathered it, and ``stage`` and ``solve`` spans from the
+    caller, each closed after its synchronize; the pipelined engine adds
+    ``sem-block`` (producer) and ``queue-wait`` (consumer) stall spans and
+    ``scheduler.stall_s`` histograms.  It observes only.
 """
 from __future__ import annotations
 
@@ -92,23 +97,26 @@ def run_waves(gather: Callable[[int], HostWave | None],
               stage: Callable[[Any], Any],
               solve: Callable[[int, Any], None],
               cfg: EngineConfig, device: torch.device,
-              on_trace: Callable[[WaveTrace], None] | None = None
-              ) -> EngineStats:
+              on_trace: Callable[[WaveTrace], None] | None = None,
+              tracer=None) -> EngineStats:
     """Drive gather → stage → solve per wave until ``gather(i)`` returns
     ``None``, under ``cfg.mode``.
 
     ``gather`` runs on a producer thread in pipelined mode (it must launch
     nothing on the card); ``stage(payload)`` and ``solve(i, staged)`` run
     on the caller thread in wave order.  ``on_trace`` receives each wave's
-    trace on the caller thread before the next wave is staged.
+    trace on the caller thread before the next wave is staged.  ``tracer``
+    (a :class:`repro_torch.engine.telemetry.Tracer`) gets the spans of the
+    module docstring.
     """
     if cfg.mode == "sync":
-        return _run_sync(gather, stage, solve, cfg, device, on_trace)
-    return _run_pipelined(gather, stage, solve, cfg, device, on_trace)
+        return _run_sync(gather, stage, solve, cfg, device, on_trace, tracer)
+    return _run_pipelined(gather, stage, solve, cfg, device, on_trace,
+                          tracer)
 
 
 def _stage_and_solve(i: int, hw: HostWave, stage, solve, device,
-                     release=None) -> tuple[float, float, float]:
+                     release=None, tracer=None) -> tuple[float, float, float]:
     """Stage and solve one wave on the caller thread; returns the three
     host-clock readings (before the stage, after it, after the solve)."""
     t1 = time.perf_counter()
@@ -119,7 +127,12 @@ def _stage_and_solve(i: int, hw: HostWave, stage, solve, device,
     t2 = time.perf_counter()
     solve(i, staged)
     _sync(device)
-    return t1, t2, time.perf_counter()
+    t3 = time.perf_counter()
+    if tracer is not None:
+        tracer.emit("stage", "wave", t1, t2, wave=i, machines=hw.machines,
+                    bytes=hw.bytes_moved)
+        tracer.emit("solve", "wave", t2, t3, wave=i, machines=hw.machines)
+    return t1, t2, t3
 
 
 def _finalize(engine: str, cfg: EngineConfig, traces: list[WaveTrace],
@@ -135,7 +148,8 @@ def _finalize(engine: str, cfg: EngineConfig, traces: list[WaveTrace],
         max_in_flight=max_live, traces=traces, span_wall_s=span)
 
 
-def _run_sync(gather, stage, solve, cfg, device, on_trace) -> EngineStats:
+def _run_sync(gather, stage, solve, cfg, device, on_trace, tracer=None
+              ) -> EngineStats:
     """The bit-identity reference: gather, stage and solve serialized."""
     traces: list[WaveTrace] = []
     t_run = time.perf_counter()
@@ -145,7 +159,12 @@ def _run_sync(gather, stage, solve, cfg, device, on_trace) -> EngineStats:
         hw = gather(i)
         if hw is None:
             break
-        t1, t2, t3 = _stage_and_solve(i, hw, stage, solve, device)
+        t1, t2, t3 = _stage_and_solve(i, hw, stage, solve, device,
+                                      tracer=tracer)
+        if tracer is not None:
+            tracer.emit("gather", "wave", t0, t1, wave=i,
+                        machines=hw.machines, rows=hw.rows,
+                        bytes=hw.bytes_moved)
         traces.append(WaveTrace(
             wave=i, machines=hw.machines, rows=hw.rows,
             bytes_moved=hw.bytes_moved, gather_s=t1 - t0, h2d_s=t2 - t1,
@@ -186,7 +205,7 @@ _DONE = object()    # producer → consumer: no more waves
 _FAILED = object()  # producer → consumer: the exception is in the slot
 
 
-def _run_pipelined(gather, stage, solve, cfg, device, on_trace
+def _run_pipelined(gather, stage, solve, cfg, device, on_trace, tracer=None
                    ) -> EngineStats:
     """Wave t + 1 gathers on a producer thread while wave t is staged and
     solved on the caller thread."""
@@ -220,6 +239,15 @@ def _run_pipelined(gather, stage, solve, cfg, device, on_trace
                 if hw is None:
                     gauge.release()
                     break
+                if tracer is not None:
+                    if t0 > ts:
+                        tracer.emit("sem-block", "stall", ts, t0, wave=i,
+                                    side="producer")
+                    tracer.metrics.histogram(
+                        "scheduler.stall_s", side="producer").observe(t0 - ts)
+                    tracer.emit("gather", "wave", t0, t1, wave=i,
+                                machines=hw.machines, rows=hw.rows,
+                                bytes=hw.bytes_moved)
                 if not put((i, hw, t0, t1, t0 - ts)):
                     raise _Abort
                 i += 1
@@ -248,8 +276,15 @@ def _run_pipelined(gather, stage, solve, cfg, device, on_trace
             if i != expect:
                 raise RuntimeError(f"wave order broke: got {i}, want "
                                    f"{expect}")
+            if tracer is not None:
+                if tw1 > tw0:
+                    tracer.emit("queue-wait", "stall", tw0, tw1, wave=i,
+                                side="consumer")
+                tracer.metrics.histogram(
+                    "scheduler.stall_s", side="consumer").observe(tw1 - tw0)
             t1, t2, t3 = _stage_and_solve(i, hw, stage, solve, device,
-                                          release=gauge.release)
+                                          release=gauge.release,
+                                          tracer=tracer)
             traces.append(WaveTrace(
                 wave=i, machines=hw.machines, rows=hw.rows,
                 bytes_moved=hw.bytes_moved, gather_s=g1 - g0, h2d_s=t2 - t1,

@@ -65,6 +65,14 @@ class EngineStats:
     span_wall_s: float = 0.0    # max(t_end) − min(t_start) over the traces
 
     @property
+    def overlap_ratio_legacy(self) -> float:
+        """The ratio over the engine's whole measured ``wall_s`` instead of
+        the waves' span: the loop around the waves only adds wall, so it
+        is at most ``overlap_ratio`` (a cross-check of the span form)."""
+        return overlap_ratio(self.gather_s, self.h2d_s + self.solve_s,
+                             self.wall_s)
+
+    @property
     def width_trajectory(self) -> list[int]:
         """Machines per wave in wave order (constant but for the tail under
         a fixed width)."""

@@ -1,8 +1,9 @@
 """The port's tolerances (one for fp32 values, one more bf16 ulp for
 attention outputs in bf16, and those of LM logits and caches), the
 near-tie rule for selections and for greedy tokens, the exact-tie rule for
-objectives whose gains tie exactly, the near-threshold rule for
-threshold-batch accept sets, and the error model of the chunked ``wkv6``
+objectives whose gains tie exactly (and its trace of a stochastic greedy's
+samples), the near-threshold rules for threshold-batch accept sets and
+threshold-greedy sweeps, and the error model of the chunked ``wkv6``
 against the recurrence.
 
 Used by the tests (plain versions against the JAX package on the CPU) and
@@ -272,3 +273,66 @@ def accepts_agree(acc, acc_ref, gains, tau, *, load=None, limit=None,
     agree = bool(np.all((acc == acc_ref) | ~upto))
     full = int(np.all(acc == acc_ref, axis=1).sum())
     return agree, full, int(near.sum())
+
+
+def sample_gain_trace(obj, T: torch.Tensor, mask: torch.Tensor,
+                      sel: torch.Tensor, key, eps: float) -> torch.Tensor:
+    """:func:`gain_trace` of ``stochastic_greedy``: at each step of the
+    selections ``sel`` ``(…, k)``, ``obj``'s gains of the step's sample
+    drawn from ``key`` (the same draws), ``NEG_INF`` off the sample.  What
+    :func:`picks_agree` holds a stochastic run's picks against.
+    Unconstrained."""
+    from repro_torch.core.algorithms import (sample_size, stochastic_sample,
+                                             _where_state)
+    sel = torch.as_tensor(_np(sel).astype(np.int64), device=T.device)
+    k, cap = sel.shape[-1], T.shape[-2]
+    s = sample_size(cap, k, eps)
+    state = obj.init_state(T, mask)
+    avail = mask.bool().clone()
+    out = []
+    for t in range(k):
+        scores = key(t).to(device=T.device, dtype=torch.float32).reshape(
+            avail.shape)
+        sub = stochastic_sample(scores, avail, s)
+        in_sample = torch.zeros_like(avail).scatter_(-1, sub, True)
+        out.append(obj.gains(state, T, avail & in_sample))
+        ok = sel[..., t] >= 0
+        safe = torch.clamp_min(sel[..., t], 0)
+        state = _where_state(ok, obj.update(state, T, safe), state)
+        hit = torch.nn.functional.one_hot(safe, cap).bool()
+        avail = avail & ~(ok[..., None] & hit)
+    return torch.stack(out, dim=-2)
+
+
+def sweep_agree(sel, sel_ref, gains_ref, taus) -> tuple[bool, int]:
+    """Compare two ``(…, k)`` threshold-sweep selections under the
+    near-threshold rule.
+
+    ``gains_ref`` ``(…, k, cap)`` are the reference's gains at each of its
+    takes (:func:`gain_trace`) and ``taus`` ``(…, n_levels)`` its levels.
+    A sweep takes a row where its gain meets τ, so two sweeps part only
+    where a gain differs by rounding across a level: each machine's picks
+    must agree up to their first parting, which is excused only if the
+    reference's gain of either row there is within ``ATOL + RTOL·|τ|`` of
+    one of the levels (the top level is the best gain itself).  Returns
+    (they agree, excused machines).
+    """
+    k = _np(sel).shape[-1]
+    sel, sel_ref = _np(sel).reshape(-1, k), _np(sel_ref).reshape(-1, k)
+    g = _np(gains_ref).astype(np.float64)
+    g = g.reshape(sel.shape[0], k, g.shape[-1])
+    t = _np(taus).astype(np.float64).reshape(sel.shape[0], -1)
+    agree, excused = True, 0
+    for i in range(sel.shape[0]):
+        part = np.flatnonzero(sel[i] != sel_ref[i])
+        if not part.size:
+            continue
+        step = part[0]
+        rows = [r for r in (sel[i, step], sel_ref[i, step]) if r >= 0]
+        near = any(np.any(np.abs(g[i, step, r] - t[i])
+                          <= ATOL + RTOL * np.abs(t[i])) for r in rows)
+        if near:
+            excused += 1
+        else:
+            agree = False
+    return agree, excused

@@ -28,16 +28,32 @@ def make_attrs(r, shape, n_groups):
     return w, g
 
 
-def jax_tree_plan(seed: int, mu: int, machines_per_round) -> ArrayPlan:
+def jax_tree_plan(seed: int, mu: int, machines_per_round,
+                  k: int | None = None) -> ArrayPlan:
     """The slot permutations ``repro.core.tree.tree_maximize`` draws: per
     round ``key, kpart, kalg = split(key, 3)`` and ``permutation(kpart,
-    L·μ)``."""
+    L·μ)``.  With ``k``, also stochastic_greedy's scores: machine i of the
+    round draws ``uniform(key_j, (μ,))`` for the k keys ``split(split(kalg,
+    L)[i], k)``."""
     key = jax.random.PRNGKey(seed)
-    perms = []
+    perms, scores = [], []
     for L in machines_per_round:
-        key, kpart, _ = jax.random.split(key, 3)
+        key, kpart, kalg = jax.random.split(key, 3)
         perms.append(np.asarray(jax.random.permutation(kpart, L * mu)))
-    return ArrayPlan(perms)
+        if k is not None:
+            scores.append(jax_stochastic_scores(kalg, L, k, mu))
+    return ArrayPlan(perms, stochastic=scores if k is not None else None)
+
+
+def jax_stochastic_scores(kalg, machines: int, k: int, cap: int
+                          ) -> np.ndarray:
+    """``(machines, k, cap)``: the uniform scores
+    ``repro.core.algorithms.stochastic_greedy`` draws on machine i of a
+    round whose algorithm key is ``kalg``."""
+    keys = jax.random.split(kalg, machines)
+    draw = jax.vmap(lambda kk: jax.vmap(
+        lambda kj: jax.random.uniform(kj, (cap,)))(jax.random.split(kk, k)))
+    return np.array(draw(keys))
 
 
 @pytest.fixture

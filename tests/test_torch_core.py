@@ -106,9 +106,10 @@ def test_run_algorithm_hygiene():
         algorithms.run_algorithm("greedy", *args, key=1)
     with pytest.raises(ValueError, match="does not accept"):
         algorithms.run_algorithm("threshold_greedy", *args, fused=True)
-    for name in ("stochastic_greedy", "threshold_greedy"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            algorithms.run_algorithm(name, *args)
+    with pytest.raises(ValueError, match="needs its draws"):
+        algorithms.run_algorithm("stochastic_greedy", *args)
+    res = algorithms.run_algorithm("threshold_greedy", *args, eps=0.5)
+    assert res.sel_idx.shape == (3,) and int(res.depth) >= 2
     res = algorithms.run_algorithm("threshold_batch", *args, eps=0.5)
     assert res.sel_idx.shape == (3,) and int(res.depth) >= 2
     with pytest.raises(ValueError, match="no fused encoding"):

@@ -236,6 +236,26 @@ def test_streaming_centralized_matches_resident_and_jax(constrained):
     testing.assert_close(streamed.value, jres.value)
 
 
+@pytest.mark.parametrize("constrained", [False, True])
+@pytest.mark.parametrize("store", ["bf16", "int8"])
+def test_streaming_centralized_narrow_source_matches_dequantized(store,
+                                                                 constrained):
+    """A narrow source's chunks are scored as the rows they dequantize to
+    (int8 codes with their per-row parameters), not as raw codes."""
+    data, E, attrs = _data()
+    obj = objective_from_numpy(E, "cpu")
+    cons = constraint_from_jax(JCONS) if constrained else None
+    a = attrs if constrained else None
+    q = _sources(store)[1]
+    resident = centralized_greedy(obj, q.dequantized(), K, device="cpu",
+                                  constraint=cons, attrs=a)
+    streamed = streaming_centralized_greedy(
+        obj, q, K, constraint=cons, attrs=a, device="cpu", chunk_rows=333)
+    assert torch.equal(streamed.sel_rows, resident.sel_rows)
+    assert torch.equal(streamed.sel_mask, resident.sel_mask)
+    assert float(streamed.value) == float(resident.value)
+
+
 @pytest.mark.parametrize("store", ["fp32", "bf16", "int8"])
 def test_fp32_recheck_matches_jax(store):
     data, E, _ = _data()
@@ -271,14 +291,6 @@ def test_score_dtype_carries_across_and_matches_jax():
     assert float(fused.value) == float(scan.value)
     with pytest.raises(ValueError, match="score_dtype"):
         objective_from_numpy(E, "cpu", score_dtype="float16")
-
-
-@pytest.mark.parametrize("field,value", [
-    ("wave_autotune", True), ("autotune_cache", "x.json"),
-    ("telemetry", object())])
-def test_engine_knobs_name_item_11(field, value):
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        TreeConfig(k=K, capacity=MU, **{field: value})
 
 
 def test_select_coreset_matches_jax():
