@@ -85,6 +85,18 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    machines, the two equal bit for bit;
 6. other objectives — ActiveSetSelection (Parkinsons analog, Webscope),
    FacilityLocation and the weighted exemplar objective at Webscope;
+   then selection serving at Webscope: ``serve.ingest`` of phase 4's host
+   array and phase 5's attributes into 2,000 resident machines (sync
+   engine, 256 MiB waves), 9 requests (k ∈ {50, 25} × {none,
+   Knapsack(0.45k), PartitionMatroid(⌈k/4⌉ per group), a query row}, and
+   THRESHOLD-BATCH at ε = 0.5) served cold, then warm through the
+   CUDA-graph entries with the cold bits and no recapture, new budget and
+   query on warm entries (replays, the offline bits), a ``Dispatcher``
+   burst, each answer equal to ``offline_solve`` bit for bit, value /
+   centralized ≥ 0.9 and the threshold gap ≤ ε, one warm tail's replay
+   against its eager run, then 64 deletes and 64 inserts re-served
+   through the partial re-solve, equal to the rebuilt session's answers
+   (one re-ingest, round 0 replayed on the blocks restaged in place);
 7. attention kernels (run after phase 2, as are 8 to 12) —
    ``flash_attention`` against its plain version in fp32 and bf16: D ∈
    {16, 64, 128, 256}, GQA groups 1/4/8, causal and not, the (T − S)
@@ -1040,11 +1052,11 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
     rows = []
 
     sel, cm_out = ops.greedy_select(blocks, E, seed, bmask, k, **kw)
-    t0 = time.perf_counter()
-    trace = ref.greedy_select_trace(blocks, E, seed, bmask, k, **kw)
-    torch.cuda.synchronize()
+    # the plain version is timed once, by the run its check makes
+    trace, plain = timed_once(lambda: ref.greedy_select_trace(
+        blocks, E, seed, bmask, k, **kw))
     log(f"plain constrained greedy at round 0 (M={M}): "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{plain / 1e3:.1f} s")
     n_tie, same, err = check_greedy(sel, cm_out, blocks, E, seed, trace,
                                     "constrained greedy_select at round 0")
     log(f"constrained greedy_select round 0 vs plain: {same}/{M} machines "
@@ -1052,8 +1064,6 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
         f"{int((sel >= 0).sum())} of {M * k} slots filled")
     ms = cuda_ms(lambda: ops.greedy_select(blocks, E, seed, bmask, k, **kw),
                  runs=5)
-    plain = cuda_ms(lambda: ref.greedy_select(blocks, E, seed, bmask, k,
-                                              **kw), runs=1, warmup=0)
     check_step_launches("greedy_select_constrained", lambda: ops.greedy_select(
         blocks, E, seed, bmask, k, **kw), k)
     calls = int(torch.sum(obj.fused_select(blocks, bmask, k, **kw)[3]))
@@ -1116,10 +1126,10 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
                 f"head walked each machine's first blocks)")
             acc, cm = ops.threshold_select(blocks, E, seed, bmask, tau, k,
                                            **lkw)
-            t0 = time.perf_counter()
-            trace = ref.threshold_select_trace(blocks, E, seed, bmask, tau,
-                                               k, **lkw)
-            torch.cuda.synchronize()
+            trace, plain_ms = timed_once(lambda: ref.threshold_select_trace(
+                blocks, E, seed, bmask, tau, k, **lkw))
+            if lkw and level == 0:    # the timed level's plain version
+                plain = plain_ms
             what = f"threshold_select {label} at round 0, level {level}"
             full, near, err = check_threshold(acc, cm, trace, blocks, E,
                                               seed.expand(M, m), tau, bmask,
@@ -1127,7 +1137,7 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
             errs.append(err)
             log(f"{what} vs plain: {full}/{M} machines accept as plain, "
                 f"near rows {near}, {int(acc.sum())} rows accepted (plain "
-                f"{time.perf_counter() - t0:.1f} s)")
+                f"{plain_ms / 1e3:.1f} s)")
             if full < FULL_SHARE * M:
                 fail(f"{what}: only {full}/{M} machines compared in full")
     # the kernel alone on operands prepared once (cur_min restored before
@@ -1149,9 +1159,6 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
     ms1 = cuda_ms(lambda: kernel_alone(tau0 * (1.0 - EPS)), runs=10)
     ms_ops = cuda_ms(lambda: ops.threshold_select(blocks, E, seed, bmask,
                                                   tau0, k, **kw), runs=10)
-    plain = cuda_ms(lambda: ref.threshold_select(blocks, E, seed, bmask,
-                                                 tau0, k, **kw),
-                    runs=1, warmup=0)
     ms_u = cuda_ms(lambda: ops.threshold_select(blocks, E, seed, bmask,
                                                 tau0_u, k), runs=10)
     log(f"threshold_select level 0 at round 0: kernel {ms:.4f} ms, whole "
@@ -2354,6 +2361,265 @@ def phase_weighted(main: dict) -> dict:
                                                  0)}
 
 
+# the serving phase: requests, second parameters on warm entries, the delta
+SERVE_QUERY_ROWS = (12_345, 4_321_001)
+SERVE_DELTA = 64
+# the kernels every warm serving pass launches (through graph replays and
+# THRESHOLD-BATCH's eager tail)
+SERVE_KERNELS = ("greedy_select", "greedy_select_constrained",
+                 "greedy_select_weighted", "threshold_select",
+                 "threshold_select_prepass", "threshold_select_tail",
+                 "exemplar_gains")
+
+
+def serving_requests(host, k_values=(50, 25)) -> list:
+    """The 9 requests of the serving phase: k ∈ {50, 25} × {none,
+    Knapsack(0.45k), PartitionMatroid(⌈k/4⌉ per group), a query row}, and
+    THRESHOLD-BATCH at ε = 0.5 (k = 50)."""
+    from repro_torch.core import Knapsack, PartitionMatroid
+    from repro_torch.serve import SelectionRequest
+    reqs = []
+    for k in k_values:
+        reqs += [SelectionRequest(k=k),
+                 SelectionRequest(k=k, constraint=Knapsack(0.45 * k, col=0)),
+                 SelectionRequest(k=k, constraint=PartitionMatroid(
+                     (math.ceil(k / 4),) * N_GROUPS, col=1)),
+                 SelectionRequest(k=k, query=host[SERVE_QUERY_ROWS[0]
+                                                  % len(host)])]
+    reqs.append(SelectionRequest(k=k_values[0], algorithm="threshold_batch",
+                                 eps=EPS))
+    return reqs
+
+
+def same_answer(name: str, a, b) -> None:
+    """Fail unless two served answers agree bit for bit: rows, attrs, mask,
+    value, oracle calls and depth."""
+    import numpy as np
+    if not (np.array_equal(a.rows, b.rows) and np.array_equal(a.attrs, b.attrs)
+            and np.array_equal(a.mask, b.mask)
+            and np.float32(a.value).tobytes() == np.float32(b.value).tobytes()
+            and a.oracle_calls == b.oracle_calls
+            and a.solve_depth == b.solve_depth):
+        fail(f"{name}: answers differ (value {a.value!r} vs {b.value!r}, "
+             f"calls {a.oracle_calls} vs {b.oracle_calls})")
+
+
+def phase_serving(main: dict, constrained: dict) -> dict:
+    """Selection serving at the Webscope deployment: ingest the 45M rows
+    and their attributes into 2,000 resident machines, serve 9 requests
+    cold then warm through CUDA-graph entries, new parameters on warm
+    entries, a dispatcher burst, every answer against ``offline_solve``,
+    a delta of 64 deletes and 64 inserts through the partial re-solve
+    against the rebuilt session."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Knapsack, TreeConfig, check_feasible
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (Dispatcher, SelectionRequest,
+                                   SelectionService, ingest, offline_solve)
+    from repro_torch.serve import service as service_mod
+    host, cfg, obj = main["host"], main["cfg"], main["obj"]
+    n, k, mu = host.shape[0], cfg.k, cfg.capacity
+    attrs = constrained["attrs"].cpu().numpy()
+    E = obj.eval_set.cpu().numpy()
+    out = {}
+
+    # ingest: the host array through the sync engine, waves under the
+    # streaming phase's byte budget, the main path's plan (TorchPlan(SEED))
+    t0 = time.perf_counter()
+    st = ingest(host, TreeConfig(k=k, capacity=mu, seed=SEED,
+                                 capacity_bytes=STREAM_BYTES), attrs=attrs)
+    out["ingest_s"] = time.perf_counter() - t0
+    if (st.Mp, st.n_items, st.free_slots) != (n // mu, n, 0):
+        fail(f"serving ingest: Mp {st.Mp}, {st.n_items} items, "
+             f"{st.free_slots} free slots (want {n // mu}, {n}, 0)")
+    log(f"serving ingest: {n} rows into Mp = {st.Mp} machines × μ = {mu} "
+        f"in {st.ingest_stats.waves} waves of ≤ {st.ingest_stats.wave_machines}"
+        f" machines, {out['ingest_s']!r} s (host arrays {st.blocks.nbytes + st.attrs.nbytes} B)")
+
+    reqs = serving_requests(host, (k, k // 2))
+    statics = [service_mod._static_constraint(r.constraint) for r in reqs]
+
+    def check_answers(name, answers):
+        for r, c, res in zip(reqs, statics, answers):
+            ok, detail = check_feasible(c, res.attrs, res.mask)
+            if not (ok and res.feasible):
+                fail(f"{name}: k={r.k} {c}: infeasible: {detail}")
+            if not (math.isfinite(res.value) and res.rows.shape == (r.k, 6)):
+                fail(f"{name}: k={r.k} {c}: value {res.value} rows "
+                     f"{res.rows.shape}")
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    svc = SelectionService(st, E, device="cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cold = svc.serve(reqs)
+    torch.cuda.synchronize()
+    out["cold_s"] = time.perf_counter() - t0
+    cold_counts = {key: v for key, v in ops.launch_counts.items() if v}
+    check_answers("serving, cold", cold)
+    captures = svc.cache.compiles
+    entries = len(svc.cache.keys)
+    graphs = len(svc.cache.graph_keys)
+    out["memory_peak"] = torch.cuda.max_memory_allocated()
+    log(f"serving cold batch of {len(reqs)}: {out['cold_s']!r} s; "
+        f"{entries} entries ({graphs} CUDA graphs, {entries - graphs} eager: "
+        f"THRESHOLD-BATCH), {captures} captures; launches {cold_counts}; "
+        f"memory peak {out['memory_peak']} B ({out['memory_peak'] - mem0} B "
+        f"above the phase's start)")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    warm = svc.serve(reqs)
+    torch.cuda.synchronize()
+    out["warm_s"] = time.perf_counter() - t0
+    warm_counts = {key: v for key, v in ops.launch_counts.items() if v}
+    for r, a, b in zip(reqs, cold, warm):
+        same_answer(f"serving warm vs cold, k={r.k}", b, a)
+    stats = svc.serve_stats()
+    if (svc.cache.compiles != captures or len(svc.cache.keys) != entries
+            or stats["steady_retraces"]):
+        fail(f"serving warm pass captured again: {stats}")
+    for name in SERVE_KERNELS:
+        if not warm_counts.get(name):
+            fail(f"serving warm pass launched {name} no time")
+    log(f"serving warm batch: {out['warm_s']!r} s, the cold bits, 0 "
+        f"recaptures, {stats['replays']} replays; launches {warm_counts}")
+    for key, ent in svc.cache._fns.items():
+        if ent.graph:
+            log(f"  graph {key[0]} k={key[1][0]} {key[1][3][0]} "
+                f"weighted={key[1][4]} bucket {key[2]}: launches per "
+                f"replay {ent.launches}")
+
+    # new parameters on warm entries: round-0 and tail replays
+    new = [SelectionRequest(k=k, constraint=Knapsack(0.40 * k, col=0)),
+           SelectionRequest(k=k, query=host[SERVE_QUERY_ROWS[1] % n],
+                            seed=7)]
+    replays0 = stats["replays"]
+    got = svc.serve(new)
+    for r, res in zip(new, got):
+        ok, detail = check_feasible(service_mod._static_constraint(
+            r.constraint), res.attrs, res.mask)
+        if not (ok and res.feasible):
+            fail(f"serving new parameters: infeasible: {detail}")
+        same_answer(f"serving new parameters vs offline, k={r.k}", res,
+                    offline_solve(st, E, r, device="cuda"))
+    stats = svc.serve_stats()
+    if (svc.cache.compiles != captures or stats["steady_retraces"]
+            or stats["replays"] != replays0 + 4):
+        fail(f"serving new parameters: not 4 replays of warm entries "
+             f"({stats})")
+    log(f"serving new parameters (budget 0.40k, another query row and "
+        f"seed): round 0 and tail replayed, the offline bits, 0 captures")
+
+    # a dispatcher burst
+    dp = Dispatcher(svc, max_batch=8)
+    try:
+        burst = dp.map(reqs, timeout=600)
+    finally:
+        dp.close(timeout=60)
+    check_answers("serving burst", burst)
+    for r, a, b in zip(reqs, burst, cold):
+        same_answer(f"serving burst vs direct, k={r.k}", a, b)
+    stats = svc.serve_stats()
+    if stats["queue_depth_max"] < 1 or stats["steady_retraces"]:
+        fail(f"serving burst: {stats}")
+    log(f"serving dispatcher burst (max_batch 8): {len(burst)} answers, "
+        f"the direct bits, queue depth max {stats['queue_depth_max']}")
+
+    # every served answer against the offline solve (eager, no cache)
+    t0 = time.perf_counter()
+    for r, res in zip(reqs, cold):
+        same_answer(f"served vs offline, k={r.k} {r.constraint} "
+                    f"query={r.query is not None} {r.algorithm}", res,
+                    offline_solve(st, E, r, device="cuda"))
+    log(f"served = offline_solve bit for bit, {len(reqs)} requests "
+        f"(offline {time.perf_counter() - t0:.1f} s)")
+    ratio = cold[0].value / main["cent_value"]
+    gap = 1.0 - cold[-1].value / main["cent_value"]
+    out.update(ratio=ratio, gap=gap)
+    log(f"served k={k} / centralized: {ratio!r}; THRESHOLD-BATCH gap "
+        f"{gap!r} (ε = {EPS})")
+    if ratio < 0.9 or gap > EPS:
+        fail(f"serving: ratio {ratio} or threshold gap {gap} out of bounds")
+
+    # one warm tail: its graph replay against the eager tail
+    prep = svc._prepare(reqs[0])
+    fk = prep.fuse_key
+    sols = svc._sol_cache[(fk, prep.fp, st.generation)]["sols"]
+    ent = svc.cache._fns[("tail", fk, 1)]
+    ladder = service_mod.round_ladder(st.Mp, k, mu)
+    draws = [x.cuda() for x in service_mod.tail_draws(
+        svc.tail_plan(0, ladder), fk)]
+    ev = svc._eval_dev
+    no = torch.zeros((0,), device="cuda")
+    eager_tail = service_mod.make_tail_fn(fk)
+    out["tail_eager_ms"] = cuda_ms(lambda: eager_tail(
+        *sols, ev, no, no, service_mod.TailDraws(draws)), runs=3)
+    out["tail_replay_ms"] = cuda_ms(ent.g.replay, runs=10)
+    log(f"warm tail k={k}, unconstrained (rounds of {ladder[1:]} machines): "
+        f"graph replay {out['tail_replay_ms']!r} ms, eager "
+        f"{out['tail_eager_ms']!r} ms (CUDA events)")
+
+    stats = svc.serve_stats()
+    out.update(p50_ms=stats["latency_p50_ms"], p95_ms=stats["latency_p95_ms"],
+               captures=stats["compiles"], entries=stats["cache_keys"],
+               graph_entries=stats["graph_entries"])
+    log(f"serving stats: {stats}")
+
+    # a delta: 64 deletes, 64 inserts into the freed slots
+    r = np.random.default_rng(SEED + 23)
+    dels = [int(i) for i in r.choice(n, SERVE_DELTA, replace=False)]
+    rows = host[r.choice(n, SERVE_DELTA, replace=False)] * np.float32(0.5)
+    ia = make_attrs(SERVE_DELTA, SEED + 24)
+    rep = svc.apply_delta(insert_rows=rows, insert_attrs=ia, delete_ids=dels)
+    if rep.rebuilt or len(rep.changed_machines) > SERVE_DELTA \
+            or st.free_slots:
+        fail(f"serving delta: rebuilt {rep.rebuilt}, "
+             f"{len(rep.changed_machines)} machines changed, "
+             f"{st.free_slots} free slots")
+    ops.reset_launch_counts()
+    partial0 = svc.partial_resolves
+    t0 = time.perf_counter()
+    after = svc.serve(reqs)
+    torch.cuda.synchronize()
+    out["partial_s"] = time.perf_counter() - t0
+    check_answers("serving after the delta", after)
+    if svc.partial_resolves != partial0 + len(reqs):
+        fail("serving after the delta: not one partial re-solve a request")
+    log(f"serving after the delta ({len(rep.changed_machines)} machines "
+        f"changed): {out['partial_s']!r} s through the partial re-solve; "
+        f"launches {dict((k_, v) for k_, v in ops.launch_counts.items() if v)}")
+
+    t0 = time.perf_counter()
+    st.rebuild()
+    out["rebuild_s"] = time.perf_counter() - t0
+    staged = svc._dev["wide"]["blocks"].data_ptr()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rebuilt = svc.serve(reqs)
+    torch.cuda.synchronize()
+    out["full_s"] = time.perf_counter() - t0
+    for q, a, b in zip(reqs, after, rebuilt):
+        same_answer(f"delta vs rebuild, k={q.k} {q.constraint} "
+                    f"query={q.query is not None} {q.algorithm}", a, b)
+    stats = svc.serve_stats()
+    if stats["steady_retraces"] or \
+            svc._dev["wide"]["blocks"].data_ptr() != staged:
+        fail(f"serving after the rebuild recaptured or moved the staged "
+             f"blocks: {stats}")
+    log(f"delta = rebuild bit for bit, {len(reqs)} requests: re-ingest "
+        f"{out['rebuild_s']!r} s, then round 0 in full (replays on the "
+        f"blocks restaged in place) {out['full_s']!r} s against the partial "
+        f"re-solve's {out['partial_s']!r} s; 0 recaptures; launches "
+        f"{dict((k_, v) for k_, v in ops.launch_counts.items() if v)}")
+    out["serve_counts"] = warm_counts
+    del svc
+    torch.cuda.empty_cache()
+    return out
+
 def times_new(main: dict, active: dict, facility: dict, weighted: dict,
               blocks, bmask) -> list[dict]:
     """rbf_kernel at its two path shapes and the weighted greedy_select at
@@ -2443,21 +2709,15 @@ def times_new(main: dict, active: dict, facility: dict, weighted: dict,
     w = weighted["w"]
     seed = torch.sum(E * E, dim=-1)
     sel, cm_out = ops.greedy_select(blocks, E, seed, bmask, k, eval_weights=w)
-    t0 = time.perf_counter()
-    trace = ref.greedy_select_trace(blocks, E, seed, bmask, k,
-                                    eval_weights=w)
-    torch.cuda.synchronize()
-    log(f"plain weighted greedy at round 0 (M={M}): "
-        f"{time.perf_counter() - t0:.1f} s")
+    trace, plain = timed_once(lambda: ref.greedy_select_trace(
+        blocks, E, seed, bmask, k, eval_weights=w))
+    log(f"plain weighted greedy at round 0 (M={M}): {plain / 1e3:.1f} s")
     n_tie, same, err = check_greedy(sel, cm_out, blocks, E, seed, trace,
                                     "weighted greedy_select at round 0")
     log(f"weighted greedy_select round 0 vs plain: {same}/{M} machines "
         f"select as plain, near-tie steps {n_tie}, max|dcm| {err:.3g}")
     ms = cuda_ms(lambda: ops.greedy_select(blocks, E, seed, bmask, k,
                                            eval_weights=w), runs=5)
-    plain = cuda_ms(lambda: ref.greedy_select(blocks, E, seed, bmask, k,
-                                              eval_weights=w),
-                    runs=1, warmup=0)
     check_step_launches("greedy_select_weighted", lambda: ops.greedy_select(
         blocks, E, seed, bmask, k, eval_weights=w), k)
     n_avail = torch.sum(bmask.long(), dim=1, keepdim=True)
@@ -2633,15 +2893,15 @@ def times_narrow(main: dict, streaming: dict, blocks, bmask) -> list[dict]:
                      "library_ms": None})
         # greedy_select, one call of k steps
         sel, cm_out = ops.greedy_select(X, E, seed, bmask, k, **kw)
-        (sel_p, cm_p), plain = timed_once(
-            lambda: ref.greedy_select(X, E, seed, bmask, k, **kw))
+        trace, plain = timed_once(
+            lambda: ref.greedy_select_trace(X, E, seed, bmask, k, **kw))
+        sel_p, cm_p = trace[:2]
         if bool(torch.equal(sel, sel_p)):
             testing.assert_close(cm_out, cm_p, f"greedy_select {what}")
             err, same, n_tie = testing.max_abs_err(cm_out, cm_p), M, 0
         else:
-            n_tie, same, err = check_greedy(
-                sel, cm_out, deq, E, seed, ref.greedy_select_trace(
-                    X, E, seed, bmask, k, **kw), f"greedy_select {what}")
+            n_tie, same, err = check_greedy(sel, cm_out, deq, E, seed, trace,
+                                            f"greedy_select {what}")
         log(f"greedy_select {what} vs plain: {same}/{M} machines select as "
             f"plain, near-tie steps {n_tie}, max|dcm| {err:.3g}")
         ms = cuda_ms(lambda: ops.greedy_select(X, E, seed, bmask, k, **kw),
@@ -2727,10 +2987,9 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
     m, k = E.shape[0], cfg.k
     seed = torch.sum(E * E, dim=-1)
     sel, cm_out = ops.greedy_select(blocks, E, seed, bmask, k)
-    t0 = time.perf_counter()
-    trace = ref.greedy_select_trace(blocks, E, seed, bmask, k)
-    torch.cuda.synchronize()
-    log(f"plain greedy at round 0 (M={M}): {time.perf_counter() - t0:.1f} s")
+    trace, plain = timed_once(lambda: ref.greedy_select_trace(
+        blocks, E, seed, bmask, k))
+    log(f"plain greedy at round 0 (M={M}): {plain / 1e3:.1f} s")
     tile_precision(blocks, E, seed, trace[0])
     n_tie, same, err = check_greedy(sel, cm_out, blocks, E, seed, trace,
                                     "greedy_select at round 0")
@@ -2739,8 +2998,6 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
         f"max|dcm| {err:.3g}")
     ms = cuda_ms(lambda: ops.greedy_select(blocks, E, seed, bmask, k),
                  runs=10)
-    plain = cuda_ms(lambda: ref.greedy_select(blocks, E, seed, bmask, k),
-                    runs=3)
     check_step_launches("greedy_select", lambda: ops.greedy_select(
         blocks, E, seed, bmask, k), k)
     n_avail = torch.sum(bmask.long(), dim=1, keepdim=True)
@@ -3780,6 +4037,7 @@ def main() -> None:
     active = phase_active_set_webscope(main_path)
     facility = phase_facility(main_path)
     weighted = phase_weighted(main_path)
+    phase_serving(main_path, constrained)
     rows = phase_times(scan, main_path, constrained, active, facility,
                        weighted, streaming)
     rows += attn_rows + wkv_rows

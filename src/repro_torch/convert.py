@@ -54,13 +54,26 @@ def objective_from_jax(obj, device="cuda"):
     raise ValueError(f"no port of objective class {name!r}")
 
 
-def constraint_from_jax(c):
+def constraint_from_jax(c, device="cuda"):
     """The port's counterpart of a ``repro.core.constraints`` object (or
     ``None``), read by class name and fields, so nothing of ``repro`` is
-    imported here."""
+    imported here.  The ``Dynamic*`` classes' parameters become tensors on
+    ``device`` (a ``()`` fp32 budget, ``(G,)`` int32 caps)."""
     if c is None:
         return None
     name = type(c).__name__
+    if name == "DynamicKnapsack":
+        import torch
+        return cons.DynamicKnapsack(
+            budget=torch.tensor(np.asarray(c.budget, np.float32),
+                                device=resolve_device(device)),
+            col=int(c.col))
+    if name == "DynamicPartitionMatroid":
+        import torch
+        return cons.DynamicPartitionMatroid(
+            caps=torch.tensor(np.asarray(c.caps).astype(np.int32),
+                              device=resolve_device(device)),
+            col=int(c.col))
     if name == "Unconstrained":
         return cons.Unconstrained()
     if name == "Knapsack":
@@ -69,10 +82,9 @@ def constraint_from_jax(c):
         return cons.PartitionMatroid(caps=tuple(int(v) for v in c.caps),
                                      col=int(c.col))
     if name == "Intersection":
-        return cons.Intersection(tuple(constraint_from_jax(p)
+        return cons.Intersection(tuple(constraint_from_jax(p, device)
                                        for p in c.parts))
-    raise ValueError(f"no port of constraint class {name!r} yet "
-                     "(Dynamic* classes: ROADMAP queue 1 item 12)")
+    raise ValueError(f"no port of constraint class {name!r}")
 
 
 def params_from_jax(params, cfg, device="cuda") -> dict:

@@ -11,7 +11,9 @@ from repro_torch.core.baselines import (BaselineResult, centralized_greedy,
                                         fp32_recheck_value, random_subset,
                                         randgreedi,
                                         streaming_centralized_greedy)
-from repro_torch.core.constraints import (Intersection, Knapsack,
+from repro_torch.core.constraints import (DynamicKnapsack,
+                                          DynamicPartitionMatroid,
+                                          Intersection, Knapsack,
                                           PartitionMatroid, Unconstrained,
                                           attr_dim, check_feasible,
                                           constraint_from_spec, from_spec)
@@ -38,6 +40,7 @@ __all__ = [
     "threshold_batch", "threshold_greedy",
     "BaselineResult", "centralized_greedy", "fp32_recheck_value",
     "random_subset", "randgreedi", "streaming_centralized_greedy",
+    "DynamicKnapsack", "DynamicPartitionMatroid",
     "Intersection", "Knapsack", "PartitionMatroid", "Unconstrained",
     "attr_dim", "check_feasible", "constraint_from_spec", "from_spec",
     "RoundResult", "run_round", "ActiveSetSelection", "ExemplarClustering",

@@ -20,7 +20,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.constraints import (Intersection, Knapsack,
+from repro_torch.core.constraints import (DynamicKnapsack,
+                                          DynamicPartitionMatroid,
+                                          Intersection, Knapsack,
                                           PartitionMatroid, Unconstrained)
 from repro_torch.kernels import ref
 
@@ -66,22 +68,28 @@ def _fused_parts(constraint) -> tuple | None:
     and :class:`PartitionMatroid` (one running count per group); an
     :class:`Intersection` of at most one of each composes (masks AND = the
     scan's conjunction).  Anything else — two of a kind, nested
-    intersections, custom constraints — returns None.
+    intersections, custom constraints — returns None.  The ``Dynamic*``
+    classes count as their static family: the same encoding, with the
+    budget or caps a device tensor (``ref.Encoding`` takes either).
     """
     parts = (constraint.parts if isinstance(constraint, Intersection)
              else (constraint,))
-    n_knap = sum(isinstance(p, Knapsack) for p in parts)
-    n_part = sum(isinstance(p, PartitionMatroid) for p in parts)
+    n_knap = sum(isinstance(p, _KNAPSACK_KINDS) for p in parts)
+    n_part = sum(isinstance(p, _PARTITION_KINDS) for p in parts)
     if n_knap + n_part != len(parts) or n_knap > 1 or n_part > 1:
         return None
     return parts
+
+
+_KNAPSACK_KINDS = (Knapsack, DynamicKnapsack)
+_PARTITION_KINDS = (PartitionMatroid, DynamicPartitionMatroid)
 
 
 def _fused_constraint_kwargs(constraint, attrs) -> dict:
     """Fused-hook operands of a fused-encodable constraint."""
     kw = {}
     for p in _fused_parts(constraint):
-        if isinstance(p, Knapsack):
+        if isinstance(p, _KNAPSACK_KINDS):
             kw["weights"] = attrs[..., p.col]
             kw["budget"] = p.budget
         else:
@@ -112,7 +120,8 @@ def _fusable(obj, constraint, attrs) -> bool:
     parts = _fused_parts(constraint)
     if parts is None or attrs is None:
         return False
-    return all(getattr(obj, "fused_knapsack" if isinstance(p, Knapsack)
+    return all(getattr(obj, "fused_knapsack"
+                       if isinstance(p, _KNAPSACK_KINDS)
                        else "fused_partition", False) for p in parts)
 
 

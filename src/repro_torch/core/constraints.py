@@ -22,8 +22,10 @@ clamp it instead; its NumPy checker rejects it, as here).
 no code shared with the selection loops — the independent checker the tree
 selection and the tests run on every returned coreset.
 
-The serve layer's ``DynamicKnapsack`` / ``DynamicPartitionMatroid`` wait
-for ROADMAP queue 1 item 12 (serving).
+The serve layer's :class:`DynamicKnapsack` / :class:`DynamicPartitionMatroid`
+carry their parameters as tensors on the solve's device (a per-request
+operand, never read by the host during a solve), so one captured solve
+serves every budget and every set of caps.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.kernels.ref import group_open, knapsack_limit
+from repro_torch.kernels.ref import dynamic_limit, group_open, knapsack_limit
 
 # slack shared by the feasibility test and the NumPy checker — fp32 weight
 # accumulation must not reject an exactly-at-budget set.
@@ -124,6 +126,59 @@ class PartitionMatroid:
         counts = np.bincount(gid, minlength=len(self.caps))
         ok = bool((counts <= np.asarray(self.caps)).all())
         return ok, f"partition counts={counts.tolist()} caps={list(self.caps)}"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DynamicKnapsack:
+    """:class:`Knapsack` with the budget as a ``()`` fp32 tensor on the
+    solve's device (counterpart of ``repro.core.constraints.
+    DynamicKnapsack``).  Its limit is ``budget + KNAPSACK_TOL`` as one fp32
+    add on the device, the JAX class's arithmetic: it equals the static
+    class's ``knapsack_limit`` (one rounding of the double sum) for every
+    budget but fp32 budgets below about 2⁻¹⁸ (ROADMAP queue 3)."""
+
+    budget: torch.Tensor   # () fp32
+    col: int = 0
+
+    def init_state(self, batch=(), device="cpu"):
+        return torch.zeros(batch, dtype=torch.float32, device=device)
+
+    def feasible(self, cstate, attrs):
+        return (cstate[..., None] + attrs[..., self.col]
+                <= dynamic_limit(self.budget))
+
+    def update(self, cstate, attrs, idx):
+        return cstate + _take(attrs, self.col, idx)
+
+    def check_np(self, attrs, mask) -> tuple[bool, str]:
+        return Knapsack(float(self.budget), self.col).check_np(attrs, mask)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DynamicPartitionMatroid:
+    """:class:`PartitionMatroid` with the caps as a ``(G,)`` int32 tensor
+    on the solve's device (counterpart of ``repro.core.constraints.
+    DynamicPartitionMatroid``); G, a shape, stays static."""
+
+    caps: torch.Tensor     # (G,) int32
+    col: int = 0
+
+    def init_state(self, batch=(), device="cpu"):
+        return torch.zeros(tuple(batch) + (self.caps.shape[0],),
+                           dtype=torch.int32, device=device)
+
+    def feasible(self, cstate, attrs):
+        return group_open(cstate, attrs[..., self.col].to(torch.int64),
+                          self.caps.to(torch.int32))
+
+    def update(self, cstate, attrs, idx):
+        gid = _take(attrs, self.col, idx).to(torch.int64)
+        groups = torch.arange(self.caps.shape[0], device=cstate.device)
+        return cstate + (groups == gid[..., None]).to(cstate.dtype)
+
+    def check_np(self, attrs, mask) -> tuple[bool, str]:
+        caps = tuple(int(c) for c in self.caps.cpu().tolist())
+        return PartitionMatroid(caps, self.col).check_np(attrs, mask)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,6 +8,7 @@ bits.  So the port's partitioning takes its permutations from a *plan*:
     keys = plan.feistel_keys(t)                # Feistel round keys
     idx = plan.eval_indices(n, m)              # select_coreset's eval rows
     u = plan.stochastic_scores(t, m0, m1, j, cap, device)  # (m1 − m0, cap)
+    u = plan.stochastic_rows(t, machines, j, cap, device)  # (len, cap)
 
 * :class:`TorchPlan` draws them from an explicit ``torch.Generator`` seeded
   per round from ``(seed, t)`` — the default of native runs — and the
@@ -20,7 +21,9 @@ paths the slot permutations (or round 0's Feistel keys) are the whole
 plan.  ``stochastic_greedy`` draws, at step j of round t, one uniform score
 per slot of each machine (the JAX package's ``uniform(key_j, (cap,))``
 from keys split per machine); ``stochastic_scores`` gives them for
-machines [m0, m1), so a wave of machines asks for its own rows only.
+machines [m0, m1), so a wave of machines asks for its own rows only;
+``stochastic_rows`` for any machine indices (a partial re-solve of the
+serve layer takes scattered machines, each with its own draws).
 """
 from __future__ import annotations
 
@@ -38,12 +41,22 @@ class Plan(Protocol):
     def stochastic_scores(self, t: int, m0: int, m1: int, j: int, cap: int,
                           device) -> torch.Tensor: ...
 
+    def stochastic_rows(self, t: int, machines: torch.Tensor, j: int,
+                        cap: int, device) -> torch.Tensor: ...
+
 
 def round_draws(plan, t: int, m0: int, m1: int, cap: int, device
                 ) -> Callable[[int], torch.Tensor]:
     """``stochastic_greedy``'s ``key`` for machines [m0, m1) of round t:
     step j → the ``(m1 − m0, cap)`` fp32 scores on ``device``."""
     return lambda j: plan.stochastic_scores(t, m0, m1, j, cap, device)
+
+
+def machine_draws(plan, t: int, machines: torch.Tensor, cap: int, device
+                  ) -> Callable[[int], torch.Tensor]:
+    """:func:`round_draws` for the machines of round t whose indices
+    ``machines`` gives, in its order: each machine's own draws."""
+    return lambda j: plan.stochastic_rows(t, machines, j, cap, device)
 
 
 _M32 = 0xFFFFFFFF
@@ -98,12 +111,19 @@ class TorchPlan:
         2⁻²³ (exact in fp32, the JAX draw's resolution).  The same bits on
         any device, and a machine's row does not depend on which machines
         share the call (a wave's width cannot change a result)."""
+        return self.stochastic_rows(
+            t, torch.arange(m0, m1, dtype=torch.int64, device=device), j,
+            cap, device)
+
+    def stochastic_rows(self, t: int, machines: torch.Tensor, j: int,
+                        cap: int, device) -> torch.Tensor:
+        """:meth:`stochastic_scores` of the machines ``machines`` (an int64
+        tensor; no host read, so a captured solve may take them)."""
         seed = self.seed & ((1 << 64) - 1)
         key = _fmix32(_fmix32(_fmix32((seed & _M32) ^ 0x5BD1E995)
                               ^ (seed >> 32)) ^ (int(t) & _M32))
         key = _fmix32(key ^ _mul32(int(j) + 1, 0x9E3779B1))
-        mach = torch.arange(m0, m1, dtype=torch.int64,
-                            device=device)[:, None]
+        mach = machines.to(device=device, dtype=torch.int64)[:, None]
         slot = torch.arange(cap, dtype=torch.int64, device=device)[None, :]
         h = _fmix32(key ^ _mul32(mach & _M32, 0x27D4EB2F))
         h = _fmix32(h ^ _mul32(slot, 0x165667B1))
@@ -145,6 +165,13 @@ class ArrayPlan:
             raise ValueError(f"round {t}: scores {u.shape}, asked machines "
                              f"[{m0}, {m1}), step {j}, cap {cap}")
         return torch.from_numpy(u[m0:m1, j].copy()).to(device)
+
+    def stochastic_rows(self, t: int, machines: torch.Tensor, j: int,
+                        cap: int, device) -> torch.Tensor:
+        idx = machines.cpu().numpy()
+        hi = int(idx.max()) + 1 if idx.size else 0
+        self.stochastic_scores(t, 0, hi, j, cap, device)   # the checks
+        return torch.from_numpy(self.stochastic[t][idx, j].copy()).to(device)
 
     def feistel_keys(self, t: int, rounds: int = 4) -> tuple[int, ...]:
         if self.feistel is None or t >= len(self.feistel):

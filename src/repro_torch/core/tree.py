@@ -262,12 +262,16 @@ def _finish_result(sel_wide: np.ndarray, sel_mask: np.ndarray, d: int,
 def _fold_round(res: RoundResult, best_rows, best_mask, best_val,
                 total_calls):
     """Best-solution tracking across rounds; ties go to the lowest machine
-    index and an equal value never replaces the held solution."""
-    i_best = torch.argmax(res.values)              # lowest index on ties
-    v_best = res.values[i_best]
+    index and an equal value never replaces the held solution.  No host
+    read (the winner is gathered by a device index), so a CUDA graph can
+    capture it."""
+    i_best = torch.argmax(res.values).reshape(1)   # lowest index on ties
+    v_best = res.values.index_select(0, i_best)[0]
     improved = v_best > best_val
-    best_rows = torch.where(improved, res.sol_rows[i_best], best_rows)
-    best_mask = torch.where(improved, res.sol_mask[i_best], best_mask)
+    best_rows = torch.where(improved, res.sol_rows.index_select(0, i_best)[0],
+                            best_rows)
+    best_mask = torch.where(improved, res.sol_mask.index_select(0, i_best)[0],
+                            best_mask)
     best_val = torch.where(improved, v_best, best_val)
     total_calls = total_calls + torch.sum(res.oracle_calls)
     return best_rows, best_mask, best_val, total_calls, v_best

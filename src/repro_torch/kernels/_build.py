@@ -38,10 +38,10 @@ ARGTYPES = {
                               _I, _P, _P],
     "exemplar_tile_smem": [_I, _I, _I],
     "greedy_select_launch": [_P, _I, _P, _P, _I] + [_P] * 7
-    + [_LL, _LL, _I, _I, _I, _I, _LL, _P, _P, _F, _P, _P, _P, _I, _P, _P],
+    + [_LL, _LL, _I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "greedy_select_grid": [_LL, _LL, _I, _I, _I, _I, _I, _I],
     "threshold_select_launch": [_P, _I, _P, _P, _I] + [_P] * 19
-    + [_LL, _LL] + [_I] * 6 + [_F, _P, _P],
+    + [_LL, _LL] + [_I] * 6 + [_P, _P, _P],
     "threshold_select_max_groups": [_I, _I, _I, _I],
     "rbf_kernel_launch": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _F, _I,
                           _P],

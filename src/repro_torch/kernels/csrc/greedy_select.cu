@@ -32,8 +32,10 @@
 // the JAX kernel, either or both): a row is masked unless it is available
 // and feasible, used[mach] + w <= limit and counts[mach][gid] < caps[gid];
 // the commit adds w[best] to used (one fp32 add per step, the reference's
-// order) and increments counts[gid[best]].  limit = float32(budget +
-// KNAPSACK_TOL) comes from the host.  A group id outside [0, G) belongs
+// order) and increments counts[gid[best]].  limit is read from device
+// memory (one fp32: float32(budget + KNAPSACK_TOL) of a static budget, or
+// the device's budget + KNAPSACK_TOL of a per-request one), so a captured
+// CUDA graph serves every budget.  A group id outside [0, G) belongs
 // to no open group.  Null weight and group-id pointers select the
 // unconstrained instantiation (kConstrained = false), which compiles no
 // feasibility code at all.
@@ -68,14 +70,15 @@ struct Constraint {
   const int* caps;   // (G,) per-group caps
   float* used;       // (M,) running knapsack weight (device scratch)
   int* counts;       // (M, G) running group counts (device scratch)
-  float limit;       // float32(budget + KNAPSACK_TOL)
+  const float* limit;  // (1,) knapsack limit, or null without weights
   int G;
 };
 
-__device__ __forceinline__ bool feasible(const Constraint& c, long long mach,
-                                         long long n, long long row) {
+__device__ __forceinline__ bool feasible(const Constraint& c, float limit,
+                                         long long mach, long long n,
+                                         long long row) {
   const long long at = mach * n + row;
-  if (c.w != nullptr && !(c.used[mach] + c.w[at] <= c.limit)) return false;
+  if (c.w != nullptr && !(c.used[mach] + c.w[at] <= limit)) return false;
   if (c.gid != nullptr) {
     const int g = c.gid[at];
     if (g < 0 || g >= c.G || c.counts[mach * c.G + g] >= c.caps[g])
@@ -128,6 +131,9 @@ greedy_step_kernel(Rows<typename Op::T> X, const float* __restrict__ E,
   const int tid = threadIdx.x;
   float bv = -INFINITY;  // this thread's best of the current segment
   int bi = INT_MAX;
+  float limit = 0.f;  // the knapsack limit, read once
+  if constexpr (kConstrained)
+    if (con.w != nullptr) limit = *con.limit;
 
   auto on_rows = [&](long long mach, long long row0, const float sums[4]) {
     if ((tid & 3) != 0) return;  // the quad holds the same sums
@@ -135,7 +141,8 @@ greedy_step_kernel(Rows<typename Op::T> X, const float* __restrict__ E,
     for (int r = 0; r < 4; ++r) {
       const long long row = row0 + sum_row(r);
       bool ok = row < n && avail[mach * n + row];
-      if constexpr (kConstrained) ok = ok && feasible(con, mach, n, row);
+      if constexpr (kConstrained)
+        ok = ok && feasible(con, limit, mach, n, row);
       const float v = ok ? sums[r] / (float)m_true : NEG_INF;
       if (better(v, (int)row, bv, bi)) {
         bv = v;
@@ -260,10 +267,10 @@ static int run_steps(const Rows<typename Op::T>& X, const void* E, void* cm,
 // the running state, updated in place; win_v/win_i (M + P,) and ticket
 // (M,) int32, zero on entry, are scratch (P = greedy_select_grid(...));
 // sel (M, k) int32.  Constraint operands: w (M, n) fp32 with used (M,)
-// fp32 scratch and limit, gid (M, n) int32 with caps (G,) int32 and counts
-// (M, G) int32 scratch; null w / gid switch a part off.  ew (mp,) fp32
-// eval weights, zero-padded, or null (unweighted).  Launches k kernels on
-// `stream`.
+// fp32 scratch and limit (1,) fp32, gid (M, n) int32 with caps (G,) int32
+// and counts (M, G) int32 scratch; null w / gid switch a part off.  ew
+// (mp,) fp32 eval weights, zero-padded, or null (unweighted).  Launches k
+// kernels on `stream`.
 extern "C" int greedy_select_launch(const void* X, int xtype,
                                     const void* x_scale, const void* x_zp,
                                     int bf16dot, const void* E, void* cm,
@@ -271,11 +278,12 @@ extern "C" int greedy_select_launch(const void* X, int xtype,
                                     void* ticket, void* sel, long long M,
                                     long long n, int d, int mp, int m_true,
                                     int k, long long P, const void* w,
-                                    void* used, float limit, const void* gid,
+                                    void* used, const void* limit,
+                                    const void* gid,
                                     const void* caps, void* counts, int G,
                                     const void* ew, void* stream) {
   const Constraint con{(const float*)w, (const int*)gid, (const int*)caps,
-                       (float*)used, (int*)counts, limit, G};
+                       (float*)used, (int*)counts, (const float*)limit, G};
   const bool constrained = w != nullptr || gid != nullptr;
   return with_operand(xtype, bf16dot, (int)cudaErrorInvalidValue,
                       [&](auto op) {

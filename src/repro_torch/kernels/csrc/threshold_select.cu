@@ -53,7 +53,9 @@
 // accepts nothing, raises no stop flag and leaves cm as it is — what the
 // block-sequential walk would have done there.
 //
-// limit = float32(budget + KNAPSACK_TOL) comes from the host.  Weights are
+// limit (one fp32, float32(budget + KNAPSACK_TOL) of a static budget or the
+// device's budget + KNAPSACK_TOL of a per-request one) is read from device
+// memory, so a captured CUDA graph serves every budget.  Weights are
 // knapsack weights (>= 0).  Eval weights ew (mp,), where given, weigh the
 // gains' eval columns (the tile's kWeighted instantiation, these kernels'
 // own instantiations); the fold does not depend on them.  A group id
@@ -107,10 +109,12 @@ threshold_prepass_kernel(Rows<typename Op::T> X,
                          float* __restrict__ gains,
                          unsigned char* __restrict__ flags, long long M,
                          long long n, int d, int mp, int m_true, int bn,
-                         int G, float limit, const float* __restrict__ ew,
-                         long long ntiles, long long nblk) {
+                         int G, const float* __restrict__ limit_p,
+                         const float* __restrict__ ew, long long ntiles,
+                         long long nblk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L(d, mp, kWeighted);
+  const float limit = w != nullptr ? *limit_p : 0.f;
   auto on_rows = [&](long long mach, long long row0, const float sums[4]) {
     if ((threadIdx.x & 3) != 0) return;  // the quad holds the same sums
 #pragma unroll
@@ -157,7 +161,8 @@ threshold_walk_kernel(Rows<typename Op::T> X,
                       const float* __restrict__ gains,
                       const unsigned char* __restrict__ flags,
                       unsigned char* __restrict__ accept, long long n, int d,
-                      int mp, int m_true, int k, int bn, int G, float limit,
+                      int mp, int m_true, int k, int bn, int G,
+                      const float* __restrict__ limit_p,
                       const float* __restrict__ ew, long long nblk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L(d, mp, kWeighted);
@@ -172,6 +177,7 @@ threshold_walk_kernel(Rows<typename Op::T> X,
   const long long mach = blockIdx.x;
   if (kTail ? !rs.pending[mach] : !active[mach]) return;
   const int tid = threadIdx.x;
+  const float limit = w != nullptr ? *limit_p : 0.f;
   const Rows<typename Op::T> Xm = X.from(mach * n, d);
   const long long base = mach * n;
   float* cmm = cm + mach * mp;
@@ -331,10 +337,11 @@ static size_t walk_smem(int d, int mp, bool weighted, int G) {
 // contraction; E (mp, d) fp32 contiguous; cm (M, mp) fp32, updated in
 // place; avail (M, n) uint8; tau, used (M,) fp32; count (M,) int32;
 // counts (M, G) int32; active (M,) uint8; w (M, n) fp32 or null; gid
-// (M, n) int32 or null with caps (G,) int32; accept (M, n) uint8, zero on
-// entry; gains (M, n) fp32 scratch; flags (M, ceil(n / bn)) uint8, zero
-// on entry; rs the head's scratch (pending zero on entry; counts (M, G));
-// ew (mp,) fp32 eval weights, zero-padded, or null (unweighted).  Three
+// (M, n) int32 or null with caps (G,) int32; limit (1,) fp32 (read where w
+// is given); accept (M, n) uint8, zero on entry; gains (M, n) fp32
+// scratch; flags (M, ceil(n / bn)) uint8, zero on entry; rs the head's
+// scratch (pending zero on entry; counts (M, G)); ew (mp,) fp32 eval
+// weights, zero-padded, or null (unweighted).  Three
 // launches on `stream`: the head and the tail on M blocks, the pre-pass
 // between them on a persistent grid; G must not exceed
 // threshold_select_max_groups() for the same weighting, d and mp.
@@ -345,7 +352,8 @@ static int launch(const Rows<typename Op::T>& X, const void* E, void* cm,
                   const void* w, const void* gid, const void* caps,
                   void* accept, void* gains, void* flags, const Resume& rs,
                   long long M, long long n, int d, int mp, int m_true, int k,
-                  int bn, int G, float limit, const void* ew, void* stream) {
+                  int bn, int G, const void* limit, const void* ew,
+                  void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const long long ntiles = (n + BN - 1) / BN, nblk = (n + bn - 1) / bn;
   const size_t smem = walk_smem(d, mp, kWeighted, gid != nullptr ? G : 0);
@@ -360,7 +368,7 @@ static int launch(const Rows<typename Op::T>& X, const void* E, void* cm,
         (const int*)counts, (const unsigned char*)active, rs, (const float*)w,
         (const int*)gid, (const int*)caps, (const float*)gains,
         (const unsigned char*)flags, (unsigned char*)accept, n, d, mp, m_true,
-        k, bn, G, limit, (const float*)ew, nblk);
+        k, bn, G, (const float*)limit, (const float*)ew, nblk);
     err = (int)cudaGetLastError();
   };
   walk(threshold_walk_kernel<Op, kWeighted, false>);
@@ -374,7 +382,7 @@ static int launch(const Rows<typename Op::T>& X, const void* E, void* cm,
       X, (const float*)E, (const float*)cm, (const unsigned char*)avail,
       (const float*)tau, rs, (const float*)w, (const int*)gid,
       (const int*)caps, (float*)gains, (unsigned char*)flags, M, n, d, mp,
-      m_true, bn, G, limit, (const float*)ew, ntiles, nblk);
+      m_true, bn, G, (const float*)limit, (const float*)ew, ntiles, nblk);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   walk(threshold_walk_kernel<Op, kWeighted, true>);
@@ -389,7 +397,7 @@ extern "C" int threshold_select_launch(
     void* accept, void* gains, void* flags, void* pending, void* next,
     void* count_mid, void* used_mid, void* counts_mid, long long M,
     long long n, int d, int mp, int m_true, int k, int bn, int G,
-    float limit, const void* ew, void* stream) {
+    const void* limit, const void* ew, void* stream) {
   const Resume rs{(unsigned char*)pending, (int*)next, (int*)count_mid,
                   (float*)used_mid, (int*)counts_mid};
   return with_operand(xtype, bf16dot, (int)cudaErrorInvalidValue,

@@ -28,9 +28,11 @@ Constrained variant: the knapsack (``w``, ``limit``) and partition-matroid
 that are not feasible against the running per-machine ``used`` (M,) fp32
 and ``counts`` (M, G) int32, which live in device scratch allocated here;
 the commit adds the winner's weight (one fp32 add per step, the
-reference's order) and increments its group.  ``limit`` is the host's
-``float32(budget + KNAPSACK_TOL)``.  A group id outside ``[0, G)`` belongs
-to no open group, so such a row is never selected.
+reference's order) and increments its group.  ``limit`` is a ``(1,)``
+fp32 tensor on the card (:func:`repro_torch.kernels.ref.limit_operand`),
+read by the kernel, so a captured CUDA graph takes any budget.  A group
+id outside ``[0, G)`` belongs to no open group, so such a row is never
+selected.
 
 Weighted variant: eval weights (``WeightedExemplarClustering``) weigh each
 eval column's contribution in the step kernel's gains (its own template
@@ -60,7 +62,8 @@ from repro_torch.kernels.ref import greedy_select as plain  # noqa: F401
 
 def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
            avail: torch.Tensor, k: int, m_true: int, *,
-           w: torch.Tensor | None = None, limit: float = 0.0,
+           w: torch.Tensor | None = None,
+           limit: torch.Tensor | None = None,
            gid: torch.Tensor | None = None, caps: torch.Tensor | None = None,
            ew: torch.Tensor | None = None, x_scale=None, x_zp=None,
            bf16dot: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
@@ -72,8 +75,9 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     ``m_true``); ``bf16dot`` contracts x·e in bf16; cur_min ``(M, mp)``
     fp32 and avail ``(M, n)``
     uint8 are the running state and are updated in place.  ``w`` ``(M, n)``
-    fp32 with ``limit``, and ``gid`` ``(M, n)`` int32 with ``caps`` ``(G,)``
-    int32, encode the constraint (``None`` switches a part off).  ``ew``
+    fp32 with ``limit`` ``(1,)`` fp32, and ``gid`` ``(M, n)`` int32 with
+    ``caps`` ``(G,)`` int32, encode the constraint (``None`` switches a
+    part off).  ``ew``
     ``(mp,)`` fp32 are the eval weights, zero-padded like cur_min (``None``:
     unweighted).
     """
@@ -84,7 +88,10 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     checks = [(X, (M, n, d), X.dtype), (E, (mp, d), torch.float32),
               (cur_min, (M, mp), torch.float32), (avail, (M, n), torch.uint8)]
     if w is not None:
-        checks.append((w, (M, n), torch.float32))
+        if limit is None:
+            raise ValueError("greedy_select kernel: knapsack weights need their "
+                             "limit")
+        checks += [(w, (M, n), torch.float32), (limit, (1,), torch.float32)]
     if gid is not None:
         checks += [(gid, (M, n), torch.int32), (caps, (G,), torch.int32)]
     if ew is not None:
@@ -128,7 +135,8 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                     avail.data_ptr(), win_v.data_ptr(), win_i.data_ptr(),
                     ticket.data_ptr(), sel.data_ptr(), M, n, d, mp, m_true,
                     k, P, None if w is None else w.data_ptr(),
-                    used.data_ptr() if constrained else None, limit,
+                    used.data_ptr() if constrained else None,
+                    None if w is None else limit.data_ptr(),
                     None if gid is None else gid.data_ptr(),
                     None if caps is None else caps.data_ptr(),
                     counts.data_ptr() if constrained else None, G,

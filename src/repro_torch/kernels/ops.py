@@ -16,8 +16,11 @@ the kernels, so ``X`` is never copied.  Raw gain sums are divided by the
 Constraint operands (``weights``/``budget``, ``group_ids``/``caps``, or
 the same as one :class:`repro_torch.kernels.ref.Encoding` passed as
 ``enc=``) go to the kernels as contiguous ``(M, n)`` fp32 weights,
-``(M, n)`` int32 group ids, a ``(G,)`` int32 caps array on the card and the
-host's fp32 constant ``float32(budget + KNAPSACK_TOL)``.  A caller that
+``(M, n)`` int32 group ids, a ``(G,)`` int32 caps array and a ``(1,)``
+fp32 knapsack limit on the card (``float32(budget + KNAPSACK_TOL)`` of a
+number, the device's ``budget + KNAPSACK_TOL`` of a ``DynamicKnapsack``'s
+tensor: :func:`repro_torch.kernels.ref.limit_operand`); the kernels read
+the limit and the caps, so no host read sits in a solve.  A caller that
 launches many times on one set of operands (the τ-ladder) builds the
 ``Encoding`` once and passes it on, so no level uploads ``caps`` again.
 

@@ -70,9 +70,27 @@ def dequantize_rows(X: torch.Tensor, x_scale=None, x_zp=None
 def knapsack_limit(budget) -> float:
     """``float32(budget + KNAPSACK_TOL)``: the two Python floats add in
     double and round once to fp32, as the JAX package compares them with
-    the fp32 ``used + w``.  The kernels take this constant from the host."""
+    the fp32 ``used + w`` (the static ``Knapsack``)."""
     from repro_torch.core.constraints import KNAPSACK_TOL
     return float(np.float32(float(budget) + KNAPSACK_TOL))
+
+
+def dynamic_limit(budget: torch.Tensor) -> torch.Tensor:
+    """``budget + KNAPSACK_TOL`` as one fp32 add where the budget lies (the
+    ``DynamicKnapsack`` reading, the JAX class's arithmetic): no host read,
+    so a captured solve takes any budget."""
+    from repro_torch.core.constraints import KNAPSACK_TOL
+    return budget.to(torch.float32) + KNAPSACK_TOL
+
+
+def limit_operand(budget, device) -> torch.Tensor:
+    """The knapsack limit as the ``(1,)`` fp32 tensor on ``device`` that
+    the kernels read: :func:`dynamic_limit` of a tensor budget, else
+    :func:`knapsack_limit` of a number (written by a fill, no copy)."""
+    if isinstance(budget, torch.Tensor):
+        return dynamic_limit(budget.to(device)).reshape(1)
+    return torch.full((1,), knapsack_limit(budget), dtype=torch.float32,
+                      device=device)
 
 
 def exact_fp32(t: torch.Tensor) -> None:
@@ -207,10 +225,13 @@ def _gain_sums(cm: torch.Tensor, d2: torch.Tensor, ew) -> torch.Tensor:
 
 class Encoding:
     """The fused constraint operands of one call, batched over machines:
-    ``w`` ``(M, n)`` fp32 with ``limit``, ``gid`` ``(M, n)`` int32 with
-    ``caps`` ``(G,)`` int32; either pair may be absent.  Built once per
-    call (or once per ladder, passed on as ``enc=``), contiguous, so the
-    kernels take these operands as they are."""
+    ``w`` ``(M, n)`` fp32 with ``limit`` ``(1,)`` fp32, ``gid`` ``(M, n)``
+    int32 with ``caps`` ``(G,)`` int32; either pair may be absent.  Built
+    once per call (or once per ladder, passed on as ``enc=``), contiguous
+    and on the device, so the kernels take these operands as they are.
+    ``budget`` and ``caps`` may be numbers (``Knapsack``,
+    ``PartitionMatroid``) or device tensors (the ``Dynamic*`` classes):
+    the tensors are never read by the host (:func:`limit_operand`)."""
 
     def __init__(self, M, n, device, weights=None, budget=None,
                  group_ids=None, caps=None):
@@ -222,12 +243,15 @@ class Encoding:
         if weights is not None:
             self.w = torch.as_tensor(weights, dtype=torch.float32,
                                      device=device).reshape(M, n).contiguous()
-            self.limit = knapsack_limit(budget)
+            self.limit = limit_operand(budget, device)
         if caps is not None:
             self.gid = torch.as_tensor(group_ids, device=device).reshape(
                 M, n).to(torch.int32).contiguous()
-            self.caps = torch.as_tensor(tuple(int(c) for c in caps),
-                                        dtype=torch.int32, device=device)
+            self.caps = (caps.to(device=device, dtype=torch.int32)
+                         .reshape(-1).contiguous()
+                         if isinstance(caps, torch.Tensor) else
+                         torch.as_tensor(tuple(int(c) for c in caps),
+                                         dtype=torch.int32, device=device))
         self.G = 1 if self.caps is None else int(self.caps.shape[0])
 
     def rows(self, sl) -> "Encoding":

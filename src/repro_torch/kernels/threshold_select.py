@@ -93,7 +93,8 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
            avail: torch.Tensor, tau: torch.Tensor, used: torch.Tensor,
            count: torch.Tensor, counts: torch.Tensor, active: torch.Tensor,
            k: int, bn: int, m_true: int, *, w: torch.Tensor | None = None,
-           limit: float = 0.0, gid: torch.Tensor | None = None,
+           limit: torch.Tensor | None = None,
+           gid: torch.Tensor | None = None,
            caps: torch.Tensor | None = None,
            ew: torch.Tensor | None = None,
            flags_out: torch.Tensor | None = None, x_scale=None, x_zp=None,
@@ -106,8 +107,9 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     fp32 is updated in place;
     avail ``(M, n)`` and active ``(M,)`` uint8; tau, used ``(M,)`` fp32;
     count ``(M,)`` int32; counts ``(M, G)`` int32.  ``w`` ``(M, n)`` fp32
-    with ``limit``, and ``gid`` ``(M, n)`` int32 with ``caps`` ``(G,)``
-    int32, encode the constraint (``None`` switches a part off).  ``ew``
+    with ``limit`` ``(1,)`` fp32 (read on the card, as ``greedy_select``
+    reads it), and ``gid`` ``(M, n)`` int32 with ``caps`` ``(G,)`` int32,
+    encode the constraint (``None`` switches a part off).  ``ew``
     ``(mp,)`` fp32 are the eval weights, zero-padded like cur_min (``None``:
     unweighted).  ``flags_out`` ``(M, ceil(n / bn))`` uint8, where given,
     receives the pre-pass's block flags (1: the tail visits the block; the
@@ -123,7 +125,10 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
               (count, (M,), torch.int32), (active, (M,), torch.uint8),
               (counts, (M, max(G, 1)), torch.int32)]
     if w is not None:
-        checks.append((w, (M, n), torch.float32))
+        if limit is None:
+            raise ValueError("threshold_select kernel: knapsack weights need their "
+                             "limit")
+        checks += [(w, (M, n), torch.float32), (limit, (1,), torch.float32)]
     if gid is not None:
         checks += [(gid, (M, n), torch.int32), (caps, (G,), torch.int32)]
     if ew is not None:
@@ -174,7 +179,8 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                     accept.data_ptr(), gains.data_ptr(), flags_out.data_ptr(),
                     pending.data_ptr(), *(t.data_ptr() for t in mid),
                     counts_mid.data_ptr(), M, n, d, mp, m_true, k, bn, G,
-                    limit, None if ew is None else ew.data_ptr(), stream),
+                    None if w is None else limit.data_ptr(),
+                    None if ew is None else ew.data_ptr(), stream),
                  "threshold_select")
     count_launches("threshold_select", "threshold_select" if ew is None
                    else "threshold_select_weighted", xtype, bf16dot)

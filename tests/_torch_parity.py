@@ -45,6 +45,23 @@ def jax_tree_plan(seed: int, mu: int, machines_per_round,
     return ArrayPlan(perms, stochastic=scores if k is not None else None)
 
 
+def jax_serve_plan(seed: int, request_seed: int, ladder, mu: int
+                   ) -> ArrayPlan:
+    """The slot permutations ``repro.serve`` draws for one request: round 0
+    from ``kpart`` of ``key1, kpart, kalg = split(PRNGKey(seed), 3)`` (the
+    tree's round 0, the session's blocks), rounds ≥ 1 from ``chain =
+    fold_in(key1, request_seed)`` split by 3 a round as ``jax_tree_plan``
+    splits the tree's key; ``permutation(kpart_t, m_t·μ)`` for the machine
+    counts ``ladder``."""
+    key1, kpart, _kalg = jax.random.split(jax.random.PRNGKey(seed), 3)
+    perms = [np.asarray(jax.random.permutation(kpart, ladder[0] * mu))]
+    chain = jax.random.fold_in(key1, request_seed)
+    for m in ladder[1:]:
+        chain, kpart, _kalg = jax.random.split(chain, 3)
+        perms.append(np.asarray(jax.random.permutation(kpart, m * mu)))
+    return ArrayPlan(perms)
+
+
 def jax_stochastic_scores(kalg, machines: int, k: int, cap: int
                           ) -> np.ndarray:
     """``(machines, k, cap)``: the uniform scores

@@ -49,10 +49,21 @@ def test_spec_checker_and_attr_dim_match_jax(spec):
 
 
 def test_from_spec_rejects_unknown_and_dynamic_classes():
+    """Unknown specs raise; the JAX ``Dynamic*`` classes (not spec-parsed:
+    the serve layer builds them) map to the port's, parameters on the
+    device asked for."""
     with pytest.raises(ValueError, match="unknown constraint spec"):
         cons.from_spec("matroid:rank=3")
-    with pytest.raises(ValueError, match="item 12"):
-        constraint_from_jax(jcons.DynamicKnapsack(jnp.float32(1.0)))
+    kn = constraint_from_jax(jcons.DynamicKnapsack(jnp.float32(1.5), col=1),
+                             "cpu")
+    assert isinstance(kn, cons.DynamicKnapsack) and kn.col == 1
+    assert kn.budget.dtype == torch.float32 and float(kn.budget) == 1.5
+    pm = constraint_from_jax(jcons.DynamicPartitionMatroid(
+        jnp.asarray([2, 1, 3], jnp.int32), col=0), "cpu")
+    assert isinstance(pm, cons.DynamicPartitionMatroid)
+    assert pm.caps.dtype == torch.int32 and pm.caps.tolist() == [2, 1, 3]
+    with pytest.raises(ValueError, match="no port of constraint class"):
+        constraint_from_jax(type("Matroid", (), {})())
 
 
 @pytest.mark.parametrize("spec", SPECS[:5])
