@@ -88,13 +88,14 @@ def constraint_from_jax(c, device="cuda"):
 
 
 def params_from_jax(params, cfg, device="cuda") -> dict:
-    """The port's serving parameters of a ported family (the dense
+    """The port's serving parameters of a ported family (the dense and MoE
     transformer, RWKV-6) from the JAX ``init_params`` tree of its model
-    (leaves read through ``np.asarray``): the stacks cast by
-    ``layers.cast_stacks``, ``emb`` and ``head`` by ``layers.cast``, the
-    other leaves (norm scales, RWKV's ``w0``) fp32 — what the JAX package
-    casts at every call, cast once.  One leaf at a time, cast on the host
-    before it moves."""
+    (leaves read through ``np.asarray``): the stacks of every sub-tree
+    (``attn``, ``mlp``, ``moe`` with its ``router``, ``experts``, ``ln``
+    and ``shared``) cast by ``layers.cast_stacks``, ``emb`` and ``head`` by
+    ``layers.cast``, the other top-level leaves (norm scales, RWKV's
+    ``w0``) fp32 — what the JAX package casts at every call, cast once.
+    One leaf at a time, cast on the host before it moves."""
     import torch
 
     from repro_torch.models import get_model, layers, transformer
@@ -108,8 +109,8 @@ def params_from_jax(params, cfg, device="cuda") -> dict:
     out = {}
     for name, val in params.items():
         if isinstance(val, dict):
-            out[name] = {key: layers.cast_stacks(leaf(x)).to(dev)
-                         for key, x in val.items()}
+            out[name] = layers.tree_map(
+                lambda x: layers.cast_stacks(leaf(x)).to(dev), val)
         elif name in ("emb", "head"):
             out[name] = layers.cast(leaf(val)).to(dev)
         else:

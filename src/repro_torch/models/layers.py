@@ -5,8 +5,9 @@ layers carry a leading layer axis; the per-layer functions here see one
 layer's slice.  Compute dtype is bf16; the norms, the rope angles and the
 attention's softmax and accumulation are fp32.
 
-The q/k/v/o projections and the MLP are plain ``torch.matmul`` in bf16, as
-the JAX package leaves them to XLA; attention goes through
+The q/k/v/o projections, the MLP and the MoE's router, dispatch, expert
+and combine products are plain ``torch.matmul`` / ``torch.einsum`` in
+bf16, as the JAX package leaves them to XLA; attention goes through
 :func:`repro_torch.kernels.ops.flash_attention` (the hand-written kernel on
 the card, its plain version on the CPU).  There is no activation sharding
 (``shard`` / ``h_spec``): this runs on one card.
@@ -17,6 +18,7 @@ by ``dynamic_update_slice`` into a new array).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -34,14 +37,25 @@ def cast(x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE)
 
 
+def tree_map(fn, tree):
+    """``fn`` of every leaf of a (nested) parameter dict, the nesting kept."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, val) for key, val in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a (nested) parameter dict, in its order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def cast_stacks(tree):
     """Stacked weight matrices (ndim ≥ 3, fp32) in the compute dtype; norm
     scales and other 1D/2D leaves stay as they are."""
-    if isinstance(tree, dict):
-        return {key: cast_stacks(val) for key, val in tree.items()}
-    if tree.dim() >= 3 and tree.dtype == torch.float32:
-        return tree.to(COMPUTE_DTYPE)
-    return tree
+    return tree_map(lambda t: t.to(COMPUTE_DTYPE)
+                    if t.dim() >= 3 and t.dtype == torch.float32 else t, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -173,9 +187,10 @@ def attention(p: dict, x: torch.Tensor, cfg, *, mode: str = "train",
 # ---------------------------------------------------------------------------
 
 
-def mlp_params(gen: torch.Generator, cfg, L: int, *, device=None) -> dict:
+def mlp_params(gen: torch.Generator, cfg, L: int, *, ff: int | None = None,
+               device=None) -> dict:
     """Serving parameters, each stack cast as soon as it is drawn."""
-    d, ff = cfg.d_model, cfg.d_ff
+    d, ff = cfg.d_model, ff or cfg.d_ff
     dev = device or gen.device
     return {
         "w_gate": cast_stacks(stack_init(gen, L, (d, ff), device=dev)),
@@ -195,3 +210,249 @@ def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     g = _act(h @ cast(p["w_gate"]), cfg.gate_fn)
     u = h @ cast(p["w_up"])
     return (g * u) @ cast(p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# MoE with capacity-based dispatch (GShard one-hot masks, or the sort)
+# ---------------------------------------------------------------------------
+
+
+def _expert_stack(gen: torch.Generator, L: int, shape, device
+                  ) -> torch.Tensor:
+    """A (L, *shape) expert stack drawn one layer at a time, each layer
+    cast to the compute dtype as soon as it is drawn (fp32 never holds more
+    than one layer's experts: deepseek-moe-16b's whole stack would be
+    20.7 GB)."""
+    out = torch.empty((L, *shape), dtype=COMPUTE_DTYPE, device=device)
+    for l in range(L):
+        out[l] = cast(dense_init(gen, shape, device=device))
+    return out
+
+
+def moe_params(gen: torch.Generator, cfg, L: int, *, device=None) -> dict:
+    """Serving parameters of the MoE block (the JAX tree: ``router``,
+    ``experts`` {w_gate, w_up, w_down}, ``ln``, and ``shared`` — the
+    always-on experts as one MLP of width n_shared·d_ff, sharing the block
+    norm), each stack in the compute dtype."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dev = device or gen.device
+    p = {
+        "router": cast_stacks(stack_init(gen, L, (d, E), device=dev)
+                              * (0.02 * math.sqrt(d))),
+        "experts": {
+            "w_gate": _expert_stack(gen, L, (E, d, ff), dev),
+            "w_up": _expert_stack(gen, L, (E, d, ff), dev),
+            "w_down": _expert_stack(gen, L, (E, ff, d), dev),
+        },
+        "ln": torch.zeros((L, d), dtype=torch.float32, device=dev),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_params(gen, cfg, L,
+                                 ff=cfg.n_shared_experts * ff, device=dev)
+        del p["shared"]["ln"]  # share the block norm
+    return p
+
+
+def capacity(cfg, tokens: int) -> int:
+    """Slots per expert for a group of ``tokens``: ⌈cf · tokens · K / E⌉
+    rounded up to a multiple of 4, at least 4 (the JAX package's C)."""
+    C = int(cfg.moe_capacity_factor * tokens * cfg.experts_per_token
+            / cfg.n_experts)
+    return max(4, -(-C // 4) * 4)
+
+
+def top_k(probs: torch.Tensor, K: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The K largest of the last axis, ties to the lower index (as
+    ``jax.lax.top_k``; ``torch.topk`` promises no order among ties, and
+    bf16 router logits tie often): a stable descending sort, cut at K."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :K], idx[..., :K]
+
+
+def _dispatch_group(hf, top_w, top_e, E: int, K: int, C: int):
+    """Capacity dispatch for ONE token group (sort formulation).
+    hf: (N, d); returns (buf (E, C, d), ts, ws, keep, slot): the (token,
+    k) assignments sorted stably by expert, an assignment kept while its
+    rank within its expert is below C, kept ones at slot e·C + rank, the
+    dropped ones at the trash slot E·C."""
+    N, d = hf.shape
+    e_flat = top_e.reshape(-1)                                   # (N·K,)
+    w_flat = top_w.reshape(-1)
+    t_flat = torch.arange(N, device=hf.device).repeat_interleave(K)
+    order = torch.sort(e_flat, stable=True).indices
+    es, ts, ws = e_flat[order], t_flat[order], w_flat[order]
+    counts = torch.bincount(es, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(N * K, device=hf.device) - starts[es]
+    keep = pos_in_e < C
+    slot = torch.where(keep, es * C + pos_in_e, E * C)          # E*C = trash
+    buf = torch.zeros((E * C + 1, d), dtype=COMPUTE_DTYPE, device=hf.device)
+    buf[slot] = hf[ts].to(COMPUTE_DTYPE)
+    return buf[:E * C].reshape(E, C, d), ts, ws, keep, slot
+
+
+def _combine_group(out, ts, ws, keep, slot, N: int):
+    """The sort formulation's combine: each kept assignment's expert output
+    times its router weight, summed into its token's row."""
+    E, C, d = out.shape
+    out_flat = out.reshape(E * C, d)
+    contrib = torch.where(keep[:, None],
+                          out_flat[torch.clamp_max(slot, E * C - 1)]
+                          * ws[:, None].to(COMPUTE_DTYPE), 0.0)
+    return torch.zeros((N, d), dtype=COMPUTE_DTYPE,
+                       device=out.device).index_add_(0, ts, contrib)
+
+
+def _ranks(e_flat: torch.Tensor, E: int) -> torch.Tensor:
+    """Each assignment's rank among its expert's in flattened (token, k)
+    order: e_flat (..., g·K) → (..., g·K) int64."""
+    oh = F.one_hot(e_flat, E).to(torch.int32)                     # (…, g·K, E)
+    pos = torch.cumsum(oh, dim=-2, dtype=torch.int32) - oh        # rank per e
+    return torch.gather(pos, -1, e_flat[..., None])[..., 0].long()
+
+
+def _onehot_masks(top_w, top_e, E: int, K: int, C: int):
+    """GShard dispatch/combine masks for token groups.
+    top_w/top_e: (..., g, K).  Returns dispatch (..., g, E, C) {0,1} and
+    combine (..., g, E, C) with router weights, in the compute dtype: an
+    assignment's rank is its position among its expert's assignments in
+    flattened (token, k) order, and ranks ≥ C are dropped.
+
+    The JAX package forms each assignment's (E, C) one-hot product and sums
+    over k; the port writes each assignment's one entry into the (g, E, C)
+    masks instead, which gives the same values (a token's K experts are
+    distinct, so no two assignments share an entry) without the (g·K, E, C)
+    intermediate — 6.6 GB a layer at deepseek-moe-16b's prefill with no
+    drops."""
+    *lead, g, _ = top_e.shape
+    e_flat = top_e.reshape(-1, g * K).long()                      # (L, g·K)
+    pos_t = _ranks(e_flat, E)
+    keep = (pos_t < C).to(COMPUTE_DTYPE)
+    n = e_flat.shape[0]
+    tok = torch.arange(g, device=e_flat.device).repeat_interleave(K)
+    at = (tok * E + e_flat) * C + torch.clamp_max(pos_t, C - 1)  # (L, g·K)
+    disp = torch.zeros((n, g * E * C), dtype=COMPUTE_DTYPE,
+                       device=e_flat.device)
+    comb = torch.zeros_like(disp)
+    disp.scatter_(1, at, keep)
+    comb.scatter_(1, at, keep * top_w.reshape(n, g * K).to(COMPUTE_DTYPE))
+    return disp.reshape(*lead, g, E, C), comb.reshape(*lead, g, E, C)
+
+
+def groups(cfg, B: int, S: int) -> tuple[int, int]:
+    """(G, gsz) of the one-hot dispatch: groups of ``moe_group_size``
+    tokens of a sequence, or of the batch where S = 1 (decode).  Raises
+    ``ValueError`` where G·gsz ≠ B·S (the JAX package's assert)."""
+    gsz = (min(cfg.moe_group_size, S) if S > 1
+           else min(cfg.moe_group_size, B))
+    N = B * S
+    G = max(1, N // gsz)
+    gsz = N // G
+    if G * gsz != N:
+        raise ValueError(f"{N} tokens do not split into {G} dispatch groups "
+                         f"of {gsz} (moe_group_size={cfg.moe_group_size})")
+    return G, gsz
+
+
+def route(p: dict, hc: torch.Tensor, cfg) -> tuple[torch.Tensor,
+                                                   torch.Tensor,
+                                                   torch.Tensor]:
+    """The router: fp32 logits of the bf16 product, the softmax's top K
+    (ties to the lower index) and their weights renormalised to sum 1.
+    Returns (logits, top_w, top_e).
+
+    The product of the bf16 operands is summed in fp32 and rounded once to
+    bf16, as the JAX package's bf16 dot is: a bf16 GEMM on the card may
+    also reduce in bf16 (torch's ``allow_bf16_reduced_precision_reduction``),
+    which moves a logit by more than its last bit and so a route."""
+    kref.exact_fp32(hc)
+    logits = cast(hc.float() @ cast(p["router"]).float()).float()  # (B,S,E)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = top_k(probs, cfg.experts_per_token)            # (B, S, K)
+    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    return logits, top_w, top_e
+
+
+#: set by :func:`route_hook`
+_ROUTE_HOOK = None
+
+
+@contextlib.contextmanager
+def route_hook(fn):
+    """Within the block, every :func:`moe` call hands its router's input and
+    output to ``fn(p, hc, cfg, (logits, top_w, top_e))``, which returns the
+    ``(top_w, top_e)`` the call dispatches: where a check reads the routes
+    a run took, and where it gives a run another run's routes."""
+    global _ROUTE_HOOK
+    prev, _ROUTE_HOOK = _ROUTE_HOOK, fn
+    try:
+        yield
+    finally:
+        _ROUTE_HOOK = prev
+
+
+def kept_assignments(cfg, top_e: torch.Tensor) -> torch.Tensor:
+    """How many of the (token, k) assignments ``top_e`` (B, S, K) of one
+    :func:`moe` call find a capacity slot (a 0-d tensor): ranks below C
+    in the groups of ``cfg.moe_impl`` (a sequence for the sort, the
+    one-hot dispatch's groups otherwise)."""
+    B, S, K = top_e.shape
+    G, gsz = (B, S) if cfg.moe_impl == "sort" else groups(cfg, B, S)
+    C = capacity(cfg, gsz)
+    return torch.sum(_ranks(top_e.reshape(G, gsz * K).long(),
+                            cfg.n_experts) < C)
+
+
+def _experts(we: dict, buf: torch.Tensor, cfg) -> torch.Tensor:
+    """Every expert's SwiGLU/GeGLU on its capacity slots: buf (..., E, C,
+    d) → (..., E, C, d), the batched products in bf16."""
+    gate = _act(torch.einsum("...ecd,edf->...ecf", buf, cast(we["w_gate"])),
+                cfg.gate_fn)
+    up = torch.einsum("...ecd,edf->...ecf", buf, cast(we["w_up"]))
+    return torch.einsum("...ecf,efd->...ecd", gate * up, cast(we["w_down"]))
+
+
+def moe(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Top-k routed experts + optional always-on shared experts.
+
+    ``moe_impl="onehot"`` (the default): GShard one-hot dispatch over
+    groups of ``moe_group_size`` tokens — dispatch and combine are einsums
+    against (G, g, E, C) masks.  ``"sort"``: per sequence, the assignments
+    sorted stably by expert and scattered into capacity slots.  Both drop
+    the same assignments (an expert's rank ≥ C in (token, k) order).
+    """
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    hc = cast(h)
+    routed = route(p, hc, cfg)
+    _, top_w, top_e = routed
+    if _ROUTE_HOOK is not None:
+        top_w, top_e = _ROUTE_HOOK(p, hc, cfg, routed)
+
+    we = p["experts"]
+    if cfg.moe_impl == "sort":
+        C = capacity(cfg, S)
+        ys = []
+        for b in range(B):
+            buf, ts, ws, keep, slot = _dispatch_group(hc[b], top_w[b],
+                                                      top_e[b], E, K, C)
+            ys.append(_combine_group(_experts(we, buf, cfg), ts, ws, keep,
+                                     slot, S))
+        y = torch.stack(ys)
+    else:
+        G, gsz = groups(cfg, B, S)
+        C = capacity(cfg, gsz)
+        xg = hc.reshape(G, gsz, d)
+        disp, comb = _onehot_masks(top_w.reshape(G, gsz, K),
+                                   top_e.reshape(G, gsz, K), E, K, C)
+        buf = torch.einsum("gtec,gtd->gecd", disp, xg)            # (G,E,C,d)
+        out = _experts(we, buf, cfg)                              # (G,E,C,d)
+        y = torch.einsum("gtec,gecd->gtd", comb, out).reshape(B, S, d)
+
+    if "shared" in p:
+        sp = p["shared"]
+        g = _act(hc @ cast(sp["w_gate"]), cfg.gate_fn)
+        u = hc @ cast(sp["w_up"])
+        y = y + ((g * u) @ cast(sp["w_down"])).reshape(B, S, d)
+    return y

@@ -8,8 +8,9 @@ Uniform API of a ported family:
   prefill(params, cfg, tokens, cache, embeds=None)  -> (logits, cache)
   decode_step(params, cfg, cache, tokens)           -> (logits, cache)
 
-The port runs the dense family and RWKV-6 (``"ssm"``); the other
-families raise :class:`NotImplementedError` naming the item that brings
+The port runs the dense family, MoE (the same transformer with
+``layers.moe`` for its MLP) and RWKV-6 (``"ssm"``); the other families
+raise :class:`NotImplementedError` naming the item that brings
 them.
 """
 from __future__ import annotations
@@ -19,7 +20,6 @@ import types
 from repro_torch.models import rwkv, transformer
 
 _UNPORTED = {
-    "moe": "MoE layers (layers.moe)",
     "vlm": "the VLM frontend",
     "hybrid": "the hybrid family (models/hybrid.py)",
     "encdec": "the encoder-decoder family (models/encdec.py)",
@@ -27,7 +27,7 @@ _UNPORTED = {
 
 
 def get_model(cfg) -> types.ModuleType:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return transformer
     if cfg.family == "ssm":
         return rwkv

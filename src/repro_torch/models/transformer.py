@@ -1,11 +1,11 @@
-"""Decoder-only transformer LM for the dense family (counterpart of
-``repro.models.transformer``).
+"""Decoder-only transformer LM for the dense and MoE families
+(counterpart of ``repro.models.transformer``).
 
 ``init_params``, ``forward``, ``init_cache``, ``prefill`` and
 ``decode_step`` with the JAX package's signatures and parameter tree
-(``emb``, ``attn``, ``mlp``, ``final_ln``, ``head``; stacks with a leading
-layer axis), run as a Python loop over the layers (no remat: this is
-inference).  The MoE and VLM members of the family raise
+(``emb``, ``attn``, ``mlp`` or ``moe``, ``final_ln``, ``head``; stacks with
+a leading layer axis), run as a Python loop over the layers (no remat:
+this is inference).  The VLM member of the family (``embeds``) raises
 :class:`NotImplementedError`.
 
 Two deliberate departures from the JAX package:
@@ -15,7 +15,8 @@ Two deliberate departures from the JAX package:
   ndim ≥ 3, ``emb`` and ``head``; the norm scales stay fp32.  These are the
   same bits, and recasting 33 GB of fp32 masters at every decode step would
   be the largest cost of serving.  :func:`init_params` draws fp32 and casts
-  one stack at a time (``layers.attention_params`` / ``mlp_params``);
+  one stack at a time (``layers.attention_params`` / ``mlp_params``; the
+  MoE's expert stacks one layer at a time, ``layers.moe_params``);
   ``convert.params_from_jax`` does the same for a JAX parameter tree.
 * **The KV cache is written in place** at ``[..., pos:pos + S, :]`` of each
   layer (JAX's ``dynamic_update_slice`` gives the same values in a new
@@ -38,9 +39,6 @@ _UNPORTED = "ROADMAP queue 1 item 14"
 
 def check_dense(cfg, embeds=None) -> None:
     """Raise for the members of the transformer family not ported yet."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"MoE layers (layers.moe) are not ported "
-                                  f"yet: {_UNPORTED}")
     if embeds is not None or cfg.family == "vlm":
         raise NotImplementedError(f"the VLM frontend (embeds) is not ported "
                                   f"yet: {_UNPORTED}")
@@ -64,19 +62,29 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
         "attn": L.attention_params(gen, cfg, cfg.n_layers, device=dev),
         "final_ln": torch.zeros((d,), dtype=torch.float32, device=dev),
         "head": L.cast(L.dense_init(gen, (d, V), device=dev)),
-        "mlp": L.mlp_params(gen, cfg, cfg.n_layers, device=dev),
+        **({"moe": L.moe_params(gen, cfg, cfg.n_layers, device=dev)}
+           if cfg.is_moe else
+           {"mlp": L.mlp_params(gen, cfg, cfg.n_layers, device=dev)}),
     }
 
 
+def _slice(tree, l: int):
+    """Layer ``l``'s slice of every stack of a (nested) parameter dict."""
+    return L.tree_map(lambda t: t[l], tree)
+
+
 def _layer(params: dict, l: int) -> dict:
-    return {"attn": {key: val[l] for key, val in params["attn"].items()},
-            "mlp": {key: val[l] for key, val in params["mlp"].items()}}
+    ffn = "moe" if "moe" in params else "mlp"
+    return {"attn": _slice(params["attn"], l),
+            ffn: _slice(params[ffn], l)}
 
 
 def _block(cfg, h, pl, mode="train", cache_l=None, cache_pos=None):
     a, cache_l = L.attention(pl["attn"], h, cfg, mode=mode, cache=cache_l,
                              cache_pos=cache_pos)
     h = h + a
+    if cfg.is_moe:
+        return h + L.moe(pl["moe"], h, cfg), cache_l
     return h + L.mlp(pl["mlp"], h, cfg), cache_l
 
 

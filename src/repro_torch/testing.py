@@ -3,8 +3,8 @@ attention outputs in bf16, and those of LM logits and caches), the
 near-tie rule for selections and for greedy tokens, the exact-tie rule for
 objectives whose gains tie exactly (and its trace of a stochastic greedy's
 samples), the near-threshold rules for threshold-batch accept sets and
-threshold-greedy sweeps, and the error model of the chunked ``wkv6``
-against the recurrence.
+threshold-greedy sweeps, the error model of the chunked ``wkv6``
+against the recurrence, and the near-tie rule of MoE routes.
 
 Used by the tests (plain versions against the JAX package on the CPU) and
 by ``chip_smoke.py`` (kernels against their plain versions on the card).
@@ -156,6 +156,104 @@ def tokens_agree(tok, tok_ref, logits_ref, tol: float) -> tuple[bool, int]:
         else:
             agree = False
     return agree, excused
+
+
+def bf16_ulp(x) -> np.ndarray:
+    """One bf16 ulp at each |x| (2⁻⁷ of its binade): fp32's spacing × 2¹⁶."""
+    return np.spacing(np.abs(np.asarray(x, np.float32))) * np.float32(65536)
+
+
+def route_flips(top_e, top_e_ref, logits_ref) -> dict:
+    """MoE routes ``top_e`` ``(..., K)`` against the reference's, token by
+    token, under the near-tie rule.  ``logits_ref`` ``(..., E)`` are the
+    router logits the reference took its top K of (bf16 products read as
+    fp32).  A token whose set of K experts differs is a *flip*; its
+    *margin* is how much the reference prefers the experts it keeps over
+    the ones it leaves out: the largest reference logit among the experts
+    only the reference took minus the smallest among those only the other
+    side took (the reference's K-th minus (K+1)-th logit where one pair
+    swapped, and no less where more did).  A flip is a near tie where that
+    margin is at most one bf16 ulp at the pair's larger |logit|: the two
+    logits are equal or adjacent bf16 values.
+
+    Returns ``flipped`` and ``near`` (bool, the leading shape; ``near`` is
+    true where nothing flipped), ``margin`` (the flip margin at flips, the
+    reference's K-th minus (K+1)-th logit elsewhere), ``margin_ulps`` (in
+    bf16 ulps at the pair), ``min_margin`` (over all tokens) and
+    ``max_flip_ulps`` (0 without a flip)."""
+    e, e_ref = _np(top_e).astype(np.int64), _np(top_e_ref).astype(np.int64)
+    ref = _np(logits_ref).astype(np.float32)
+    K, E = e.shape[-1], ref.shape[-1]
+    member = np.zeros(e.shape[:-1] + (E,), bool)
+    member_ref = np.zeros_like(member)
+    np.put_along_axis(member, e, True, -1)
+    np.put_along_axis(member_ref, e_ref, True, -1)
+    flipped = np.any(member != member_ref, -1)
+    pair = -np.sort(-ref, -1)[..., K - 1:K + 1]
+    hi = np.where(flipped, np.where(member_ref & ~member, ref,
+                                    -np.inf).max(-1), pair[..., 0])
+    lo = np.where(flipped, np.where(member & ~member_ref, ref,
+                                    np.inf).min(-1), pair[..., 1])
+    margin = hi - lo
+    ulps = margin / bf16_ulp(np.maximum(np.abs(hi), np.abs(lo)))
+    near = ~flipped | (ulps <= 1.0)
+    return {"flipped": flipped, "near": near, "margin": margin,
+            "margin_ulps": ulps,
+            "min_margin": float(margin.min()) if margin.size else math.inf,
+            "max_flip_ulps": float(ulps[flipped].max()) if flipped.any()
+            else 0.0}
+
+
+def record_routes(records: list):
+    """A :func:`repro_torch.models.layers.route_hook` that appends each MoE
+    call's router input and experts, ``(hc, top_e)``, to ``records`` and
+    dispatches the call's own routes."""
+
+    def hook(p, hc, cfg, routed):
+        records.append((hc, routed[2]))
+        return routed[1], routed[2]
+
+    return hook
+
+
+def follow_routes(targets, flips: list, own: list | None = None):
+    """A :func:`repro_torch.models.layers.route_hook` that dispatches the
+    i-th MoE call with the experts of ``targets[i]`` = ``(hc, top_e)``,
+    another run's router input and experts over the call's first T
+    positions (its own router weights at them, renormalised), so the two
+    runs' logits stay comparable however their hidden states drift.  Its
+    router is first held on that other run's input: its own top K of the
+    same ``hc`` against ``top_e`` under :func:`route_flips`, with this
+    router's logits as the reference, where every flip must be a near tie
+    (``AssertionError`` otherwise; the record goes to ``flips``).  Where
+    ``own`` is a list, it gets the :func:`route_flips` of this run's own
+    routes, on its own input, against the targets: how far the drift of
+    the hidden states moves the routes, read and not held."""
+    from repro_torch.models.layers import route
+
+    def hook(p, hc, cfg, routed):
+        logits, top_w, top_e = routed
+        i = len(flips)
+        t_hc, t_e = targets[i]
+        T = t_e.shape[1]
+        t_e = t_e.to(top_e.device)
+        lg_same, _, e_same = route(p, t_hc.to(hc.device), cfg)
+        rf = route_flips(t_e, e_same, lg_same)
+        far = rf["flipped"] & ~rf["near"]
+        assert not far.any(), (
+            f"MoE call {i}: on the same router input the experts differ "
+            f"where this router's margin is "
+            f"{rf['margin_ulps'][far].tolist()} bf16 ulps (not a near tie)")
+        flips.append(rf)
+        if own is not None:
+            own.append(route_flips(t_e, top_e[:, :T], logits[:, :T]))
+        w = torch.gather(torch.softmax(logits[:, :T], dim=-1), -1, t_e)
+        w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+        top_e, top_w = top_e.clone(), top_w.clone()
+        top_e[:, :T], top_w[:, :T] = t_e, w
+        return top_w, top_e
+
+    return hook
 
 
 def near_tie(gap: np.ndarray, best: np.ndarray) -> np.ndarray:

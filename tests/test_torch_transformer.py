@@ -7,7 +7,8 @@ from the JAX ``init_params(cfg, PRNGKey(0))`` through
 and, with ``COMPUTE_DTYPE`` set to fp32 in both packages (fp32 caches),
 in fp32; the port's own decode-vs-forward consistency (as
 ``tests/test_models.py``); the configuration copies (RWKV-6's too), the
-synthetic data, the serving parameters, and what is not ported yet.
+synthetic data, the serving parameters, and what is not ported yet (the
+MoE members are held in ``tests/test_torch_moe.py``).
 
 Tolerance: ``repro_torch.testing.LM_ATOL`` — bf16 logits and caches
 within 0.125 (the frameworks' bf16 matmuls round at different places;
@@ -193,12 +194,6 @@ def test_unknown_arch_is_a_key_error():
 
 def test_unported_families_and_modes_raise():
     cfg = get_config("qwen3-8b").reduced()
-    moe = dataclasses.replace(cfg, family="moe", n_experts=4,
-                              experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        get_model(moe)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TT.init_params(dataclasses.replace(cfg, n_experts=4), device="cpu")
     for fam in ("vlm", "hybrid", "encdec"):
         with pytest.raises(NotImplementedError, match="queue 1 item 14"):
             get_model(dataclasses.replace(cfg, family=fam))
