@@ -159,7 +159,23 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    the last decode step against forward at a capacity factor under which
    nothing drops, forward's router held on the served run's router input
    and forward dispatching the served experts;
-15. times — each kernel at its path's shapes, held against its plain
+15. VLM, hybrid and encoder-decoder (run after phase 12) — each as
+   phases 8 and 9: internvl2-76b at full width (2 layers against the
+   CPU, 256 patch embeddings before a 256-token prompt; 8 of its 80
+   layers serving 8 × (256 + 2,048) + 32, cache 2,080 + 256: 80 layers
+   would be 141 GB of bf16); jamba-1.5-large-398b at full width, one
+   period (7 Mamba layers, 1 attention, 4 MoE, 4 dense) with 4 of its 16
+   experts top-2 (33 GB; 16 would be 91 GB), against the CPU on a
+   128-token prompt, 4 new tokens, then serving 8 × 2,048 + 32 (1 + 31
+   flash_attention launches, 7 prefill launches of the recurrent wkv6 and
+   7 × 31 of the decode kernel, the last decode step against forward at
+   a capacity factor with no drops, forward following the served
+   routes); whisper-tiny whole, 1,500 frames, against the CPU and then
+   serving 8 × 4 + 32 with cache 1,500 (12 prefill launches: encoder,
+   self, cross; 8 × 31 decode launches, the cross ones under
+   kv_valid_len = 1,500); their attention and Mamba-scan shapes held
+   against plain in phases 7 and 10 and timed in phase 16;
+16. times — each kernel at its path's shapes, held against its plain
    version there, timed beside it and beside its bound (fp32 FMA rate,
    TF32 or bf16 tensor-core rate, memory rate; ``wkv6`` the tensor-core
    bound with the fp32-only one beside it, its chunked kernel at both
@@ -222,6 +238,16 @@ LM_PARITY_TOL = 0.125
 # layers, whose decode keeps the WKV output in fp32 where forward rounds it
 # to bf16, as the JAX package's two paths do)
 LM_SERVE_TOL = 0.25
+# jamba-1.5-large-398b's parity runs one whole period, 8 layers (7 Mamba,
+# 4 MoE), where the others run 2: card against CPU measured 0.134765625
+# (max over 4 steps; the same twice), and each bf16 evaluation alone sits
+# 0.157 (card) and 0.189 (CPU) from the fp32 evaluation of the same
+# weights (chip_smoke.lm_drift; H100 80GB HBM3, 700 W): the card computes
+# the model as closely as the CPU's plain path does, and LM_PARITY_TOL is
+# below the model's own bf16 rounding at this depth.  The bound is
+# LM_SERVE_TOL's, that of the other comparison of two bf16 paths through
+# a deep model
+HYBRID_PARITY_TOL = LM_SERVE_TOL
 
 
 def fail(msg: str) -> None:
@@ -293,6 +319,10 @@ def phase_setup():
     log(smi.stdout.strip().splitlines()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    with open("/proc/meminfo") as f:
+        log(f"host: {os.cpu_count()} CPUs, "
+            f"{next(line for line in f if line.startswith('MemTotal'))}"
+            .strip())
     digest = hashlib.sha256()
     for f in sorted([ROOT / Path(__file__).name,
                      *(ROOT / "src" / "repro_torch").rglob("*.py"),
@@ -3353,10 +3383,12 @@ def _module(name: str, *args: str) -> subprocess.CompletedProcess:
 LM_ARCH = "qwen3-8b"
 # arXiv:2404.05892 (Finch) at full width and depth: the same two phases
 RWKV_ARCH = "rwkv6-1.6b"
-#: the hand-written kernel each family's serving runs; its launch counters
-#: are "<name>_prefill" and "<name>_decode"
+#: the hand-written kernels each family's serving runs; their launch
+#: counters are "<name>_prefill" and "<name>_decode"
 FAMILY_KERNEL = {"dense": "flash_attention", "moe": "flash_attention",
-                 "ssm": "wkv6"}
+                 "ssm": "wkv6", "vlm": "flash_attention",
+                 "hybrid": ("flash_attention", "wkv6"),
+                 "encdec": "flash_attention"}
 LM_SERVE = dict(batch=8, prompt=2048, new=32, cache_len=2080)
 LM_PARITY = dict(layers=2, batch=1, prompt=256, new=8)
 # arXiv:2401.06066 (deepseek-moe-16b, served at full width and depth) and
@@ -3365,6 +3397,29 @@ LM_PARITY = dict(layers=2, batch=1, prompt=256, new=8)
 MOE_ARCH = "deepseek-moe-16b"
 MOE_PARITY_ARCHS = ("deepseek-moe-16b", "olmoe-1b-7b")
 MOE_PARITY = dict(layers=2, batch=4, prompt=256, new=8)
+# arXiv:2404.16821 (internvl2-76b: 256 patch embeddings before the
+# prompt), arXiv:2403.19887 (jamba-1.5-large-398b) and arXiv:2212.04356
+# (whisper-tiny: 1,500 frame embeddings, the encoder's 30-second context)
+VLM_ARCH = "internvl2-76b"
+HYBRID_ARCH = "jamba-1.5-large-398b"
+ENCDEC_ARCH = "whisper-tiny"
+ENCDEC_FRAMES = 1500
+#: what the serving and parity cells cut, and why: 80 internvl2-76b
+#: layers are 141 GB of bf16 weights, so 8 (17.9 GB); one jamba period
+#: with 16 experts is 91 GB, so 4 experts (33 GB, every expert matrix
+#: 8,192 × 24,576 as published); whisper-tiny runs whole
+LM_CUTS = {VLM_ARCH: dict(n_layers=8),
+           HYBRID_ARCH: dict(n_layers=8, n_experts=4)}
+#: the serving cells that differ from LM_SERVE: whisper decodes 32 tokens
+#: after a 4-token prompt against its 1,500 frames, cache 1,500 slots
+LM_SERVE_BY_ARCH = {ENCDEC_ARCH: dict(batch=8, prompt=4, new=32,
+                                      cache_len=1500)}
+#: the parity runs that differ from LM_PARITY: jamba's 128-token prompt
+#: crosses a 64-step chunk (past the JAX chunked form's clip); whisper
+#: whole against 1,500 frames
+LM_PARITY_BY_ARCH = {HYBRID_ARCH: dict(layers=8, batch=1, prompt=128,
+                                       new=4),
+                     ENCDEC_ARCH: dict(layers=4, batch=1, prompt=4, new=8)}
 ATTN_32K = dict(B=1, H=32, Hkv=8, S=32_768, D=128)   # prefill_32k, batch 1
 
 
@@ -3548,6 +3603,21 @@ def phase_kernels_attention() -> None:
         f"B x Hkv = 1 at T = 1000 -> {fa.decode_splits(1, 1, 8, 1000, 132)}"
         f", B x Hkv = 320 -> {fa.decode_splits(40, 8, 1, 250, 132)}, the "
         f"serving shape -> {fa.decode_splits(8, 8, 4, 2080, 132)}")
+    # the shapes of the VLM, hybrid and encoder-decoder serving cells (the
+    # prompts as the model's strided views), and whisper's self-attention
+    # prefill of its 4-token prompt and decode against its 1,500 slots
+    t0 = time.perf_counter()
+    for arch in (VLM_ARCH, HYBRID_ARCH, ENCDEC_ARCH):
+        for what, B, H, Hkv, S, T, D, causal, kv in attention_shapes(arch):
+            seed += 1
+            check(B, H, Hkv, S, T, D, torch.bfloat16, causal, kv, seed,
+                  strided=S > 1)
+    for S, T, causal, kv in ((4, 4, True, None), (1, 1500, False, 36)):
+        seed += 1
+        check(8, 6, 6, S, T, 64, torch.bfloat16, causal, kv, seed,
+              strided=S > 1)
+    log(f"  the VLM, hybrid and encoder-decoder shapes against plain: "
+        f"{time.perf_counter() - t0:.1f} s")
     c = ATTN_32K
     t0 = time.perf_counter()
     check(c["B"], c["H"], c["Hkv"], c["S"], c["S"], c["D"], torch.bfloat16,
@@ -3591,6 +3661,82 @@ def _lm_prompt(cfg, batch: int, seq: int, device: str):
                        device).batch(0)["tokens"]
 
 
+def _lm_inputs(cfg, batch: int, seq: int, device: str):
+    """(prompt, embeds): SyntheticLM tokens and, for the VLM and the
+    encoder-decoder families, the stub frontend's output as the JAX
+    package's tests draw it, 0.02·N(0, 1) from the seed in bf16:
+    ``frontend_tokens`` patch embeddings or ENCDEC_FRAMES frames."""
+    import torch
+    prompt = _lm_prompt(cfg, batch, seq, device)
+    n = {"vlm": cfg.frontend_tokens, "encdec": ENCDEC_FRAMES}.get(
+        cfg.family)
+    if n is None:
+        return prompt, None
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    return prompt, (0.02 * torch.randn((batch, n, cfg.d_model), generator=g,
+                                       device=device)).to(torch.bfloat16)
+
+
+def lm_config(arch: str, **cuts):
+    """``arch``'s configuration with its cell's cuts (:data:`LM_CUTS`) and
+    ``cuts`` on top."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch),
+                               **{**LM_CUTS.get(arch, {}), **cuts})
+
+
+def family_kernels(cfg) -> tuple:
+    k = FAMILY_KERNEL[cfg.family]
+    return k if isinstance(k, tuple) else (k,)
+
+
+def moe_calls_per_pass(cfg) -> int:
+    """MoE layers a forward pass runs (the hybrid's every moe_period-th)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.moe_period
+    return cfg.n_layers if cfg.is_moe else 0
+
+
+def expected_launches(cfg, n_new: int) -> dict:
+    """Kernel launches, by counter, of one prefill and ``n_new`` − 1 decode
+    steps: one a layer and call of the family's kernel; the hybrid's one
+    attention layer and 7 Mamba layers a period; the encoder-decoder's
+    encoder layers, then each decoder layer's self- and cross-attention."""
+    L, steps = cfg.n_layers, n_new - 1
+    if cfg.family == "ssm":
+        return {"wkv6_prefill": L, "wkv6_decode": L * steps}
+    if cfg.family == "hybrid":
+        P = L // cfg.attn_period
+        m = P * (cfg.attn_period - 1)
+        return {"flash_attention_prefill": P,
+                "flash_attention_decode": P * steps,
+                "wkv6_prefill": m, "wkv6_decode": m * steps}
+    if cfg.family == "encdec":
+        return {"flash_attention_prefill": cfg.encoder_layers + 2 * L,
+                "flash_attention_decode": 2 * L * steps}
+    return {"flash_attention_prefill": L, "flash_attention_decode": L * steps}
+
+
+def call_shape(kernel: str, args, kwargs) -> tuple:
+    """The shape key of a kernel call: flash_attention's (S, T,
+    kv_valid_len), wkv6's (T, Dk, Dv)."""
+    if kernel == "flash_attention":
+        return (kernel, args[0].shape[2], args[1].shape[2],
+                kwargs.get("kv_valid_len"))
+    return (kernel, args[0].shape[2], args[0].shape[3], args[2].shape[3])
+
+
+def shape_launches(serve: dict, kernel: str, S: int, T: int, kv="any"
+                   ) -> int:
+    """Launches of ``kernel`` at (S, T) — and at ``kv``, where given — in
+    a serving run (``serve["launch_shapes"]``; wkv6: T = 1 or the prompt,
+    and its Dk)."""
+    return sum(n for k, s, t, v, n in serve["launch_shapes"]
+               if k == kernel and s == S and t == T
+               and (kv == "any" or v == kv))
+
+
 def _flip_summary(flips: list, own: list) -> dict:
     """Route readings of a run that followed another's (``testing.follow_routes``):
     on the same router input, the tokens whose experts differ (each a near
@@ -3608,13 +3754,16 @@ def _flip_summary(flips: list, own: list) -> dict:
 
 
 def phase_lm_parity(arch: str = LM_ARCH) -> dict:
-    """``arch`` (Qwen3-8B, rwkv6-1.6b, the MoE configurations) at full
-    width and 2 layers, one set of weights: prefill a SyntheticLM prompt
-    and decode on the card, and the same on the CPU through the plain
-    versions, fed the card's tokens; logits within LM_PARITY_TOL at every
-    step, and the card's pick the CPU's or within LM_PARITY_TOL of the
-    CPU's best (the near-tie rule); the family's kernel launched once per
-    layer and call.
+    """``arch`` (Qwen3-8B, rwkv6-1.6b, the MoE configurations at 2 layers;
+    internvl2-76b at 2 layers after 256 patch embeddings; jamba at one
+    period with 4 experts and a 128-token prompt; whisper-tiny whole on
+    1,500 frames) at full width, one set of weights: prefill a SyntheticLM
+    prompt and decode on the card, and the same on the CPU through the
+    plain versions, fed the card's tokens; logits within LM_PARITY_TOL
+    (the hybrid's 8 layers: HYBRID_PARITY_TOL) at every step, and the
+    card's pick the CPU's or within that bound of the CPU's best (the
+    near-tie rule); the family's kernels launched as
+    :func:`expected_launches` says.
 
     MoE: bf16 router logits tie often, so a token's K experts can differ
     between the card and the CPU.  At every MoE call the CPU's router is
@@ -3628,66 +3777,57 @@ def phase_lm_parity(arch: str = LM_ARCH) -> dict:
     CPU's own routes would have made on its own input, and the largest
     logit error on the sequences with no such flip beside the whole's."""
     import contextlib
-    import dataclasses
     import torch
     from repro_torch import testing
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import get_model
     from repro_torch.models import layers as L
-    from repro_torch.serve import make_serve_fns
-    from repro_torch.serve.serve_step import next_token
-    cfg = get_config(arch)
-    c = MOE_PARITY if cfg.is_moe else LM_PARITY
-    cfg = dataclasses.replace(cfg, n_layers=c["layers"])
-    B, kern = c["batch"], FAMILY_KERNEL[cfg.family]
+    c = parity_cell(arch)
+    cfg = lm_config(arch, n_layers=c["layers"])
+    B = c["batch"]
+    routed = cfg.is_moe
+    tol = HYBRID_PARITY_TOL if cfg.family == "hybrid" else LM_PARITY_TOL
     params = get_model(cfg).init_params(cfg, device="cuda", seed=SEED)
-    prompt = _lm_prompt(cfg, B, c["prompt"], "cuda")
-    cache_len = c["prompt"] + c["new"]
+    prompt, embeds = _lm_inputs(cfg, B, c["prompt"], "cuda")
     card_routes, flips, own = [], [], []
     plain = contextlib.nullcontext()
 
     def run(p, toks_in, device):
-        pf, df = make_serve_fns(cfg, cache_len)
-        lg, cache = pf(p, prompt.to(device))
-        logits, toks = [lg[:, -1].float().cpu()], [next_token(lg)]
-        for t in range(c["new"] - 1):
-            feed = toks[-1] if toks_in is None else toks_in[t].to(device)
-            lg, cache = df(p, cache, feed)
-            logits.append(lg[:, -1].float().cpu())
-            toks.append(next_token(lg))
-        return torch.stack(logits, 1), [t.cpu() for t in toks]
+        return greedy_logits(cfg, p, prompt, embeds, c, device, toks_in)
 
     ops.reset_launch_counts()
-    with (L.route_hook(testing.record_routes(card_routes)) if cfg.is_moe
+    with (L.route_hook(testing.record_routes(card_routes)) if routed
           else plain):
         card_logits, card_toks = run(params, None, "cuda")
     torch.cuda.synchronize()
     counts = dict(ops.launch_counts)
-    if (counts[f"{kern}_prefill"] != c["layers"]
-            or counts[f"{kern}_decode"] != c["layers"] * (c["new"] - 1)):
-        fail(f"LM parity ({arch}): {kern} launches {counts}")
+    want = expected_launches(cfg, c["new"])
+    if any(counts[name] != n for name, n in want.items()):
+        fail(f"LM parity ({arch}): launches {counts}, not {want}")
     card_routes = [(hc.cpu(), e.cpu()) for hc, e in card_routes]
     cpu_params = L.tree_map(lambda t: t.to("cpu"), params)
     del params
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
         with (L.route_hook(testing.follow_routes(card_routes, flips, own))
-              if cfg.is_moe else plain):
+              if routed else plain):
             cpu_logits, cpu_toks = run(cpu_params, card_toks, "cpu")
     except AssertionError as exc:
         fail(f"LM parity ({arch}): {exc}")
     t_cpu = time.perf_counter() - t0
     err = float(torch.max(torch.abs(card_logits - cpu_logits)))
+    per_step = torch.abs(card_logits - cpu_logits).amax(dim=(0, 2)).tolist()
     card_tok = torch.cat(card_toks, 1)
     best = cpu_logits.max(dim=-1).values
     picked = torch.take_along_dim(cpu_logits, card_tok[..., None].long(),
                                   dim=-1)[..., 0]
     differ = card_tok != torch.cat(cpu_toks, 1)
     gap = float(torch.max(best - picked))
-    res = {"max_abs_dlogit": err, "pick_gap": gap}
+    res = {"max_abs_dlogit": err, "max_abs_dlogit_per_step": per_step,
+           "pick_gap": gap, "cpu_s": t_cpu}
     moe_note = ""
-    if cfg.is_moe:
+    if routed:
         if len(flips) != len(card_routes):
             fail(f"LM parity ({arch}): {len(flips)} CPU router calls for "
                  f"{len(card_routes)} on the card")
@@ -3714,28 +3854,118 @@ def phase_lm_parity(arch: str = LM_ARCH) -> dict:
                     f"{B} sequences with no such flip "
                     f"{res['max_abs_dlogit_without_flip']!r}")
     log(f"LM parity, {arch} at full width and {c['layers']} layers "
-        f"(B={B}, prompt {c['prompt']}, {c['new']} tokens): card vs "
-        f"CPU max |dlogit| {err!r} over {c['new']} steps (logits up to "
+        f"({cfg.n_experts or 'no'} experts, B={B}, prompt {c['prompt']}"
+        f"{'' if embeds is None else f' after {embeds.shape[1]} embeddings'}"
+        f", {c['new']} tokens): card vs "
+        f"CPU max |dlogit| {err!r} over {c['new']} steps ({per_step}; "
+        f"logits up to "
         f"{float(cpu_logits.abs().max()):.3f}); picks differing "
         f"{int(differ.sum())}, CPU's best minus its logit at the card's "
         f"pick up to {gap!r}; CPU side {t_cpu:.1f} s; launches "
         f"{counts}{moe_note}")
-    if err > LM_PARITY_TOL:
+    if err > tol:
         fail(f"LM parity ({arch}): card and CPU logits differ by {err} > "
-             f"{LM_PARITY_TOL}")
-    if gap > LM_PARITY_TOL:
+             f"{tol}")
+    if gap > tol:
         fail(f"LM parity ({arch}): a card pick is {gap} below the CPU's "
-             f"best (> {LM_PARITY_TOL})")
+             f"best (> {tol})")
+    return res
+
+
+def parity_cell(arch: str) -> dict:
+    """The parity run's layers, batch, prompt and new tokens for ``arch``."""
+    return LM_PARITY_BY_ARCH.get(arch, MOE_PARITY if arch in MOE_PARITY_ARCHS
+                                 else LM_PARITY)
+
+
+def greedy_logits(cfg, params, prompt, embeds, cell: dict, device,
+                  toks_in=None):
+    """Prefill ``prompt`` (after ``embeds``) and decode ``cell["new"]`` − 1
+    greedy steps through the serve fns on ``device``, fed ``toks_in`` where
+    given (another run's tokens) and the run's own picks otherwise.
+    Returns the last position's fp32 logits at each step (B, new, V) on
+    the host and the tokens picked."""
+    import torch
+    from repro_torch.serve import make_serve_fns
+    from repro_torch.serve.serve_step import next_token
+    cache_len = cell["prompt"] + cell["new"]
+    if cfg.family == "encdec":
+        cache_len = max(cache_len, ENCDEC_FRAMES)
+    pf, df = make_serve_fns(cfg, cache_len)
+    lg, cache = pf(params, prompt.to(device),
+                   None if embeds is None else embeds.to(device))
+    logits, toks = [lg[:, -1].float().cpu()], [next_token(lg)]
+    for t in range(cell["new"] - 1):
+        feed = toks[-1] if toks_in is None else toks_in[t].to(device)
+        lg, cache = df(params, cache, feed)
+        logits.append(lg[:, -1].float().cpu())
+        toks.append(next_token(lg))
+    return torch.stack(logits, 1), [t.cpu() for t in toks]
+
+
+def lm_drift(arch: str = HYBRID_ARCH) -> dict:
+    """How far the bf16 evaluations of ``arch``'s parity cell sit from each
+    other and from the fp32 evaluation of the same weights: on the card in
+    bf16 (its MoE routes recorded), on the CPU's plain path in bf16, and on
+    the card with ``COMPUTE_DTYPE`` and the caches in fp32 (the bf16
+    weights' values in fp32), the last two fed the card's tokens and
+    dispatching its experts.  Logs and returns each pair's max |dlogit|
+    per step.  Not run by :func:`main` (the fp32 weights of jamba's period
+    are 66 GB on the card); it measured the basis of
+    :data:`HYBRID_PARITY_TOL`:
+    ``python3 -c "import chip_smoke as c; c.phase_setup(); c.lm_drift()"``."""
+    import functools
+    import torch
+    from repro_torch import testing
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    c = parity_cell(arch)
+    cfg = lm_config(arch, n_layers=c["layers"])
+    model = get_model(cfg)
+    params = model.init_params(cfg, device="cuda", seed=SEED)
+    prompt, embeds = _lm_inputs(cfg, c["batch"], c["prompt"], "cuda")
+    routes = []
+    with L.route_hook(testing.record_routes(routes)):
+        card, toks = greedy_logits(cfg, params, prompt, embeds, c, "cuda")
+    routes = [(hc.cpu(), e.cpu()) for hc, e in routes]
+    host = L.tree_map(lambda t: t.to("cpu"), params)
+    del params
+    torch.cuda.empty_cache()
+    with L.route_hook(testing.follow_routes(routes, [])):
+        cpu, _ = greedy_logits(cfg, host, prompt, embeds, c, "cpu", toks)
+    saved = (L.COMPUTE_DTYPE, model.init_cache)
+    L.COMPUTE_DTYPE = torch.float32
+    model.init_cache = functools.partial(saved[1], dtype=torch.float32)
+    try:
+        p32 = L.tree_map(lambda t: t.to("cuda").float(), host)
+        with L.route_hook(testing.follow_routes(
+                [(hc.float(), e) for hc, e in routes], [])):
+            fp32, _ = greedy_logits(cfg, p32, prompt, embeds, c, "cuda",
+                                    toks)
+    finally:
+        L.COMPUTE_DTYPE, model.init_cache = saved
+    del p32
+    torch.cuda.empty_cache()
+
+    def d(a, b):
+        return torch.abs(a - b).amax(dim=(0, 2)).tolist()
+
+    res = {"card_vs_cpu": d(card, cpu), "card_vs_fp32": d(card, fp32),
+           "cpu_vs_fp32": d(cpu, fp32),
+           "max_abs_logit": float(fp32.abs().max())}
+    log(f"LM drift, {arch} ({cfg.n_layers} layers, B={c['batch']}, prompt "
+        f"{c['prompt']}, {c['new']} tokens), max |dlogit| per step: "
+        f"{json.dumps(res)}")
     return res
 
 
 def _drop_shares(cfg, calls: list) -> dict:
-    """Assignments dropped per layer over one serving run's MoE calls (each
-    call's experts ``top_e`` (B, S, K) in order, layer by layer): the
+    """Assignments dropped per MoE layer over one serving run's MoE calls
+    (each call's experts ``top_e`` (B, S, K) in order, layer by layer): the
     prefill's share per layer (calls with S > 1), the decode's per layer
     over its steps."""
     from repro_torch.models import layers as L
-    n_layers = cfg.n_layers
+    n_layers = moe_calls_per_pass(cfg)
     pre = [0.0] * n_layers
     dec_kept, dec_all = [0.0] * n_layers, [0] * n_layers
     dropped, n_pre = 0, 0
@@ -3763,9 +3993,8 @@ def moe_product_times(cfg, params, prefill_ms: float, decode_ms: float
     and decode per token."""
     import torch
     from repro_torch.models import layers as L
-    from repro_torch.models.transformer import _slice
     c = LM_SERVE
-    p = _slice(params["moe"], 0)
+    p = L.slice_layer(params["moe"], 0)
     out = {}
     for what, S, whole in (("prefill", c["prompt"], prefill_ms),
                            ("decode", 1, decode_ms)):
@@ -3814,36 +4043,41 @@ def moe_product_times(cfg, params, prefill_ms: float, decode_ms: float
 
 
 def phase_lm_serve(arch: str = LM_ARCH) -> dict:
-    """``arch`` (Qwen3-8B, rwkv6-1.6b, deepseek-moe-16b) at full width and
-    depth on the card through greedy_generate: 8 SyntheticLM prompts of 2,048 tokens, 32 new
-    tokens, cache 2,080.  Every launch counter of the family's kernel moved
-    (one prefill launch per layer, one decode launch per layer and step);
+    """``arch`` (Qwen3-8B, rwkv6-1.6b, deepseek-moe-16b; internvl2-76b and
+    jamba-1.5-large-398b with their cuts, :data:`LM_CUTS`; whisper-tiny)
+    at full width on the card through greedy_generate: 8 SyntheticLM
+    prompts of 2,048 tokens (whisper: 4 tokens after 1,500 frames; the
+    VLM's after 256 patch embeddings), 32 new tokens, cache 2,080
+    (whisper 1,500).  Every launch counter of the family's kernels moved
+    as :func:`expected_launches` says (every flash_attention prefill on
+    the tensor-core route, every wkv6 prefill on the recurrent kernel);
     the last decode step's logits agree with forward over the prompt and
-    the generated tokens within LM_SERVE_TOL (MoE: with the same weights at
-    a capacity factor under which nothing drops, ⌈E/K⌉, as ``reduced()``
-    does, since drops legitimately differ between batch shapes; the
-    decode teacher-forced with the served tokens; forward's router held on
-    that decode's router input, every token whose experts differ there
-    within one bf16 ulp, and forward dispatching the decode's experts).  Times prefill and each
-    decode step (CUDA events), the memory peak, the kernel's share of both
-    (events around each call of it, a run of its own), and the device time
-    of one prefill and one decode step replayed from a CUDA graph (so
-    1 − device / wall is the share the device idles while the host
-    launches).  MoE: the share of (token, expert) assignments dropped per
-    layer, and the dispatch and combine products timed apart from the
-    expert products (:func:`moe_product_times`)."""
+    the generated tokens within LM_SERVE_TOL (MoE and the hybrid: with
+    the same weights at a capacity factor under which nothing drops,
+    ⌈E/K⌉, as ``reduced()`` does, since drops legitimately differ between
+    batch shapes; the decode teacher-forced with the served tokens;
+    forward's router held on that decode's router input, every token whose
+    experts differ there within one bf16 ulp, and forward dispatching the
+    decode's experts).  Times prefill and each decode step (CUDA events),
+    the memory peak, each kernel's share of both (events around each call
+    of it, a run of its own, which also counts its launches by shape), and
+    the device time of one prefill and one decode step replayed from a
+    CUDA graph (so 1 − device / wall is the share the device idles while
+    the host launches).  MoE and the hybrid: the share of (token, expert)
+    assignments dropped per layer; MoE: the dispatch and combine products
+    timed apart from the expert products (:func:`moe_product_times`)."""
+    import collections
     import dataclasses
     import torch
     from repro_torch import testing
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import get_model
     from repro_torch.models import layers as L
     from repro_torch.serve import greedy_generate, make_serve_fns
     from repro_torch.serve.serve_step import next_token
-    c = LM_SERVE
-    cfg = get_config(arch)
-    model, kern = get_model(cfg), FAMILY_KERNEL[cfg.family]
+    c = LM_SERVE_BY_ARCH.get(arch, LM_SERVE)
+    cfg = lm_config(arch)
+    model, kerns = get_model(cfg), family_kernels(cfg)
     B, S, n_new = c["batch"], c["prompt"], c["new"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3855,7 +4089,7 @@ def phase_lm_serve(arch: str = LM_ARCH) -> dict:
     torch.cuda.reset_peak_memory_stats()
     w_bytes = sum(t.numel() * t.element_size()
                   for t in L.tree_leaves(params))
-    prompt = _lm_prompt(cfg, B, S, "cuda")
+    prompt, embeds = _lm_inputs(cfg, B, S, "cuda")
     moe_calls = []
 
     def served_experts(p, hc, cfg_, routed):
@@ -3865,25 +4099,24 @@ def phase_lm_serve(arch: str = LM_ARCH) -> dict:
     ops.reset_launch_counts()
     with L.route_hook(served_experts):
         out = greedy_generate(cfg, params, prompt, n_new,
-                              cache_len=c["cache_len"])
+                              cache_len=c["cache_len"], embeds=embeds)
     torch.cuda.synchronize()
     counts = dict(ops.launch_counts)
     drops = _drop_shares(cfg, moe_calls) if cfg.is_moe else None
     del moe_calls
-    want = {f"{kern}_prefill": cfg.n_layers,
-            f"{kern}_decode": cfg.n_layers * (n_new - 1)}
-    for name, n in want.items():
+    for name, n in expected_launches(cfg, n_new).items():
         if counts[name] != n:
             fail(f"LM serve ({arch}): {name} launched {counts[name]} times, "
                  f"not {n}")
-    if kern == "wkv6" and (counts["wkv6_recurrent"]
-                           + counts["wkv6_chunked"] // 3
-                           != counts["wkv6_prefill"]):
+    if "wkv6" in kerns and (counts["wkv6_recurrent"]
+                            + counts["wkv6_chunked"] // 3
+                            != counts["wkv6_prefill"]):
         fail(f"LM serve ({arch}): the recurrent kernel launched "
              f"{counts['wkv6_recurrent']} times for "
              f"{counts['wkv6_prefill']} prefill calls (every decode step "
              f"belongs to the decode kernel)")
-    if (kern == "flash_attention" and counts["flash_attention_prefill_wgmma"]
+    if ("flash_attention" in kerns
+            and counts["flash_attention_prefill_wgmma"]
             != counts["flash_attention_prefill"]):
         fail(f"LM serve ({arch}): {counts['flash_attention_prefill_wgmma']} "
              f"of {counts['flash_attention_prefill']} prefill launches took "
@@ -3899,7 +4132,7 @@ def phase_lm_serve(arch: str = LM_ARCH) -> dict:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(n_new + 1)]
         torch.cuda.synchronize()
         ev[0].record()
-        lg, cache = pf(params, prompt)
+        lg, cache = pf(params, prompt, embeds)
         ev[1].record()
         toks = [next_token(lg)]
         for t in range(n_new - 1):
@@ -3925,8 +4158,8 @@ def phase_lm_serve(arch: str = LM_ARCH) -> dict:
 
     prefill_ms, steps, last, toks, cache = serve_once()
     peak = torch.cuda.max_memory_allocated()
-    # one more decode step (position 2,079 of 2,080) and one more prefill,
-    # each timed on the device alone
+    # one more decode step (the cache's last position) and one more
+    # prefill, each timed on the device alone
     pos, tok = cache["pos"], toks[:, -1:]
 
     def decode_at_pos():
@@ -3935,33 +4168,51 @@ def phase_lm_serve(arch: str = LM_ARCH) -> dict:
 
     dev_decode = device_ms(decode_at_pos)
     del cache
-    dev_prefill = device_ms(lambda: pf(params, prompt))
+    dev_prefill = device_ms(lambda: pf(params, prompt, embeds))
     torch.cuda.empty_cache()
     if not torch.equal(toks, out):
         fail(f"LM serve ({arch}): a second run through the serve fns picked "
              "other tokens than greedy_generate")
-    # the kernel's share: events around every call of it
+    # each kernel's share: events around every call of it
     calls = []
-    orig = getattr(ops, kern)
+    origs = {k: getattr(ops, k) for k in kerns}
 
-    def timed(*a, **kw):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        o = orig(*a, **kw)
-        e1.record()
-        calls.append((a[0].shape[2], e0, e1))
-        return o
+    def timed_kernel(kernel):
+        def timed(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            o = origs[kernel](*a, **kw)
+            e1.record()
+            calls.append((call_shape(kernel, a, kw), e0, e1))
+            return o
+        return timed
 
-    setattr(ops, kern, timed)
+    for k in kerns:
+        setattr(ops, k, timed_kernel(k))
     try:
         prefill_ms2, steps2, _, toks2, _ = serve_once()
     finally:
-        setattr(ops, kern, orig)
-    k_prefill = sum(e0.elapsed_time(e1) for s, e0, e1 in calls if s > 1)
-    k_decode = sum(e0.elapsed_time(e1) for s, e0, e1 in calls if s == 1)
+        for k, fn in origs.items():
+            setattr(ops, k, fn)
     if not torch.equal(toks2, out):
         fail(f"LM serve ({arch}): the timed run picked other tokens")
+    shares = {}
+    for k in kerns:
+        pre = sum(e0.elapsed_time(e1) for key, e0, e1 in calls
+                  if key[0] == k and key[1] > 1)
+        dec = sum(e0.elapsed_time(e1) for key, e0, e1 in calls
+                  if key[0] == k and key[1] == 1)
+        shares[k] = {"share_prefill": pre / prefill_ms2,
+                     "share_decode": dec / sum(steps2), "prefill_ms": pre,
+                     "decode_ms_per_token": dec / (n_new - 1)}
+    by_shape = collections.Counter(key for key, _, _ in calls)
+    for k in kerns:
+        if (sum(n for key, n in by_shape.items() if key[0] == k)
+                != counts[f"{k}_prefill"] + counts[f"{k}_decode"]):
+            fail(f"LM serve ({arch}): the timed run called {k} other times "
+                 f"than the served run launched it ({dict(by_shape)})")
+    del calls
 
     check_cfg = cfg
     if cfg.is_moe:
@@ -3971,16 +4222,16 @@ def phase_lm_serve(arch: str = LM_ARCH) -> dict:
         served = []
         with L.route_hook(testing.record_routes(served)):
             pfn, dfn = make_serve_fns(check_cfg, c["cache_len"])
-            last, cache = pfn(params, prompt)
+            last, cache = pfn(params, prompt, embeds)
             for t in range(n_new - 1):
                 last, cache = dfn(params, cache, out[:, t:t + 1])
         del cache
         nodrop = _drop_shares(check_cfg, [e for _, e in served])
         # forward over the same positions: its router held on the served
         # run's router input, and dispatching the served experts (bf16
-        # router logits tie often, and the cached and the full attention
+        # router logits tie often, and the cached and the full paths
         # round apart, so the two runs' own routes may part)
-        nl, flips, own = cfg.n_layers, [], []
+        nl, flips, own = moe_calls_per_pass(cfg), [], []
         targets = [tuple(torch.cat([served[l][j]] + [
             served[nl * (t + 1) + l][j] for t in range(n_new - 1)], 1)
             for j in (0, 1)) for l in range(nl)]
@@ -3992,7 +4243,8 @@ def phase_lm_serve(arch: str = LM_ARCH) -> dict:
                 # output does not depend on its group: position −2 is the
                 # last decode step's
                 full = model.forward(params, check_cfg,
-                                     torch.cat([prompt, out], 1))[:, :-1]
+                                     torch.cat([prompt, out], 1),
+                                     embeds=embeds)[:, :-1]
         except AssertionError as exc:
             fail(f"LM serve ({arch}), forward: {exc}")
         del targets
@@ -4002,8 +4254,8 @@ def phase_lm_serve(arch: str = LM_ARCH) -> dict:
                  f"dropped at capacity factor "
                  f"{check_cfg.moe_capacity_factor}")
     else:
-        full = model.forward(params, cfg,
-                             torch.cat([prompt, out[:, :-1]], 1))
+        full = model.forward(params, cfg, torch.cat([prompt, out[:, :-1]], 1),
+                             embeds=embeds)
     err = float(torch.max(torch.abs(full[:, -1].float()
                                     - last[:, -1].float())))
     del full
@@ -4015,27 +4267,36 @@ def phase_lm_serve(arch: str = LM_ARCH) -> dict:
            "decode_tokens_per_s": B / (decode_ms / 1e3),
            "peak_bytes": peak, "init_peak_bytes": init_peak,
            "weight_bytes": w_bytes,
-           "kernel": kern,
-           "kernel_share_prefill": k_prefill / prefill_ms2,
-           "kernel_share_decode": k_decode / sum(steps2),
-           "kernel_prefill_ms": k_prefill,
-           "kernel_decode_ms_per_token": k_decode / (n_new - 1),
+           "kernel": kerns[0] if len(kerns) == 1 else list(kerns),
+           "kernel_share_prefill": sum(v["share_prefill"]
+                                       for v in shares.values()),
+           "kernel_share_decode": sum(v["share_decode"]
+                                      for v in shares.values()),
+           "kernel_prefill_ms": sum(v["prefill_ms"]
+                                    for v in shares.values()),
+           "kernel_decode_ms_per_token": sum(v["decode_ms_per_token"]
+                                             for v in shares.values()),
            "prefill_device_ms": dev_prefill, "decode_device_ms": dev_decode,
            "decode_device_idle_share": 1.0 - dev_decode / decode_ms,
            "prefill_device_idle_share": 1.0 - dev_prefill / prefill_ms,
            "decode_vs_forward": err, "launches": counts,
+           "launch_shapes": [[*key, n] for key, n in by_shape.items()],
            "init_s": t_init}
+    if len(kerns) > 1:
+        res["kernel_shares"] = shares
     if cfg.is_moe:
         res.update(moe_drops=drops,
                    moe_check_capacity_factor=check_cfg.moe_capacity_factor,
-                   moe_forward_route_flips=forward_flips,
-                   moe_products=moe_product_times(cfg, params, prefill_ms,
-                                                  decode_ms))
+                   moe_forward_route_flips=forward_flips)
+    if cfg.family == "moe":
+        res["moe_products"] = moe_product_times(cfg, params, prefill_ms,
+                                                decode_ms)
+    front = "" if embeds is None else f" after {embeds.shape[1]} embeddings"
     log(f"LM serve, {arch} ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {w_bytes / 1e9:.2f} GB of weights, init "
-        f"{t_init:.1f} s): B={B}, prompt {S}, {n_new} new tokens, cache "
-        f"{c['cache_len']}; launches {counts}; tokens[0, :8] "
-        f"{out[0, :8].tolist()}")
+        f"{cfg.d_model}, {cfg.n_experts or 'no'} experts, "
+        f"{w_bytes / 1e9:.2f} GB of weights, init {t_init:.1f} s): B={B}, "
+        f"prompt {S}{front}, {n_new} new tokens, cache {c['cache_len']}; "
+        f"launches {counts}; tokens[0, :8] {out[0, :8].tolist()}")
     log(f"LM serve: {json.dumps(res)}")
     if err > LM_SERVE_TOL:
         fail(f"LM serve ({arch}): last decode step vs forward {err} > "
@@ -4045,30 +4306,49 @@ def phase_lm_serve(arch: str = LM_ARCH) -> dict:
     return res
 
 
+def attention_shapes(arch: str) -> list[tuple]:
+    """(what, B, H, Hkv, S, T, D, causal, kv_valid_len) of each
+    flash_attention shape of ``arch``'s serving cell: the prompt's prefill
+    and the decode against the whole cache (the VLM's 256 patch positions
+    counted); whisper's encoder over its frames, the cross-attention's
+    prefill of the prompt against them and its decode under
+    kv_valid_len = the frame count."""
+    cfg = lm_config(arch)
+    c = LM_SERVE_BY_ARCH.get(arch, LM_SERVE)
+    B, H, Hkv, D = c["batch"], cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if cfg.family == "encdec":
+        F = ENCDEC_FRAMES
+        return [("encoder", B, H, Hkv, F, F, D, False, None),
+                ("cross prefill", B, H, Hkv, c["prompt"], F, D, False, None),
+                ("cross decode", B, H, Hkv, 1, c["cache_len"], D, False, F)]
+    extra = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    S, T = c["prompt"] + extra, c["cache_len"] + extra
+    return [("prefill", B, H, Hkv, S, S, D, True, None),
+            ("decode", B, H, Hkv, 1, T, D, False, T)]
+
+
 def times_attention(serve: dict, arch: str = LM_ARCH) -> list[dict]:
-    """flash_attention at ``arch``'s serving cell's prefill and decode
-    shapes (and, for Qwen3-8B, at the 32k prefill), bf16: held against its
-    plain version there, timed beside it, beside its bound and beside
-    PyTorch's scaled_dot_product_attention on the same inputs."""
+    """flash_attention at ``arch``'s serving cell's shapes
+    (:func:`attention_shapes`; for Qwen3-8B also the 32k prefill), bf16:
+    held against its plain version there, timed beside it, beside its
+    bound and beside PyTorch's scaled_dot_product_attention on the same
+    inputs; each row's launches those of its shape in the serving run."""
     import torch
     import torch.nn.functional as F
     from repro_torch import testing
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
-    c, a = LM_SERVE, ATTN_32K
-    cfg = get_config(arch)
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    shapes = [("prefill", c["batch"], H, Hkv, c["prompt"], c["prompt"], D,
-               True, None, serve["launches"]["flash_attention_prefill"], 10,
-               3),
-              ("decode", c["batch"], H, Hkv, 1, c["cache_len"], D, False,
-               c["cache_len"], serve["launches"]["flash_attention_decode"],
-               50, 10),
-              ("prefill 32k", a["B"], a["H"], a["Hkv"], a["S"], a["S"],
-               a["D"], True, None,
-               serve["launches"]["flash_attention_prefill"], 3, 1)]
-    if arch != LM_ARCH:
-        shapes = [(f"{what}, {arch}", *rest) for what, *rest in shapes[:2]]
+    a = ATTN_32K
+    shapes = []
+    for what, B, H, Hkv, S, T, D, causal, kv in attention_shapes(arch):
+        n = shape_launches(serve, "flash_attention", S, T,
+                           kv if what == "cross decode" else "any")
+        runs = (50, 10) if S == 1 else (10, 3)
+        shapes.append((what if arch == LM_ARCH else f"{what}, {arch}", B, H,
+                       Hkv, S, T, D, causal, kv, n, *runs))
+    if arch == LM_ARCH:
+        shapes.append(("prefill 32k", a["B"], a["H"], a["Hkv"], a["S"],
+                       a["S"], a["D"], True, None,
+                       serve["launches"]["flash_attention_prefill"], 3, 1))
     rows = []
     for (what, B, H, Hkv, S, T, D, causal, kv, launches, runs,
          plain_runs) in shapes:
@@ -4079,6 +4359,7 @@ def times_attention(serve: dict, arch: str = LM_ARCH) -> list[dict]:
                                        f"flash_attention at the {what} shape")
         err = testing.max_abs_err(o, o_p)
         del o, o_p
+        torch.cuda.empty_cache()
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                  kv_valid_len=kv), runs=runs)
         plain = cuda_ms(lambda: ref.flash_attention(
@@ -4101,7 +4382,7 @@ def times_attention(serve: dict, arch: str = LM_ARCH) -> list[dict]:
                      "plain_ms": plain, "bound_ms": b, "bound_by": by,
                      "library_ms": lib})
         del q, k, v
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -4292,6 +4573,25 @@ def phase_kernels_wkv6() -> None:
         fail("wkv6 decode: the state was not updated in place")
     check(y, st, y_p, st_p, False, "wkv6 decode in place")
     n_dec = check_wkv6_decode()
+    # the hybrid's Mamba scan as the model passes it (u = 0, Dk = 16, Dv =
+    # 128, H = 128): the prompt from zeros on the recurrent kernel, then a
+    # decode step in place on the decode kernel, y in fp32
+    for what, B, H, T, Dk, Dv in mamba_scan_shapes():
+        given = T == 1
+        r, k, v, w, u = mamba_inputs(B, H, T, Dk, Dv, 93)
+        state = torch.randn((B, H, Dk, Dv), device="cuda") if given else None
+        before = state.clone() if given else None
+        od = torch.float32 if given else None
+        ops.reset_launch_counts()
+        y, st = ops.wkv6(r, k, v, w, u, state, state_out=state, out_dtype=od)
+        torch.cuda.synchronize()
+        route = "wkv6_decode" if given else "wkv6_recurrent"
+        if ops.launch_counts[route] != 1 or (given and st is not state):
+            fail(f"wkv6 Mamba {what}: launches {dict(ops.launch_counts)}")
+        y_p, st_p = ref.wkv6(r, k, v, w, u, before, out_dtype=od)
+        check(y, st, y_p, st_p, not given,
+              f"wkv6 Mamba {what} B={B} H={H} T={T} Dk={Dk} Dv={Dv}")
+        del r, k, v, w, u, state, before, y, st, y_p, st_p
     for Dk, dtype in ((128, torch.bfloat16), (4, torch.bfloat16)):
         for T in (3, 1):
             r, k, v, w, u = _wkv_inputs(1, 1, T, Dk, 16, dtype, 0)
@@ -4513,6 +4813,81 @@ def times_wkv6(serve: dict, chunked_serve: dict) -> list[dict]:
     return rows
 
 
+def mamba_scan_shapes() -> list[tuple]:
+    """(what, B, H, T, Dk, Dv) of the hybrid serving cell's Mamba scan:
+    ``ops.wkv6`` with r, k, w (B, H, T, d_state) and v (B, H, T, hd), u = 0,
+    over the prompt (the recurrent kernel) and at T = 1 (the decode
+    kernel)."""
+    from repro_torch.models import hybrid
+    cfg = lm_config(HYBRID_ARCH)
+    _, H, ds = hybrid._dims(cfg)
+    c = LM_SERVE
+    return [("prefill", c["batch"], H, c["prompt"], ds, cfg.hd),
+            ("decode", c["batch"], H, 1, ds, cfg.hd)]
+
+
+def mamba_inputs(B, H, T, Dk, Dv, seed):
+    """The Mamba scan's operands at the model's init: bf16 r, k, v, fp32
+    w at Jamba's init decay (a ≈ 0.5 a step: dt ≈ 0.7, A_log = 0) and
+    u = 0 (bf16)."""
+    import torch
+    r, k, v, w, u = _wkv_inputs(B, H, T, Dk, Dv, torch.bfloat16, seed, 0.5)
+    return r, k, v, w, torch.zeros_like(u)
+
+
+def times_mamba_scan(serve: dict) -> list[dict]:
+    """wkv6 at the hybrid serving cell's Mamba shapes
+    (:func:`mamba_scan_shapes`): prefill with the final state written and
+    y in bf16, decode with the state in and out and y in fp32, as the
+    model passes them; held against the plain version there, timed beside
+    it and beside the bound (the tensor-core bound, the fp32-only one
+    beside it); launches those of the shape in the serving run.  No
+    PyTorch call computes the recurrence (library_ms null)."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for what, B, H, T, Dk, Dv in mamba_scan_shapes():
+        given = T == 1
+        r, k, v, w, u = mamba_inputs(B, H, T, Dk, Dv, 21)
+        s0 = torch.randn((B, H, Dk, Dv), device="cuda") if given else None
+        st = torch.empty((B, H, Dk, Dv), device="cuda")
+        out_dtype = torch.float32 if given else None
+
+        def kernel():
+            return ops.wkv6(r, k, v, w, u, s0, state_out=st,
+                            out_dtype=out_dtype)
+
+        def plain():
+            return ref.wkv6(r, k, v, w, u, s0, out_dtype=out_dtype)
+
+        y, _ = kernel()
+        y_p, st_p = plain()
+        testing.assert_attention_close(y, y_p, not given,
+                                       f"wkv6 at the Mamba {what} shape: y")
+        testing.assert_close(st, st_p,
+                             f"wkv6 at the Mamba {what} shape: state")
+        err = max(testing.max_abs_err(y, y_p), testing.max_abs_err(st, st_p))
+        ms = cuda_ms(kernel, runs=50 if given else 10)
+        plain_ms = cuda_ms(plain, runs=10 if given else 1, warmup=0)
+        b, by, b32 = wkv6_bound(B, H, T, Dk, Dv, 2, given, 4 if given else 2)
+        log(f"wkv6 Mamba {what}: B={B} H={H} T={T} Dk={Dk} Dv={Dv}, bf16 "
+            f"r/k/v, u = 0, fp32 w = 0.5, state "
+            f"{'in and out' if given else 'out'}")
+        rows.append({"name": f"wkv6 ({what}, {HYBRID_ARCH} Mamba scan)",
+                     "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               + ("wkv6_decode.cu" if given else "wkv6.cu"),
+                     "replaces": "src/repro/kernels/wkv6.py:69",
+                     "launches": shape_launches(serve, "wkv6", T, Dk),
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b, "bound_by": by, "bound_fp32_ms": b32,
+                     "library_ms": None})
+        del y, y_p, st_p, r, k, v, w, u, s0, st
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_rwkv_chunked() -> dict:
     """rwkv6-1.6b as phases 11 and 12 with every prefill call's wkv6 on the
     chunked kernel, which ``ops.wkv6`` dispatches no call to
@@ -4550,40 +4925,53 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a card")
     if torch.cuda.device_count() < 1:
         fail("no CUDA device")
-    phase_setup()
-    phase_kernels()
-    phase_kernels_constrained()
-    phase_kernels_rbf()
-    phase_kernels_weighted()
-    phase_kernels_narrow()
-    phase_kernels_attention()
-    phase_kernels_wkv6()
-    phase_lm_parity()
-    serve = phase_lm_serve()
-    attn_rows = times_attention(serve)
+    seconds: dict[str, float] = {}
+
+    def timed(name: str, fn, *args):
+        """``fn(*args)``, its wall seconds added to ``seconds[name]``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    timed("setup", phase_setup)
+    for fn in (phase_kernels, phase_kernels_constrained, phase_kernels_rbf,
+               phase_kernels_weighted, phase_kernels_narrow,
+               phase_kernels_attention, phase_kernels_wkv6):
+        timed(fn.__name__, fn)
+    timed("lm_parity", phase_lm_parity)
+    serve = timed("lm_serve", phase_lm_serve)
+    attn_rows = timed("lm_times", times_attention, serve)
     for arch in MOE_PARITY_ARCHS:
-        phase_lm_parity(arch)
-    attn_rows += times_attention(phase_lm_serve(MOE_ARCH), MOE_ARCH)
-    phase_lm_parity(RWKV_ARCH)
-    rwkv = phase_lm_serve(RWKV_ARCH)
-    wkv_rows = times_wkv6(rwkv, phase_rwkv_chunked())
-    scan = phase_scan()
-    main_path = phase_main()
-    constrained = phase_constrained(main_path)
-    streaming = phase_streaming(scan, main_path, constrained)
-    phase_engine(main_path, streaming)
-    phase_autotune(main_path, streaming)
-    phase_stochastic(main_path)
-    phase_threshold_greedy(main_path)
-    phase_randgreedi(main_path)
-    phase_active_set_parkinsons()
-    active = phase_active_set_webscope(main_path)
-    facility = phase_facility(main_path)
-    weighted = phase_weighted(main_path)
-    phase_serving(main_path, constrained)
-    phase_cli()
-    rows = phase_times(scan, main_path, constrained, active, facility,
-                       weighted, streaming)
+        timed("moe", phase_lm_parity, arch)
+    attn_rows += timed("moe", lambda: times_attention(
+        phase_lm_serve(MOE_ARCH), MOE_ARCH))
+    timed("rwkv", phase_lm_parity, RWKV_ARCH)
+    rwkv = timed("rwkv", phase_lm_serve, RWKV_ARCH)
+    wkv_rows = timed("rwkv", lambda: times_wkv6(rwkv, phase_rwkv_chunked()))
+    for arch in (VLM_ARCH, HYBRID_ARCH, ENCDEC_ARCH):
+        timed(arch, phase_lm_parity, arch)
+        served = timed(arch, phase_lm_serve, arch)
+        attn_rows += timed(arch, times_attention, served, arch)
+        if arch == HYBRID_ARCH:
+            wkv_rows += timed(arch, times_mamba_scan, served)
+    scan = timed("scan", phase_scan)
+    main_path = timed("main", phase_main)
+    constrained = timed("constrained", phase_constrained, main_path)
+    streaming = timed("streaming", phase_streaming, scan, main_path,
+                      constrained)
+    for fn in (phase_engine, phase_autotune):
+        timed(fn.__name__, fn, main_path, streaming)
+    for fn in (phase_stochastic, phase_threshold_greedy, phase_randgreedi):
+        timed(fn.__name__, fn, main_path)
+    timed("active_set", phase_active_set_parkinsons)
+    active = timed("active_set", phase_active_set_webscope, main_path)
+    facility = timed("facility", phase_facility, main_path)
+    weighted = timed("weighted", phase_weighted, main_path)
+    timed("serving", phase_serving, main_path, constrained)
+    timed("cli", phase_cli)
+    rows = timed("times", phase_times, scan, main_path, constrained, active,
+                 facility, weighted, streaming)
     rows += attn_rows + wkv_rows
     for r in attn_rows + wkv_rows:
         lib = ("no library call" if r["library_ms"] is None
@@ -4595,6 +4983,8 @@ def main() -> None:
             f"ms, {lib}, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.1%} of bound{fp32}), launches "
             f"{r['launches']}")
+    log(f"seconds by phase: {json.dumps(seconds)}; together "
+        f"{sum(seconds.values())!r}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

@@ -88,19 +88,19 @@ def constraint_from_jax(c, device="cuda"):
 
 
 def params_from_jax(params, cfg, device="cuda") -> dict:
-    """The port's serving parameters of a ported family (the dense and MoE
-    transformer, RWKV-6) from the JAX ``init_params`` tree of its model
-    (leaves read through ``np.asarray``): the stacks of every sub-tree
-    (``attn``, ``mlp``, ``moe`` with its ``router``, ``experts``, ``ln``
-    and ``shared``) cast by ``layers.cast_stacks``, ``emb`` and ``head`` by
+    """The port's serving parameters of any family from the JAX
+    ``init_params`` tree of its model (leaves read through ``np.asarray``):
+    the stacks of every sub-tree (``attn``, ``mlp``, ``moe`` with its
+    ``router``, ``experts``, ``ln`` and ``shared``; RWKV-6's ``blocks``;
+    the hybrid's ``periods``, whose ``(P, n, ...)`` leaves are all
+    stacks; the encoder-decoder's ``encoder`` and ``decoder`` with
+    ``cross``) cast by ``layers.cast_stacks``, ``emb`` and ``head`` by
     ``layers.cast``, the other top-level leaves (norm scales, RWKV's
-    ``w0``) fp32 — what the JAX package casts at every call, cast once.
-    One leaf at a time, cast on the host before it moves."""
+    ``w0``, ``enc_pos``) fp32 — what the JAX package casts at every call,
+    cast once.  One leaf at a time, cast on the host before it moves."""
     import torch
 
-    from repro_torch.models import get_model, layers, transformer
-    if get_model(cfg) is transformer:
-        transformer.check_dense(cfg)
+    from repro_torch.models import layers
     dev = resolve_device(device)
 
     def leaf(x):

@@ -8,13 +8,16 @@ attention's softmax and accumulation are fp32.
 The q/k/v/o projections, the MLP and the MoE's router, dispatch, expert
 and combine products are plain ``torch.matmul`` / ``torch.einsum`` in
 bf16, as the JAX package leaves them to XLA; attention goes through
-:func:`repro_torch.kernels.ops.flash_attention` (the hand-written kernel on
-the card, its plain version on the CPU).  There is no activation sharding
+:func:`repro_torch.kernels.ops.flash_attention` and the gated linear
+attention of the hybrid's Mamba layers through
+:func:`repro_torch.kernels.ops.wkv6` (the hand-written kernels on the
+card, their plain versions on the CPU).  There is no activation sharding
 (``shard`` / ``h_spec``): this runs on one card.
 
-Departure from the JAX package: a cache passed to :func:`attention` is
+Departures from the JAX package: a cache passed to :func:`attention` is
 written in place at ``[..., pos:pos + S, :]`` (JAX writes the same values
-by ``dynamic_update_slice`` into a new array).
+by ``dynamic_update_slice`` into a new array); :func:`gla_chunked` runs
+the recurrence, not the JAX package's clipped chunked form.
 """
 from __future__ import annotations
 
@@ -30,9 +33,6 @@ from repro_torch.kernels import ref as kref
 
 COMPUTE_DTYPE = torch.bfloat16
 
-_ENCDEC = "ROADMAP queue 1 item 14 (the encoder-decoder family)"
-
-
 def cast(x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE)
 
@@ -42,6 +42,11 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {key: tree_map(fn, val) for key, val in tree.items()}
     return fn(tree)
+
+
+def slice_layer(tree, i: int):
+    """Layer ``i``'s slice of every stack of a (nested) parameter dict."""
+    return tree_map(lambda t: t[i], tree)
 
 
 def tree_leaves(tree) -> list:
@@ -109,10 +114,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 
 
-def attention_params(gen: torch.Generator, cfg, L: int, *, device=None
-                     ) -> dict:
+def attention_params(gen: torch.Generator, cfg, L: int, *,
+                     cross: bool = False, device=None) -> dict:
     """Serving parameters: each stack drawn in fp32 and cast at once
-    (:func:`cast_stacks`), so fp32 never holds more than one stack."""
+    (:func:`cast_stacks`), so fp32 never holds more than one stack.  A
+    cross-attention block (``cross``) has no q/k norms."""
     d, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dev = device or gen.device
     p = {
@@ -122,62 +128,74 @@ def attention_params(gen: torch.Generator, cfg, L: int, *, device=None
         "wo": cast_stacks(stack_init(gen, L, (H * hd, d), device=dev)),
         "ln": torch.zeros((L, d), dtype=torch.float32, device=dev),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.zeros((L, hd), dtype=torch.float32, device=dev)
         p["k_norm"] = torch.zeros((L, hd), dtype=torch.float32, device=dev)
     return p
 
 
 def attention(p: dict, x: torch.Tensor, cfg, *, mode: str = "train",
+              causal: bool = True, use_rope: bool = True,
               cache: Optional[dict] = None, cache_pos: Optional[int] = None,
-              kv_src: Optional[torch.Tensor] = None,
+              kv_src: Optional[torch.Tensor] = None, kv_valid_len=None,
               ) -> tuple[torch.Tensor, Optional[dict]]:
     """Pre-norm attention block.  Returns (residual_delta, cache).
 
     mode:
-      "train"   — fresh K/V, no cache.
-      "prefill" — fresh K/V, attend them, and write them into cache[0:S].
-      "decode"  — write K/V at cache_pos, attend the cache with a
-                  kv_valid_len = cache_pos + S mask.
-    cache: {"k": (B, Kv, T, hd), "v": ...}, written in place; cache_pos a
-    host int.  Causal, with rope: the dense family's setting.
-    "cross_decode" and ``kv_src`` (the encoder-decoder family, with its
-    non-causal and rope-free attention) raise :class:`NotImplementedError`.
+      "train"        — fresh K/V, no cache.
+      "prefill"      — fresh K/V, attend them, and write them into
+                       cache[0:S_kv].
+      "decode"       — write K/V at cache_pos, attend the cache with a
+                       kv_valid_len = cache_pos + S mask.
+      "cross_decode" — attend an already-filled cross-attention cache
+                       under ``kv_valid_len``.
+    kv_src: the cross-attention source (encoder-decoder): K/V are its
+    projections (not normalised by this block's norm), with no rope and
+    no causal mask.  ``causal`` and ``use_rope`` apply to self-attention.
+    cache: {"k": (B, Kv, T, hd), "v": ...}, written in place; cache_pos and
+    kv_valid_len host ints.
     """
-    if mode == "cross_decode" or kv_src is not None:
-        raise NotImplementedError(f"cross-attention is not ported yet: "
-                                  f"{_ENCDEC}")
-    if mode not in ("train", "prefill", "decode"):
+    if mode not in ("train", "prefill", "decode", "cross_decode"):
         raise ValueError(mode)
     B, S, d = x.shape
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["ln"], cfg.norm_eps)
+    src = h if kv_src is None else cast(kv_src)
+    is_cross = kv_src is not None or mode == "cross_decode"
     q = (cast(h) @ cast(p["wq"])).reshape(B, S, H, hd)
-    k = (h @ cast(p["wk"])).reshape(B, S, Kv, hd)
-    v = (h @ cast(p["wv"])).reshape(B, S, Kv, hd)
+    k = v = None
+    if mode != "cross_decode":
+        Skv = src.shape[1]
+        k = (src @ cast(p["wk"])).reshape(B, Skv, Kv, hd)
+        v = (src @ cast(p["wv"])).reshape(B, Skv, Kv, hd)
 
-    if cfg.qk_norm:
+    if cfg.qk_norm and "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        if k is not None:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
 
     base = 0 if cache_pos is None else int(cache_pos)
-    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-    q = rope(q, (base + pos).expand(B, S), cfg.rope_theta)
-    kbase = 0 if mode == "prefill" else base
-    k = rope(k, (kbase + pos).expand(B, S), cfg.rope_theta)
+    if use_rope and not is_cross:
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+        q = rope(q, (base + pos).expand(B, S), cfg.rope_theta)
+        kbase = 0 if mode == "prefill" else base
+        k = rope(k, (kbase + pos).expand(B, S), cfg.rope_theta)
 
-    if cache is not None:
+    if cache is not None and k is not None:
         wpos = 0 if mode == "prefill" else base
-        cache["k"][:, :, wpos:wpos + S] = k.transpose(1, 2)
-        cache["v"][:, :, wpos:wpos + S] = v.transpose(1, 2)
+        cache["k"][:, :, wpos:wpos + k.shape[1]] = k.transpose(1, 2)
+        cache["v"][:, :, wpos:wpos + k.shape[1]] = v.transpose(1, 2)
 
     qh = q.transpose(1, 2)                                      # (B, H, S, hd)
     if mode in ("train", "prefill"):
         o = kops.flash_attention(qh, k.transpose(1, 2), v.transpose(1, 2),
-                                 causal=True)
-    else:
+                                 causal=causal and not is_cross)
+    elif mode == "decode":
         o = kops.flash_attention(qh, cache["k"], cache["v"], causal=False,
                                  kv_valid_len=base + S)
+    else:
+        o = kops.flash_attention(qh, cache["k"], cache["v"], causal=False,
+                                 kv_valid_len=kv_valid_len)
     o = o.transpose(1, 2).reshape(B, S, H * hd)
     return cast(o) @ cast(p["wo"]), cache
 
@@ -217,12 +235,12 @@ def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _expert_stack(gen: torch.Generator, L: int, shape, device
-                  ) -> torch.Tensor:
-    """A (L, *shape) expert stack drawn one layer at a time, each layer
-    cast to the compute dtype as soon as it is drawn (fp32 never holds more
-    than one layer's experts: deepseek-moe-16b's whole stack would be
-    20.7 GB)."""
+def drawn_stack(gen: torch.Generator, L: int, shape, device
+                ) -> torch.Tensor:
+    """A (L, *shape) stack drawn one layer at a time (normal / √fan_in),
+    each layer cast to the compute dtype as soon as it is drawn (fp32 never
+    holds more than one layer: deepseek-moe-16b's whole expert stack would
+    be 20.7 GB)."""
     out = torch.empty((L, *shape), dtype=COMPUTE_DTYPE, device=device)
     for l in range(L):
         out[l] = cast(dense_init(gen, shape, device=device))
@@ -240,9 +258,9 @@ def moe_params(gen: torch.Generator, cfg, L: int, *, device=None) -> dict:
         "router": cast_stacks(stack_init(gen, L, (d, E), device=dev)
                               * (0.02 * math.sqrt(d))),
         "experts": {
-            "w_gate": _expert_stack(gen, L, (E, d, ff), dev),
-            "w_up": _expert_stack(gen, L, (E, d, ff), dev),
-            "w_down": _expert_stack(gen, L, (E, ff, d), dev),
+            "w_gate": drawn_stack(gen, L, (E, d, ff), dev),
+            "w_up": drawn_stack(gen, L, (E, d, ff), dev),
+            "w_down": drawn_stack(gen, L, (E, ff, d), dev),
         },
         "ln": torch.zeros((L, d), dtype=torch.float32, device=dev),
     }
@@ -456,3 +474,63 @@ def moe(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         u = hc @ cast(sp["w_up"])
         y = y + ((g * u) @ cast(sp["w_down"])).reshape(B, S, d)
     return y
+
+
+# ---------------------------------------------------------------------------
+# Gated linear attention (Jamba's Mamba layers) and the causal conv
+# ---------------------------------------------------------------------------
+
+
+def gla_chunked(r, k, v, w_log, u=None, *, chunk: int = 64, state_out=None):
+    """The counterpart of ``repro.models.layers.gla_chunked``:
+        y_t = r_t @ (S_{t-1} + diag(u) k_t^T v_t)
+        S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    from a zero state, with per-channel log-decay ``w_log`` = log w ∈
+    (-inf, 0].  Shapes: (B, H, T, Dk) for r/k/w_log, (B, H, T, Dv) for v,
+    (H, Dk) for u (None: no bonus term, ``y_t = r_t S_{t-1}``).  Returns
+    ``y`` in ``r.dtype`` and the final state (fp32), written into
+    ``state_out`` when given.
+
+    It runs the recurrence through :func:`repro_torch.kernels.ops.wkv6`
+    (u = 0 where None, which gives ``r_t S_{t-1}`` exactly), over any T.
+    The JAX function's chunked form is a TPU adaptation that clips its
+    decay factorisation at exp(±30) from each chunk's start, and parts
+    from the recurrence where the decay is strong (ROADMAP queue 3);
+    ``chunk`` is taken for its signature and not used."""
+    del chunk
+    if u is None:
+        u = torch.zeros((r.shape[1], r.shape[3]), dtype=r.dtype,
+                        device=r.device)
+    return kops.wkv6(r, k, v, torch.exp(w_log.float()), u, None,
+                     state_out=state_out)
+
+
+def gla_step(r, k, v, w, u, state, *, state_out=None):
+    """Single-token recurrent step (decode), the counterpart of
+    ``repro.models.layers.gla_step``: r/k/w (B, H, Dk), v (B, H, Dv), u
+    (H, Dk) or None, state (B, H, Dk, Dv) fp32.  Returns y (B, H, Dv) fp32
+    and the new state, written into ``state_out`` when given (it may be
+    ``state``: an update in place), through ``ops.wkv6`` at T = 1."""
+    if u is None:
+        u = torch.zeros((r.shape[1], r.shape[2]), dtype=r.dtype,
+                        device=r.device)
+    y, new_state = kops.wkv6(r[:, :, None], k[:, :, None], v[:, :, None],
+                             w[:, :, None].float(), u, state,
+                             state_out=state_out, out_dtype=torch.float32)
+    return y[:, :, 0], new_state
+
+
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor, cache=None):
+    """Depthwise causal conv, width W. x: (B, S, d), w: (W, d).
+    cache: (B, W-1, d) trailing context for decode.  Returns (out,
+    new_cache); the taps are summed in the JAX function's order, in the
+    type of their products."""
+    W, S = w.shape[0], x.shape[1]
+    if cache is not None:
+        xx = torch.cat([cache.to(x.dtype), x], dim=1)
+        new_cache = xx[:, -(W - 1):, :] if W > 1 else cache
+    else:
+        xx = F.pad(x, (0, 0, W - 1, 0))
+        new_cache = None
+    out = sum(xx[:, i:i + S, :] * w[i] for i in range(W))
+    return out, new_cache

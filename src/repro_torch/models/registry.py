@@ -8,30 +8,21 @@ Uniform API of a ported family:
   prefill(params, cfg, tokens, cache, embeds=None)  -> (logits, cache)
   decode_step(params, cfg, cache, tokens)           -> (logits, cache)
 
-The port runs the dense family, MoE (the same transformer with
-``layers.moe`` for its MLP) and RWKV-6 (``"ssm"``); the other families
-raise :class:`NotImplementedError` naming the item that brings
-them.
+Every family of the JAX registry is ported: the dense transformer, MoE
+(the same transformer with ``layers.moe`` for its MLP) and the VLM (the
+same with prepended patch embeddings), RWKV-6 (``"ssm"``), the hybrid and
+the encoder-decoder.
 """
 from __future__ import annotations
 
 import types
 
-from repro_torch.models import rwkv, transformer
-
-_UNPORTED = {
-    "vlm": "the VLM frontend",
-    "hybrid": "the hybrid family (models/hybrid.py)",
-    "encdec": "the encoder-decoder family (models/encdec.py)",
-}
+from repro_torch.models import encdec, hybrid, rwkv, transformer
 
 
 def get_model(cfg) -> types.ModuleType:
-    if cfg.family in ("dense", "moe"):
-        return transformer
-    if cfg.family == "ssm":
-        return rwkv
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(f"{_UNPORTED[cfg.family]} is not ported "
-                                  f"yet: ROADMAP queue 1 item 14")
-    raise KeyError(f"unknown model family {cfg.family!r}")
+    families = {"dense": transformer, "moe": transformer, "vlm": transformer,
+                "ssm": rwkv, "hybrid": hybrid, "encdec": encdec}
+    if cfg.family not in families:
+        raise KeyError(f"unknown model family {cfg.family!r}")
+    return families[cfg.family]

@@ -1,12 +1,13 @@
-"""Decoder-only transformer LM for the dense and MoE families
+"""Decoder-only transformer LM for the dense, MoE and VLM families
 (counterpart of ``repro.models.transformer``).
 
 ``init_params``, ``forward``, ``init_cache``, ``prefill`` and
 ``decode_step`` with the JAX package's signatures and parameter tree
 (``emb``, ``attn``, ``mlp`` or ``moe``, ``final_ln``, ``head``; stacks with
 a leading layer axis), run as a Python loop over the layers (no remat:
-this is inference).  The VLM member of the family (``embeds``) raises
-:class:`NotImplementedError`.
+this is inference).  The VLM family prepends ``embeds``, the frontend's
+precomputed patch embeddings (a stub there too), to the token embeddings:
+rope positions count them, and decode starts at ``frontend_tokens + S``.
 
 Two deliberate departures from the JAX package:
 
@@ -34,23 +35,12 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 
-_UNPORTED = "ROADMAP queue 1 item 14"
-
-
-def check_dense(cfg, embeds=None) -> None:
-    """Raise for the members of the transformer family not ported yet."""
-    if embeds is not None or cfg.family == "vlm":
-        raise NotImplementedError(f"the VLM frontend (embeds) is not ported "
-                                  f"yet: {_UNPORTED}")
-
-
 def init_params(cfg, generator: Optional[torch.Generator] = None,
                 device="cuda", seed: int = 0) -> dict:
     """Serving parameters drawn as the JAX ``init_params`` draws its masters
     (normal / √fan_in, zero norm scales), from ``generator`` (a fresh one
     seeded with ``seed`` on ``device`` when None), each stack cast to the
     compute dtype as soon as it is drawn."""
-    check_dense(cfg)
     dev = resolve_device(device)
     gen = generator
     if gen is None:
@@ -68,15 +58,10 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     }
 
 
-def _slice(tree, l: int):
-    """Layer ``l``'s slice of every stack of a (nested) parameter dict."""
-    return L.tree_map(lambda t: t[l], tree)
-
-
 def _layer(params: dict, l: int) -> dict:
     ffn = "moe" if "moe" in params else "mlp"
-    return {"attn": _slice(params["attn"], l),
-            ffn: _slice(params[ffn], l)}
+    return {"attn": L.slice_layer(params["attn"], l),
+            ffn: L.slice_layer(params[ffn], l)}
 
 
 def _block(cfg, h, pl, mode="train", cache_l=None, cache_pos=None):
@@ -89,12 +74,15 @@ def _block(cfg, h, pl, mode="train", cache_l=None, cache_pos=None):
 
 
 def _embed(params, cfg, tokens, embeds):
-    check_dense(cfg, embeds)
-    return L.cast(params["emb"])[tokens.long()]                 # (B, S, d)
+    x = L.cast(params["emb"])[tokens.long()]                    # (B, S, d)
+    if embeds is not None:                              # vlm: prepend patches
+        x = torch.cat([L.cast(embeds), x], dim=1)
+    return x
 
 
 def forward(params, cfg, tokens, embeds=None):
-    """Full-sequence causal forward.  Returns (B, S, padded_vocab) logits."""
+    """Full-sequence causal forward.  Returns (B, F + S, padded_vocab)
+    logits, F the patch embeddings prepended (0 without ``embeds``)."""
     h = _embed(params, cfg, tokens, embeds)
     for l in range(cfg.n_layers):
         h, _ = _block(cfg, h, _layer(params, l))

@@ -17,12 +17,15 @@ from repro_torch.models import get_model
 
 def make_serve_fns(cfg, cache_len: int):
     """Returns (prefill_fn, decode_fn) for this configuration and cache
-    length; the cache is made on the device of the parameters."""
+    length; the cache is made on the device of the parameters, with
+    ``frontend_tokens`` more slots for the VLM family (its patch
+    embeddings)."""
     model = get_model(cfg)
 
     def prefill_fn(params, tokens, embeds=None):
         B = tokens.shape[0]
-        cache = model.init_cache(cfg, B, cache_len,
+        extra = cfg.frontend_tokens if cfg.family == "vlm" else 0
+        cache = model.init_cache(cfg, B, cache_len + extra,
                                  device=params["emb"].device)
         return model.prefill(params, cfg, tokens, cache, embeds=embeds)
 

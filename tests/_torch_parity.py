@@ -3,12 +3,18 @@
 Inputs are made with NumPy from a seed and handed to both packages; the
 round plan of a JAX tree run is replayed from its threefry key chain.
 """
+import contextlib
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.models import layers as JL
+from repro_torch import testing
 from repro_torch.convert import ArrayPlan
+from repro_torch.models import layers as TL
 
 
 def make_inputs(M, n, m, d, seed, frac_valid=0.85):
@@ -120,3 +126,51 @@ def assert_same_tree(a, b, work=True):
     if work:
         assert a.oracle_calls == int(b.oracle_calls)
         assert list(a.depth_per_round) == list(b.depth_per_round)
+
+
+@contextlib.contextmanager
+def followed_routes():
+    """The JAX package's router input and top-K experts, one record per MoE
+    call in call order, through an ordered debug callback in a wrapped
+    ``layers.moe`` (read at trace time); the port's router is held on the
+    same input and then dispatches the JAX package's experts
+    (``testing.follow_routes``); the input is recorded in the port's
+    compute dtype, which the JAX package's matches.  Yields (the JAX
+    records, the port's
+    flips on the same input, its own routes' flips): the port's i-th MoE
+    call follows the JAX package's i-th."""
+    jrecs, flips, own = [], [], []
+    jmoe = JL.moe
+
+    def jax_moe(p, x, cfg):
+        h = JL.cast(JL.rms_norm(x, p["ln"], cfg.norm_eps))
+        logits = (h @ JL.cast(p["router"])).astype(jnp.float32)
+        _, top_e = jax.lax.top_k(jax.nn.softmax(logits, axis=-1),
+                                 cfg.experts_per_token)
+        jax.debug.callback(
+            lambda hc, e: jrecs.append((
+                torch.from_numpy(np.asarray(hc, np.float32)).to(
+                    TL.COMPUTE_DTYPE),
+                torch.from_numpy(np.asarray(e)).long())),
+            h, top_e, ordered=True)
+        return jmoe(p, x, cfg)
+
+    JL.moe = jax_moe
+    try:
+        with TL.route_hook(testing.follow_routes(jrecs, flips, own)):
+            yield jrecs, flips, own
+    finally:
+        JL.moe = jmoe
+
+
+def route_summary(flips, own) -> str:
+    """One line of a run's route flips (``followed_routes``' lists)."""
+    def n(fl):
+        return sum(int(rf["flipped"].sum()) for rf in fl)
+    return (f"{n(flips)} route flips of "
+            f"{sum(rf['flipped'].size for rf in flips)} on the same input "
+            f"(largest margin {max(rf['max_flip_ulps'] for rf in flips)!r} "
+            f"bf16 ulps), smallest top-K margin "
+            f"{min(rf['min_margin'] for rf in flips)!r}; on the port's own "
+            f"input {n(own)} (largest margin "
+            f"{max(rf['max_flip_ulps'] for rf in own)!r} ulps)")

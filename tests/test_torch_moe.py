@@ -19,7 +19,6 @@ from the JAX package's by bf16 rounding, do not carry the two packages
 apart through a flip, and every sequence's logits are held.  No seed is
 chosen to avoid ties.
 """
-import contextlib
 import dataclasses
 import functools
 
@@ -32,6 +31,7 @@ import torch
 from repro.configs import get_config as jax_config
 from repro.models import layers as JL
 from repro.models import transformer as JT
+from _torch_parity import followed_routes, route_summary
 from repro_torch import testing
 from repro_torch.configs import MOE_ARCH_IDS, get_config
 from repro_torch.convert import params_from_jax
@@ -164,7 +164,7 @@ def test_moe_layer_matches_jax(arch, impl):
     jp = jax.tree_util.tree_map(
         lambda a: a[0], JL.cast_stacks(JT.init_params(
             cfg, jax.random.PRNGKey(0))["moe"]))
-    tp = TT._slice(params_from_jax({"moe": JT.init_params(
+    tp = TL.slice_layer(params_from_jax({"moe": JT.init_params(
         cfg, jax.random.PRNGKey(0))["moe"]}, cfg, "cpu")["moe"], 0)
     x = np.random.default_rng(8).standard_normal(
         (B, S, cfg.d_model)).astype(np.float32)
@@ -180,50 +180,6 @@ def test_moe_layer_matches_jax(arch, impl):
 
 
 # -- the model ----------------------------------------------------------
-
-
-@contextlib.contextmanager
-def followed_routes():
-    """The JAX package's router input and top-K experts, one record per MoE
-    call in call order, through an ordered debug callback in a wrapped
-    ``layers.moe`` (read at trace time); the port's router is held on the
-    same input and then dispatches the JAX package's experts
-    (``testing.follow_routes``).  Yields (the JAX records, the port's
-    flips on the same input, its own routes' flips): the port's i-th MoE
-    call follows the JAX package's i-th."""
-    jrecs, flips, own = [], [], []
-    jmoe = JL.moe
-
-    def jax_moe(p, x, cfg):
-        h = JL.cast(JL.rms_norm(x, p["ln"], cfg.norm_eps))
-        logits = (h @ JL.cast(p["router"])).astype(jnp.float32)
-        _, top_e = jax.lax.top_k(jax.nn.softmax(logits, axis=-1),
-                                 cfg.experts_per_token)
-        jax.debug.callback(
-            lambda hc, e: jrecs.append((
-                torch.from_numpy(np.asarray(hc, np.float32)).bfloat16(),
-                torch.from_numpy(np.asarray(e)).long())),
-            h, top_e, ordered=True)
-        return jmoe(p, x, cfg)
-
-    JL.moe = jax_moe
-    try:
-        with TL.route_hook(testing.follow_routes(jrecs, flips, own)):
-            yield jrecs, flips, own
-    finally:
-        JL.moe = jmoe
-
-
-def _summary(flips, own) -> str:
-    def n(fl):
-        return sum(int(rf["flipped"].sum()) for rf in fl)
-    return (f"{n(flips)} route flips of "
-            f"{sum(rf['flipped'].size for rf in flips)} on the same input "
-            f"(largest margin {max(rf['max_flip_ulps'] for rf in flips)!r} "
-            f"bf16 ulps), smallest top-K margin "
-            f"{min(rf['min_margin'] for rf in flips)!r}; on the port's own "
-            f"input {n(own)} (largest margin "
-            f"{max(rf['max_flip_ulps'] for rf in own)!r} ulps)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -272,7 +228,7 @@ def test_forward_logits_match_jax(arch):
     cfg = run(arch)["cfg"]
     assert len(flips) == len(own) == cfg.n_layers
     assert tl.shape == (B, S, cfg.padded_vocab) and tl.dtype == torch.bfloat16
-    print(f"{arch} forward: {_summary(flips, own)}")
+    print(f"{arch} forward: {route_summary(flips, own)}")
     np.testing.assert_allclose(_np(tl), _np(jl), rtol=0, atol=TOL)
 
 
@@ -282,7 +238,7 @@ def test_prefill_and_decode_match_jax(arch):
     package's tokens."""
     for t, (jl, tl, flips, own) in enumerate(run(arch)["steps"]):
         assert len(flips) == len(own) == run(arch)["cfg"].n_layers
-        print(f"{arch} step {t}: {_summary(flips, own)}")
+        print(f"{arch} step {t}: {route_summary(flips, own)}")
         assert tl.shape == (B, 1, run(arch)["cfg"].padded_vocab)
         np.testing.assert_allclose(_np(tl), _np(jl), rtol=0, atol=TOL,
                                    err_msg=f"step {t}")

@@ -7,8 +7,10 @@ from the JAX ``init_params(cfg, PRNGKey(0))`` through
 and, with ``COMPUTE_DTYPE`` set to fp32 in both packages (fp32 caches),
 in fp32; the port's own decode-vs-forward consistency (as
 ``tests/test_models.py``); the configuration copies (RWKV-6's too), the
-synthetic data, the serving parameters, and what is not ported yet (the
-MoE members are held in ``tests/test_torch_moe.py``).
+synthetic data, the serving parameters, and the registry's families and
+attention modes (the MoE members are held in ``tests/test_torch_moe.py``,
+the VLM, hybrid and encoder-decoder families in ``test_torch_vlm.py``,
+``test_torch_hybrid.py`` and ``test_torch_encdec.py``).
 
 Tolerance: ``repro_torch.testing.LM_ATOL`` — bf16 logits and caches
 within 0.125 (the frameworks' bf16 matmuls round at different places;
@@ -31,12 +33,13 @@ from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro.serve import serve_step as JS
 from repro_torch import testing
-from repro_torch.configs import (ARCH_IDS, DENSE_ARCH_IDS, PORTED_ARCH_IDS,
-                                  get_config)
+from repro_torch.configs import ARCH_IDS, DENSE_ARCH_IDS, get_config
 from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.data import pipeline as tpipe
 from repro_torch.models import get_model
+from repro_torch.models import encdec as TE
+from repro_torch.models import hybrid as TH
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.serve import greedy_generate, make_serve_fns
@@ -175,10 +178,6 @@ def test_decode_matches_forward(arch):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_config_copies_match_jax(arch):
-    if arch not in PORTED_ARCH_IDS:
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            get_config(arch)
-        return
     mine, theirs = get_config(arch), jax_config(arch)
     assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
     assert dataclasses.asdict(mine.reduced()) == dataclasses.asdict(
@@ -193,20 +192,31 @@ def test_unknown_arch_is_a_key_error():
 
 
 def test_unported_families_and_modes_raise():
+    """Nothing of the LM substrate's serving raises any more: every family
+    resolves to its module, the cross-attention modes run, the VLM's
+    ``embeds`` are prepended; an unknown family or mode still raises."""
     cfg = get_config("qwen3-8b").reduced()
-    for fam in ("vlm", "hybrid", "encdec"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            get_model(dataclasses.replace(cfg, family=fam))
+    for fam, module in (("vlm", TT), ("hybrid", TH), ("encdec", TE)):
+        assert get_model(dataclasses.replace(cfg, family=fam)) is module
+    with pytest.raises(KeyError, match="unknown model family"):
+        get_model(dataclasses.replace(cfg, family="no-such-family"))
     p = TT.init_params(cfg, device="cpu")
     pl = {key: val[0] for key, val in p["attn"].items()}
     x = torch.zeros((1, 3, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        TL.attention(pl, x, cfg, mode="cross_decode")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        TL.attention(pl, x, cfg, kv_src=x)
-    with pytest.raises(NotImplementedError, match="VLM"):
-        TT.forward(p, cfg, torch.zeros((1, 3), dtype=torch.int32),
-                   embeds=torch.zeros((1, 2, cfg.d_model)))
+    cache = {"k": torch.zeros((1, cfg.n_kv_heads, 5, cfg.hd),
+                              dtype=torch.bfloat16)}
+    cache["v"] = torch.zeros_like(cache["k"])
+    out, _ = TL.attention(pl, x, cfg, mode="cross_decode", cache=cache,
+                          kv_valid_len=2)
+    assert out.shape == x.shape
+    out, cache = TL.attention(pl, x, cfg, mode="prefill", kv_src=x[:, :2],
+                              cache=cache, cache_pos=0)
+    assert out.shape == x.shape and not torch.any(cache["k"][:, :, 2:])
+    with pytest.raises(ValueError):
+        TL.attention(pl, x, cfg, mode="no-such-mode")
+    logits = TT.forward(p, cfg, torch.zeros((1, 3), dtype=torch.int32),
+                        embeds=torch.zeros((1, 2, cfg.d_model)))
+    assert logits.shape == (1, 5, cfg.padded_vocab)
 
 
 def test_serving_params_are_cast_once():
