@@ -107,8 +107,9 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    the HGMMA instructions of the built library;
 8. LM parity — Qwen3-8B at full width and 2 layers, prefill and decode on
    the card against the CPU's plain path on the same weights;
-9. LM serving — Qwen3-8B at full width and depth through
-   ``greedy_generate`` (8 prompts of 2,048 tokens, 32 new), every
+9. LM serving — Qwen3-8B at full width, 18 of its 36 layers
+   (``LM_CUTS``, PR 26), through ``greedy_generate`` (8 prompts of 2,048
+   tokens, 32 new), every
    attention launch counted (every prefill launch on the tensor-core
    route), the last decode step against ``forward``,
    prefill and decode times, memory peak and attention's share;
@@ -127,9 +128,9 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    wkv6_decode, ptxas's registers and spills of the decode kernel;
 11. RWKV parity — rwkv6-1.6b at full width and 2 layers, card against the
    CPU's plain path, as phase 8;
-12. RWKV serving — rwkv6-1.6b at full width and depth (24 layers) as
-   phase 9, every ``wkv6`` launch counted (24 prefill on the recurrent
-   kernel, 24 × 31 on the decode kernel);
+12. RWKV serving — rwkv6-1.6b at full width, 12 of its 24 layers
+   (``LM_CUTS``, PR 26), as phase 9, every ``wkv6`` launch counted (12
+   prefill on the recurrent kernel, 12 × 31 on the decode kernel);
    then phases 11 and 12 once more with every prefill call on the chunked
    kernel (three launches a call);
 13. CLI (run after phase 6) — ``repro_torch.launch.submod.main`` on the
@@ -151,10 +152,10 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    differ must have its K-th and (K+1)-th logits within one bf16 ulp,
    ``testing.route_flips``) and the CPU run dispatching the card's
    experts; then
-   deepseek-moe-16b at full width and depth (28 layers, 64 routed experts
-   + 2 shared, top 6, capacity factor 1.25) serving 8 × 2,048 + 32 tokens
-   as phase 9: 28 prefill launches on the tensor-core route and 28 × 31
-   decode launches, the share of assignments dropped per layer, the
+   deepseek-moe-16b at full width, 14 of its 28 layers (``LM_CUTS``, PR
+   26; 64 routed experts + 2 shared, top 6, capacity factor 1.25) serving
+   8 × 2,048 + 32 tokens as phase 9: 14 prefill launches on the
+   tensor-core route and 14 × 31 decode launches, the share of assignments dropped per layer, the
    dispatch and combine products timed apart from the expert products,
    the last decode step against forward at a capacity factor under which
    nothing drops, forward's router held on the served run's router input
@@ -188,7 +189,25 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    ``exemplar_gains`` at round 0's d_max pass (unweighted and weighted)
    and at one 2²⁰-row chunk of the streaming centralized greedy; the
    narrow instantiations at round 0 beside the fp32 kernel there; the
-   ``wkv6`` decode kernel beside the recurrent kernel at T = 1.
+   ``wkv6`` decode kernel beside the recurrent kernel at T = 1;
+17. training (run after phase 15) — the ``flash_attention`` backward
+   (``csrc/flash_attention_bwd.cu``, run after phase 7) against autograd
+   of the plain version: D ∈ {16, 64, 128, 256}, fp32 and bf16, groups
+   1/4/8, causal S = T, the (T − S) offset, non-causal S ≠ T, ragged, the
+   model's strided views, S = 1, the training shapes; each case twice to
+   the bit and its launches counted; a train step on the card against the
+   CPU's plain path (Qwen3-8B at full width and 2 layers in bf16, the MoE,
+   VLM and encoder-decoder families at ``reduced()`` in fp32): loss,
+   grad_norm, lr, every gradient (none missing), the update and moments;
+   RWKV-6 and the hybrid refused at the backward; whisper-tiny whole for a
+   step; the training cell (Qwen3-8B at full width, 4 of 36 layers, 8 ×
+   2,048 tokens in 8 microbatches, remat, bf16 moments): step time,
+   tokens/s, share of the bf16 peak, memory peak, launches a step, a
+   checkpoint every 2 steps and steps 3-4 resumed from step 2 equal to the
+   uninterrupted run to the bit; ``python -m repro_torch.launch.train
+   --reduced`` with checkpoints and ``--resume``; the select-then-train
+   example at its defaults; the backward timed at the training shapes
+   beside its bound, its plain version and SDPA's backward.
 
 Ends with one JSON line per kernel table and the ``ok`` line.  Imports
 nothing of the JAX package.
@@ -255,8 +274,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` on stdout after the run's elapsed seconds, so that a log
+    shows where the time goes inside a phase."""
+    print(f"[{time.perf_counter() - _T0:7.1f}] {msg}", flush=True)
 
 
 def eval_rows(data, n_eval: int):
@@ -316,7 +340,7 @@ def phase_setup():
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    print(smi.stdout.strip().splitlines()[0], flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     with open("/proc/meminfo") as f:
@@ -1132,7 +1156,7 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
         f"select as plain, near-tie steps {n_tie}, max|dcm| {err:.3g}, "
         f"{int((sel >= 0).sum())} of {M * k} slots filled")
     ms = cuda_ms(lambda: ops.greedy_select(blocks, E, seed, bmask, k, **kw),
-                 runs=5)
+                 runs=3)
     check_step_launches("greedy_select_constrained", lambda: ops.greedy_select(
         blocks, E, seed, bmask, k, **kw), k)
     calls = int(torch.sum(obj.fused_select(blocks, bmask, k, **kw)[3]))
@@ -2714,7 +2738,7 @@ def times_new(main: dict, active: dict, facility: dict, weighted: dict,
     K = ops.rbf_kernel(x, blocks, 0.5)
     if ops.launch_counts["rbf_kernel_rowvec"] != 1:
         fail("rbf_kernel at the round-0 update did not take the row vector")
-    K_p = ref.rbf_kernel(x, blocks, 0.5)
+    K_p, plain = timed_once(lambda: ref.rbf_kernel(x, blocks, 0.5))
     testing.assert_close(K, K_p, "rbf_kernel at the round-0 update")
     err = testing.max_abs_err(K, K_p)
     self_k = torch.take_along_dim(K[:, 0], idx[:, None], dim=1)
@@ -2722,7 +2746,6 @@ def times_new(main: dict, active: dict, facility: dict, weighted: dict,
         fail("rbf_kernel K(x, x) outside [1 - tol, 1] at the round-0 update")
     del K, K_p
     ms = cuda_ms(lambda: ops.rbf_kernel(x, blocks, 0.5), runs=20)
-    plain = cuda_ms(lambda: ref.rbf_kernel(x, blocks, 0.5), runs=5)
     # each operand read once, the output written once; dot (2d), norms of
     # the pair (3), scale, clamp and exp (3) per output element, fp32
     b, by = bound_ms(M * mu * (2 * d + 6), 4 * (M * d + M * mu * d + M * mu))
@@ -2739,12 +2762,11 @@ def times_new(main: dict, active: dict, facility: dict, weighted: dict,
     c = max(1, SIM_BYTES // (4 * m * M))
     Y = blocks[:, :c]
     K = ops.rbf_kernel(E, Y, 1.0)
-    K_p = ref.rbf_kernel(E, Y, 1.0)
+    K_p, plain = timed_once(lambda: ref.rbf_kernel(E, Y, 1.0))
     testing.assert_close(K, K_p, "rbf_kernel at a FacilityLocation chunk")
     err = testing.max_abs_err(K, K_p)
     del K, K_p
     ms = cuda_ms(lambda: ops.rbf_kernel(E, Y, 1.0), runs=10)
-    plain = cuda_ms(lambda: ref.rbf_kernel(E, Y, 1.0), runs=3)
     b, by = bound_ms(M * m * c * (2 * d + 6),
                      4 * (m * d + M * c * d + M * m * c))
     log(f"rbf_kernel FacilityLocation chunk: (M, n_eval, chunk) = "
@@ -2786,7 +2808,7 @@ def times_new(main: dict, active: dict, facility: dict, weighted: dict,
     log(f"weighted greedy_select round 0 vs plain: {same}/{M} machines "
         f"select as plain, near-tie steps {n_tie}, max|dcm| {err:.3g}")
     ms = cuda_ms(lambda: ops.greedy_select(blocks, E, seed, bmask, k,
-                                           eval_weights=w), runs=5)
+                                           eval_weights=w), runs=3)
     check_step_launches("greedy_select_weighted", lambda: ops.greedy_select(
         blocks, E, seed, bmask, k, eval_weights=w), k)
     n_avail = torch.sum(bmask.long(), dim=1, keepdim=True)
@@ -2989,9 +3011,8 @@ def times_narrow(main: dict, streaming: dict, blocks, bmask) -> list[dict]:
         tau = torch.minimum(torch.amax(torch.where(bmask, g, 0.0), dim=1),
                             torch.amax(torch.where(bmask, g_p, 0.0), dim=1))
         acc, cm = ops.threshold_select(X, E, seed, bmask, tau, k, **kw)
-        _, plain = timed_once(lambda: ref.threshold_select(
+        trace, plain = timed_once(lambda: ref.threshold_select_trace(
             X, E, seed, bmask, tau, k, **kw))
-        trace = ref.threshold_select_trace(X, E, seed, bmask, tau, k, **kw)
         full, near, err = check_threshold(
             acc, cm, trace, deq, E, seed.expand(M, m), tau, bmask, k, None,
             f"threshold_select {what}", kw.get("compute_dtype"))
@@ -3030,7 +3051,8 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
     E = obj.eval_set
     n, d = T.shape
     m = E.shape[0]
-    g, g_p = ops.exemplar_gains(T, E, cm), ref.exemplar_gains(T, E, cm)
+    g = ops.exemplar_gains(T, E, cm)
+    g_p, plain = timed_once(lambda: ref.exemplar_gains(T, E, cm))
     testing.assert_close(g, g_p, "exemplar_gains at the scan block")
     err = testing.max_abs_err(g, g_p)
     # the kernel alone, on operands padded once; the whole ops call beside
@@ -3038,7 +3060,6 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
     Ep, cmp_ = ops._pad_eval(E, cm.reshape(1, m))
     ms = cuda_ms(lambda: _eg.launch(Xb, Ep, cmp_), runs=50)
     ms_ops = cuda_ms(lambda: ops.exemplar_gains(T, E, cm), runs=50)
-    plain = cuda_ms(lambda: ref.exemplar_gains(T, E, cm), runs=50)
     log(f"exemplar_gains at the scan block: kernel {ms:.4f} ms, whole ops "
         f"call (padding, launch, division) {ms_ops:.4f} ms")
     b, by, b32 = tile_bound(n * m, d, 4 * (n * d + m * d + m + n), 3)
@@ -3066,7 +3087,7 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
         f"plain, every machine's cur_min checked, near-tie steps {n_tie}, "
         f"max|dcm| {err:.3g}")
     ms = cuda_ms(lambda: ops.greedy_select(blocks, E, seed, bmask, k),
-                 runs=10)
+                 runs=3)
     check_step_launches("greedy_select", lambda: ops.greedy_select(
         blocks, E, seed, bmask, k), k)
     n_avail = torch.sum(bmask.long(), dim=1, keepdim=True)
@@ -3319,20 +3340,13 @@ def phase_cli() -> dict:
             fail(f"CLI {name}: '{line}' lacks '{word}'")
     log(f"CLI: TREE / centralized {ratios!r}")
 
-    tool = _module("repro_torch.launch.tracetool", trace, "--manifest",
-                   manifest)
-    cross = [l for l in tool.stdout.splitlines()
-             if l.startswith("cross-check:")]
-    if tool.returncode != 0 or not cross or "PASS" not in cross[0]:
-        fail(f"tracetool: exit {tool.returncode}, {cross} {tool.stderr}")
-    shutil.rmtree(tmp, ignore_errors=True)
-    # the module entry point, as a user starts it: on the card by default
-    cli = _module("repro_torch.launch.submod", *CLI_BASE, "--no-centralized")
-    if cli.returncode != 0 or _cli_line(cli.stdout.splitlines(),
-                                        "TREE:") != want:
-        fail(f"python -m repro_torch.launch.submod: exit {cli.returncode}, "
-             f"not the resident run's '{want}': {cli.stderr[-2000:]}")
-
+    # the module entry points, as a user starts them (on the card by
+    # default), all started at once; the examples run in process meanwhile
+    tool = _module_start("repro_torch.launch.tracetool", trace,
+                         "--manifest", manifest)
+    cli = _module_start("repro_torch.launch.submod", *CLI_BASE,
+                        "--no-centralized")
+    quick = _module_start("repro_torch.examples.quickstart")
     for ex in (quickstart, distributed_tree, active_set_selection):
         name = ex.__name__.rsplit(".", 1)[1]
         log(f"example {name}: {ex.__name__}.main()")
@@ -3354,25 +3368,52 @@ def phase_cli() -> dict:
             f"{ratio!r}, launches {counts}")
         runs[f"example {name}"] = {"wall_s": wall, "launches": counts,
                                    "ratio": ratio}
-    ex = _module("repro_torch.examples.quickstart")
+    tool = tool()
+    cross = [l for l in tool.stdout.splitlines()
+             if l.startswith("cross-check:")]
+    if tool.returncode != 0 or not cross or "PASS" not in cross[0]:
+        fail(f"tracetool: exit {tool.returncode}, {cross} {tool.stderr}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    cli = cli()
+    if cli.returncode != 0 or _cli_line(cli.stdout.splitlines(),
+                                        "TREE:") != want:
+        fail(f"python -m repro_torch.launch.submod: exit {cli.returncode}, "
+             f"not the resident run's '{want}': {cli.stderr[-2000:]}")
+
+    ex = quick()
     if ex.returncode != 0 or "TREE (capacity 2k)" not in ex.stdout:
         fail(f"python -m repro_torch.examples.quickstart: exit "
              f"{ex.returncode}: {ex.stderr[-2000:]}")
     return runs
 
 
-def _module(name: str, *args: str) -> subprocess.CompletedProcess:
-    """``python -m name args`` from the checkout's ``src``, its output
-    logged and its wall printed."""
+def _module_start(name: str, *args: str):
+    """Start ``python -m name args`` from the checkout's ``src`` and
+    return a function that waits for it, logs its output and wall, and
+    returns its ``CompletedProcess``: a process's start-up (~8 s) then
+    overlaps other work."""
     t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-m", name, *args],
-                         capture_output=True, text=True, timeout=300,
-                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    for line in run.stdout.splitlines():
-        log(f"  {name}: {line}")
-    log(f"python -m {name} {' '.join(args)}: exit {run.returncode}, wall "
-        f"{time.perf_counter() - t0!r} s")
-    return run
+    proc = subprocess.Popen([sys.executable, "-m", name, *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True,
+                            env={**os.environ,
+                                 "PYTHONPATH": str(ROOT / "src")})
+
+    def finish() -> subprocess.CompletedProcess:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"python -m {name} {' '.join(args)}: no end in 300 s")
+        for line in out.splitlines():
+            log(f"  {name}: {line}")
+        log(f"python -m {name} {' '.join(args)}: exit {proc.returncode}, "
+            f"wall {time.perf_counter() - t0!r} s")
+        return subprocess.CompletedProcess(proc.args, proc.returncode, out,
+                                           err)
+
+    return finish
 
 
 # ---------------------------------------------------------------------------
@@ -3407,18 +3448,24 @@ ENCDEC_FRAMES = 1500
 #: what the serving and parity cells cut, and why: 80 internvl2-76b
 #: layers are 141 GB of bf16 weights, so 8 (17.9 GB); one jamba period
 #: with 16 experts is 91 GB, so 4 experts (33 GB, every expert matrix
-#: 8,192 × 24,576 as published); whisper-tiny runs whole
+#: 8,192 × 24,576 as published); whisper-tiny runs whole.  Since PR 26,
+#: to make room for the training phase within the run's time limit,
+#: Qwen3-8B serves 18 of its 36 layers, rwkv6-1.6b 12 of 24 and
+#: deepseek-moe-16b 14 of 28 (each layer the same at full width)
 LM_CUTS = {VLM_ARCH: dict(n_layers=8),
-           HYBRID_ARCH: dict(n_layers=8, n_experts=4)}
+           HYBRID_ARCH: dict(n_layers=8, n_experts=4),
+           LM_ARCH: dict(n_layers=18), RWKV_ARCH: dict(n_layers=12),
+           MOE_ARCH: dict(n_layers=14)}
 #: the serving cells that differ from LM_SERVE: whisper decodes 32 tokens
 #: after a 4-token prompt against its 1,500 frames, cache 1,500 slots
 LM_SERVE_BY_ARCH = {ENCDEC_ARCH: dict(batch=8, prompt=4, new=32,
                                       cache_len=1500)}
-#: the parity runs that differ from LM_PARITY: jamba's 128-token prompt
-#: crosses a 64-step chunk (past the JAX chunked form's clip); whisper
-#: whole against 1,500 frames
-LM_PARITY_BY_ARCH = {HYBRID_ARCH: dict(layers=8, batch=1, prompt=128,
-                                       new=4),
+#: the parity runs that differ from LM_PARITY: jamba one period, a
+#: 64-token prompt and 2 decode steps (128 and 4 until PR 26, cut to make
+#: room: the CPU side reads the 33 GB of weights a step); whisper whole
+#: against 1,500 frames
+LM_PARITY_BY_ARCH = {HYBRID_ARCH: dict(layers=8, batch=1, prompt=64,
+                                       new=2),
                      ENCDEC_ARCH: dict(layers=4, batch=1, prompt=4, new=8)}
 ATTN_32K = dict(B=1, H=32, Hkv=8, S=32_768, D=128)   # prefill_32k, batch 1
 
@@ -3474,9 +3521,13 @@ def _ptxas_report(log: str, marker: str) -> list[str]:
     return out
 
 
+_SASS: dict[str, str] = {}
+
+
 def sass_count(lib: str, op: str) -> int | None:
     """Instructions whose opcode holds ``op`` in the SASS of the built
-    library ``lib``, or None where cuobjdump is missing."""
+    library ``lib`` (disassembled once a run), or None where cuobjdump is
+    missing."""
     import os
     import shutil
     from repro_torch.kernels import _build
@@ -3485,12 +3536,14 @@ def sass_count(lib: str, op: str) -> int | None:
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
     if tool is None:
         return None
-    _build.load(lib)
-    sass = subprocess.run([tool, "-sass", str(_build.lib_path(lib))],
-                          capture_output=True, text=True, timeout=300)
-    if sass.returncode != 0:
-        fail(f"cuobjdump: {sass.stderr.strip()[:500]}")
-    return sum(line.count(op) for line in sass.stdout.splitlines())
+    if lib not in _SASS:
+        _build.load(lib)
+        sass = subprocess.run([tool, "-sass", str(_build.lib_path(lib))],
+                              capture_output=True, text=True, timeout=300)
+        if sass.returncode != 0:
+            fail(f"cuobjdump: {sass.stderr.strip()[:500]}")
+        _SASS[lib] = sass.stdout
+    return _SASS[lib].count(op)
 
 
 def hgmma_count() -> int | None:
@@ -3505,8 +3558,14 @@ def hmma_counts() -> dict:
     flash_attention's HGMMA; fails where cuobjdump shows a library without
     one.  Returns {library: count}, empty where cuobjdump is missing."""
     from repro_torch.kernels import _build
-    counts = {lib: sass_count(lib, "HMMA") for lib in
-              ("exemplar_gains", "greedy_select", "threshold_select")}
+    import concurrent.futures
+    libs = ("exemplar_gains", "greedy_select", "threshold_select")
+    with concurrent.futures.ThreadPoolExecutor(len(libs) + 1) as pool:
+        # cuobjdump over each library at once (each takes seconds)
+        hgmma = pool.submit(hgmma_count)
+        counts = dict(zip(libs, pool.map(lambda lib: sass_count(lib, "HMMA"),
+                                         libs)))
+        hgmma = hgmma.result()
     if None in counts.values():
         log("  cuobjdump not found: HMMA not counted")
         return {}
@@ -3515,7 +3574,7 @@ def hmma_counts() -> dict:
             fail(f"{lib}: no HMMA instruction in the built library's SASS "
                  f"(the gain tile runs no tensor-core product)")
     log(f"HMMA in the SASS of the gain tile's libraries: {counts}; HGMMA in "
-        f"flash_attention's: {hgmma_count()}")
+        f"flash_attention's: {hgmma}")
     for lib in counts:
         for line in _ptxas_report(_build.build_log.get(lib, ""), "kernel"):
             log(f"  ptxas {lib} {line}")
@@ -3652,6 +3711,195 @@ def phase_kernels_attention() -> None:
         f"rtol={testing.BF16_RTOL:.5g} atol={testing.ATOL}); cases and max "
         f"|do| by route: " + ", ".join(
             f"{key} {cases[key]} {worst[key]:.3g}" for key in sorted(cases)))
+
+
+#: the backward's training shapes: Qwen3-8B's attention at the training
+#: cell's microbatch (B = 1 of 8 × 2,048) and whisper-tiny's encoder at its
+#: serving batch, (what, B, H, Hkv, S, T, D, causal)
+ATTN_BWD_SHAPES = [("train qwen3-8b", 1, 32, 8, 2048, 2048, 128, True),
+                   ("train whisper-tiny encoder", 8, 6, 6, 1500, 1500, 64,
+                    False)]
+
+
+def attention_grads(q, k, v, do, causal):
+    """``(o, dq, dk, dv, counts)``: ``ops.flash_attention`` under autograd
+    on leaf copies of q, k, v, its backward for ``do``, and the launches
+    the forward and backward counted."""
+    import torch
+    from repro_torch.kernels import ops
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ops.reset_launch_counts()
+    with torch.enable_grad():
+        o = ops.flash_attention(qq, kk, vv, causal=causal)
+        dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    return o.detach(), dq, dk, dv, dict(ops.launch_counts)
+
+
+#: the launches of one forward under autograd and its backward
+ATTN_BWD_LAUNCHES = {"flash_attention_prefill": 1,
+                     "flash_attention_prefill_lse": 1,
+                     "flash_attention_bwd_delta": 1,
+                     "flash_attention_bwd_dkdv": 1,
+                     "flash_attention_bwd_dq": 1, "flash_attention_decode": 0}
+
+
+def phase_kernels_attention_bwd() -> None:
+    """The flash_attention backward (``csrc/flash_attention_bwd.cu``) on the
+    card against autograd of the plain version, fp32 and bf16: D ∈ {16, 64,
+    128, 256} × group ∈ {1, 4, 8} × {causal S = T ragged, causal S < T (the
+    offset), non-causal S ≠ T}, half of them on the model's strided views;
+    S = 1 (a prefill kernel leaves the log-sum-exp); the training shapes of
+    ``ATTN_BWD_SHAPES``.  Each case: dq, dk, dv within
+    ``testing.ATTN_GRAD_TOL`` of the plain gradients, a second call equal
+    to the bits, the launches of ``ATTN_BWD_LAUNCHES`` counted (the forward
+    on its route); the kernels' registers, shared memory and spills."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    worst: dict[str, float] = {}
+    n = 0
+
+    def check(B, H, Hkv, S, T, D, dtype, causal, seed, strided):
+        nonlocal n
+        q, k, v = _qkv(B, H, Hkv, S, T, D, dtype, seed, strided)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed + 1)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+        what = (f"flash_attention backward {dtype} B={B} H={H} Hkv={Hkv} "
+                f"S={S} T={T} D={D} causal={causal} strided={strided}")
+        _, dq, dk, dv, counts = attention_grads(q, k, v, do, causal)
+        route = fa.prefill_route(dtype, D)
+        want = dict(ATTN_BWD_LAUNCHES,
+                    flash_attention_prefill_wgmma=int(route == "wgmma"))
+        got = {key: counts[key] for key in want}
+        if got != want:
+            fail(f"{what}: launches {got}, expected {want}")
+        plain = ref.flash_attention_backward(q, k, v, do, causal=causal)
+        for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
+            if a.dtype != dtype or a.shape != b.shape:
+                fail(f"{what}: {name} {a.dtype} {tuple(a.shape)}")
+            try:
+                share = testing.assert_grad_close(a, b, dtype,
+                                                  f"{what}: {name}")
+            except AssertionError as e:
+                fail(str(e))
+            key = f"{dtype} {name}"
+            worst[key] = max(worst.get(key, 0.0), share)
+        again = attention_grads(q, k, v, do, causal)[1:4]
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+            fail(f"{what}: a second call gives other bits")
+        n += 1
+        return (dq, dk, dv), plain
+
+    seed = 100
+    for D in fa.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for G in (1, 4, 8):
+                for S, T, causal in ((130, 130, True), (77, 200, True),
+                                     (50, 333, False)):
+                    check(2, 2 * G, 2, S, T, D, dtype, causal, seed,
+                          strided=seed % 2 == 0)
+                    seed += 1
+        for dtype in (torch.float32, torch.bfloat16):
+            check(1, 4, 1, 1, 9, D, dtype, False, seed, False)
+            check(1, 4, 4, 1, 5, D, dtype, True, seed + 1, True)
+            seed += 2
+    for what, B, H, Hkv, S, T, D, causal in ATTN_BWD_SHAPES:
+        check(B, H, Hkv, S, T, D, torch.bfloat16, causal, seed, True)
+        seed += 1
+        torch.cuda.empty_cache()
+    build_log = _build.build_log.get("flash_attention_bwd", "")
+    for marker in ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                   "flash_bwd_dq_kernel"):
+        for line in _ptxas_report(build_log, marker):
+            log(f"  ptxas {line}")
+    smem = {D: {kind: fa.bwd_smem_bytes(D, kind) for kind in ("dkdv", "dq")}
+            for D in fa.HEAD_DIMS}
+    log(f"  backward shared memory per CTA by D: {smem}")
+    log(f"flash_attention backward vs plain: {n} cases agree, each twice to "
+        f"the bit (dq, dk, dv within {testing.ATTN_GRAD_TOL[torch.float32]} "
+        f"(fp32) / {testing.ATTN_GRAD_TOL[torch.bfloat16]} (bf16) of the "
+        f"largest |value|); worst share by type and gradient: " + ", ".join(
+            f"{key} {worst[key]:.3g}" for key in sorted(worst)))
+
+
+def times_attention_bwd(launches: dict, cell: dict | None = None
+                        ) -> list[dict]:
+    """The backward's three kernels (one row: a call) at ``ATTN_BWD_SHAPES``
+    in bf16, held against autograd of the plain version there (whose run,
+    timed once, is the plain time), timed beside the bound (5 products of
+    2·D a visible pair on the bf16 tensor cores, or the bytes of q, k, v,
+    o, dO and the three gradients) and beside the backward of PyTorch's
+    scaled_dot_product_attention (``enable_gqa``, under autograd).
+    ``launches``: {what: launches of the backward kernels at that shape in
+    a training step}; ``cell``: the training cell, whose step the Qwen3-8B
+    row's share is taken of (a call's time × calls a step / step time)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import testing
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for what, B, H, Hkv, S, T, D, causal in ATTN_BWD_SHAPES:
+        scale = 1.0 / D ** 0.5
+        q, k, v = _qkv(B, H, Hkv, S, T, D, torch.bfloat16, 31, True)
+        do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+        o, lse = fa.launch(q, k, v, causal=causal, scale=scale,
+                           with_lse=True)
+        grads = fa.launch_backward(q, k, v, o, lse, do, causal=causal,
+                                   scale=scale)
+        plain, plain_ms = timed_once(lambda: ref.flash_attention_backward(
+            q, k, v, do, causal=causal))
+        for name, a, b_ in zip(("dq", "dk", "dv"), grads, plain):
+            try:
+                testing.assert_grad_close(a, b_, torch.bfloat16,
+                                          f"backward at {what}: {name}")
+            except AssertionError as e:
+                fail(str(e))
+        err = max(testing.max_abs_err(a, b_) for a, b_ in zip(grads, plain))
+        del grads, plain
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fa.launch_backward(q, k, v, o, lse, do,
+                                                causal=causal, scale=scale),
+                     runs=10)
+        ops.reset_launch_counts()
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        with torch.enable_grad():
+            o_l = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                 enable_gqa=True)
+        lib = cuda_ms(lambda: torch.autograd.grad(
+            o_l, (qs, ks, vs), do, retain_graph=True), runs=10)
+        flops = 5 * 2 * B * H * D * visible_pairs(S, T, causal, None)
+        nbytes = 2 * D * (4 * B * H * S + 4 * B * Hkv * T) + 4 * B * H * S
+        t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+        b = 1e3 * max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        n = launches.get(what, 0)
+        share = ""
+        if cell is not None and what == ATTN_BWD_SHAPES[0][0]:
+            share = (f"; {n // 3} calls a training step: "
+                     f"{ms * (n // 3) / cell['step_ms']:.1%} of the cell's "
+                     f"step ({cell['step_ms']:.1f} ms)")
+        log(f"flash_attention backward {what}: B={B} H={H} Hkv={Hkv} S={S} "
+            f"T={T} D={D} causal={causal}, bf16: {ms:.4f} ms (3 launches), "
+            f"plain {plain_ms:.4f} ms (the check's run), SDPA backward "
+            f"{lib:.4f} ms, bound {b:.4f} ms by {by}{share}")
+        rows.append({"name": f"flash_attention backward ({what})",
+                     "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "flash_attention_bwd.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:91 "
+                                 "(no TPU backward: autograd of "
+                                 "src/repro/kernels/ref.py:322)",
+                     "launches": n, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                     "bound_by": by, "library_ms": lib})
+        del q, k, v, do, o, lse, o_l, qs, ks, vs
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _lm_prompt(cfg, batch: int, seq: int, device: str):
@@ -4342,19 +4590,18 @@ def times_attention(serve: dict, arch: str = LM_ARCH) -> list[dict]:
     for what, B, H, Hkv, S, T, D, causal, kv in attention_shapes(arch):
         n = shape_launches(serve, "flash_attention", S, T,
                            kv if what == "cross decode" else "any")
-        runs = (50, 10) if S == 1 else (10, 3)
         shapes.append((what if arch == LM_ARCH else f"{what}, {arch}", B, H,
-                       Hkv, S, T, D, causal, kv, n, *runs))
+                       Hkv, S, T, D, causal, kv, n, 50 if S == 1 else 10))
     if arch == LM_ARCH:
         shapes.append(("prefill 32k", a["B"], a["H"], a["Hkv"], a["S"],
                        a["S"], a["D"], True, None,
-                       serve["launches"]["flash_attention_prefill"], 3, 1))
+                       serve["launches"]["flash_attention_prefill"], 3))
     rows = []
-    for (what, B, H, Hkv, S, T, D, causal, kv, launches, runs,
-         plain_runs) in shapes:
+    for what, B, H, Hkv, S, T, D, causal, kv, launches, runs in shapes:
         q, k, v = _qkv(B, H, Hkv, S, T, D, torch.bfloat16, 7)
         o = ops.flash_attention(q, k, v, causal=causal, kv_valid_len=kv)
-        o_p = ref.flash_attention(q, k, v, causal=causal, kv_valid_len=kv)
+        o_p, plain = timed_once(lambda: ref.flash_attention(
+            q, k, v, causal=causal, kv_valid_len=kv))
         testing.assert_attention_close(o, o_p, True,
                                        f"flash_attention at the {what} shape")
         err = testing.max_abs_err(o, o_p)
@@ -4362,8 +4609,6 @@ def times_attention(serve: dict, arch: str = LM_ARCH) -> list[dict]:
         torch.cuda.empty_cache()
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                  kv_valid_len=kv), runs=runs)
-        plain = cuda_ms(lambda: ref.flash_attention(
-            q, k, v, causal=causal, kv_valid_len=kv), runs=plain_runs)
         if kv is None:
             lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), runs=runs)
@@ -4717,20 +4962,19 @@ def times_wkv6(serve: dict, chunked_serve: dict) -> list[dict]:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import wkv6 as wk
     c = LM_SERVE
-    cfg = get_config(RWKV_ARCH)
+    cfg = lm_config(RWKV_ARCH)
     H, D = cfg.n_heads, cfg.rwkv_head_dim
     launches = serve["launches"]
     if launches["wkv6_recurrent"] != cfg.n_layers:
         fail(f"rwkv6 serving: {launches['wkv6_recurrent']} recurrent wkv6 "
              f"launches, not one prefill a layer ({cfg.n_layers})")
     shapes = [("prefill", c["batch"], c["prompt"], False,
-               launches["wkv6_prefill"], 20, 2),
-              ("decode", c["batch"], 1, True, launches["wkv6_decode"], 50,
-               10),
+               launches["wkv6_prefill"], 20),
+              ("decode", c["batch"], 1, True, launches["wkv6_decode"], 50),
               ("prefill 32k", WKV_32K["B"], WKV_32K["T"], False,
-               launches["wkv6_prefill"], 5, 1)]
+               launches["wkv6_prefill"], 5)]
     rows = []
-    for what, B, T, given, n_launch, runs, plain_runs in shapes:
+    for what, B, T, given, n_launch, runs in shapes:
         r, k, v, w, u = _wkv_inputs(B, H, T, D, D, torch.bfloat16, 17)
         s0 = torch.randn((B, H, D, D), device="cuda") if given else None
         st = torch.empty((B, H, D, D), device="cuda")
@@ -4743,20 +4987,16 @@ def times_wkv6(serve: dict, chunked_serve: dict) -> list[dict]:
             return ref.wkv6(r, k, v, w, u, s0, out_dtype=out_dtype)
 
         y, _ = kernel()
-        t0 = time.perf_counter()
-        y_p, st_p = plain()
-        torch.cuda.synchronize()
-        t_plain = time.perf_counter() - t0
+        (y_p, st_p), plain_ms = timed_once(plain)
         testing.assert_attention_close(y, y_p, not given,
                                        f"wkv6 at the {what} shape: y")
         testing.assert_close(st, st_p, f"wkv6 at the {what} shape: state")
         err = max(testing.max_abs_err(y, y_p), testing.max_abs_err(st, st_p))
         ms = cuda_ms(kernel, runs=runs)
-        plain_ms = cuda_ms(plain, runs=plain_runs, warmup=0)
         b, by, b32 = wkv6_bound(B, H, T, D, D, 2, given, 4 if given else 2)
         log(f"wkv6 {what}: B={B} H={H} T={T} Dk=Dv={D}, bf16 r/k/v/u, fp32 "
             f"w, state {'in and out' if given else 'out'}; the check's "
-            f"plain run {t_plain:.1f} s")
+            f"plain run {plain_ms / 1e3:.1f} s")
         row = {"name": f"wkv6 ({what})", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/"
                          + ("wkv6_decode.cu" if T == 1 else "wkv6.cu"),
@@ -4862,14 +5102,13 @@ def times_mamba_scan(serve: dict) -> list[dict]:
             return ref.wkv6(r, k, v, w, u, s0, out_dtype=out_dtype)
 
         y, _ = kernel()
-        y_p, st_p = plain()
+        (y_p, st_p), plain_ms = timed_once(plain)
         testing.assert_attention_close(y, y_p, not given,
                                        f"wkv6 at the Mamba {what} shape: y")
         testing.assert_close(st, st_p,
                              f"wkv6 at the Mamba {what} shape: state")
         err = max(testing.max_abs_err(y, y_p), testing.max_abs_err(st, st_p))
         ms = cuda_ms(kernel, runs=50 if given else 10)
-        plain_ms = cuda_ms(plain, runs=10 if given else 1, warmup=0)
         b, by, b32 = wkv6_bound(B, H, T, Dk, Dv, 2, given, 4 if given else 2)
         log(f"wkv6 Mamba {what}: B={B} H={H} T={T} Dk={Dk} Dv={Dv}, bf16 "
             f"r/k/v, u = 0, fp32 w = 0.5, state "
@@ -4888,14 +5127,408 @@ def times_mamba_scan(serve: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# LM training (Qwen3-8B) on the flash_attention backward
+# ---------------------------------------------------------------------------
+
+#: step parity: Qwen3-8B at full width, 2 of its 36 layers, B = 2 prompts
+#: of 32 SyntheticLM tokens in 2 microbatches, one set of fp32 masters
+TRAIN_PARITY = dict(layers=2, batch=2, seq=32, micro=2)
+#: the other families that train on flash_attention, at reduced() (D = 16:
+#: the CUDA-core route), in fp32 compute; and the families refused on the
+#: card (no wkv6 backward kernel yet)
+TRAIN_PARITY_ARCHS = ("deepseek-moe-16b", "internvl2-76b", ENCDEC_ARCH)
+TRAIN_REFUSED_ARCHS = (RWKV_ARCH, HYBRID_ARCH)
+#: whisper-tiny whole, one step of 8 × 1,500 frames (the encoder's 30-second
+#: context) and 1,500 tokens: the backward at the encoder's shape
+TRAIN_WHISPER = dict(batch=8, seq=ENCDEC_FRAMES)
+#: the training cell: Qwen3-8B at full width, 4 of 36 layers (2.01 B
+#: parameters, ~32 GB of masters, gradients and moments; 36 layers would be
+#: ~131 GB), 8 × 2,048 SyntheticLM tokens in the config's 8 microbatches,
+#: remat, bf16 moments; a warm-up step and 3 timed steps, a checkpoint every
+#: 2 steps, steps 3-4 resumed from the step-2 checkpoint
+TRAIN_CELL = dict(layers=4, batch=8, seq=2048, steps=4, ckpt_every=2)
+#: the CLI's run: --reduced, 30 steps (a checkpoint at 25), then --resume
+TRAIN_CLI = ["--arch", LM_ARCH, "--reduced", "--steps", "30"]
+BWD_KERNELS = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+               "flash_attention_bwd_dq")
+
+
+def rel_norms(actual: list, expected: list, device="cuda"
+              ) -> tuple[float, float, int]:
+    """(‖a − b‖ / ‖b‖ over all leaves, the worst leaf's, its index), in
+    fp64 on the card, one leaf at a time."""
+    import torch
+    num = den = 0.0
+    worst, at = 0.0, -1
+    for i, (a, b) in enumerate(zip(actual, expected)):
+        # to the card in its own type first: a host-side cast to float64
+        # would double the bytes the host writes and copies
+        a = a.to(device).double()
+        b = b.to(device).double()
+        d2, b2 = float(torch.sum((a - b) ** 2)), float(torch.sum(b * b))
+        num, den = num + d2, den + b2
+        r = math.sqrt(d2 / max(b2, 1e-300))
+        if r > worst:
+            worst, at = r, i
+    return math.sqrt(num / max(den, 1e-300)), worst, at
+
+
+class BwdShapes:
+    """Within the block, each flash_attention backward call's (B, H, Hkv,
+    S, T, D, causal) is counted (``calls``), the launches going on."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        self.fa, self.real, self.calls = fa, fa.launch_backward, {}
+
+        def rec(q, k, v, o, lse, do, *, causal, scale):
+            key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                   k.shape[2], q.shape[3], bool(causal))
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return self.real(q, k, v, o, lse, do, causal=causal, scale=scale)
+
+        fa.launch_backward = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.launch_backward = self.real
+
+
+def check_train_parity(name: str, cfg, mode: str, batch: int, seq: int
+                       ) -> dict:
+    """One train step of ``cfg`` on the card against the same step on the
+    CPU's plain path, from one set of fp32 masters (drawn on the card and
+    copied) on one SyntheticLM batch, COMPUTE_DTYPE ``mode``: the loss,
+    grad_norm and lr, every parameter's gradient (none missing or all
+    zero on the card), the update and the moments, held to
+    ``testing.TRAIN_STEP_TOL``; the backward's launches counted.  (The
+    CPU step beside a card phase on a thread ran no faster: both drive the
+    host's 8 cores.)"""
+    import torch
+    from repro_torch import testing
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as TL
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    dtype = torch.float32 if mode == "fp32" else torch.bfloat16
+    opt = opt_lib.OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                    global_batch=batch, seed=SEED, frontend=cfg.frontend,
+                    frontend_tokens=cfg.frontend_tokens, d_model=cfg.d_model)
+    step_fn = ts.make_train_step(cfg, opt)
+    saved = TL.COMPUTE_DTYPE
+    TL.COMPUTE_DTYPE = dtype
+    try:
+        card = ts.init_train_state(cfg, opt, SEED, device="cuda")
+        cpu = opt_lib.tree_map(lambda t: t.to("cpu", copy=True), card)
+        p0 = [t.clone() for t in opt_lib.tree_leaves(card["params"])]
+        ops.reset_launch_counts()
+        gc = []
+        card, mc = step_fn(card, SyntheticLM(dc, "cuda").batch(0),
+                           keep_grads=gc)
+        torch.cuda.synchronize()
+        counts = dict(ops.launch_counts)
+    finally:
+        TL.COMPUTE_DTYPE = saved
+    # the card keeps only what is compared: gradients, update, moments
+    names = [".".join(k) for k in _leaf_names(card["params"])]
+    upd_c = [a.sub_(b) for a, b in zip(opt_lib.tree_leaves(card["params"]),
+                                       p0)]
+    card_opt = card["opt"]
+    del card, p0
+    torch.cuda.empty_cache()
+    TL.COMPUTE_DTYPE = dtype
+    try:
+        t0 = time.perf_counter()
+        p0h = [t.clone() for t in opt_lib.tree_leaves(cpu["params"])]
+        gp = []
+        cpu, mp = step_fn(cpu, SyntheticLM(dc, "cpu").batch(0),
+                          keep_grads=gp)
+        upd_p = [a.sub_(b) for a, b in
+                 zip(opt_lib.tree_leaves(cpu["params"]), p0h)]
+        t_cpu = time.perf_counter() - t0
+    finally:
+        TL.COMPUTE_DTYPE = saved
+    del p0h
+    tol = testing.TRAIN_STEP_TOL[dtype]
+    zero = [n for n, g in zip(names, gc) if g is None
+            or not bool(torch.any(g != 0))]
+    if zero:
+        fail(f"train step {name}: no gradient on the card for {zero}")
+    got = {key: abs(float(mc[key]) - float(mp[key])) / abs(float(mp[key]))
+           for key in ("loss", "grad_norm", "lr")}
+    got["grads"], got["grad_leaf"], at = rel_norms(gc, gp)
+    got["update"] = rel_norms(upd_c, upd_p)[0]
+    for key in ("mu", "nu"):
+        got[key] = rel_norms(opt_lib.tree_leaves(card_opt[key]),
+                             opt_lib.tree_leaves(cpu["opt"][key]))[0]
+    bad = {k: v for k, v in got.items() if not v <= tol[k]}
+    if bad:
+        fail(f"train step {name} ({mode}) card vs CPU: {bad} past {tol} "
+             f"(worst gradient leaf {names[at]})")
+    bwd = {k: counts[k] for k in BWD_KERNELS}
+    if min(bwd.values()) < 1 or len(set(bwd.values())) != 1 \
+            or counts["flash_attention_prefill_lse"] < bwd[BWD_KERNELS[0]]:
+        fail(f"train step {name}: backward launches {bwd}, forward with "
+             f"the log-sum-exp {counts['flash_attention_prefill_lse']}")
+    log(f"train step {name} ({mode}, B={batch} S={seq}, "
+        f"{cfg.microbatches} microbatches, {len(names)} parameters, all "
+        f"with a gradient on the card): card vs CPU {got} (CPU step "
+        f"{t_cpu:.1f} s); loss {float(mc['loss']):.6f}, launches: forward "
+        f"with lse {counts['flash_attention_prefill_lse']}, backward {bwd}")
+    del cpu, gp, upd_p, gc, upd_c, card_opt
+    torch.cuda.empty_cache()
+    return {"diffs": got, "launches": bwd}
+
+
+def _leaf_names(tree, prefix=()) -> list:
+    """The key paths of a nested dict's leaves, in the JAX tree's order."""
+    if isinstance(tree, dict):
+        return [p for key in sorted(tree)
+                for p in _leaf_names(tree[key], prefix + (key,))]
+    return [prefix]
+
+
+def phase_train_parity() -> dict:
+    """Phase 17a: train steps on the card against the CPU's plain path —
+    the MoE, VLM and encoder-decoder families at ``reduced()`` (fp32, two
+    microbatches), Qwen3-8B at full width (``TRAIN_PARITY``, bf16); RWKV-6
+    and the hybrid refused at the backward; whisper-tiny whole for one step
+    at the encoder's 1,500 frames (its backward launches by shape)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    p = TRAIN_PARITY
+    out = {}
+    for arch in TRAIN_PARITY_ARCHS:
+        rc = dataclasses.replace(get_config(arch).reduced(), microbatches=2)
+        out[arch] = check_train_parity(f"{arch} reduced", rc, "fp32", 4, 16)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=p["layers"],
+                              microbatches=p["micro"])
+    out[LM_ARCH] = check_train_parity(f"{LM_ARCH}, {p['layers']} layers",
+                                      cfg, "bf16", p["batch"], p["seq"])
+    opt = opt_lib.OptConfig()
+    for arch in TRAIN_REFUSED_ARCHS:
+        rc = get_config(arch).reduced()
+        state = ts.init_train_state(rc, opt, SEED, device="cuda")
+        batch = {"tokens": torch.zeros((2, 16), dtype=torch.int32,
+                                       device="cuda")}
+        try:
+            ts.make_train_step(rc, opt)(state, batch)
+        except NotImplementedError as e:
+            if "wkv6" not in str(e):
+                fail(f"{arch}: refused for another reason: {e}")
+            log(f"train step {arch} on the card: refused at the backward "
+                f"({str(e)[:90]}...)")
+        else:
+            fail(f"{arch} trained on the card without a wkv6 backward")
+    cfg = get_config(ENCDEC_ARCH)
+    w = TRAIN_WHISPER
+    state = ts.init_train_state(cfg, opt, SEED, device="cuda")
+    data = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=w["seq"], global_batch=w["batch"],
+        seed=SEED, frontend=cfg.frontend, d_model=cfg.d_model), "cuda")
+    with BwdShapes() as shapes:
+        _, m = ts.make_train_step(cfg, opt)(state, data.batch(0))
+        torch.cuda.synchronize()
+    if not math.isfinite(float(m["loss"])):
+        fail(f"whisper-tiny train step: loss {float(m['loss'])}")
+    out["whisper_shapes"] = shapes.calls
+    log(f"train step whisper-tiny whole (B={w['batch']}, {w['seq']} frames "
+        f"and tokens): loss {float(m['loss']):.4f}, backward calls by (B, "
+        f"H, Hkv, S, T, D, causal): {shapes.calls}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_cell() -> dict:
+    """Phase 17b: the training cell (``TRAIN_CELL``).  Each step timed with
+    CUDA events, its launches counted from 0 (every backward kernel and
+    the forward with the log-sum-exp must launch); the memory peak; a
+    checkpoint every 2 steps (keep 2); then the step-2 checkpoint restored
+    into a fresh state and steps 3-4 run again: their metrics and the
+    final state equal the uninterrupted run's, bit for bit."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.fault_tolerance import CheckpointManager
+    c = TRAIN_CELL
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=c["layers"])
+    opt = opt_lib.OptConfig(total_steps=100, moment_dtype=cfg.moment_dtype)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.init_train_state(cfg, opt, SEED, device="cuda")
+    leaves = opt_lib.tree_leaves(state["params"])
+    n_params = sum(t.numel() for t in leaves)
+    n_emb = state["params"]["emb"].numel()
+    init_mem = torch.cuda.memory_allocated()
+    step_fn = ts.make_train_step(cfg, opt)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=c["seq"], global_batch=c["batch"],
+                                  seed=SEED), "cuda")
+    ckdir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mgr = CheckpointManager(str(ckdir), every_steps=c["ckpt_every"], keep=2)
+    du = shutil.disk_usage(ROOT / "build")
+    log(f"train cell: {n_params:,} parameters ({n_emb:,} in the embedding "
+        f"table), state {init_mem:,} B on the card; disk free under build/ "
+        f"{du.free:,} B")
+    hist, ckpt_s = [], []
+    cli = None
+    for step in range(c["steps"]):
+        batch = data.batch(step)
+        ops.reset_launch_counts()
+        (state, m), ms = timed_once(lambda: step_fn(state, batch))
+        counts = dict(ops.launch_counts)
+        if step + 1 == c["steps"]:
+            # the timed steps are done: the CLI's run (phase 17c) starts
+            # here, its start-up beside this phase's checkpoint I/O
+            cli = start_train_cli()
+        hist.append({"loss": float(m["loss"]), "grad_norm":
+                     float(m["grad_norm"]), "lr": float(m["lr"]), "ms": ms,
+                     "launches": {k: v for k, v in counts.items() if v}})
+        t0 = time.perf_counter()
+        mgr.maybe_save(step + 1, state)
+        ckpt_s.append(time.perf_counter() - t0)
+        if not math.isfinite(hist[-1]["loss"]):
+            fail(f"train cell step {step + 1}: loss {hist[-1]['loss']}")
+        missing = [k for k in BWD_KERNELS + ("flash_attention_prefill_lse",)
+                   if counts[k] == 0]
+        if missing:
+            fail(f"train cell step {step + 1}: {missing} launched no time")
+        log(f"train cell step {step + 1}: {hist[-1]}; checkpoint "
+            f"{ckpt_s[-1]:.1f} s")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    tokens = c["batch"] * c["seq"]
+    attn = 3 * 4 * c["batch"] * cfg.n_heads * cfg.hd * visible_pairs(
+        c["seq"], c["seq"], True, None) * cfg.n_layers
+    flops = 6 * (n_params - n_emb) * tokens + attn
+    out = {"cli": cli,
+           "step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+           "model_flops": flops, "mfu": flops / (step_ms / 1e3) / PEAK_BF16,
+           "peak_mem": peak, "init_mem": init_mem, "n_params": n_params,
+           "launches": hist[-1]["launches"], "ckpt_s": ckpt_s,
+           "history": hist}
+    # resume: the step-2 checkpoint into a fresh state, steps 3-4 again
+    t0 = time.perf_counter()
+    resumed = ckpt.restore(str(ckdir), c["ckpt_every"], state)
+    out["restore_s"] = time.perf_counter() - t0
+    for step in range(c["ckpt_every"], c["steps"]):
+        resumed, m = step_fn(resumed, data.batch(step))
+        got = [float(m["loss"]), float(m["grad_norm"]), float(m["lr"])]
+        want = [hist[step][k] for k in ("loss", "grad_norm", "lr")]
+        if got != want:
+            fail(f"train cell: resumed step {step + 1} {got} against the "
+                 f"uninterrupted run's {want}")
+    for a, b in zip(opt_lib.tree_leaves(resumed), opt_lib.tree_leaves(state)):
+        if not torch.equal(a, b):
+            fail("train cell: the resumed state differs from the "
+                 "uninterrupted run's after step 4")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"train cell ({LM_ARCH}, {c['layers']} of 36 layers, "
+        f"{c['batch']} x {c['seq']} tokens, {cfg.microbatches} "
+        f"microbatches, remat, bf16 moments): step {step_ms:.1f} ms "
+        f"(median of steps 2-{c['steps']}), {out['tokens_per_s']:.1f} "
+        f"tokens/s, {out['mfu']:.1%} of 989 TFLOP/s (6·N·tokens, N without "
+        f"the embedding table, plus attention: {flops / 1e12:.1f} TFLOP a "
+        f"step), memory peak {peak:,} B (state {init_mem:,} B); launches a "
+        f"step {out['launches']}; checkpoints {ckpt_s} s, restore "
+        f"{out['restore_s']:.1f} s; steps 3-4 resumed from the step-2 "
+        f"checkpoint equal the uninterrupted run, bit for bit")
+    del state, resumed
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_launches(parity: dict, cell: dict) -> dict:
+    """Launches of the backward's kernels a training step at each of
+    ``ATTN_BWD_SHAPES``: the cell's step (Qwen3-8B), whisper-tiny's step
+    at the encoder's shape (its cross attention has the same shape)."""
+    (q_what, *_), (w_what, *w_shape) = ATTN_BWD_SHAPES
+    return {q_what: sum(cell["launches"].get(k, 0) for k in BWD_KERNELS),
+            w_what: 3 * parity["whisper_shapes"].get(tuple(w_shape), 0)}
+
+
+def start_train_cli():
+    """``python -m repro_torch.launch.train`` (``TRAIN_CLI``) with step
+    checkpoints under ``build/train_cli``, started: returns the function
+    that waits for it (:func:`_module_start`)."""
+    import shutil
+    ckdir = ROOT / "build" / "train_cli"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return _module_start("repro_torch.launch.train", *TRAIN_CLI,
+                         "--ckpt-dir", str(ckdir))
+
+
+def phase_train_cli(cli=None) -> dict:
+    """Phase 17c: ``python -m repro_torch.launch.train`` (``TRAIN_CLI``)
+    with step checkpoints (``cli``: the run :func:`start_train_cli`
+    started, else started here), then the launcher's ``main`` with
+    ``--resume`` in this process (the step-30 line the same to the digit);
+    the select-then-train example at its defaults, in process, its
+    backward launches counted."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    from repro_torch.examples import train_lm_with_selection as ex
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    ckdir = ROOT / "build" / "train_cli"
+    run = (cli or start_train_cli())()
+    if run.returncode != 0:
+        fail(f"repro_torch.launch.train: exit {run.returncode}: "
+             f"{run.stderr[-2000:]}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_train.main([*TRAIN_CLI, "--ckpt-dir", str(ckdir), "--resume"])
+    shutil.rmtree(ckdir, ignore_errors=True)
+    first, again = run.stdout.splitlines(), out.getvalue().splitlines()
+    for line in again:
+        log(f"  repro_torch.launch.train --resume: {line}")
+    steps = [line for line in first if line.startswith("step ")]
+    if [line.split()[1] for line in steps] != ["1", "10", "20", "30"] or \
+            not all(math.isfinite(float(line.split()[3])) for line in steps):
+        fail(f"repro_torch.launch.train: lines {first}")
+    if again[:1] != ["resumed from step 25"] or again[-1] != steps[-1]:
+        fail(f"repro_torch.launch.train --resume: {again} (the run's last "
+             f"line {steps[-1]})")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ex.main("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: ops.launch_counts[k] for k in BWD_KERNELS}
+    losses = res["selected"] + res["random"]
+    if min(counts.values()) < 1 or not all(map(math.isfinite, losses)) \
+            or len(set(res["idx"].tolist())) != len(res["idx"]):
+        fail(f"example train_lm_with_selection: launches {counts}, "
+             f"{len(res['idx'])} rows selected")
+    log(f"example train_lm_with_selection at its defaults: wall {wall:.1f} "
+        f"s, backward launches {counts}; the CLI resumed to the same "
+        f"step-30 line")
+    return {"example_wall": wall, "example_launches": counts}
+
+
 def phase_rwkv_chunked() -> dict:
     """rwkv6-1.6b as phases 11 and 12 with every prefill call's wkv6 on the
     chunked kernel, which ``ops.wkv6`` dispatches no call to
     (``wkv6.launch`` swapped for these runs only and restored; decode
     stays on the decode kernel): card against CPU within LM_PARITY_TOL at 2
-    layers; serving at 24 layers with three chunked launches per layer,
-    the last decode step against forward within LM_SERVE_TOL, prefill
-    time beside phase 12's."""
+    layers; serving at the cell's depth with three chunked launches per
+    layer, the last decode step against forward within LM_SERVE_TOL,
+    prefill time beside phase 12's."""
     from repro_torch.kernels import wkv6 as wk
     routed = wk.launch
 
@@ -4937,24 +5570,31 @@ def main() -> None:
     timed("setup", phase_setup)
     for fn in (phase_kernels, phase_kernels_constrained, phase_kernels_rbf,
                phase_kernels_weighted, phase_kernels_narrow,
-               phase_kernels_attention, phase_kernels_wkv6):
+               phase_kernels_attention, phase_kernels_attention_bwd,
+               phase_kernels_wkv6):
         timed(fn.__name__, fn)
     timed("lm_parity", phase_lm_parity)
     serve = timed("lm_serve", phase_lm_serve)
     attn_rows = timed("lm_times", times_attention, serve)
     for arch in MOE_PARITY_ARCHS:
-        timed("moe", phase_lm_parity, arch)
-    attn_rows += timed("moe", lambda: times_attention(
-        phase_lm_serve(MOE_ARCH), MOE_ARCH))
-    timed("rwkv", phase_lm_parity, RWKV_ARCH)
-    rwkv = timed("rwkv", phase_lm_serve, RWKV_ARCH)
-    wkv_rows = timed("rwkv", lambda: times_wkv6(rwkv, phase_rwkv_chunked()))
+        timed("moe_parity", phase_lm_parity, arch)
+    moe = timed("moe_serve", phase_lm_serve, MOE_ARCH)
+    attn_rows += timed("moe_times", times_attention, moe, MOE_ARCH)
+    timed("rwkv_parity", phase_lm_parity, RWKV_ARCH)
+    rwkv = timed("rwkv_serve", phase_lm_serve, RWKV_ARCH)
+    chunked = timed("rwkv_chunked", phase_rwkv_chunked)
+    wkv_rows = timed("rwkv_times", times_wkv6, rwkv, chunked)
     for arch in (VLM_ARCH, HYBRID_ARCH, ENCDEC_ARCH):
-        timed(arch, phase_lm_parity, arch)
-        served = timed(arch, phase_lm_serve, arch)
-        attn_rows += timed(arch, times_attention, served, arch)
+        timed(f"{arch} parity", phase_lm_parity, arch)
+        served = timed(f"{arch} serve", phase_lm_serve, arch)
+        attn_rows += timed(f"{arch} times", times_attention, served, arch)
         if arch == HYBRID_ARCH:
-            wkv_rows += timed(arch, times_mamba_scan, served)
+            wkv_rows += timed(f"{arch} times", times_mamba_scan, served)
+    parity = timed("train_parity", phase_train_parity)
+    cell = timed("train_cell", phase_train_cell)
+    timed("train_cli", phase_train_cli, cell.pop("cli"))
+    attn_rows += timed("train_times", times_attention_bwd,
+                       train_launches(parity, cell), cell)
     scan = timed("scan", phase_scan)
     main_path = timed("main", phase_main)
     constrained = timed("constrained", phase_constrained, main_path)
@@ -4988,7 +5628,7 @@ def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    print(smi.stdout.strip().splitlines()[0], flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

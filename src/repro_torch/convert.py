@@ -15,7 +15,7 @@ from repro_torch.core.plan import ArrayPlan
 from repro_torch.device import as_tensor, resolve_device
 
 __all__ = ["ArrayPlan", "constraint_from_jax", "objective_from_jax",
-           "objective_from_numpy", "params_from_jax"]
+           "objective_from_numpy", "params_from_jax", "train_state_from_jax"]
 
 
 def objective_from_numpy(eval_set: np.ndarray, device="cuda",
@@ -116,3 +116,36 @@ def params_from_jax(params, cfg, device="cuda") -> dict:
         else:
             out[name] = leaf(val).to(dev)
     return out
+
+
+def _tensor(x):
+    """A JAX or NumPy array as a CPU tensor of its own type; bf16 arrays
+    (``ml_dtypes`` bfloat16, or the raw two-byte records a checkpoint
+    holds) through their bits, so ``ml_dtypes`` is never imported here."""
+    import torch
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
+        bits = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def train_state_from_jax(state, cfg, device="cuda") -> dict:
+    """The port's train state (``repro_torch.train.train_step``) from a JAX
+    ``init_train_state`` / train-step state of ``cfg``'s model: the fp32
+    masters, the AdamW moments in their dtype and the int32 step, each
+    leaf as it is (nothing cast), on ``device`` — so both packages start a
+    step from the same state.  The trees keep the JAX package's keys,
+    which the port's models share for every family."""
+    from repro_torch.models import layers
+    del cfg   # the tree is the family's; its keys say all that is needed
+    dev = resolve_device(device)
+
+    def tree(t):
+        return layers.tree_map(lambda x: _tensor(x).to(dev), t)
+
+    opt = state["opt"]
+    return {"params": tree(state["params"]),
+            "opt": {"mu": tree(opt["mu"]), "nu": tree(opt["nu"]),
+                    "step": _tensor(opt["step"]).to(dev)}}

@@ -4,6 +4,7 @@ module with ``main(device="cuda")``:
     PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
     PYTHONPATH=src python -m repro_torch.examples.distributed_tree
     PYTHONPATH=src python -m repro_torch.examples.active_set_selection
+    PYTHONPATH=src python -m repro_torch.examples.train_lm_with_selection
 
 The same data, k and μ as ``examples/*.py``, the same printed lines; a
 run uses one device (the card unless ``--device cpu``).

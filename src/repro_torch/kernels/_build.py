@@ -23,8 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("exemplar_gains", "greedy_select", "threshold_select",
-           "rbf_kernel", "flash_attention", "wkv6", "wkv6_decode",
-           "wkv6_chunked")
+           "rbf_kernel", "flash_attention", "flash_attention_bwd", "wkv6",
+           "wkv6_decode", "wkv6_chunked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,13 +46,18 @@ ARGTYPES = {
     "rbf_kernel_launch": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _F, _I,
                           _P],
     "flash_attention_prefill_launch": [_P] * 4 + [_LL] * 12 + [_I] * 8
-    + [_F, _I, _P],
+    + [_F, _I, _P, _P],
     "flash_attention_prefill_wgmma_launch": [_P] * 4 + [_LL] * 12
-    + [_I] * 8 + [_F, _P],
+    + [_I] * 8 + [_F, _P, _P],
     "flash_attention_decode_launch": [_P] * 4 + [_LL] * 12 + [_I] * 7
     + [_F, _I, _P, _P, _P, _P],
     "flash_attention_decode_shape": [_I, _I, _I, _I],
     "flash_attention_smem": [_I, _I],
+    "flash_attention_bwd_delta_launch": [_P] * 3 + [_LL] * 6 + [_I] * 5
+    + [_P],
+    "flash_attention_bwd_dkdv_launch": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
+    "flash_attention_bwd_dq_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    "flash_attention_bwd_smem": [_I, _I],
     "wkv6_launch": [_P] * 8 + [_LL] * 15 + [_I] * 8 + [_P],
     "wkv6_smem": [_I, _I],
     "wkv6_decode_launch": [_P] * 8 + [_LL] * 10 + [_I] * 7 + [_P],
@@ -73,8 +78,12 @@ RESTYPES = {"exemplar_tile_smem": _LL, "greedy_select_grid": _LL}
 #: take the row vector are counted once more (rbf_kernel_rowvec);
 #: flash_attention's prefill (S > 1) and decode (S = 1) launches apart (the
 #: prefill launches that take the tensor-core route are counted once more
-#: under flash_attention_prefill_wgmma); wkv6's decode kernel's launches
-#: (wkv6_decode), its recurrent kernel's (wkv6_recurrent), every call of
+#: under flash_attention_prefill_wgmma; a forward that saves the
+#: log-sum-exp for the backward counted once more under
+#: flash_attention_prefill_lse) and its backward's three kernels
+#: (flash_attention_bwd_delta, _dkdv, _dq; one launch each a call); wkv6's
+#: decode kernel's launches (wkv6_decode), its recurrent kernel's
+#: (wkv6_recurrent), every call of
 #: T > 1 on either prefill kernel (wkv6_prefill) and the chunked kernel's
 #: launches (three a call, wkv6_chunked).  The three gain-tile
 #: kernels' launches on narrow rows or with the bf16 x·e contraction are
@@ -93,7 +102,9 @@ launch_counts: dict[str, int] = {
         "threshold_select_prepass", "threshold_select_tail", "rbf_kernel",
         "rbf_kernel_rowvec",
         "flash_attention_prefill", "flash_attention_prefill_wgmma",
-        "flash_attention_decode",
+        "flash_attention_decode", "flash_attention_prefill_lse",
+        "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+        "flash_attention_bwd_dq",
         "wkv6_prefill", "wkv6_decode", "wkv6_recurrent", "wkv6_chunked")}
 #: ptxas register/shared-memory report of each library built in this process
 build_log: dict[str, str] = {}
@@ -112,11 +123,34 @@ def _nvcc() -> str:
     return found
 
 
+_flags: list[str] = []
+_flags_lock = threading.Lock()
+
+
+def nvcc_flags() -> tuple[str, ...]:
+    """``NVCC_FLAGS``, and ``--split-compile=0`` where this ``nvcc`` takes
+    it (its optimization passes then run on every host thread: the
+    flash_attention library, the longest, builds in less wall time)."""
+    with _flags_lock:
+        if not _flags:
+            extra = []
+            try:
+                found = "--split-compile" in subprocess.run(
+                    [_nvcc(), "--help"], capture_output=True, text=True,
+                    timeout=60).stdout
+            except (OSError, RuntimeError, subprocess.SubprocessError):
+                found = False
+            if found:
+                extra = ["--split-compile=0"]
+            _flags.extend([*NVCC_FLAGS, *extra])
+        return tuple(_flags)
+
+
 def lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags()).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -132,7 +166,7 @@ def build_all(names=SOURCES) -> float:
     procs = {}
     for name in todo:
         tmp = lib_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *nvcc_flags(), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []

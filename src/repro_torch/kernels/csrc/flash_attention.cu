@@ -127,8 +127,8 @@ template <typename Tin, int D>
 __global__ void __launch_bounds__(THREADS, Prefill<D>::MIN_BLOCKS)
 flash_prefill_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
                      const Tin* __restrict__ v, Tin* __restrict__ out,
-                     Layout L, int G, int S, int T, int kv_valid, int causal,
-                     float scale) {
+                     float* __restrict__ lse, Layout L, int G, int S, int T,
+                     int kv_valid, int causal, float scale) {
   using C = Prefill<D>;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // [D][PADQ]
@@ -258,6 +258,8 @@ flash_prefill_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     if (r >= S) break;
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * gridDim.y + h) * S + r] = m[i] + logf(l[i]);
     const float den = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int cv = 0; cv < C::NV; ++cv)
@@ -342,7 +344,8 @@ __global__ void __launch_bounds__(Wg<D>::THREADS, 1)
 flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
-                           __nv_bfloat16* __restrict__ out, long long ob,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, long long ob,
                            long long oh, long long os, int G, int S, int T,
                            int kv_valid, int causal, float scale_log2) {
   using C = Wg<D>;
@@ -506,6 +509,10 @@ flash_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       const int r = r0 + 8 * i;
       if (r >= S) continue;
+      // the row's natural log-sum-exp: m is in the scaled log2 domain
+      if (lse != nullptr && lane % 4 == 0)
+        lse[((long long)b * gridDim.y + h) * S + r] =
+            (m[i] + log2f(l[i])) * 0.6931471805599453f;
       const float den = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
       for (int c = 0; c < D / 8; ++c)
@@ -863,7 +870,7 @@ cudaError_t opt_in(Kern* kern, int smem, bool* done) {
 
 template <typename Tin, int D>
 int prefill_t(const void* q, const void* k, const void* v, void* o,
-              const Layout& L, int B, int H, int G, int S, int T,
+              float* lse, const Layout& L, int B, int H, int G, int S, int T,
               int kv_valid, int causal, float scale, cudaStream_t stream) {
   static bool done = false;
   cudaError_t err =
@@ -871,7 +878,7 @@ int prefill_t(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((S + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
   flash_prefill_kernel<Tin, D><<<grid, THREADS, Prefill<D>::SMEM, stream>>>(
-      (const Tin*)q, (const Tin*)k, (const Tin*)v, (Tin*)o, L, G, S, T,
+      (const Tin*)q, (const Tin*)k, (const Tin*)v, (Tin*)o, lse, L, G, S, T,
       kv_valid, causal, scale);
   return (int)cudaGetLastError();
 }
@@ -925,8 +932,8 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int D, long long npos,
 
 template <int D>
 int prefill_wgmma_t(const void* q, const void* k, const void* v, void* o,
-                    const Layout& L, int B, int H, int Hkv, int S, int T,
-                    int kv_valid, int causal, float scale,
+                    float* lse, const Layout& L, int B, int H, int Hkv, int S,
+                    int T, int kv_valid, int causal, float scale,
                     cudaStream_t stream) {
   using C = Wg<D>;
   static bool done = false;
@@ -952,7 +959,7 @@ int prefill_wgmma_t(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)((S + C::BQ - 1) / C::BQ), (unsigned)H,
                   (unsigned)B);
   flash_prefill_wgmma_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, L.ob, L.oh, L.os, H / Hkv, S, T,
+      tq, tk, tv, (__nv_bfloat16*)o, lse, L.ob, L.oh, L.os, H / Hkv, S, T,
       kv_valid, causal, scale_log2);
   return (int)cudaGetLastError();
 }
@@ -999,20 +1006,23 @@ Layout layout(long long qb, long long qh, long long qs, long long kb,
 // its (b, head, position) strides in elements with the last axis
 // contiguous, 16-byte aligned rows; fp32 (bf16 = 0) or bf16 (bf16 = 1).
 // The CUDA-core prefill: D in {16, 64, 128, 256}; keys at or past kv_valid
-// (<= T) are masked; causal needs T >= S.  Returns cudaErrorInvalidValue
-// for a D it has no instantiation of.
+// (<= T) are masked; causal needs T >= S.  With lse non-null each query
+// row's natural log-sum-exp of its scaled logits goes there, fp32 (B, H,
+// S) contiguous (what the backward, csrc/flash_attention_bwd.cu, reads);
+// serving passes null.  Returns cudaErrorInvalidValue for a D it has no
+// instantiation of.
 extern "C" int flash_attention_prefill_launch(
     const void* q, const void* k, const void* v, void* o, long long qb,
     long long qh, long long qs, long long kb, long long kh, long long ks,
     long long vb, long long vh, long long vs, long long ob, long long oh,
     long long os, int B, int H, int Hkv, int S, int T, int D, int kv_valid,
-    int causal, float scale, int bf16, void* stream) {
+    int causal, float scale, int bf16, void* lse, void* stream) {
   const Layout L = layout(qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os);
   const int G = H / Hkv;
   cudaStream_t st = (cudaStream_t)stream;
 #define FA_PREFILL(T_, D_)                                                 \
-  return prefill_t<T_, D_>(q, k, v, o, L, B, H, G, S, T, kv_valid, causal, \
-                           scale, st)
+  return prefill_t<T_, D_>(q, k, v, o, (float*)lse, L, B, H, G, S, T,      \
+                           kv_valid, causal, scale, st)
 #define FA_PREFILL_D(T_)          \
   switch (D) {                    \
     case 16: FA_PREFILL(T_, 16);  \
@@ -1033,25 +1043,26 @@ extern "C" int flash_attention_prefill_launch(
 // The tensor-core prefill, bf16 only, D in {64, 128, 256}: the arguments of
 // flash_attention_prefill_launch without the type.  Strides (of dims longer
 // than 1) must be multiples of 8 elements and the pointers 16-byte aligned,
-// as TMA reads them.
+// as TMA reads them.  lse as there.
 extern "C" int flash_attention_prefill_wgmma_launch(
     const void* q, const void* k, const void* v, void* o, long long qb,
     long long qh, long long qs, long long kb, long long kh, long long ks,
     long long vb, long long vh, long long vs, long long ob, long long oh,
     long long os, int B, int H, int Hkv, int S, int T, int D, int kv_valid,
-    int causal, float scale, void* stream) {
+    int causal, float scale, void* lse, void* stream) {
   const Layout L = layout(qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os);
   cudaStream_t st = (cudaStream_t)stream;
+  float* ls = (float*)lse;
   switch (D) {
     case 64:
-      return prefill_wgmma_t<64>(q, k, v, o, L, B, H, Hkv, S, T, kv_valid,
-                                 causal, scale, st);
+      return prefill_wgmma_t<64>(q, k, v, o, ls, L, B, H, Hkv, S, T,
+                                 kv_valid, causal, scale, st);
     case 128:
-      return prefill_wgmma_t<128>(q, k, v, o, L, B, H, Hkv, S, T, kv_valid,
-                                  causal, scale, st);
+      return prefill_wgmma_t<128>(q, k, v, o, ls, L, B, H, Hkv, S, T,
+                                  kv_valid, causal, scale, st);
     case 256:
-      return prefill_wgmma_t<256>(q, k, v, o, L, B, H, Hkv, S, T, kv_valid,
-                                  causal, scale, st);
+      return prefill_wgmma_t<256>(q, k, v, o, ls, L, B, H, Hkv, S, T,
+                                  kv_valid, causal, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -24,10 +24,20 @@ H·D)`` copies nothing.
 What bounds it on the H100: operations at prefill, bytes at decode (see
 the note at the head of the source).
 
+Training: :func:`launch` with ``with_lse=True`` takes a prefill kernel at
+any S (S = 1 too) and leaves each query row's fp32 log-sum-exp, which
+:func:`launch_backward` reads: the backward of ``csrc/
+flash_attention_bwd.cu`` (a Δ pre-pass, a dK/dV kernel per key tile that
+walks the query heads of its KV group, a dQ kernel per query tile; no
+float atomics, so the same bits every call).  No TPU kernel precedes the
+backward: the JAX package differentiates its jnp reference.
+
 The plain version is :func:`repro_torch.kernels.ref.flash_attention`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -94,10 +104,7 @@ def _bhs(t: torch.Tensor) -> tuple[torch.Tensor, int, int, int]:
     return t, t.stride(0), t.stride(1), t.stride(2)
 
 
-def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool, scale: float, kv_valid_len=None) -> torch.Tensor:
-    """The kernel's attention ``(B, H, S, D)`` for q ``(B, H, S, D)`` and
-    k, v ``(B, Hkv, T, D)`` on the card, all fp32 or all bf16."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if (q.device.type != "cuda" or k.device != q.device
             or v.device != q.device or q.dim() != 4 or k.dim() != 4
             or v.shape != k.shape or q.dtype not in (torch.float32,
@@ -120,6 +127,21 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             and T <= _INT_MAX):
         raise ValueError(f"flash_attention kernel: unsupported shape B={B} "
                          f"H={H} S={S} T={T}")
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, scale: float, kv_valid_len=None,
+           with_lse: bool = False):
+    """The kernel's attention ``(B, H, S, D)`` for q ``(B, H, S, D)`` and
+    k, v ``(B, Hkv, T, D)`` on the card, all fp32 or all bf16.  With
+    ``with_lse`` (training; no ``kv_valid_len``) a prefill kernel runs at
+    any S and the result is ``(out, lse)``, ``lse`` ``(B, H, S)`` fp32."""
+    _check(q, k, v)
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if with_lse and kv_valid_len is not None:
+        raise ValueError("flash_attention kernel: the backward takes no "
+                         "kv_valid_len (training never passes one)")
     kv = T if kv_valid_len is None else min(int(kv_valid_len), T)
     if kv < 1:
         raise ValueError(f"flash_attention kernel: kv_valid_len "
@@ -130,8 +152,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "would see no key")
     out = torch.empty((B, S, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if B == 0 or S == 0 or H == 0:
-        return out
+        return (out, lse) if with_lse else out
     q, *sq = _bhs(q)
     k, *sk = _bhs(k)
     v, *sv = _bhs(v)
@@ -142,7 +166,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *sq, *sk, *sv, *so)
-    if S == 1:
+    lse_ptr = None if lse is None else lse.data_ptr()
+    if S == 1 and not with_lse:
         dev = q.device.index
         G = H // Hkv
         if dev not in _sm_count:
@@ -180,15 +205,78 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.check(lib.flash_attention_prefill_wgmma_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *sq, *sk, *sv, *so, B, H, Hkv, S, T, D, kv, int(bool(causal)),
-            scale32, stream), "flash_attention (prefill, wgmma)")
+            scale32, lse_ptr, stream), "flash_attention (prefill, wgmma)")
         _build.launch_counts["flash_attention_prefill"] += 1
         _build.launch_counts["flash_attention_prefill_wgmma"] += 1
     else:
         _build.check(lib.flash_attention_prefill_launch(
             *ptrs, B, H, Hkv, S, T, D, kv, int(bool(causal)), scale32, bf16,
-            stream), "flash_attention (prefill)")
+            lse_ptr, stream), "flash_attention (prefill)")
         _build.launch_counts["flash_attention_prefill"] += 1
+    if with_lse:
+        _build.launch_counts["flash_attention_prefill_lse"] += 1
+        return out, lse
     return out
+
+
+def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                    causal: bool, scale: float
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of the attention ``o = launch(q, k, v, causal=,
+    scale=, with_lse=True)`` for the output's gradient ``do`` (B, H, S,
+    D), in the operands' type, from the forward's ``lse``: three launches
+    (Δ = rowsum(dO ∘ O), dK/dV, dQ), each counted.  dq is returned as a
+    ``(B, H, S, D)`` view of ``(B, S, H, D)`` memory, dk and dv as views of
+    ``(B, T, Hkv, D)``, as the forward returns its output."""
+    _check(q, k, v)
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
+            or lse.shape != (B, H, S) or lse.dtype != torch.float32):
+        raise ValueError(f"flash_attention backward: o {tuple(o.shape)} "
+                         f"{o.dtype}, dO {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype} do not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if causal and S > T:
+        raise ValueError(f"flash_attention backward: causal attention needs "
+                         f"T >= S (got S={S}, T={T})")
+    dq = torch.empty((B, S, H, D), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dk = torch.empty((B, T, Hkv, D), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dv = torch.empty((B, T, Hkv, D), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    if B == 0 or H == 0 or S == 0:
+        return dq, dk.zero_(), dv.zero_()
+    do = do.to(q.dtype)
+    (q, *sq), (k, *sk), (v, *sv), (o, *so), (do, *sd) = (
+        _bhs(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    strides = [*sq, *sk, *sv, *so, *sd]
+    for t in (dq, dk, dv):
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    st = (ctypes.c_longlong * 24)(*strides)
+    scale32 = float(np.float32(scale))
+    bf16 = int(q.dtype == torch.bfloat16)
+    lib = _build.load("flash_attention_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    _build.check(lib.flash_attention_bwd_delta_launch(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), *so, *sd, B, H, S, D,
+        bf16, stream), "flash_attention backward (delta)")
+    _build.launch_counts["flash_attention_bwd_delta"] += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    shape = (B, H, Hkv, S, T, D, int(bool(causal)), scale32, bf16, stream)
+    _build.check(lib.flash_attention_bwd_dkdv_launch(
+        *args, dk.data_ptr(), dv.data_ptr(), st, *shape),
+        "flash_attention backward (dk, dv)")
+    _build.launch_counts["flash_attention_bwd_dkdv"] += 1
+    _build.check(lib.flash_attention_bwd_dq_launch(
+        *args, dq.data_ptr(), st, *shape), "flash_attention backward (dq)")
+    _build.launch_counts["flash_attention_bwd_dq"] += 1
+    return dq, dk, dv
 
 
 def _ticket_buffer(device: torch.device, stream: int, n: int
@@ -204,6 +292,13 @@ def _ticket_buffer(device: torch.device, stream: int, n: int
 
 
 SMEM_KINDS = {"prefill": 0, "prefill_wgmma": 1, "decode": 2}
+
+
+def bwd_smem_bytes(D: int, kind: str) -> int:
+    """Dynamic shared memory of one CTA of the backward's ``"dkdv"`` or
+    ``"dq"`` kernel at head dim ``D``, read from the built kernel."""
+    return int(_build.load("flash_attention_bwd").flash_attention_bwd_smem(
+        D, {"dkdv": 0, "dq": 1}[kind]))
 
 
 def smem_bytes(D: int, kind: str) -> int:

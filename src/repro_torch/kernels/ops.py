@@ -56,6 +56,15 @@ the cache's state, decode updates it in place through ``state_out``), and
 any T: the kernel masks the ragged chunk (the ``T % bt`` rule belongs to
 the Pallas launch only).
 
+Gradients.  On the CPU ``flash_attention`` and ``wkv6`` are their plain
+versions, differentiated by autograd.  On the card, where the kernels
+write raw memory, each is a ``torch.autograd.Function``: while grad is
+enabled and an operand requires it, ``flash_attention``'s forward saves
+q, k, v, its output and the log-sum-exp, and its backward launches the
+hand-written backward (``flash_attention.launch_backward``);
+``wkv6``'s backward raises ``NotImplementedError`` (its kernel is ROADMAP
+item 14a), so no gradient is ever dropped silently.
+
 """
 from __future__ import annotations
 
@@ -142,8 +151,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    kv_valid_len=kv_valid_len)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if kv_valid_len is not None:
+            raise ValueError("flash_attention: no backward under "
+                             "kv_valid_len (training never passes one)")
+        return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
     return _fa.launch(q, k, v, causal=causal, scale=scale,
                       kv_valid_len=kv_valid_len)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The card's attention with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        o, lse = _fa.launch(q, k, v, causal=causal, scale=scale,
+                            with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.launch_backward(q, k, v, o, lse, do,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+#: the ROADMAP item that ports wkv6's backward
+WKV6_BACKWARD_ITEM = ("ROADMAP item 14a, the wkv6 backward kernel (RWKV-6 "
+                      "and hybrid training)")
+
+
+class _Wkv6(torch.autograd.Function):
+    """The card's wkv6, whose backward is not written yet: it raises."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, state_out, out_dtype):
+        if state_out is not None:
+            ctx.mark_dirty(state_out)
+        return _wkv.launch(r, k, v, w, u, state, state_out=state_out,
+                           out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "wkv6 on the card has no backward kernel yet: "
+            f"{WKV6_BACKWARD_ITEM}; train RWKV-6 and the hybrid on the CPU "
+            "(device='cpu') until then")
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -162,6 +219,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         if state_out is None:
             return y, final
         return y, state_out.copy_(final)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, state)):
+        return _Wkv6.apply(r, k, v, w, u, state, state_out, out_dtype)
     return _wkv.launch(r, k, v, w, u, state, state_out=state_out,
                        out_dtype=out_dtype)
 

@@ -674,6 +674,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, H, S, D).to(q.dtype)
 
 
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, scale: float | None = None
+                             ) -> tuple[torch.Tensor, ...]:
+    """``(dq, dk, dv)`` of :func:`flash_attention` at ``(q, k, v)`` for the
+    output's gradient ``do``, by autograd of the plain version (fp32 inside,
+    each gradient in its operand's type): what the card's backward kernel
+    is held against.  The model path never calls it."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = flash_attention(qq, kk, vv, causal=causal, scale=scale)
+        return torch.autograd.grad(o, (qq, kk, vv), do)
+
+
 #: lanes of the ``wkv6`` kernel that share one state column (row ``k`` on
 #: lane ``k % 8``), and the lanes of the warp that sums the bonus term
 WKV_LANES = 8

@@ -43,7 +43,8 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     Le, Ld, d, V = cfg.encoder_layers, cfg.n_layers, cfg.d_model, \
         cfg.padded_vocab
     return {
-        "emb": L.cast(L.dense_init(gen, (V, d), in_axis=-1, device=dev)),
+        "emb": L.drawn_leaf(L.dense_init(gen, (V, d), in_axis=-1,
+                                         device=dev)),
         "enc_pos": 0.02 * torch.randn((ENC_POS, d), generator=gen,
                                       device=dev),
         "encoder": {
@@ -58,7 +59,7 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
         },
         "enc_ln": torch.zeros((d,), dtype=torch.float32, device=dev),
         "final_ln": torch.zeros((d,), dtype=torch.float32, device=dev),
-        "head": L.cast(L.dense_init(gen, (d, V), device=dev)),
+        "head": L.drawn_leaf(L.dense_init(gen, (d, V), device=dev)),
     }
 
 
@@ -73,11 +74,14 @@ def enc_positions(params, S: int) -> torch.Tensor:
 def encode(params, cfg, frames):
     """frames: (B, S_enc, d) stub frontend output (conv-downsampled mel)."""
     h = L.cast(frames) + L.cast(enc_positions(params, frames.shape[1]))[None]
+
+    def layer(h, pl):
+        h = h + L.attention(pl["attn"], h, cfg, mode="train",
+                            causal=False)[0]
+        return h + L.mlp(pl["mlp"], h, cfg)
+
     for l in range(cfg.encoder_layers):
-        pl = L.slice_layer(params["encoder"], l)
-        a, _ = L.attention(pl["attn"], h, cfg, mode="train", causal=False)
-        h = h + a
-        h = h + L.mlp(pl["mlp"], h, cfg)
+        h = L.run_layer(cfg, layer, h, L.slice_layer(params["encoder"], l))
     return L.rms_norm(h, params["enc_ln"], cfg.norm_eps)
 
 
@@ -112,10 +116,11 @@ def forward(params, cfg, tokens, embeds=None):
     """Teacher-forced decode over ``tokens`` given ``embeds`` frames.
     Returns (B, S, padded_vocab) logits."""
     enc_out = encode(params, cfg, _frames(embeds))
-    h = L.cast(params["emb"])[tokens.long()]
+    h = L.embed(params["emb"], tokens)
     for l in range(cfg.n_layers):
-        h = _decoder_block(cfg, h, L.slice_layer(params["decoder"], l),
-                           enc_out)
+        h = L.run_layer(cfg, lambda h, pl: _decoder_block(cfg, h, pl,
+                                                          enc_out),
+                        h, L.slice_layer(params["decoder"], l))
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     return L.cast(h) @ L.cast(params["head"])
 
@@ -136,7 +141,7 @@ def init_cache(cfg, B, T, dtype=torch.bfloat16, device="cuda",
 
 
 def _run_cached(params, cfg, cache, tokens, enc_out, mode):
-    h = L.cast(params["emb"])[tokens.long()]
+    h = L.embed(params["emb"], tokens)
     pos = int(cache["pos"])
     for l in range(cfg.n_layers):
         caches = {"k": cache["k"][l], "v": cache["v"][l],

@@ -64,8 +64,8 @@ def mamba_params(gen: torch.Generator, cfg, n: int, *, device=None) -> dict:
     return {
         "ln": torch.zeros((n, d), dtype=torch.float32, device=dev),
         "in_proj": L.drawn_stack(gen, n, (d, 2 * d_in), dev),
-        "conv_w": L.cast(0.1 * torch.randn((n, CONV_W, d_in), generator=gen,
-                                           device=dev)),
+        "conv_w": L.drawn_leaf(0.1 * torch.randn((n, CONV_W, d_in),
+                                                 generator=gen, device=dev)),
         "w_bc": L.drawn_stack(gen, n, (d_in, 2 * H * ds), dev),  # B, C proj
         "w_dt": L.drawn_stack(gen, n, (d_in, H), dev),
         "dt_bias": torch.zeros((n, H), dtype=torch.float32, device=dev),
@@ -125,8 +125,8 @@ def _stack_periods(trees: list):
     if isinstance(trees[0], dict):
         return {key: _stack_periods([t[key] for t in trees])
                 for key in trees[0]}
-    return L.cast_stacks(trees[0][None] if len(trees) == 1
-                         else torch.stack(trees))
+    return L.drawn(trees[0][None] if len(trees) == 1
+                   else torch.stack(trees))
 
 
 def init_params(cfg, generator: Optional[torch.Generator] = None,
@@ -149,7 +149,8 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     n_moe = per // cfg.moe_period
     d, V = cfg.d_model, cfg.padded_vocab
     return {
-        "emb": L.cast(L.dense_init(gen, (V, d), in_axis=-1, device=dev)),
+        "emb": L.drawn_leaf(L.dense_init(gen, (V, d), in_axis=-1,
+                                         device=dev)),
         "periods": {
             "mamba": _stack_periods([mamba_params(gen, cfg, per - 1,
                                                   device=dev)
@@ -164,7 +165,7 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
                                    for _ in range(P)]),
         },
         "final_ln": torch.zeros((d,), dtype=torch.float32, device=dev),
-        "head": L.cast(L.dense_init(gen, (d, V), device=dev)),
+        "head": L.drawn_leaf(L.dense_init(gen, (d, V), device=dev)),
     }
 
 
@@ -211,9 +212,9 @@ def _periods(params, cfg):
 def forward(params, cfg, tokens, embeds=None):
     """Full-sequence forward.  Returns (B, S, padded_vocab) logits."""
     del embeds
-    h = L.cast(params["emb"])[tokens.long()]
+    h = L.embed(params["emb"], tokens)
     for pp in _periods(params, cfg):
-        h = _period(cfg, h, pp)
+        h = L.run_layer(cfg, lambda h, p: _period(cfg, h, p), h, pp)
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     return L.cast(h) @ L.cast(params["head"])
 
@@ -236,7 +237,7 @@ def init_cache(cfg, B, T, dtype=torch.bfloat16, device="cuda"):
 
 
 def _run_cached(params, cfg, cache, tokens, mode):
-    h = L.cast(params["emb"])[tokens.long()]
+    h = L.embed(params["emb"], tokens)
     pos = int(cache["pos"])
     for p, pp in enumerate(_periods(params, cfg)):
         caches = {name: cache[name][p]

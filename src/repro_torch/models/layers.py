@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -35,6 +36,80 @@ COMPUTE_DTYPE = torch.bfloat16
 
 def cast(x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE)
+
+
+#: set by :func:`masters`
+_MASTERS = False
+
+
+@contextlib.contextmanager
+def masters():
+    """Within the block, every ``init_params`` draw keeps its fp32 values
+    (training's master parameters, the JAX ``init_params`` tree) instead of
+    casting each stack to the compute dtype as soon as it is drawn
+    (serving's parameters).  One draw, the same values: the serving
+    parameters are :func:`serving_view` of the masters."""
+    global _MASTERS
+    prev, _MASTERS = _MASTERS, True
+    try:
+        yield
+    finally:
+        _MASTERS = prev
+
+
+def drawn(x):
+    """What an ``init_params`` draw keeps of the fp32 stack(s) ``x``:
+    ``x`` itself under :func:`masters`, else :func:`cast_stacks` of it."""
+    return x if _MASTERS else cast_stacks(x)
+
+
+def drawn_leaf(x: torch.Tensor) -> torch.Tensor:
+    """What a draw keeps of ``emb`` / ``head``: fp32 under :func:`masters`,
+    else the compute dtype."""
+    return x if _MASTERS else cast(x)
+
+
+def serving_view(params: dict) -> dict:
+    """The serving parameters of a master tree (fp32, :func:`masters`), as
+    the JAX package casts its masters at every call (and as
+    ``convert.params_from_jax`` casts a JAX tree): every sub-tree's stacks
+    by :func:`cast_stacks`, ``emb`` and ``head`` by :func:`cast`, the other
+    top-level leaves as they are.  The casts are differentiable: the
+    masters' gradients flow back through them in fp32."""
+    out = {}
+    for name, val in params.items():
+        if isinstance(val, dict):
+            out[name] = cast_stacks(val)
+        elif name in ("emb", "head"):
+            out[name] = cast(val)
+        else:
+            out[name] = val
+    return out
+
+
+def embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of the embedding table in the compute dtype.  Through
+    ``F.embedding``, whose backward on CUDA sums each row's gradients in a
+    fixed order (a scatter by index with atomics would not)."""
+    return F.embedding(tokens.long(), cast(emb))
+
+
+def run_layer(cfg, fn, *args):
+    """``fn(*args)``; while grad is enabled and ``cfg.remat`` is set, under
+    ``torch.utils.checkpoint`` (non-reentrant): the layer's activations are
+    recomputed in the backward, the counterpart of the JAX package's
+    ``jax.checkpoint`` around each scanned layer.  A ``remat_policy`` other
+    than ``"full"`` names activations to keep for the tensor-parallel
+    collectives, which this one-card port does not have: it raises."""
+    if cfg.remat and torch.is_grad_enabled():
+        if cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r}: the port runs "
+                "remat_policy 'full' only; the named policies serve the "
+                "tensor-parallel collectives of ROADMAP item 15")
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def tree_map(fn, tree):
@@ -122,10 +197,10 @@ def attention_params(gen: torch.Generator, cfg, L: int, *,
     d, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dev = device or gen.device
     p = {
-        "wq": cast_stacks(stack_init(gen, L, (d, H * hd), device=dev)),
-        "wk": cast_stacks(stack_init(gen, L, (d, Kv * hd), device=dev)),
-        "wv": cast_stacks(stack_init(gen, L, (d, Kv * hd), device=dev)),
-        "wo": cast_stacks(stack_init(gen, L, (H * hd, d), device=dev)),
+        "wq": drawn(stack_init(gen, L, (d, H * hd), device=dev)),
+        "wk": drawn(stack_init(gen, L, (d, Kv * hd), device=dev)),
+        "wv": drawn(stack_init(gen, L, (d, Kv * hd), device=dev)),
+        "wo": drawn(stack_init(gen, L, (H * hd, d), device=dev)),
         "ln": torch.zeros((L, d), dtype=torch.float32, device=dev),
     }
     if cfg.qk_norm and not cross:
@@ -211,9 +286,9 @@ def mlp_params(gen: torch.Generator, cfg, L: int, *, ff: int | None = None,
     d, ff = cfg.d_model, ff or cfg.d_ff
     dev = device or gen.device
     return {
-        "w_gate": cast_stacks(stack_init(gen, L, (d, ff), device=dev)),
-        "w_up": cast_stacks(stack_init(gen, L, (d, ff), device=dev)),
-        "w_down": cast_stacks(stack_init(gen, L, (ff, d), device=dev)),
+        "w_gate": drawn(stack_init(gen, L, (d, ff), device=dev)),
+        "w_up": drawn(stack_init(gen, L, (d, ff), device=dev)),
+        "w_down": drawn(stack_init(gen, L, (ff, d), device=dev)),
         "ln": torch.zeros((L, d), dtype=torch.float32, device=dev),
     }
 
@@ -241,9 +316,10 @@ def drawn_stack(gen: torch.Generator, L: int, shape, device
     each layer cast to the compute dtype as soon as it is drawn (fp32 never
     holds more than one layer: deepseek-moe-16b's whole expert stack would
     be 20.7 GB)."""
-    out = torch.empty((L, *shape), dtype=COMPUTE_DTYPE, device=device)
+    out = torch.empty((L, *shape), dtype=torch.float32 if _MASTERS
+                      else COMPUTE_DTYPE, device=device)
     for l in range(L):
-        out[l] = cast(dense_init(gen, shape, device=device))
+        out[l] = drawn_leaf(dense_init(gen, shape, device=device))
     return out
 
 
@@ -255,8 +331,8 @@ def moe_params(gen: torch.Generator, cfg, L: int, *, device=None) -> dict:
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     dev = device or gen.device
     p = {
-        "router": cast_stacks(stack_init(gen, L, (d, E), device=dev)
-                              * (0.02 * math.sqrt(d))),
+        "router": drawn(stack_init(gen, L, (d, E), device=dev)
+                        * (0.02 * math.sqrt(d))),
         "experts": {
             "w_gate": drawn_stack(gen, L, (E, d, ff), dev),
             "w_up": drawn_stack(gen, L, (E, d, ff), dev),

@@ -63,18 +63,19 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
 
     def stack(shape, scale=None):
         x = L.stack_init(gen, Lz, shape, device=dev)
-        return L.cast_stacks(x if scale is None else x * scale)
+        return L.drawn(x if scale is None else x * scale)
 
     def const(shape, value):
         return torch.full(shape, value, dtype=torch.float32, device=dev)
 
     return {
-        "emb": L.cast(L.dense_init(gen, (V, d), in_axis=-1, device=dev)),
+        "emb": L.drawn_leaf(L.dense_init(gen, (V, d), in_axis=-1,
+                                         device=dev)),
         "blocks": {
             "ln1": const((Lz, d), 0.0),
             "ln2": const((Lz, d), 0.0),
             # token-shift mix ratios for r/k/v/g/w
-            "mu": L.cast_stacks(const((Lz, 5, d), 0.5)),
+            "mu": L.drawn(const((Lz, 5, d), 0.5)),
             "w_r": stack((d, da)),
             "w_k": stack((d, da)),
             "w_v": stack((d, da)),
@@ -83,16 +84,16 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
             "w0": const((Lz, da), -6.0),
             "w_decay_a": stack((d, DECAY_RANK)),
             "w_decay_b": stack((DECAY_RANK, da), 0.1),
-            "u": L.cast_stacks(const((Lz, H, hd), 0.1)),
+            "u": L.drawn(const((Lz, H, hd), 0.1)),
             "wkv_ln": const((Lz, da), 0.0),
             # channel mix
-            "mu_c": L.cast_stacks(const((Lz, 2, d), 0.5)),
+            "mu_c": L.drawn(const((Lz, 2, d), 0.5)),
             "w_in": stack((d, cfg.d_ff)),
             "w_out": stack((cfg.d_ff, d)),
             "w_rc": stack((d, d)),
         },
         "final_ln": const((d,), 0.0),
-        "head": L.cast(L.dense_init(gen, (d, V), device=dev)),
+        "head": L.drawn_leaf(L.dense_init(gen, (d, V), device=dev)),
     }
 
 
@@ -158,7 +159,7 @@ def _layer(params: dict, l: int) -> dict:
 
 
 def _embed(params, tokens):
-    return L.cast(params["emb"])[tokens.long()]                 # (B, S, d)
+    return L.embed(params["emb"], tokens)                 # (B, S, d)
 
 
 def _head(params, cfg, h):
@@ -169,13 +170,13 @@ def _head(params, cfg, h):
 def forward(params, cfg, tokens, embeds=None):
     """Full-sequence forward.  Returns (B, S, padded_vocab) logits."""
     del embeds
+    def layer(h, pl):
+        h = h + _time_mix(pl, cfg, h)[0]
+        return h + _channel_mix(pl, cfg, h)[0]
+
     h = _embed(params, tokens)
     for l in range(cfg.n_layers):
-        pl = _layer(params, l)
-        a, _, _ = _time_mix(pl, cfg, h)
-        h = h + a
-        c, _ = _channel_mix(pl, cfg, h)
-        h = h + c
+        h = L.run_layer(cfg, layer, h, _layer(params, l))
     return _head(params, cfg, h)
 
 

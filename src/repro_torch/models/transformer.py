@@ -4,8 +4,9 @@
 ``init_params``, ``forward``, ``init_cache``, ``prefill`` and
 ``decode_step`` with the JAX package's signatures and parameter tree
 (``emb``, ``attn``, ``mlp`` or ``moe``, ``final_ln``, ``head``; stacks with
-a leading layer axis), run as a Python loop over the layers (no remat:
-this is inference).  The VLM family prepends ``embeds``, the frontend's
+a leading layer axis), run as a Python loop over the layers; ``forward``
+runs each layer under ``layers.run_layer`` (``cfg.remat``: recomputed in
+the backward, as ``jax.checkpoint`` per scanned layer there).  The VLM family prepends ``embeds``, the frontend's
 precomputed patch embeddings (a stub there too), to the token embeddings:
 rope positions count them, and decode starts at ``frontend_tokens + S``.
 
@@ -48,10 +49,11 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
         gen.manual_seed(seed)
     d, V = cfg.d_model, cfg.padded_vocab
     return {
-        "emb": L.cast(L.dense_init(gen, (V, d), in_axis=-1, device=dev)),
+        "emb": L.drawn_leaf(L.dense_init(gen, (V, d), in_axis=-1,
+                                         device=dev)),
         "attn": L.attention_params(gen, cfg, cfg.n_layers, device=dev),
         "final_ln": torch.zeros((d,), dtype=torch.float32, device=dev),
-        "head": L.cast(L.dense_init(gen, (d, V), device=dev)),
+        "head": L.drawn_leaf(L.dense_init(gen, (d, V), device=dev)),
         **({"moe": L.moe_params(gen, cfg, cfg.n_layers, device=dev)}
            if cfg.is_moe else
            {"mlp": L.mlp_params(gen, cfg, cfg.n_layers, device=dev)}),
@@ -74,7 +76,7 @@ def _block(cfg, h, pl, mode="train", cache_l=None, cache_pos=None):
 
 
 def _embed(params, cfg, tokens, embeds):
-    x = L.cast(params["emb"])[tokens.long()]                    # (B, S, d)
+    x = L.embed(params["emb"], tokens)                    # (B, S, d)
     if embeds is not None:                              # vlm: prepend patches
         x = torch.cat([L.cast(embeds), x], dim=1)
     return x
@@ -85,7 +87,8 @@ def forward(params, cfg, tokens, embeds=None):
     logits, F the patch embeddings prepended (0 without ``embeds``)."""
     h = _embed(params, cfg, tokens, embeds)
     for l in range(cfg.n_layers):
-        h, _ = _block(cfg, h, _layer(params, l))
+        h = L.run_layer(cfg, lambda h, pl: _block(cfg, h, pl)[0], h,
+                        _layer(params, l))
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     return L.cast(h) @ L.cast(params["head"])
 

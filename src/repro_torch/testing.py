@@ -31,13 +31,46 @@ def _np(x) -> np.ndarray:
 
 
 def max_abs_err(a, b) -> float:
+    """max |a − b| in float64 (on the card for two CUDA tensors of one
+    shape, in slices)."""
+    if (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+            and a.is_cuda and b.is_cuda and a.shape == b.shape):
+        x, y = a.detach().reshape(-1), b.detach().reshape(-1)
+        step = 1 << 27
+        return max((float(torch.max(torch.abs(x[i:i + step].double()
+                                              - y[i:i + step].double())))
+                    for i in range(0, x.numel(), step)), default=0.0)
     a, b = _np(a).astype(np.float64), _np(b).astype(np.float64)
     return float(np.max(np.abs(a - b))) if a.size else 0.0
 
 
 def assert_close(actual, expected, what: str = "value") -> None:
+    """``|actual − expected| ≤ ATOL + RTOL·|expected|`` elementwise (NaN
+    and equal infinities agreeing), as ``np.testing.assert_allclose``.
+    Two CUDA tensors of one shape are compared on the card, in slices of
+    2²⁷ elements (a 4 GB output took a minute through the host); NumPy
+    reports any failure, and compares every other pair."""
+    if (isinstance(actual, torch.Tensor) and isinstance(expected, torch.Tensor)
+            and actual.is_cuda and expected.is_cuda
+            and actual.shape == expected.shape
+            and _close_on_card(actual, expected, RTOL, ATOL)):
+        return
     np.testing.assert_allclose(_np(actual), _np(expected), rtol=RTOL,
                                atol=ATOL, err_msg=what)
+
+
+def _close_on_card(actual: torch.Tensor, expected: torch.Tensor,
+                   rtol: float, atol: float) -> bool:
+    a = actual.detach().reshape(-1)
+    b = expected.detach().reshape(-1)
+    step = 1 << 27
+    for i in range(0, a.numel(), step):
+        x, y = a[i:i + step].float(), b[i:i + step].float()
+        ok = ((x - y).abs() <= atol + rtol * y.abs()) | (x == y) \
+            | (x.isnan() & y.isnan())
+        if not bool(torch.all(ok)):
+            return False
+    return True
 
 
 #: attention outputs in bf16 (the model's type): the fp32 results agree
@@ -127,12 +160,85 @@ def assert_within_terms(actual, expected, terms, bf16: bool = False,
     return ratio
 
 
+#: attention gradients (dq, dk, dv) of the card's backward
+#: (``csrc/flash_attention_bwd.cu``) against autograd of the plain version,
+#: as a share of the tensor's largest |value|.  fp32: both sum the same
+#: terms in other orders (a float64 model of the kernel's formulas sits
+#: within 5.3e-8 of the exact gradients at S, T ≤ 512); bf16: each side
+#: rounds its outputs to bf16 (half an ulp, up to 2⁻⁹ of the largest value
+#: each) and the kernel's Δ = rowsum(dO ∘ O) reads the forward's bf16 O (the
+#: float64 model: ≤ 3.5e-3 of the largest value from the exact gradients,
+#: D ∈ {16, 64, 128}, causal and not, groups 1 to 4); the bound is 2⁻⁶,
+#: two bf16 ulps of the largest value.
+ATTN_GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
+
+
+#: a train step of the port against the JAX package's on the same state
+#: and batch, at ``reduced()`` size (and on the card against the CPU's plain
+#: path): the relative |Δ| of the loss, grad_norm and lr, and ‖Δ‖ /
+#: ‖reference‖ over all leaves of the gradients (``grads``; ``grad_leaf``
+#: the worst single leaf), of the step's parameter update and of the new
+#: moments mu and nu.  fp32 (COMPUTE_DTYPE
+#: fp32 in both packages): only the order of sums differs, and a moment
+#: whose fp32 value differs in its last bits may round to the neighbouring
+#: bf16 value (2⁻⁸ of it); measured over the six families, one and two
+#: microbatches, two steps: loss ≤ 1.5e-7, grad_norm ≤ 5.6e-6, update ≤
+#: 1.3e-4, mu ≤ 1.8e-4, nu ≤ 1.2e-4; the gradients of the dense, MoE,
+#: VLM and encoder-decoder families ≤ 1.4e-6, a leaf ≤ 1.6e-6.  bf16 (the model's compute dtype;
+#: the dense family, where no router's bf16 near-ties send a token to other
+#: experts in the two frameworks): the frameworks' bf16 matmuls round at
+#: other places, and the bound is twice the JAX package's own distance
+#: between its bf16 step and its fp32 step on the same state (qwen3-8b
+#: reduced, two steps: loss 5.1e-4, grad_norm 2.0e-3, update 0.152, mu
+#: 0.020, nu 0.024, the gradients 0.0197, a leaf 0.028; the port against
+#: JAX in bf16 measured loss 4.2e-4, grad_norm 1.2e-3, update 0.133, mu
+#: 0.014, nu 0.022).
+TRAIN_STEP_TOL = {
+    torch.float32: {"loss": 1e-5, "grad_norm": 5e-5, "lr": 1e-6,
+                    "grads": 1e-5, "grad_leaf": 2e-5, "update": 1e-3,
+                    "mu": 1e-3, "nu": 1e-3},
+    torch.bfloat16: {"loss": 1e-3, "grad_norm": 4e-3, "lr": 1e-6,
+                     "grads": 0.04, "grad_leaf": 0.06, "update": 0.3,
+                     "mu": 0.04, "nu": 0.05},
+}
+
+
+def rel_norm(actual: list, expected: list) -> float:
+    """‖actual − expected‖ / ‖expected‖ over the leaves of two lists."""
+    a = np.concatenate([_np(x).astype(np.float64).ravel() for x in actual])
+    b = np.concatenate([_np(x).astype(np.float64).ravel() for x in expected])
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def grad_share(actual, expected) -> float:
+    """max |actual − expected| as a share of max |expected|."""
+    a, b = _np(actual).astype(np.float64), _np(expected).astype(np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
+
+
+def assert_grad_close(actual, expected, dtype, what: str = "gradient"
+                      ) -> float:
+    """``actual`` within ``ATTN_GRAD_TOL[dtype]`` of ``expected`` as a share
+    of its largest |value|; returns the share."""
+    share = grad_share(actual, expected)
+    if not share <= ATTN_GRAD_TOL[dtype]:
+        raise AssertionError(f"{what}: max |Δ| is {share:.3g} of the largest "
+                             f"|value| (bound {ATTN_GRAD_TOL[dtype]:.3g})")
+    return share
+
+
 def assert_attention_close(actual, expected, bf16: bool,
                            what: str = "attention") -> None:
-    """fp32 outputs within RTOL/ATOL; bf16 outputs within BF16_RTOL/ATOL."""
-    np.testing.assert_allclose(_np(actual), _np(expected),
-                               rtol=BF16_RTOL if bf16 else RTOL, atol=ATOL,
-                               err_msg=what)
+    """fp32 outputs within RTOL/ATOL; bf16 outputs within BF16_RTOL/ATOL
+    (two CUDA tensors compared on the card, as :func:`assert_close`)."""
+    rtol = BF16_RTOL if bf16 else RTOL
+    if (isinstance(actual, torch.Tensor) and isinstance(expected, torch.Tensor)
+            and actual.is_cuda and expected.is_cuda
+            and actual.shape == expected.shape
+            and _close_on_card(actual, expected, rtol, ATOL)):
+        return
+    np.testing.assert_allclose(_np(actual), _np(expected), rtol=rtol,
+                               atol=ATOL, err_msg=what)
 
 
 def tokens_agree(tok, tok_ref, logits_ref, tol: float) -> tuple[bool, int]:

@@ -4,6 +4,7 @@ Inputs are made with NumPy from a seed and handed to both packages; the
 round plan of a JAX tree run is replayed from its threefry key chain.
 """
 import contextlib
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -174,3 +175,98 @@ def route_summary(flips, own) -> str:
             f"{min(rf['min_margin'] for rf in flips)!r}; on the port's own "
             f"input {n(own)} (largest margin "
             f"{max(rf['max_flip_ulps'] for rf in own)!r} ulps)")
+
+
+@contextlib.contextmanager
+def compute_dtype(mode: str):
+    """Both packages' ``COMPUTE_DTYPE`` (read at call time) set to ``mode``
+    (``"fp32"`` or ``"bf16"``) for the duration."""
+    saved = JL.COMPUTE_DTYPE, TL.COMPUTE_DTYPE
+    if mode == "fp32":
+        JL.COMPUTE_DTYPE, TL.COMPUTE_DTYPE = jnp.float32, torch.float32
+    try:
+        yield
+    finally:
+        JL.COMPUTE_DTYPE, TL.COMPUTE_DTYPE = saved
+
+
+#: the train-step parity runs: batch, sequence, steps, optimizer settings
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 16, 2
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_train_init(arch: str):
+    """The JAX ``init_train_state`` of ``arch``'s ``reduced()`` config
+    (jitted; eager init of the hybrid takes seconds)."""
+    from repro.configs import get_config as jax_config
+    from repro.train import optimizer as jopt
+    from repro.train import train_step as jts
+    cfg = jax_config(arch).reduced()
+    return jax.jit(jts.init_train_state, static_argnums=(0, 1))(
+        cfg, jopt.OptConfig(**TRAIN_OPT), jax.random.PRNGKey(0))
+
+
+def step_parity(arch: str, n_micro: int, mode: str) -> list[dict]:
+    """``TRAIN_STEPS`` train steps of ``arch`` at ``reduced()`` with
+    ``n_micro`` microbatches, in both packages from the JAX initial state
+    (``convert.train_state_from_jax``) on the same SyntheticLM batches,
+    COMPUTE_DTYPE ``mode`` in both; each step's loss, grad_norm, lr,
+    parameter update, mu and nu held to ``testing.TRAIN_STEP_TOL``.
+    Returns the measured distances, one dict a step."""
+    import dataclasses
+
+    from repro.configs import get_config as jax_config
+    from repro.data import pipeline as jpipe
+    from repro.train import optimizer as jopt
+    from repro.train import train_step as jts
+    from repro_torch import testing
+    from repro_torch.configs import get_config
+    from repro_torch.convert import train_state_from_jax
+    from repro_torch.data import pipeline as tpipe
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+    jcfg = dataclasses.replace(jax_config(arch).reduced(),
+                               microbatches=n_micro)
+    tcfg = dataclasses.replace(get_config(arch).reduced(),
+                               microbatches=n_micro)
+    js = jax_train_init(arch)
+    ts = train_state_from_jax(js, tcfg, "cpu")
+    jstep = jax.jit(jts.make_train_step(jcfg, jopt.OptConfig(**TRAIN_OPT)))
+    tstep = tts.make_train_step(tcfg, topt.OptConfig(**TRAIN_OPT))
+    dc = dict(vocab_size=jcfg.vocab_size, seq_len=TRAIN_S,
+              global_batch=TRAIN_B, seed=0, frontend=jcfg.frontend,
+              frontend_tokens=jcfg.frontend_tokens, d_model=jcfg.d_model)
+    jdata = jpipe.SyntheticLM(jpipe.DataConfig(**dc))
+    tdata = tpipe.SyntheticLM(tpipe.DataConfig(**dc), "cpu")
+    tol = testing.TRAIN_STEP_TOL[torch.float32 if mode == "fp32"
+                                 else torch.bfloat16]
+    out = []
+    with compute_dtype(mode):
+        for step in range(TRAIN_STEPS):
+            before = [np.array(x) for x in
+                      jax.tree_util.tree_leaves(js["params"])]
+            js, jm = jstep(js, jdata.batch(step))
+            ts, tm = tstep(ts, tdata.batch(step))
+            got = {key: abs(float(tm[key]) - float(jm[key]))
+                   / abs(float(jm[key])) for key in ("loss", "grad_norm",
+                                                     "lr")}
+            jp = jax.tree_util.tree_leaves(js["params"])
+            tp = topt.tree_leaves(ts["params"])
+            assert len(jp) == len(tp)
+            for a, b in zip(tp, jp):
+                assert tuple(a.shape) == tuple(b.shape)
+                assert a.dtype == torch.float32
+            got["update"] = testing.rel_norm(
+                [testing._np(a) - p0 for a, p0 in zip(tp, before)],
+                [testing._np(a) - p0 for a, p0 in zip(jp, before)])
+            for name in ("mu", "nu"):
+                got[name] = testing.rel_norm(
+                    topt.tree_leaves(ts["opt"][name]),
+                    jax.tree_util.tree_leaves(js["opt"][name]))
+            assert int(ts["opt"]["step"]) == int(js["opt"]["step"]) == step + 1
+            bad = {k: v for k, v in got.items() if not v <= tol[k]}
+            assert not bad, (f"{arch} n_micro={n_micro} {mode} step {step}: "
+                             f"{bad} past {tol}")
+            out.append(got)
+    return out

@@ -193,6 +193,8 @@ def test_launch_counts_untouched_by_plain_path():
     q = torch.ones((1, 2, 3, 16))
     ops.flash_attention(q, q[:, :1], q[:, :1])
     ops.flash_attention(q[:, :, :1], q[:, :1], q[:, :1], kv_valid_len=2)
+    qg = q.clone().requires_grad_(True)
+    ops.flash_attention(qg, q[:, :1], q[:, :1]).sum().backward()
     ops.wkv6(q, q, q, q, q[0, :, 0])
     ops.wkv6(q[:, :, :1], q[:, :, :1], q[:, :, :1], q[:, :, :1], q[0, :, 0],
              torch.zeros((1, 2, 16, 16)))
@@ -215,7 +217,9 @@ def test_launch_counts_untouched_by_plain_path():
         "threshold_select_bf16dot": 0, "threshold_select_prepass": 0,
         "threshold_select_tail": 0, "rbf_kernel": 0, "rbf_kernel_rowvec": 0,
         "flash_attention_prefill": 0, "flash_attention_prefill_wgmma": 0,
-        "flash_attention_decode": 0, "wkv6_prefill": 0, "wkv6_decode": 0,
+        "flash_attention_decode": 0, "flash_attention_prefill_lse": 0,
+        "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
+        "flash_attention_bwd_dq": 0, "wkv6_prefill": 0, "wkv6_decode": 0,
         "wkv6_recurrent": 0, "wkv6_chunked": 0}
 
 
