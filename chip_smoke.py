@@ -356,7 +356,9 @@ def phase_setup():
     log(f"source digest (chip_smoke.py + src/repro_torch): "
         f"{digest.hexdigest()[:16]}")
     t = _build.build_all()
-    log(f"kernel build: {t:.2f} s ({', '.join(_build.SOURCES)})")
+    log(f"kernel build: {t:.2f} s ({', '.join(_build.SOURCES)}); seconds "
+        f"to each library's end: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in _build.build_seconds.items()))
     for name, out in _build.build_log.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -3736,12 +3738,29 @@ def attention_grads(q, k, v, do, causal):
     return o.detach(), dq, dk, dv, dict(ops.launch_counts)
 
 
-#: the launches of one forward under autograd and its backward
+#: the launches of one forward under autograd and its backward (the
+#: route's own counters: :func:`bwd_launches`)
 ATTN_BWD_LAUNCHES = {"flash_attention_prefill": 1,
                      "flash_attention_prefill_lse": 1,
                      "flash_attention_bwd_delta": 1,
                      "flash_attention_bwd_dkdv": 1,
                      "flash_attention_bwd_dq": 1, "flash_attention_decode": 0}
+#: the tensor-core backward's own counters
+BWD_WGMMA = ("flash_attention_bwd_dkdv_wgmma", "flash_attention_bwd_dq_wgmma")
+
+
+def bwd_launches(D, dtype) -> dict:
+    """The launches of one forward under autograd and its backward at head
+    dim ``D`` in ``dtype``: ``ATTN_BWD_LAUNCHES``, the forward on
+    ``prefill_route``'s kernel, the backward on ``bwd_route``'s (on the
+    tensor cores no Δ pre-pass: the dQ kernel writes Δ)."""
+    from repro_torch.kernels import flash_attention as fa
+    wg = fa.bwd_route(dtype, D) == "wgmma"
+    return dict(ATTN_BWD_LAUNCHES,
+                flash_attention_prefill_wgmma=int(
+                    fa.prefill_route(dtype, D) == "wgmma"),
+                **{k: int(wg) for k in BWD_WGMMA},
+                flash_attention_bwd_delta=int(not wg))
 
 
 def phase_kernels_attention_bwd() -> None:
@@ -3752,14 +3771,18 @@ def phase_kernels_attention_bwd() -> None:
     S = 1 (a prefill kernel leaves the log-sum-exp); the training shapes of
     ``ATTN_BWD_SHAPES``.  Each case: dq, dk, dv within
     ``testing.ATTN_GRAD_TOL`` of the plain gradients, a second call equal
-    to the bits, the launches of ``ATTN_BWD_LAUNCHES`` counted (the forward
-    on its route); the kernels' registers, shared memory and spills."""
+    to the bits, the launches of :func:`bwd_launches` counted (the forward
+    on ``prefill_route``'s kernel, the backward on ``bwd_route``'s: bf16
+    at D ∈ {64, 128} on the tensor cores); the kernels' registers, shared
+    memory and spills, and HGMMA in the built library's SASS (none fails
+    the phase, where cuobjdump exists)."""
     import torch
     from repro_torch import testing
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     worst: dict[str, float] = {}
+    cases: dict[str, int] = {}
     n = 0
 
     def check(B, H, Hkv, S, T, D, dtype, causal, seed, strided):
@@ -3771,12 +3794,12 @@ def phase_kernels_attention_bwd() -> None:
         what = (f"flash_attention backward {dtype} B={B} H={H} Hkv={Hkv} "
                 f"S={S} T={T} D={D} causal={causal} strided={strided}")
         _, dq, dk, dv, counts = attention_grads(q, k, v, do, causal)
-        route = fa.prefill_route(dtype, D)
-        want = dict(ATTN_BWD_LAUNCHES,
-                    flash_attention_prefill_wgmma=int(route == "wgmma"))
+        route = fa.bwd_route(dtype, D)
+        want = bwd_launches(D, dtype)
         got = {key: counts[key] for key in want}
         if got != want:
-            fail(f"{what}: launches {got}, expected {want}")
+            fail(f"{what}: launches {got}, expected {want} (route {route})")
+        cases[route] = cases.get(route, 0) + 1
         plain = ref.flash_attention_backward(q, k, v, do, causal=causal)
         for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
             if a.dtype != dtype or a.shape != b.shape:
@@ -3786,7 +3809,7 @@ def phase_kernels_attention_bwd() -> None:
                                                   f"{what}: {name}")
             except AssertionError as e:
                 fail(str(e))
-            key = f"{dtype} {name}"
+            key = f"{route} {dtype} {name}"
             worst[key] = max(worst.get(key, 0.0), share)
         again = attention_grads(q, k, v, do, causal)[1:4]
         if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
@@ -3813,30 +3836,43 @@ def phase_kernels_attention_bwd() -> None:
         torch.cuda.empty_cache()
     build_log = _build.build_log.get("flash_attention_bwd", "")
     for marker in ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                   "flash_bwd_dq_kernel"):
+                   "flash_bwd_dq_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                   "flash_bwd_dq_wgmma_kernel"):
         for line in _ptxas_report(build_log, marker):
             log(f"  ptxas {line}")
-    smem = {D: {kind: fa.bwd_smem_bytes(D, kind) for kind in ("dkdv", "dq")}
-            for D in fa.HEAD_DIMS}
+    smem = {D: {kind: fa.bwd_smem_bytes(D, kind)
+                for kind in fa.BWD_SMEM_KINDS
+                if fa.bwd_smem_bytes(D, kind) >= 0} for D in fa.HEAD_DIMS}
     log(f"  backward shared memory per CTA by D: {smem}")
+    n_hgmma = sass_count("flash_attention_bwd", "HGMMA")
+    if n_hgmma is None:
+        log("  cuobjdump not found: HGMMA not counted")
+    elif n_hgmma == 0:
+        fail("flash_attention_bwd: no HGMMA instruction in the built "
+             "library's SASS (the tensor-core backward runs no wgmma)")
+    else:
+        log(f"  HGMMA instructions in the backward library's SASS: "
+            f"{n_hgmma}")
     log(f"flash_attention backward vs plain: {n} cases agree, each twice to "
         f"the bit (dq, dk, dv within {testing.ATTN_GRAD_TOL[torch.float32]} "
         f"(fp32) / {testing.ATTN_GRAD_TOL[torch.bfloat16]} (bf16) of the "
-        f"largest |value|); worst share by type and gradient: " + ", ".join(
+        f"largest |value|); cases by route {cases}; worst share by route, "
+        f"type and gradient: " + ", ".join(
             f"{key} {worst[key]:.3g}" for key in sorted(worst)))
 
 
 def times_attention_bwd(launches: dict, cell: dict | None = None
                         ) -> list[dict]:
-    """The backward's three kernels (one row: a call) at ``ATTN_BWD_SHAPES``
-    in bf16, held against autograd of the plain version there (whose run,
-    timed once, is the plain time), timed beside the bound (5 products of
-    2·D a visible pair on the bf16 tensor cores, or the bytes of q, k, v,
-    o, dO and the three gradients) and beside the backward of PyTorch's
-    scaled_dot_product_attention (``enable_gqa``, under autograd).
-    ``launches``: {what: launches of the backward kernels at that shape in
-    a training step}; ``cell``: the training cell, whose step the Qwen3-8B
-    row's share is taken of (a call's time × calls a step / step time)."""
+    """The backward's kernels (one row: a call, on ``bwd_route``'s route)
+    at ``ATTN_BWD_SHAPES`` in bf16, held against autograd of the plain
+    version there (whose run, timed once, is the plain time), timed beside
+    the bound (5 products of 2·D a visible pair on the bf16 tensor cores,
+    or the bytes of q, k, v, o, dO and the three gradients) and beside the
+    backward of PyTorch's scaled_dot_product_attention (``enable_gqa``,
+    under autograd).  ``launches``: {what: backward calls at that shape in
+    a training step} (a row's ``launches``: those calls × a call's
+    launches); ``cell``: the training cell, whose step the Qwen3-8B row's
+    share is taken of (a call's time × calls a step / step time)."""
     import torch
     import torch.nn.functional as F
     from repro_torch import testing
@@ -3862,6 +3898,9 @@ def times_attention_bwd(launches: dict, cell: dict | None = None
         err = max(testing.max_abs_err(a, b_) for a, b_ in zip(grads, plain))
         del grads, plain
         torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        fa.launch_backward(q, k, v, o, lse, do, causal=causal, scale=scale)
+        per_call = sum(ops.launch_counts[key] for key in BWD_KERNELS)
         ms = cuda_ms(lambda: fa.launch_backward(q, k, v, o, lse, do,
                                                 causal=causal, scale=scale),
                      runs=10)
@@ -3877,14 +3916,17 @@ def times_attention_bwd(launches: dict, cell: dict | None = None
         t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
         b = 1e3 * max(t_ops, t_bytes)
         by = "operations" if t_ops >= t_bytes else "bytes"
-        n = launches.get(what, 0)
+        calls = launches.get(what, 0)
+        n = calls * per_call
         share = ""
         if cell is not None and what == ATTN_BWD_SHAPES[0][0]:
-            share = (f"; {n // 3} calls a training step: "
-                     f"{ms * (n // 3) / cell['step_ms']:.1%} of the cell's "
+            share = (f"; {calls} calls a training step: "
+                     f"{ms * calls / cell['step_ms']:.1%} of the cell's "
                      f"step ({cell['step_ms']:.1f} ms)")
         log(f"flash_attention backward {what}: B={B} H={H} Hkv={Hkv} S={S} "
-            f"T={T} D={D} causal={causal}, bf16: {ms:.4f} ms (3 launches), "
+            f"T={T} D={D} causal={causal}, bf16, route "
+            f"{fa.bwd_route(torch.bfloat16, D)}: {ms:.4f} ms ({per_call} "
+            f"launches), "
             f"plain {plain_ms:.4f} ms (the check's run), SDPA backward "
             f"{lib:.4f} ms, bound {b:.4f} ms by {by}{share}")
         rows.append({"name": f"flash_attention backward ({what})",
@@ -5152,6 +5194,8 @@ TRAIN_CELL = dict(layers=4, batch=8, seq=2048, steps=4, ckpt_every=2)
 TRAIN_CLI = ["--arch", LM_ARCH, "--reduced", "--steps", "30"]
 BWD_KERNELS = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
                "flash_attention_bwd_dq")
+#: launched once by every backward call, on either route
+BWD_CALL = ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 
 
 def rel_norms(actual: list, expected: list, device="cuda"
@@ -5208,6 +5252,7 @@ def check_train_parity(name: str, cfg, mode: str, batch: int, seq: int
     import torch
     from repro_torch import testing
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import layers as TL
     from repro_torch.train import optimizer as opt_lib
@@ -5268,11 +5313,16 @@ def check_train_parity(name: str, cfg, mode: str, batch: int, seq: int
     if bad:
         fail(f"train step {name} ({mode}) card vs CPU: {bad} past {tol} "
              f"(worst gradient leaf {names[at]})")
-    bwd = {k: counts[k] for k in BWD_KERNELS}
-    if min(bwd.values()) < 1 or len(set(bwd.values())) != 1 \
-            or counts["flash_attention_prefill_lse"] < bwd[BWD_KERNELS[0]]:
-        fail(f"train step {name}: backward launches {bwd}, forward with "
-             f"the log-sum-exp {counts['flash_attention_prefill_lse']}")
+    bwd = {k: counts[k] for k in BWD_KERNELS + BWD_WGMMA}
+    calls = bwd[BWD_CALL[0]]
+    wg = fa.bwd_route(dtype, cfg.hd) == "wgmma"
+    if calls < 1 or any(bwd[k] != calls for k in BWD_CALL) \
+            or counts["flash_attention_prefill_lse"] < calls \
+            or bwd["flash_attention_bwd_delta"] != calls * (not wg) \
+            or any(bwd[k] != calls * wg for k in BWD_WGMMA):
+        fail(f"train step {name}: backward launches {bwd} (route "
+             f"{fa.bwd_route(dtype, cfg.hd)}), forward with the log-sum-exp "
+             f"{counts['flash_attention_prefill_lse']}")
     log(f"train step {name} ({mode}, B={batch} S={seq}, "
         f"{cfg.microbatches} microbatches, {len(names)} parameters, all "
         f"with a gradient on the card): card vs CPU {got} (CPU step "
@@ -5402,10 +5452,14 @@ def phase_train_cell() -> dict:
         ckpt_s.append(time.perf_counter() - t0)
         if not math.isfinite(hist[-1]["loss"]):
             fail(f"train cell step {step + 1}: loss {hist[-1]['loss']}")
-        missing = [k for k in BWD_KERNELS + ("flash_attention_prefill_lse",)
+        missing = [k for k in BWD_CALL + ("flash_attention_prefill_lse",)
                    if counts[k] == 0]
         if missing:
             fail(f"train cell step {step + 1}: {missing} launched no time")
+        if any(counts[k] != counts["flash_attention_bwd_dq"]
+               for k in BWD_WGMMA):
+            fail(f"train cell step {step + 1}: a backward call off the "
+                 f"tensor cores: {counts}")
         log(f"train cell step {step + 1}: {hist[-1]}; checkpoint "
             f"{ckpt_s[-1]:.1f} s")
     peak = torch.cuda.max_memory_allocated()
@@ -5452,12 +5506,12 @@ def phase_train_cell() -> dict:
 
 
 def train_launches(parity: dict, cell: dict) -> dict:
-    """Launches of the backward's kernels a training step at each of
-    ``ATTN_BWD_SHAPES``: the cell's step (Qwen3-8B), whisper-tiny's step
-    at the encoder's shape (its cross attention has the same shape)."""
+    """Backward calls a training step at each of ``ATTN_BWD_SHAPES``: the
+    cell's step (Qwen3-8B; one dQ launch a call), whisper-tiny's step at
+    the encoder's shape (its cross attention has the same shape)."""
     (q_what, *_), (w_what, *w_shape) = ATTN_BWD_SHAPES
-    return {q_what: sum(cell["launches"].get(k, 0) for k in BWD_KERNELS),
-            w_what: 3 * parity["whisper_shapes"].get(tuple(w_shape), 0)}
+    return {q_what: cell["launches"].get("flash_attention_bwd_dq", 0),
+            w_what: parity["whisper_shapes"].get(tuple(w_shape), 0)}
 
 
 def start_train_cli():
@@ -5509,9 +5563,10 @@ def phase_train_cli(cli=None) -> dict:
     res = ex.main("cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: ops.launch_counts[k] for k in BWD_KERNELS}
+    counts = {k: ops.launch_counts[k] for k in BWD_KERNELS + BWD_WGMMA}
     losses = res["selected"] + res["random"]
-    if min(counts.values()) < 1 or not all(map(math.isfinite, losses)) \
+    if min(counts[k] for k in BWD_CALL) < 1 \
+            or not all(map(math.isfinite, losses)) \
             or len(set(res["idx"].tolist())) != len(res["idx"]):
         fail(f"example train_lm_with_selection: launches {counts}, "
              f"{len(res['idx'])} rows selected")

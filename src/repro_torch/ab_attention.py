@@ -12,7 +12,11 @@ B = 8, S = 1, T = kv_valid_len = 2,080 (its 1,116 decode launches); with
 others of :data:`SHAPES` instead (``"prefill gemma-2b"``: Gemma-2B's
 heads, 8 over one KV head of 256).  ``--decode-chain N`` sets the decode
 split rule's longest chain (``flash_attention.DECODE_CHAIN``) before
-timing, to sweep the split count.  For each: the median
+timing, to sweep the split count.  ``--shapes "backward qwen3-8b"
+"backward whisper-tiny"`` time ``launch_backward`` at the training shapes
+instead (the share of the largest |value| against autograd of the plain
+version, a second call to the bit, a digest of the gradients' bits, SDPA's
+backward beside it).  For each: the median
 CUDA-event time of ``--runs`` calls after a warm-up (each queued behind a
 device sleep, so the host's launch overhead falls outside the window),
 PyTorch's ``scaled_dot_product_attention`` on the same inputs (the
@@ -40,6 +44,10 @@ SHAPES = {  # name: (B, H, Hkv, S, T, D, causal, kv_valid_len)
     "decode": (8, 32, 8, 1, 2080, 128, False, 2080),
     "prefill 32k": (1, 32, 8, 32768, 32768, 128, True, None),
     "prefill gemma-2b": (8, 8, 1, 2048, 2048, 256, True, None),
+    # the backward at Qwen3-8B's training microbatch and whisper-tiny's
+    # encoder (chip_smoke.ATTN_BWD_SHAPES)
+    "backward qwen3-8b": (1, 32, 8, 2048, 2048, 128, True, None),
+    "backward whisper-tiny": (8, 6, 6, 1500, 1500, 64, False, None),
 }
 
 
@@ -78,6 +86,13 @@ def main() -> None:
             torch.bfloat16) for s in ((B, H, S, D), (B, Hkv, T, D),
                                       (B, Hkv, T, D)))
 
+        if name.startswith("backward"):
+            out[name] = _backward(q, k, v, causal, g, max(3, args.runs),
+                                  args.trace)
+            del q, k, v
+            torch.cuda.empty_cache()
+            continue
+
         def call():
             return ops.flash_attention(q, k, v, causal=causal,
                                        kv_valid_len=kv)
@@ -104,12 +119,55 @@ def main() -> None:
         out[name] = res
         del q, k, v, o
         torch.cuda.empty_cache()
-    log = _build.build_log.get("flash_attention", "")
-    out["ptxas"] = [ln.strip() for ln in log.splitlines()
+    out["ptxas"] = [ln.strip() for lib in ("flash_attention",
+                                           "flash_attention_bwd")
+                    for ln in _build.build_log.get(lib, "").splitlines()
                     if "registers" in ln or "spill" in ln
                     or "Compiling entry" in ln]
     out["card"] = card()
     print(json.dumps(out), flush=True)
+
+
+def _backward(q, k, v, causal, g, runs, trace) -> dict:
+    """``launch_backward`` at q, k, v against autograd of the plain version
+    (the worst share of the largest |value|), a second call to the bit,
+    its time, and SDPA's backward under autograd beside it."""
+    import hashlib
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import testing
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    scale = 1.0 / q.shape[-1] ** 0.5
+    do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    o, lse = fa.launch(q, k, v, causal=causal, scale=scale, with_lse=True)
+
+    def call():
+        return fa.launch_backward(q, k, v, o, lse, do, causal=causal,
+                                  scale=scale)
+
+    grads = call()
+    plain = ref.flash_attention_backward(q, k, v, do, causal=causal)
+    res = {"share": max(testing.grad_share(a, b)
+                        for a, b in zip(grads, plain)),
+           "same_bits": all(torch.equal(a, b)
+                            for a, b in zip(grads, call())),
+           "digest": hashlib.sha256(b"".join(
+               t.contiguous().view(torch.int16).cpu().numpy().tobytes()
+               for t in grads)).hexdigest()[:16]}
+    del grads, plain
+    torch.cuda.empty_cache()
+    res["ms"] = device_ms(call, runs)
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    with torch.enable_grad():
+        o_l = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                             enable_gqa=True)
+    res["sdpa_ms"] = device_ms(lambda: torch.autograd.grad(
+        o_l, (qs, ks, vs), do, retain_graph=True), runs)
+    if trace:
+        res["trace"] = kernel_trace(call, runs)
+    return res
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ wrappers raise when it is not 0.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -57,6 +58,9 @@ ARGTYPES = {
     + [_P],
     "flash_attention_bwd_dkdv_launch": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
     "flash_attention_bwd_dq_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    "flash_attention_bwd_dkdv_wgmma_launch": [_P] * 9 + [_I] * 7
+    + [_F, _P],
+    "flash_attention_bwd_dq_wgmma_launch": [_P] * 9 + [_I] * 7 + [_F, _P],
     "flash_attention_bwd_smem": [_I, _I],
     "wkv6_launch": [_P] * 8 + [_LL] * 15 + [_I] * 8 + [_P],
     "wkv6_smem": [_I, _I],
@@ -80,8 +84,11 @@ RESTYPES = {"exemplar_tile_smem": _LL, "greedy_select_grid": _LL}
 #: prefill launches that take the tensor-core route are counted once more
 #: under flash_attention_prefill_wgmma; a forward that saves the
 #: log-sum-exp for the backward counted once more under
-#: flash_attention_prefill_lse) and its backward's three kernels
-#: (flash_attention_bwd_delta, _dkdv, _dq; one launch each a call); wkv6's
+#: flash_attention_prefill_lse) and its backward's kernels
+#: (flash_attention_bwd_delta, _dkdv, _dq; one launch each a call, no
+#: _delta on the tensor-core route, whose dQ kernel writes Δ; its
+#: launches counted once more under flash_attention_bwd_dkdv_wgmma and
+#: _dq_wgmma); wkv6's
 #: decode kernel's launches (wkv6_decode), its recurrent kernel's
 #: (wkv6_recurrent), every call of
 #: T > 1 on either prefill kernel (wkv6_prefill) and the chunked kernel's
@@ -104,10 +111,13 @@ launch_counts: dict[str, int] = {
         "flash_attention_prefill", "flash_attention_prefill_wgmma",
         "flash_attention_decode", "flash_attention_prefill_lse",
         "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
-        "flash_attention_bwd_dq",
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkdv_wgmma",
+        "flash_attention_bwd_dq_wgmma",
         "wkv6_prefill", "wkv6_decode", "wkv6_recurrent", "wkv6_chunked")}
 #: ptxas register/shared-memory report of each library built in this process
 build_log: dict[str, str] = {}
+#: wall seconds from the start of a build to the end of each library's nvcc
+build_seconds: dict[str, float] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -169,12 +179,18 @@ def build_all(names=SOURCES) -> float:
         cmd = [nvcc, *nvcc_flags(), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    def wait(name):
+        out, _ = procs[name][1].communicate()
+        build_seconds[name] = time.perf_counter() - t0
+        return out
+
     failed = []
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        outs = dict(zip(procs, pool.map(wait, procs)))
     for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        build_log[name] = out
+        build_log[name] = outs[name]
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{out}")
+            failed.append(f"{name}:\n{outs[name]}")
         else:
             os.replace(tmp, lib_path(name))
     if failed:

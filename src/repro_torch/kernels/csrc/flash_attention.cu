@@ -883,53 +883,6 @@ int prefill_t(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no link against libcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor map over (D, positions, heads, batch) with strides in
-// elements (multiples of 8: 16 bytes), boxes of 64 columns x `rows`
-// positions, 128-byte swizzle, zeros outside
-bool tensor_map(CUtensorMap* map, const void* ptr, int D, long long npos,
-                int nheads, int B, long long ps, long long hs, long long bs,
-                int rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)npos,
-                              (cuuint64_t)nheads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ps * 2, (cuuint64_t)hs * 2,
-                                 (cuuint64_t)bs * 2};
-  const cuuint32_t box[4] = {SWZ_ROW / 2, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int prefill_wgmma_t(const void* q, const void* k, const void* v, void* o,
                     float* lse, const Layout& L, int B, int H, int Hkv, int S,
@@ -951,9 +904,11 @@ int prefill_wgmma_t(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = opt_in(flash_prefill_wgmma_kernel<D>, C::SMEM, &done);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, D, S, H, B, L.qs, L.qh, L.qb, C::BQ) ||
-      !tensor_map(&tk, k, D, kv_valid, Hkv, B, L.ks, L.kh, L.kb, C::BK) ||
-      !tensor_map(&tv, v, D, kv_valid, Hkv, B, L.vs, L.vh, L.vb, C::BK))
+  if (!hopper::tensor_map(&tq, q, D, S, H, B, L.qs, L.qh, L.qb, C::BQ) ||
+      !hopper::tensor_map(&tk, k, D, kv_valid, Hkv, B, L.ks, L.kh, L.kb,
+                          C::BK) ||
+      !hopper::tensor_map(&tv, v, D, kv_valid, Hkv, B, L.vs, L.vh, L.vb,
+                          C::BK))
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)((double)scale * 1.4426950408889634);
   const dim3 grid((unsigned)((S + C::BQ - 1) / C::BQ), (unsigned)H,

@@ -27,10 +27,15 @@ the note at the head of the source).
 Training: :func:`launch` with ``with_lse=True`` takes a prefill kernel at
 any S (S = 1 too) and leaves each query row's fp32 log-sum-exp, which
 :func:`launch_backward` reads: the backward of ``csrc/
-flash_attention_bwd.cu`` (a Δ pre-pass, a dK/dV kernel per key tile that
-walks the query heads of its KV group, a dQ kernel per query tile; no
-float atomics, so the same bits every call).  No TPU kernel precedes the
-backward: the JAX package differentiates its jnp reference.
+flash_attention_bwd.cu`` (a dK/dV kernel per key tile that walks the
+query heads of its KV group, a dQ kernel per query tile, Δ =
+rowsum(dO ∘ O) from a pre-pass or the dQ kernel; no float atomics, so
+the same bits every call), on the route
+:func:`bwd_route` gives: bf16 at D ∈ {64, 128} on the tensor cores
+(``wgmma`` over TMA rings as the prefill, P and dS each one bf16 operand,
+Δ summed by the dQ kernel, 64-key dK/dV CTAs), fp32 and D ∈ {16, 256}
+on the CUDA cores.  No TPU kernel precedes the backward: the JAX package
+differentiates its jnp reference.
 
 The plain version is :func:`repro_torch.kernels.ref.flash_attention`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
@@ -47,6 +52,9 @@ from repro_torch.kernels.ref import flash_attention as plain  # noqa: F401
 
 HEAD_DIMS = (16, 64, 128, 256)   # the instantiations of csrc/flash_attention.cu
 WGMMA_HEAD_DIMS = (64, 128, 256)  # those of the tensor-core prefill (bf16)
+#: those of the tensor-core backward (bf16): at D = 256 a warpgroup's dV
+#: (or dK) alone would take 128 registers a thread (csrc note)
+WGMMA_BWD_HEAD_DIMS = (64, 128)
 DECODE_TILE = 16                  # keys of a decode warp's tile (csrc DEC_KS)
 DECODE_HEADS = 8                  # query heads per decode CTA (csrc DEC_GC)
 #: tiles a decode warp walks, at most: at the Qwen3-8B serving shape on an
@@ -66,6 +74,15 @@ def prefill_route(dtype: torch.dtype, D: int) -> str:
     ``"wgmma"`` (tensor cores, bf16 at D ∈ {64, 128, 256}) or
     ``"cuda_cores"`` (fp32 operands, and D = 16)."""
     return ("wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS
+            else "cuda_cores")
+
+
+def bwd_route(dtype: torch.dtype, D: int) -> str:
+    """The backward's kernels for operands of ``dtype`` at head dim ``D``:
+    ``"wgmma"`` (tensor cores, bf16 at D ∈ {64, 128}) or ``"cuda_cores"``
+    (fp32 operands, whose products on the tensor cores would be TF32, and
+    D ∈ {16, 256})."""
+    return ("wgmma" if dtype == torch.bfloat16 and D in WGMMA_BWD_HEAD_DIMS
             else "cuda_cores")
 
 
@@ -225,10 +242,14 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of the attention ``o = launch(q, k, v, causal=,
     scale=, with_lse=True)`` for the output's gradient ``do`` (B, H, S,
-    D), in the operands' type, from the forward's ``lse``: three launches
-    (Δ = rowsum(dO ∘ O), dK/dV, dQ), each counted.  dq is returned as a
-    ``(B, H, S, D)`` view of ``(B, S, H, D)`` memory, dk and dv as views of
-    ``(B, T, Hkv, D)``, as the forward returns its output."""
+    D), in the operands' type, from the forward's ``lse``, on the route
+    :func:`bwd_route` gives, each launch counted: on the CUDA cores a Δ =
+    rowsum(dO ∘ O) pre-pass, dK/dV, dQ; on the tensor cores dQ (whose
+    kernel also writes Δ), then dK/dV.  Operands whose rows or strides are
+    not on 16-byte boundaries (the tensor-core kernels read them by TMA)
+    are copied first, as :func:`launch` copies them.  dq is returned as a
+    ``(B, H, S, D)`` view of ``(B, S, H, D)`` memory, dk and dv as views
+    of ``(B, T, Hkv, D)``, as the forward returns its output."""
     _check(q, k, v)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
@@ -252,6 +273,10 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     do = do.to(q.dtype)
     (q, *sq), (k, *sk), (v, *sv), (o, *so), (do, *sd) = (
         _bhs(t) for t in (q, k, v, o, do))
+    # TMA takes a stride only where the dim is longer than one
+    for st, dims in ((sq, (B, H, S)), (sk, (B, Hkv, T)), (sv, (B, Hkv, T)),
+                     (so, (B, H, S)), (sd, (B, H, S))):
+        st[:] = [s if n > 1 else D for s, n in zip(st, dims)]
     lse = lse.contiguous()
     strides = [*sq, *sk, *sv, *so, *sd]
     for t in (dq, dk, dv):
@@ -261,21 +286,39 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bf16 = int(q.dtype == torch.bfloat16)
     lib = _build.load("flash_attention_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    counts = _build.launch_counts
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    causal = int(bool(causal))
+    if bwd_route(q.dtype, D) == "wgmma":
+        # dQ first: its kernel also writes Δ, which the dK/dV kernel reads
+        _build.check(lib.flash_attention_bwd_dq_wgmma_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            st, B, H, Hkv, S, T, D, causal, scale32, stream),
+            "flash_attention backward (dq and delta, wgmma)")
+        counts["flash_attention_bwd_dq"] += 1
+        counts["flash_attention_bwd_dq_wgmma"] += 1
+        _build.check(lib.flash_attention_bwd_dkdv_wgmma_launch(
+            *args, dk.data_ptr(), dv.data_ptr(), st, B, H, Hkv, S, T, D,
+            causal, scale32, stream),
+            "flash_attention backward (dk, dv, wgmma)")
+        counts["flash_attention_bwd_dkdv"] += 1
+        counts["flash_attention_bwd_dkdv_wgmma"] += 1
+        return dq, dk, dv
     _build.check(lib.flash_attention_bwd_delta_launch(
         o.data_ptr(), do.data_ptr(), delta.data_ptr(), *so, *sd, B, H, S, D,
         bf16, stream), "flash_attention backward (delta)")
-    _build.launch_counts["flash_attention_bwd_delta"] += 1
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr())
-    shape = (B, H, Hkv, S, T, D, int(bool(causal)), scale32, bf16, stream)
+    counts["flash_attention_bwd_delta"] += 1
+    shape = (B, H, Hkv, S, T, D, causal, scale32, bf16, stream)
     _build.check(lib.flash_attention_bwd_dkdv_launch(
         *args, dk.data_ptr(), dv.data_ptr(), st, *shape),
         "flash_attention backward (dk, dv)")
-    _build.launch_counts["flash_attention_bwd_dkdv"] += 1
+    counts["flash_attention_bwd_dkdv"] += 1
     _build.check(lib.flash_attention_bwd_dq_launch(
         *args, dq.data_ptr(), st, *shape), "flash_attention backward (dq)")
-    _build.launch_counts["flash_attention_bwd_dq"] += 1
+    counts["flash_attention_bwd_dq"] += 1
     return dq, dk, dv
 
 
@@ -294,11 +337,16 @@ def _ticket_buffer(device: torch.device, stream: int, n: int
 SMEM_KINDS = {"prefill": 0, "prefill_wgmma": 1, "decode": 2}
 
 
+BWD_SMEM_KINDS = {"dkdv": 0, "dq": 1, "dkdv_wgmma": 2, "dq_wgmma": 3}
+
+
 def bwd_smem_bytes(D: int, kind: str) -> int:
     """Dynamic shared memory of one CTA of the backward's ``"dkdv"`` or
-    ``"dq"`` kernel at head dim ``D``, read from the built kernel."""
+    ``"dq"`` kernel on the CUDA cores, or ``"dkdv_wgmma"`` or
+    ``"dq_wgmma"`` on the tensor cores, at head dim ``D``, read from the
+    built kernel; -1 where there is no such instantiation."""
     return int(_build.load("flash_attention_bwd").flash_attention_bwd_smem(
-        D, {"dkdv": 0, "dq": 1}[kind]))
+        D, BWD_SMEM_KINDS[kind]))
 
 
 def smem_bytes(D: int, kind: str) -> int:

@@ -219,7 +219,9 @@ def test_launch_counts_untouched_by_plain_path():
         "flash_attention_prefill": 0, "flash_attention_prefill_wgmma": 0,
         "flash_attention_decode": 0, "flash_attention_prefill_lse": 0,
         "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
-        "flash_attention_bwd_dq": 0, "wkv6_prefill": 0, "wkv6_decode": 0,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv_wgmma": 0,
+        "flash_attention_bwd_dq_wgmma": 0,
+        "wkv6_prefill": 0, "wkv6_decode": 0,
         "wkv6_recurrent": 0, "wkv6_chunked": 0}
 
 

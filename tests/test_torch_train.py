@@ -62,11 +62,18 @@ def _tree(seed, moment_dtype):
              {"mu": _map(m, lambda x: jnp.asarray(x, jdt)),
               "nu": _map(v, lambda x: jnp.asarray(x, jdt)),
               "step": jnp.int32(2)})
-    ttree = (_map(p, torch.from_numpy), _map(g, torch.from_numpy),
-             {"mu": _map(m, lambda x: torch.from_numpy(x).to(tdt)),
-              "nu": _map(v, lambda x: torch.from_numpy(x).to(tdt)),
+    # the port's leaves own their memory: JAX may alias an aligned numpy
+    # buffer and read it after jit returns, while the port updates in place
+    ttree = (_map(p, _own), _map(g, _own),
+             {"mu": _map(m, lambda x: _own(x).to(tdt)),
+              "nu": _map(v, lambda x: _own(x).to(tdt)),
               "step": torch.tensor(2, dtype=torch.int32)})
     return jtree, ttree
+
+
+def _own(x: np.ndarray) -> torch.Tensor:
+    """``x`` as a tensor over a copy, never over JAX's buffer."""
+    return torch.from_numpy(x.copy())
 
 
 def _map(tree, fn):
@@ -177,10 +184,9 @@ def _ckpt_trees():
              "opt": {"mu": _map(m, lambda x: jnp.asarray(x, jnp.bfloat16)),
                      "nu": _map(m, lambda x: jnp.asarray(x * x)),
                      "step": jnp.int32(7)}}
-    ttree = {"params": _map(p, torch.from_numpy),
-             "opt": {"mu": _map(m, lambda x: torch.from_numpy(x).to(
-                 torch.bfloat16)),
-                     "nu": _map(m, lambda x: torch.from_numpy(x * x)),
+    ttree = {"params": _map(p, _own),
+             "opt": {"mu": _map(m, lambda x: _own(x).to(torch.bfloat16)),
+                     "nu": _map(m, lambda x: _own(x * x)),
                      "step": torch.tensor(7, dtype=torch.int32)}}
     return jtree, ttree
 
