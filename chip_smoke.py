@@ -125,7 +125,17 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    (112 cases: fp32/bf16, D 16/64, Dk ≠ Dv, Dk = 40 with Dv = 72, u and y
    in both types, a given state in place) equal to the plain version and
    to the recurrent kernel with ``torch.equal``, counted under
-   wkv6_decode, ptxas's registers and spills of the decode kernel;
+   wkv6_decode, ptxas's registers and spills of the decode kernel; then
+   the wkv6 backward (``csrc/wkv6_bwd.cu``) against the plain version
+   (``ref.wkv6_backward``, the kernel's order of sums) in 57 cases: fp32
+   and bf16, Dk = Dv ∈ {16, 64}, Jamba's 16 × 128 scan with u = 0, Dk ≠
+   Dv both ways, B × H = 1 and 256, T = 1, T on and past a chunk
+   boundary, ragged T and T = 2,100, every decay,
+   strided views, from zeros and from S_0 with dS_T, dy in fp32; each to
+   the bit where it agrees so (counted), else within
+   ``testing.WKV_GRAD_TOL``, a second call to the bit, at T ≤ 100 also
+   against autograd of ``ref.wkv6``; the shapes it does not take raise;
+   ptxas's registers and spills of its instantiations;
 11. RWKV parity — rwkv6-1.6b at full width and 2 layers, card against the
    CPU's plain path, as phase 8;
 12. RWKV serving — rwkv6-1.6b at full width, 12 of its 24 layers
@@ -196,18 +206,26 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    1/4/8, causal S = T, the (T − S) offset, non-causal S ≠ T, ragged, the
    model's strided views, S = 1, the training shapes; each case twice to
    the bit and its launches counted; a train step on the card against the
-   CPU's plain path (Qwen3-8B at full width and 2 layers in bf16, the MoE,
-   VLM and encoder-decoder families at ``reduced()`` in fp32): loss,
-   grad_norm, lr, every gradient (none missing), the update and moments;
-   RWKV-6 and the hybrid refused at the backward; whisper-tiny whole for a
-   step; the training cell (Qwen3-8B at full width, 4 of 36 layers, 8 ×
+   CPU's plain path (Qwen3-8B and rwkv6-1.6b at full width and 2 layers
+   in bf16, rwkv6-1.6b's once more in fp32, the MoE, VLM,
+   encoder-decoder, RWKV-6 and hybrid families at ``reduced()`` in fp32,
+   the hybrid also at Jamba's 16 × 128 scan tile): loss, grad_norm, lr,
+   every gradient (none missing), the update and moments, the wkv6
+   backward once a layer and microbatch; whisper-tiny whole for a step;
+   the training cell (Qwen3-8B at full width, 4 of 36 layers, 8 ×
    2,048 tokens in 8 microbatches, remat, bf16 moments): step time,
    tokens/s, share of the bf16 peak, memory peak, launches a step, a
    checkpoint every 2 steps and steps 3-4 resumed from step 2 equal to the
    uninterrupted run to the bit; ``python -m repro_torch.launch.train
    --reduced`` with checkpoints and ``--resume``; the select-then-train
-   example at its defaults; the backward timed at the training shapes
-   beside its bound, its plain version and SDPA's backward.
+   example at its defaults; the launcher on RWKV-6 ``--reduced`` for 10
+   steps; the RWKV-6 training cell (rwkv6-1.6b whole, 24 layers, 8 ×
+   2,048 tokens in 2 microbatches, remat, bf16 moments): step time,
+   tokens/s, share of the bf16 peak, memory peak, launches a step; the
+   attention backward timed at the training shapes beside its bound, its
+   plain version and SDPA's backward, and the wkv6 backward at
+   rwkv6-1.6b's training microbatch and Jamba's scan beside its bound
+   and plain version.
 
 Ends with one JSON line per kernel table and the ``ok`` line.  Imports
 nothing of the JAX package.
@@ -4985,6 +5003,199 @@ def check_wkv6_decode() -> int:
     return n
 
 
+def wkv6_bwd_cases() -> list[tuple]:
+    """(dtype, B, H, T, Dk, Dv, decay, strided, u_zero) of
+    :func:`phase_kernels_wkv6_bwd`: rwkv6-1.6b's head (Dk = Dv = 64) and
+    ``reduced()``'s (16), Jamba's scan (Dk = 16, Dv = 128, u = 0), Dk ≠ Dv
+    both ways, the narrowest rows, B × H = 1 and 256, T = 1, T on a chunk
+    boundary (16 = 2 chunks of 8 at 64 × 64) and one past it (33 at 16 ×
+    16, chunks of 32), ragged T and T = 2,100, each decay, strided views
+    and contiguous; fp32 and bf16."""
+    import torch
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        small = 4 if dtype == torch.float32 else 8
+        cases += [(dtype, *c) for c in (
+            (2, 3, 37, 16, 16, "fast", True, False),
+            (1, 1, 100, 64, 64, "model", True, False),
+            (8, 32, 70, 64, 64, "model", True, False),
+            (2, 2, 45, 16, 128, 0.5, True, True),
+            (2, 2, 33, 64, 16, "fast", False, False),
+            (1, 2, 40, 64, 128, "fast", False, False),
+            (1, 2, 20, small, 2 * small, "fast", False, False),
+            (1, 2, 1, 64, 64, "fast", True, False),
+            (2, 2, 16, 64, 64, "model", True, False),
+            (1, 2, 33, 16, 16, "fast", True, False),
+            (2, 4, 2100, 64, 64, "model", True, False))]
+        cases += [(dtype, 2, 3, 300, 64, 64, decay, True, False)
+                  for decay in (0.5, 0.05, 1e-6)]
+    return cases
+
+
+def wkv6_bwd_inputs(B, H, T, Dk, Dv, dtype, seed, decay, strided, given,
+                    u_zero=False, dy_dtype=None):
+    """:func:`_wkv_inputs`' r, k, v, w, u (u = 0 with ``u_zero``), the
+    state S_0 and the gradients dy (a (B, H, T, Dv) view of (B, T, H, Dv)
+    where ``strided``, in ``dy_dtype`` or r's) and dS_T; S_0 and dS_T
+    ~ N(0, 1) fp32 where ``given``, else None."""
+    import torch
+    r, k, v, w, u = _wkv_inputs(B, H, T, Dk, Dv, dtype, seed, decay,
+                                strided)
+    if u_zero:
+        u = torch.zeros_like(u)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 7)
+    dy = torch.randn((B, T, H, Dv), generator=g, device="cuda").to(
+        dy_dtype or dtype).transpose(1, 2)
+    if not strided:
+        dy = dy.contiguous()
+    s0 = ds = None
+    if given:
+        s0, ds = torch.randn((2, B, H, Dk, Dv), generator=g, device="cuda")
+    return r, k, v, w, u, s0, dy, ds
+
+
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "d_state")
+
+
+def phase_kernels_wkv6_bwd() -> None:
+    """The wkv6 backward (``csrc/wkv6_bwd.cu``) on the card against the
+    plain version (``ref.wkv6_backward``, which repeats its order): every
+    case of :func:`wkv6_bwd_cases` from zeros and from a given S_0 with a
+    given dS_T, and one bf16 case with dy in fp32 (the decode output's
+    type).  Each case: the six gradients to the bit of the plain version
+    where they agree so (counted), else within ``testing.WKV_GRAD_TOL``;
+    a second call equal to the first to the bit; one launch of each of
+    its two kernels; the types and shapes of the gradients.  At T ≤ 100
+    also against autograd of the plain forward (``ref.wkv6``), within
+    ``WKV_GRAD_TOL``.  Then the shapes it does not take raise, and
+    ptxas's registers and spills of each instantiation."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import wkv6 as wk
+    n = same = n_autograd = 0
+    worst: dict[str, float] = {}
+    worst_autograd: dict[str, float] = {}
+    seed = 300
+
+    def grads(args):
+        ops.reset_launch_counts()
+        out = wk.launch_backward(*args)
+        torch.cuda.synchronize()
+        counts = {key: ops.launch_counts[key]
+                  for key in ("wkv6_bwd", "wkv6_bwd_du")}
+        if counts != {"wkv6_bwd": 1, "wkv6_bwd_du": 1}:
+            fail(f"wkv6 backward: launches {counts}")
+        return out
+
+    def check(case, given, dy_dtype=None):
+        nonlocal n, same, n_autograd, seed
+        dtype, B, H, T, Dk, Dv, decay, strided, u_zero = case
+        seed += 1
+        args = wkv6_bwd_inputs(B, H, T, Dk, Dv, dtype, seed, decay, strided,
+                               given, u_zero, dy_dtype)
+        r, k, v, w, u, s0, dy, ds = args
+        what = (f"wkv6 backward {dtype} B={B} H={H} T={T} Dk={Dk} Dv={Dv} "
+                f"{decay} strided={strided} state={given} u=0 {u_zero} "
+                f"dy {dy.dtype}")
+        got = grads(args)
+        want = ref.wkv6_backward(*args)
+        types = (dtype, dtype, dtype, torch.float32, u.dtype, torch.float32)
+        for name, a, b, t in zip(WKV_GRADS, got, want, types):
+            if a.dtype != t or a.shape != b.shape:
+                fail(f"{what}: {name} {a.dtype} {tuple(a.shape)}")
+        if all(torch.equal(a, b) for a, b in zip(got, want)):
+            same += 1
+        for name, a, b in zip(WKV_GRADS, got, want):
+            try:
+                share = testing.assert_grad_close(
+                    a, b, a.dtype, f"{what}: {name}", testing.WKV_GRAD_TOL)
+            except AssertionError as e:
+                fail(str(e))
+            key = f"{a.dtype} {name}"
+            worst[key] = max(worst.get(key, 0.0), share)
+        again = grads(args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{what}: a second call gives other bits")
+        if T <= 100:
+            with torch.enable_grad():
+                xs = [t.detach().clone().requires_grad_(True)
+                      for t in (r, k, v, w, u)]
+                st = (torch.zeros((B, H, Dk, Dv), device="cuda")
+                      if s0 is None else s0.clone()).requires_grad_(True)
+                y, fin = ref.wkv6(*xs, st, out_dtype=dy.dtype)
+                loss = torch.sum(y.float() * dy.float())
+                if ds is not None:
+                    loss = loss + torch.sum(fin * ds)
+                auto = [torch.zeros_like(x) if g is None else g for x, g in
+                        zip(xs + [st], torch.autograd.grad(
+                            loss, xs + [st], allow_unused=True))]
+            for name, a, b in zip(WKV_GRADS, got, auto):
+                try:
+                    share = testing.assert_grad_close(
+                        a, b, a.dtype, f"{what}: {name} against autograd",
+                        testing.WKV_GRAD_TOL)
+                except AssertionError as e:
+                    fail(str(e))
+                key = f"{a.dtype} {name}"
+                worst_autograd[key] = max(worst_autograd.get(key, 0.0),
+                                          share)
+            n_autograd += 1
+        n += 1
+        del got, want, again, args
+
+    for case in wkv6_bwd_cases():
+        for given in (False, True):
+            check(case, given)
+        torch.cuda.empty_cache()
+    check((torch.bfloat16, 2, 4, 64, 64, 64, "model", True, False), True,
+          dy_dtype=torch.float32)
+    # the shapes it does not take
+    bad = [("Dk = 128", dict(Dk=128)), ("Dv = 256", dict(Dv=256)),
+           ("Dk = 4 in bf16", dict(Dk=4))]
+    for label, kw in bad:
+        shape = dict(B=1, H=1, T=5, Dk=16, Dv=16) | kw
+        args = wkv6_bwd_inputs(shape["B"], shape["H"], shape["T"],
+                               shape["Dk"], shape["Dv"], torch.bfloat16, 0,
+                               "fast", False, True)
+        try:
+            wk.launch_backward(*args)
+        except ValueError:
+            continue
+        fail(f"the wkv6 backward took {label}")
+    r, k, v, w, u, s0, dy, ds = wkv6_bwd_inputs(1, 1, 5, 16, 16,
+                                                torch.bfloat16, 0, "fast",
+                                                False, True)
+    for label, args in (
+            ("dy of another shape", (r, k, v, w, u, s0, dy[:, :, :4], ds)),
+            ("an fp16 dy", (r, k, v, w, u, s0, dy.half(), ds)),
+            ("a bf16 dS_T", (r, k, v, w, u, s0, dy, ds.bfloat16()))):
+        try:
+            wk.launch_backward(*args)
+        except ValueError:
+            continue
+        fail(f"the wkv6 backward took {label}")
+    for line in _ptxas_report(_build.build_log.get("wkv6_bwd", ""),
+                              "wkv6_bwd"):
+        log(f"  ptxas {line}")
+    tiles = {f"{Dk}x{Dv}": (wk.backward_chunk(Dk, Dv),
+                            wk.backward_smem_bytes(Dk, Dv))
+             for Dk, Dv in ((16, 16), (16, 64), (16, 128), (64, 16),
+                            (64, 64), (64, 128))}
+    log(f"  backward (steps a chunk, shared memory per CTA) by state: "
+        f"{tiles}")
+    log(f"wkv6 backward vs plain: {n} cases, {same} of them to the bit in "
+        f"all six gradients, the rest within testing.WKV_GRAD_TOL "
+        f"{ {str(k): v for k, v in testing.WKV_GRAD_TOL.items()} }; worst "
+        f"share by type and gradient: " + ", ".join(
+            f"{key} {worst[key]:.3g}" for key in sorted(worst))
+        + f"; each second call to the bit; {n_autograd} cases against "
+        f"autograd of ref.wkv6, worst: " + ", ".join(
+            f"{key} {worst_autograd[key]:.3g}"
+            for key in sorted(worst_autograd)))
+
+
 def times_wkv6(serve: dict, chunked_serve: dict) -> list[dict]:
     """wkv6 at the RWKV serving cell's prefill (B = 8, T = 2,048, the
     final state written) and decode (B = 8, T = 1, state in and out, y in
@@ -5176,11 +5387,19 @@ def times_mamba_scan(serve: dict) -> list[dict]:
 #: step parity: Qwen3-8B at full width, 2 of its 36 layers, B = 2 prompts
 #: of 32 SyntheticLM tokens in 2 microbatches, one set of fp32 masters
 TRAIN_PARITY = dict(layers=2, batch=2, seq=32, micro=2)
-#: the other families that train on flash_attention, at reduced() (D = 16:
-#: the CUDA-core route), in fp32 compute; and the families refused on the
-#: card (no wkv6 backward kernel yet)
-TRAIN_PARITY_ARCHS = ("deepseek-moe-16b", "internvl2-76b", ENCDEC_ARCH)
-TRAIN_REFUSED_ARCHS = (RWKV_ARCH, HYBRID_ARCH)
+#: the other families, at reduced() (D = 16: the CUDA-core attention route,
+#: the 16 × 16 wkv6 state), in fp32 compute, two microbatches; the hybrid
+#: once more with its Mamba heads at Jamba's width (hd = 128: one head of
+#: a 16 × 128 state, the scan's backward instantiation), held to the bit
+#: against the same step on the card with the plain backward (against the
+#: CPU its A_log leaf, 12 values each a sum of 1,024 terms that cancel,
+#: read 2.1e-5 of its norm, past TRAIN_STEP_TOL's 2e-5 a leaf, and 2.9e-5
+#: with the plain versions run on the card instead of the kernels
+#: (:func:`train_leaf_drift`): the card's arithmetic outside the kernels;
+#: the wkv6 backward's order of sums alone moves it by 1.4e-6 on the CPU)
+TRAIN_PARITY_ARCHS = ("deepseek-moe-16b", "internvl2-76b", ENCDEC_ARCH,
+                      RWKV_ARCH, HYBRID_ARCH)
+TRAIN_JAMBA_SCAN = dict(head_dim=128)
 #: whisper-tiny whole, one step of 8 × 1,500 frames (the encoder's 30-second
 #: context) and 1,500 tokens: the backward at the encoder's shape
 TRAIN_WHISPER = dict(batch=8, seq=ENCDEC_FRAMES)
@@ -5190,8 +5409,10 @@ TRAIN_WHISPER = dict(batch=8, seq=ENCDEC_FRAMES)
 #: remat, bf16 moments; a warm-up step and 3 timed steps, a checkpoint every
 #: 2 steps, steps 3-4 resumed from the step-2 checkpoint
 TRAIN_CELL = dict(layers=4, batch=8, seq=2048, steps=4, ckpt_every=2)
-#: the CLI's run: --reduced, 30 steps (a checkpoint at 25), then --resume
+#: the CLI's run: --reduced, 30 steps (a checkpoint at 25), then --resume;
+#: and RWKV-6 reduced for 10 steps, in process
 TRAIN_CLI = ["--arch", LM_ARCH, "--reduced", "--steps", "30"]
+TRAIN_CLI_RWKV = ["--arch", RWKV_ARCH, "--reduced", "--steps", "10"]
 BWD_KERNELS = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
                "flash_attention_bwd_dq")
 #: launched once by every backward call, on either route
@@ -5218,25 +5439,147 @@ def rel_norms(actual: list, expected: list, device="cuda"
     return math.sqrt(num / max(den, 1e-300)), worst, at
 
 
+def train_leaf_drift(arch: str = HYBRID_ARCH, cuts=None) -> dict:
+    """Where an fp32 train step's card-vs-CPU distance comes from, leaf by
+    leaf: one step of ``arch`` at ``reduced()`` with ``cuts``
+    (``TRAIN_JAMBA_SCAN`` by default), two microbatches, from one set of
+    masters on one batch, on the card through the kernels, on the card
+    through the plain versions (``ops`` dispatching the card's tensors as
+    the CPU's), and on the CPU; logs and returns ‖Δ‖ / ‖reference‖ of each
+    leaf's gradient for each pair.  Not run by :func:`main`; it measured
+    the source of the A_log reading in ``TRAIN_JAMBA_SCAN``'s note:
+    ``python3 -c "import chip_smoke as c; c.phase_setup();
+    c.train_leaf_drift()"``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as TL
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    cfg = dataclasses.replace(get_config(arch).reduced(), microbatches=2,
+                              **(TRAIN_JAMBA_SCAN if cuts is None else cuts))
+    opt = opt_lib.OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                    seed=SEED, d_model=cfg.d_model)
+    step_fn = ts.make_train_step(cfg, opt)
+    saved = (TL.COMPUTE_DTYPE, ops._on_card)
+    TL.COMPUTE_DTYPE = torch.float32
+    grads = {}
+    try:
+        host = opt_lib.tree_map(
+            lambda t: t.to("cpu"),
+            ts.init_train_state(cfg, opt, SEED, device="cuda"))
+        for run, dev in (("card", "cuda"), ("card_plain", "cuda"),
+                         ("cpu", "cpu")):
+            state = opt_lib.tree_map(lambda t: t.to(dev, copy=True), host)
+            if run == "card_plain":
+                ops._on_card = lambda t: False
+            g = []
+            step_fn(state, SyntheticLM(dc, dev).batch(0), keep_grads=g)
+            ops._on_card = saved[1]
+            grads[run] = [x.cpu() for x in g]
+    finally:
+        TL.COMPUTE_DTYPE, ops._on_card = saved
+    names = [".".join(k) for k in _leaf_names(host["params"])]
+    pairs = (("card", "cpu"), ("card_plain", "cpu"), ("card", "card_plain"))
+    res = {f"{a} vs {b}": {n: rel_norms([x], [y], "cpu")[0] for n, x, y in
+                           zip(names, grads[a], grads[b])} for a, b in pairs}
+    log(f"train leaf drift, {arch} reduced {cuts or TRAIN_JAMBA_SCAN}, fp32, "
+        f"‖Δ‖ / ‖reference‖ by leaf (card vs cpu, card_plain vs cpu, card "
+        f"vs card_plain):")
+    for n in names:
+        log(f"  {n}: " + ", ".join(f"{res[f'{a} vs {b}'][n]:.3g}"
+                                   for a, b in pairs))
+    return res
+
+
 class BwdShapes:
-    """Within the block, each flash_attention backward call's (B, H, Hkv,
-    S, T, D, causal) is counted (``calls``), the launches going on."""
+    """Within the block, each call of ``mod.launch_backward`` is counted
+    by ``key`` of its arguments (``calls``), the launches going on."""
+
+    def __init__(self, mod, key):
+        self.mod, self.key = mod, key
 
     def __enter__(self):
-        from repro_torch.kernels import flash_attention as fa
-        self.fa, self.real, self.calls = fa, fa.launch_backward, {}
+        self.real, self.calls = self.mod.launch_backward, {}
 
-        def rec(q, k, v, o, lse, do, *, causal, scale):
-            key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                   k.shape[2], q.shape[3], bool(causal))
+        def rec(*args, **kwargs):
+            key = self.key(*args, **kwargs)
             self.calls[key] = self.calls.get(key, 0) + 1
-            return self.real(q, k, v, o, lse, do, causal=causal, scale=scale)
+            return self.real(*args, **kwargs)
 
-        fa.launch_backward = rec
+        self.mod.launch_backward = rec
         return self
 
     def __exit__(self, *exc):
-        self.fa.launch_backward = self.real
+        self.mod.launch_backward = self.real
+
+
+def attention_bwd_shape(q, k, v, *args, causal, **kwargs) -> tuple:
+    """A flash_attention backward call's (B, H, Hkv, S, T, D, causal)."""
+    return (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+            q.shape[3], bool(causal))
+
+
+def wkv6_bwd_shape(r, k, v, *args) -> tuple:
+    """A wkv6 backward call's (B, H, T, Dk, Dv)."""
+    return tuple(r.shape) + (v.shape[3],)
+
+
+def check_train_bits(name: str, cfg, batch: int, seq: int) -> dict:
+    """One fp32 train step of ``cfg`` on the card, from one set of masters
+    on one SyntheticLM batch, twice: with the wkv6 backward kernel, and
+    with its plain version (``ref.wkv6_backward`` on the card) in its
+    place; the loss, grad_norm and every gradient to the bit, every
+    parameter with a non-zero gradient, the wkv6 launches of
+    :func:`wkv6_train_launches`."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import layers as TL
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    opt = opt_lib.OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                    global_batch=batch, seed=SEED, d_model=cfg.d_model)
+    step_fn = ts.make_train_step(cfg, opt)
+    saved, real = TL.COMPUTE_DTYPE, wk.launch_backward
+    TL.COMPUTE_DTYPE = torch.float32
+    runs = []
+    try:
+        for plain in (False, True):
+            state = ts.init_train_state(cfg, opt, SEED, device="cuda")
+            if plain:
+                wk.launch_backward = ref.wkv6_backward
+            ops.reset_launch_counts()
+            grads = []
+            _, m = step_fn(state, SyntheticLM(dc, "cuda").batch(0),
+                           keep_grads=grads)
+            torch.cuda.synchronize()
+            wk.launch_backward = real
+            runs.append((grads, m, dict(ops.launch_counts)))
+    finally:
+        TL.COMPUTE_DTYPE, wk.launch_backward = saved, real
+    (gk, mk, counts), (gp, mp, _) = runs
+    want = wkv6_train_launches(cfg)
+    if {k: counts[k] for k in want} != want:
+        fail(f"train step {name}: wkv6 launches {counts}, expected {want}")
+    if not all(bool(torch.any(g != 0)) for g in gk):
+        fail(f"train step {name}: a parameter without a gradient")
+    same = (all(torch.equal(a, b) for a, b in zip(gk, gp))
+            and float(mk["loss"]) == float(mp["loss"])
+            and float(mk["grad_norm"]) == float(mp["grad_norm"]))
+    if not same:
+        fail(f"train step {name}: the wkv6 backward kernel's step differs "
+             "from the plain backward's on the card")
+    log(f"train step {name} (fp32, B={batch} S={seq}, {cfg.microbatches} "
+        f"microbatches, {len(gk)} parameters, all with a gradient): the "
+        f"kernel's step equals the plain backward's on the card to the bit; "
+        f"loss {float(mk['loss']):.6f}; wkv6 launches "
+        f"{ {k: counts[k] for k in want} }")
+    return {"launches": {k: counts[k] for k in want}}
 
 
 def check_train_parity(name: str, cfg, mode: str, batch: int, seq: int
@@ -5313,16 +5656,25 @@ def check_train_parity(name: str, cfg, mode: str, batch: int, seq: int
     if bad:
         fail(f"train step {name} ({mode}) card vs CPU: {bad} past {tol} "
              f"(worst gradient leaf {names[at]})")
-    bwd = {k: counts[k] for k in BWD_KERNELS + BWD_WGMMA}
+    bwd = {k: counts[k] for k in BWD_KERNELS + BWD_WGMMA + WKV_BWD}
     calls = bwd[BWD_CALL[0]]
     wg = fa.bwd_route(dtype, cfg.hd) == "wgmma"
-    if calls < 1 or any(bwd[k] != calls for k in BWD_CALL) \
-            or counts["flash_attention_prefill_lse"] < calls \
-            or bwd["flash_attention_bwd_delta"] != calls * (not wg) \
-            or any(bwd[k] != calls * wg for k in BWD_WGMMA):
+    if "flash_attention" in family_kernels(cfg) and (
+            calls < 1 or any(bwd[k] != calls for k in BWD_CALL)
+            or counts["flash_attention_prefill_lse"] < calls
+            or bwd["flash_attention_bwd_delta"] != calls * (not wg)
+            or any(bwd[k] != calls * wg for k in BWD_WGMMA)):
         fail(f"train step {name}: backward launches {bwd} (route "
              f"{fa.bwd_route(dtype, cfg.hd)}), forward with the log-sum-exp "
              f"{counts['flash_attention_prefill_lse']}")
+    want = wkv6_train_launches(cfg)
+    got_wkv = {k: counts[k] for k in want}
+    if got_wkv != want:
+        fail(f"train step {name}: wkv6 launches {got_wkv}, expected {want} "
+             "(the backward once a layer and microbatch, the forward twice "
+             "under remat)")
+    if want:
+        bwd["wkv6_prefill"] = counts["wkv6_prefill"]
     log(f"train step {name} ({mode}, B={batch} S={seq}, "
         f"{cfg.microbatches} microbatches, {len(names)} parameters, all "
         f"with a gradient on the card): card vs CPU {got} (CPU step "
@@ -5331,6 +5683,31 @@ def check_train_parity(name: str, cfg, mode: str, batch: int, seq: int
     del cpu, gp, upd_p, gc, upd_c, card_opt
     torch.cuda.empty_cache()
     return {"diffs": got, "launches": bwd}
+
+
+#: the wkv6 backward's launch counters (one each a call)
+WKV_BWD = ("wkv6_bwd", "wkv6_bwd_du")
+
+
+def wkv6_layers(cfg) -> int:
+    """Layers a forward runs through ``ops.wkv6``: every RWKV-6 layer, the
+    hybrid's Mamba layers (all but one a period)."""
+    if cfg.family == "ssm":
+        return cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_period * (cfg.attn_period - 1)
+    return 0
+
+
+def wkv6_train_launches(cfg) -> dict:
+    """wkv6 launches of one train step of ``cfg`` on the card: a backward
+    (scan and du sum) a wkv6 layer and microbatch, and the forward twice
+    under remat (``run_layer`` runs it again in the backward)."""
+    calls = wkv6_layers(cfg) * max(cfg.microbatches, 1)
+    if not calls:
+        return {}
+    return {"wkv6_bwd": calls, "wkv6_bwd_du": calls,
+            "wkv6_prefill": calls * (2 if cfg.remat else 1)}
 
 
 def _leaf_names(tree, prefix=()) -> list:
@@ -5343,46 +5720,49 @@ def _leaf_names(tree, prefix=()) -> list:
 
 def phase_train_parity() -> dict:
     """Phase 17a: train steps on the card against the CPU's plain path —
-    the MoE, VLM and encoder-decoder families at ``reduced()`` (fp32, two
-    microbatches), Qwen3-8B at full width (``TRAIN_PARITY``, bf16); RWKV-6
-    and the hybrid refused at the backward; whisper-tiny whole for one step
-    at the encoder's 1,500 frames (its backward launches by shape)."""
+    the MoE, VLM, encoder-decoder, RWKV-6 and hybrid families at
+    ``reduced()`` (fp32, two microbatches), the hybrid once more at
+    Jamba's scan width (``TRAIN_JAMBA_SCAN``), Qwen3-8B and rwkv6-1.6b at
+    full width (``TRAIN_PARITY``, bf16) and rwkv6-1.6b's step once more in
+    fp32 (the wkv6 backward's gradients without bf16 rounding in the
+    way); whisper-tiny whole for one step at the encoder's 1,500 frames
+    (its backward launches by shape).  The wkv6 backward's calls by (B,
+    H, T, Dk, Dv) are kept (``wkv6_shapes``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train import train_step as ts
     p = TRAIN_PARITY
     out = {}
-    for arch in TRAIN_PARITY_ARCHS:
-        rc = dataclasses.replace(get_config(arch).reduced(), microbatches=2)
-        out[arch] = check_train_parity(f"{arch} reduced", rc, "fp32", 4, 16)
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=p["layers"],
-                              microbatches=p["micro"])
-    out[LM_ARCH] = check_train_parity(f"{LM_ARCH}, {p['layers']} layers",
-                                      cfg, "bf16", p["batch"], p["seq"])
+    with BwdShapes(wk, wkv6_bwd_shape) as wkv_shapes:
+        for arch in TRAIN_PARITY_ARCHS:
+            rc = dataclasses.replace(get_config(arch).reduced(),
+                                     microbatches=2)
+            out[arch] = check_train_parity(f"{arch} reduced", rc, "fp32", 4,
+                                           16)
+        rc = dataclasses.replace(get_config(HYBRID_ARCH).reduced(),
+                                 microbatches=2, **TRAIN_JAMBA_SCAN)
+        out["jamba_scan"] = check_train_bits(
+            f"{HYBRID_ARCH} reduced, {TRAIN_JAMBA_SCAN}", rc, 4, 16)
+        for arch, mode in ((LM_ARCH, "bf16"), (RWKV_ARCH, "bf16"),
+                           (RWKV_ARCH, "fp32")):
+            cfg = dataclasses.replace(get_config(arch), n_layers=p["layers"],
+                                      microbatches=p["micro"])
+            out[f"{arch} {mode}"] = check_train_parity(
+                f"{arch}, {p['layers']} layers", cfg, mode, p["batch"],
+                p["seq"])
+    out["wkv6_shapes"] = wkv_shapes.calls
     opt = opt_lib.OptConfig()
-    for arch in TRAIN_REFUSED_ARCHS:
-        rc = get_config(arch).reduced()
-        state = ts.init_train_state(rc, opt, SEED, device="cuda")
-        batch = {"tokens": torch.zeros((2, 16), dtype=torch.int32,
-                                       device="cuda")}
-        try:
-            ts.make_train_step(rc, opt)(state, batch)
-        except NotImplementedError as e:
-            if "wkv6" not in str(e):
-                fail(f"{arch}: refused for another reason: {e}")
-            log(f"train step {arch} on the card: refused at the backward "
-                f"({str(e)[:90]}...)")
-        else:
-            fail(f"{arch} trained on the card without a wkv6 backward")
     cfg = get_config(ENCDEC_ARCH)
     w = TRAIN_WHISPER
     state = ts.init_train_state(cfg, opt, SEED, device="cuda")
     data = SyntheticLM(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=w["seq"], global_batch=w["batch"],
         seed=SEED, frontend=cfg.frontend, d_model=cfg.d_model), "cuda")
-    with BwdShapes() as shapes:
+    with BwdShapes(fa, attention_bwd_shape) as shapes:
         _, m = ts.make_train_step(cfg, opt)(state, data.batch(0))
         torch.cuda.synchronize()
     if not math.isfinite(float(m["loss"])):
@@ -5505,6 +5885,223 @@ def phase_train_cell() -> dict:
     return out
 
 
+#: the RWKV-6 training cell: rwkv6-1.6b whole (24 layers, d = 2,048, 32
+#: heads of 64; ~25 GB of fp32 masters, gradients, fp32 sum and two bf16
+#: moments), 8 × 2,048 SyntheticLM tokens in the config's 2 microbatches,
+#: remat, bf16 moments; a warm-up step and 3 timed steps; no checkpoint I/O
+#: (the Qwen3-8B cell keeps the resume check; the wkv6 backward's bitwise
+#: second call, phase 17, stands in for this cell's determinism)
+TRAIN_CELL_RWKV = dict(batch=8, seq=2048, steps=4)
+
+
+def phase_train_cell_rwkv(trace: bool = False) -> dict:
+    """Phase 17d: the RWKV-6 training cell (``TRAIN_CELL_RWKV``).  Each
+    step timed with CUDA events, its launches counted from 0 (the wkv6
+    backward once a layer and microbatch, the forward twice under remat:
+    :func:`wkv6_train_launches`), a finite loss; the memory peak; the
+    backward's calls by shape (``wkv6_shapes``).  With ``trace`` one more
+    step under ``torch.profiler``, its device time by part
+    (:func:`step_breakdown`); :func:`main` leaves it out (~15–20 s of the
+    run's time limit):
+    ``python3 -c "import chip_smoke as c; c.phase_setup();
+    c.phase_train_cell_rwkv(trace=True)"``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.timing import kernel_trace
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    c = TRAIN_CELL_RWKV
+    cfg = get_config(RWKV_ARCH)
+    opt = opt_lib.OptConfig(total_steps=100, moment_dtype=cfg.moment_dtype)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.init_train_state(cfg, opt, SEED, device="cuda")
+    n_params = sum(t.numel() for t in opt_lib.tree_leaves(state["params"]))
+    n_emb = state["params"]["emb"].numel()
+    init_mem = torch.cuda.memory_allocated()
+    step_fn = ts.make_train_step(cfg, opt)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=c["seq"], global_batch=c["batch"],
+                                  seed=SEED), "cuda")
+    want = wkv6_train_launches(cfg)
+    hist = []
+    with BwdShapes(wk, wkv6_bwd_shape) as shapes:
+        for step in range(c["steps"]):
+            batch = data.batch(step)
+            ops.reset_launch_counts()
+            (state, m), ms = timed_once(lambda: step_fn(state, batch))
+            counts = {k: v for k, v in ops.launch_counts.items() if v}
+            hist.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]), "ms": ms,
+                         "launches": counts})
+            if not math.isfinite(hist[-1]["loss"]):
+                fail(f"rwkv train cell step {step + 1}: loss "
+                     f"{hist[-1]['loss']}")
+            got = {k: counts.get(k, 0) for k in want}
+            if got != want:
+                fail(f"rwkv train cell step {step + 1}: wkv6 launches {got}, "
+                     f"expected {want}")
+            log(f"rwkv train cell step {step + 1}: {hist[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    tokens = c["batch"] * c["seq"]
+    flops = 6 * (n_params - n_emb) * tokens
+    out = {"step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+           "model_flops": flops, "mfu": flops / (step_ms / 1e3) / PEAK_BF16,
+           "peak_mem": peak, "init_mem": init_mem, "n_params": n_params,
+           "launches": hist[-1]["launches"], "history": hist,
+           "wkv6_shapes": {k: v // c["steps"]
+                           for k, v in shapes.calls.items()}}
+    log(f"rwkv train cell ({RWKV_ARCH} whole, {cfg.n_layers} layers, "
+        f"{n_params:,} parameters, {c['batch']} x {c['seq']} tokens, "
+        f"{cfg.microbatches} microbatches, remat, bf16 moments): step "
+        f"{step_ms:.1f} ms (median of steps 2-{c['steps']}), "
+        f"{out['tokens_per_s']:.1f} tokens/s, {out['mfu']:.1%} of 989 "
+        f"TFLOP/s (6·N·tokens, N without the embedding table: "
+        f"{flops / 1e12:.1f} TFLOP a step), memory peak {peak:,} B (state "
+        f"{init_mem:,} B); launches a step {out['launches']}; wkv6 backward "
+        f"calls a step by (B, H, T, Dk, Dv) {out['wkv6_shapes']}")
+    if trace:
+        batch = data.batch(c["steps"])
+        out["device"] = step_breakdown(
+            kernel_trace(lambda: step_fn(state, batch), 1), step_ms)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+#: kernel-name substrings of each part of a training step's device time
+STEP_PARTS = (("wkv6 backward", ("wkv6_bwd",)),
+              ("wkv6 forward", ("wkv6_kernel",)),
+              ("matrix products", ("gemm", "nvjet", "xmma", "cutlass")),
+              ("optimizer", ("multi_tensor", "foreach")))
+
+
+def step_breakdown(kernels: dict, step_ms: float) -> dict:
+    """A step's device time from ``torch.profiler`` (:func:`kernel_trace`
+    over one step): ms by part of ``STEP_PARTS`` (the rest "other"), the
+    device's busy and idle share of ``step_ms``, and the ten kernels that
+    take most; logged."""
+    if not kernels:
+        log("  torch.profiler read no device time for the traced step")
+        return {}
+    parts: dict[str, float] = {}
+    total = 0.0
+    for name, k in kernels.items():
+        ms = k["count"] * k["us_per_launch"] / 1e3
+        total += ms
+        part = next((p for p, keys in STEP_PARTS
+                     if any(key in name for key in keys)), "other")
+        parts[part] = parts.get(part, 0.0) + ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1]["count"]
+                 * kv[1]["us_per_launch"])[:10]
+    out = {"device_ms": total, "idle": 1 - total / step_ms, "parts": parts,
+           "top": [(name[:60], k["count"],
+                    k["count"] * k["us_per_launch"] / 1e3)
+                   for name, k in top]}
+    log(f"  a traced step's device time (torch.profiler): {total:.1f} ms of "
+        f"the median step's {step_ms:.1f} ms (idle {out['idle']:.1%}); by "
+        f"part: " + ", ".join(f"{p} {ms:.1f} ms ({ms / total:.1%})"
+                              for p, ms in sorted(parts.items(),
+                                                  key=lambda kv: -kv[1])))
+    for name, n, ms in out["top"]:
+        log(f"    {ms:9.2f} ms  {n:6d} launches  {name}")
+    return out
+
+
+def wkv6_bwd_bound(B, H, T, Dk, Dv, itemsize, dy_itemsize, state_in):
+    """(bound ms, by, fp32-only bound ms) of the wkv6 backward: the bytes
+    of r, k, v and dy read and dr, dk, dv written (``itemsize``,
+    ``dy_itemsize``), w read and dw written (fp32), u read and du written,
+    the fp32 S_0 and dS_T read and dS_0 written where ``state_in``, each
+    moved once, against 14·Dk·Dv + 12·Dk + 4·Dv operations a step and
+    head (the state S_{t−1} (w·S + k·v, 3), S·dy, G·v, G ⊙ S and Gᵀ·k
+    each a product and a sum (8), the update w·G + r·dy (3); the bonus
+    a_t and c_t, the u terms of dr and dk, and du) at the TF32
+    tensor-core rate, as :func:`wkv6_bound`; the fp32-only bound takes
+    them at the fp32 rate."""
+    steps = B * H * T
+    flops = steps * (14 * Dk * Dv + 12 * Dk + 4 * Dv)
+    nbytes = (steps * (2 * (2 * Dk + Dv) * itemsize + Dv * dy_itemsize
+                       + 8 * Dk) + 2 * H * Dk * itemsize
+              + 4 * B * H * Dk * Dv * (3 if state_in else 0))
+    t_tc, t_bytes = flops / PEAK_TF32, nbytes / PEAK_BYTES
+    fp32_only, _ = bound_ms(flops, nbytes)
+    return (1e3 * max(t_tc, t_bytes),
+            "operations" if t_tc >= t_bytes else "bytes", fp32_only)
+
+
+#: (what, B, H, T, Dk, Dv, decay, u = 0) of the wkv6 backward's time rows
+WKV_BWD_SHAPES = [
+    (f"train {RWKV_ARCH}", 4, 32, 2048, 64, 64, "model", False),
+    (f"{HYBRID_ARCH} Mamba scan", 8, 128, 2048, 16, 128, 0.5, True)]
+
+
+def times_wkv6_bwd(parity: dict, cell: dict) -> list[dict]:
+    """The wkv6 backward at rwkv6-1.6b's training microbatch (B = 4, H =
+    32, T = 2,048, Dk = Dv = 64) and at Jamba's scan (B = 8, H = 128, T =
+    2,048, Dk = 16, Dv = 128, u = 0), bf16, from zeros: held against the
+    plain version there (its run, timed once, is the plain time), timed
+    beside the bound (:func:`wkv6_bwd_bound`).  Launches: the cell's a step
+    at rwkv6-1.6b's shape (two a call: the scan and du's sum); at Jamba's
+    the training parity's on the 16 × 128 instantiation (no full-width
+    Jamba trains on one card).  No PyTorch call computes this function
+    (library_ms null)."""
+    import torch
+    from repro_torch import testing
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+    cfg_b = cell["wkv6_shapes"]
+    rows = []
+    for what, B, H, T, Dk, Dv, decay, u_zero in WKV_BWD_SHAPES:
+        args = wkv6_bwd_inputs(B, H, T, Dk, Dv, torch.bfloat16, 41, decay,
+                               True, False, u_zero)
+        got = wk.launch_backward(*args)
+        plain, plain_ms = timed_once(lambda: ref.wkv6_backward(*args))
+        bits = all(torch.equal(a, b) for a, b in zip(got, plain))
+        for name, a, b in zip(WKV_GRADS, got, plain):
+            try:
+                testing.assert_grad_close(a, b, a.dtype,
+                                          f"backward at {what}: {name}",
+                                          testing.WKV_GRAD_TOL)
+            except AssertionError as e:
+                fail(str(e))
+        err = max(testing.max_abs_err(a, b) for a, b in zip(got, plain))
+        del got, plain
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: wk.launch_backward(*args), runs=5)
+        b, by, b32 = wkv6_bwd_bound(B, H, T, Dk, Dv, 2, 2, False)
+        if u_zero:
+            calls = sum(n for (_, _, _, k, v), n in
+                        parity["wkv6_shapes"].items() if (k, v) == (Dk, Dv))
+        else:
+            calls = cfg_b.get((B, H, T, Dk, Dv), 0)
+        share = ""
+        if not u_zero:
+            share = (f"; {calls} calls a training step: "
+                     f"{ms * calls / cell['step_ms']:.1%} of the cell's step "
+                     f"({cell['step_ms']:.1f} ms)")
+        log(f"wkv6 backward {what}: B={B} H={H} T={T} Dk={Dk} Dv={Dv}, bf16"
+            f", {decay} decay{', u = 0' if u_zero else ''}: {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms (the check's run, "
+            f"{'to the bit' if bits else 'within WKV_GRAD_TOL'}), bound "
+            f"{b:.4f} ms by {by} (fp32-only {b32:.4f}){share}")
+        rows.append({"name": f"wkv6 backward ({what})", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+                     "replaces": "src/repro/kernels/wkv6.py:69 (no TPU "
+                                 "backward: jax.grad of src/repro/models/"
+                                 "layers.py:375)",
+                     "launches": 2 * calls, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "bound_fp32_ms": b32, "library_ms": None})
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def train_launches(parity: dict, cell: dict) -> dict:
     """Backward calls a training step at each of ``ATTN_BWD_SHAPES``: the
     cell's step (Qwen3-8B; one dQ launch a call), whisper-tiny's step at
@@ -5531,7 +6128,9 @@ def phase_train_cli(cli=None) -> dict:
     started, else started here), then the launcher's ``main`` with
     ``--resume`` in this process (the step-30 line the same to the digit);
     the select-then-train example at its defaults, in process, its
-    backward launches counted."""
+    backward launches counted; the launcher's ``main`` on RWKV-6
+    (``TRAIN_CLI_RWKV``) in process, its losses finite and the wkv6
+    backward launched."""
     import contextlib
     import io
     import shutil
@@ -5573,7 +6172,22 @@ def phase_train_cli(cli=None) -> dict:
     log(f"example train_lm_with_selection at its defaults: wall {wall:.1f} "
         f"s, backward launches {counts}; the CLI resumed to the same "
         f"step-30 line")
-    return {"example_wall": wall, "example_launches": counts}
+    ops.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = launch_train.main(TRAIN_CLI_RWKV)
+    torch.cuda.synchronize()
+    wkv = {k: ops.launch_counts[k] for k in WKV_BWD}
+    losses = [m["loss"] for m in res["metrics"]]
+    if len(losses) != 10 or not all(map(math.isfinite, losses)) \
+            or min(wkv.values()) < 1:
+        fail(f"repro_torch.launch.train {' '.join(TRAIN_CLI_RWKV)}: losses "
+             f"{losses}, wkv6 backward launches {wkv}")
+    for line in out.getvalue().splitlines():
+        log(f"  repro_torch.launch.train {' '.join(TRAIN_CLI_RWKV)}: {line}")
+    log(f"  wkv6 backward launches in its 10 steps: {wkv}")
+    return {"example_wall": wall, "example_launches": counts,
+            "rwkv_cli_launches": wkv}
 
 
 def phase_rwkv_chunked() -> dict:
@@ -5626,7 +6240,7 @@ def main() -> None:
     for fn in (phase_kernels, phase_kernels_constrained, phase_kernels_rbf,
                phase_kernels_weighted, phase_kernels_narrow,
                phase_kernels_attention, phase_kernels_attention_bwd,
-               phase_kernels_wkv6):
+               phase_kernels_wkv6, phase_kernels_wkv6_bwd):
         timed(fn.__name__, fn)
     timed("lm_parity", phase_lm_parity)
     serve = timed("lm_serve", phase_lm_serve)
@@ -5648,8 +6262,10 @@ def main() -> None:
     parity = timed("train_parity", phase_train_parity)
     cell = timed("train_cell", phase_train_cell)
     timed("train_cli", phase_train_cli, cell.pop("cli"))
+    rwkv_cell = timed("train_cell_rwkv", phase_train_cell_rwkv)
     attn_rows += timed("train_times", times_attention_bwd,
                        train_launches(parity, cell), cell)
+    wkv_rows += timed("train_times", times_wkv6_bwd, parity, rwkv_cell)
     scan = timed("scan", phase_scan)
     main_path = timed("main", phase_main)
     constrained = timed("constrained", phase_constrained, main_path)

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("exemplar_gains", "greedy_select", "threshold_select",
            "rbf_kernel", "flash_attention", "flash_attention_bwd", "wkv6",
-           "wkv6_decode", "wkv6_chunked")
+           "wkv6_decode", "wkv6_chunked", "wkv6_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,6 +67,9 @@ ARGTYPES = {
     "wkv6_decode_launch": [_P] * 8 + [_LL] * 10 + [_I] * 7 + [_P],
     "wkv6_chunked_launch": [_P] * 11 + [_LL] * 15 + [_I] * 8 + [_P],
     "wkv6_chunked_smem": [_I],
+    "wkv6_bwd_launch": [_P] * 17 + [_I] * 11 + [_P],
+    "wkv6_bwd_chunk": [_I, _I, _I],
+    "wkv6_bwd_smem": [_I, _I, _I],
 }
 #: entry points that return a size rather than an error code
 RESTYPES = {"exemplar_tile_smem": _LL, "greedy_select_grid": _LL}
@@ -91,12 +94,13 @@ RESTYPES = {"exemplar_tile_smem": _LL, "greedy_select_grid": _LL}
 #: _dq_wgmma); wkv6's
 #: decode kernel's launches (wkv6_decode), its recurrent kernel's
 #: (wkv6_recurrent), every call of
-#: T > 1 on either prefill kernel (wkv6_prefill) and the chunked kernel's
-#: launches (three a call, wkv6_chunked).  The three gain-tile
-#: kernels' launches on narrow rows or with the bf16 x·e contraction are
-#: counted once more under <kernel>_bf16 (bf16 rows), <kernel>_q8 (int8
-#: rows with scale and zero-point) and <kernel>_bf16dot (threshold_select:
-#: its heads)
+#: T > 1 on either prefill kernel (wkv6_prefill), the chunked kernel's
+#: launches (three a call, wkv6_chunked) and its backward's (wkv6_bwd, the
+#: scan, and wkv6_bwd_du, the sum of du over b: one each a call).  The
+#: three gain-tile kernels' launches on narrow rows or with the bf16 x·e
+#: contraction are counted once more under <kernel>_bf16 (bf16 rows),
+#: <kernel>_q8 (int8 rows with scale and zero-point) and <kernel>_bf16dot
+#: (threshold_select: its heads)
 launch_counts: dict[str, int] = {
     name: 0 for name in (
         "exemplar_gains", "exemplar_gains_weighted", "exemplar_gains_bf16",
@@ -113,7 +117,8 @@ launch_counts: dict[str, int] = {
         "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
         "flash_attention_bwd_dq", "flash_attention_bwd_dkdv_wgmma",
         "flash_attention_bwd_dq_wgmma",
-        "wkv6_prefill", "wkv6_decode", "wkv6_recurrent", "wkv6_chunked")}
+        "wkv6_prefill", "wkv6_decode", "wkv6_recurrent", "wkv6_chunked",
+        "wkv6_bwd", "wkv6_bwd_du")}
 #: ptxas register/shared-memory report of each library built in this process
 build_log: dict[str, str] = {}
 #: wall seconds from the start of a build to the end of each library's nvcc

@@ -61,9 +61,13 @@ versions, differentiated by autograd.  On the card, where the kernels
 write raw memory, each is a ``torch.autograd.Function``: while grad is
 enabled and an operand requires it, ``flash_attention``'s forward saves
 q, k, v, its output and the log-sum-exp, and its backward launches the
-hand-written backward (``flash_attention.launch_backward``);
-``wkv6``'s backward raises ``NotImplementedError`` (its kernel is ROADMAP
-item 14a), so no gradient is ever dropped silently.
+hand-written backward (``flash_attention.launch_backward``); ``wkv6``'s
+forward saves r, k, v, w, u and the state it read (not the per-step
+states: under remat the forward runs again anyway), and its backward
+launches the hand-written backward (``wkv6.launch_backward``), returning a
+gradient for each input that requires one.  A kernel that fails to build
+or launch raises: no gradient falls back to the plain version or is
+dropped silently.
 
 """
 from __future__ import annotations
@@ -180,27 +184,31 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-#: the ROADMAP item that ports wkv6's backward
-WKV6_BACKWARD_ITEM = ("ROADMAP item 14a, the wkv6 backward kernel (RWKV-6 "
-                      "and hybrid training)")
-
-
 class _Wkv6(torch.autograd.Function):
-    """The card's wkv6, whose backward is not written yet: it raises."""
+    """The card's wkv6 with its hand-written backward."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state, state_out, out_dtype):
         if state_out is not None:
             ctx.mark_dirty(state_out)
+            if state is not None and state_out.data_ptr() == state.data_ptr():
+                # written in place below: keep the state the step read
+                state = state.clone()
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state)
         return _wkv.launch(r, k, v, w, u, state, state_out=state_out,
                            out_dtype=out_dtype)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "wkv6 on the card has no backward kernel yet: "
-            f"{WKV6_BACKWARD_ITEM}; train RWKV-6 and the hybrid on the CPU "
-            "(device='cpu') until then")
+    def backward(ctx, dy, d_state):
+        r, k, v, w, u, state = ctx.saved_tensors
+        if dy is None and d_state is None:
+            return (None,) * 8
+        if dy is None:
+            dy = torch.zeros(v.shape, dtype=r.dtype, device=r.device)
+        grads = _wkv.launch_backward(r, k, v, w, u, state, dy, d_state)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad[:6])) + (None, None)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

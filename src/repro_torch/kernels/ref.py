@@ -758,3 +758,138 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         y[:, :, t] = part + vt * bonus[:, :, t, None]
         S = w32[:, :, t, :, None] * S + k32[:, :, t, :, None] * vt[:, :, None]
     return y.to(out_dtype or r.dtype), S
+
+
+def wkv6_bwd_tile(Dk: int, Dv: int) -> tuple[int, int, int]:
+    """``(DKP, CPT, TC)`` of the ``wkv6`` backward kernel's instantiation
+    (``csrc/wkv6_bwd.cu``) for a ``(Dk, Dv)`` state: rows padded to DKP
+    (16 or 64) and columns to DVP = CPT·TC (16, 64 or 128); TC lanes share
+    a row, CPT columns each, so a warp holds 32 / TC rows.  The wrapper
+    passes it to the kernel, and :func:`wkv6_backward` sums in its order.
+    A state past Dk = 64 or Dv = 128 raises ``ValueError``."""
+    if not (0 < Dk <= 64 and 0 < Dv <= 128):
+        raise ValueError(f"wkv6 backward: Dk={Dk}, Dv={Dv}: it takes "
+                         "Dk <= 64 and Dv <= 128")
+    cpt, tc = (4, 4) if Dv <= 16 else (16, 4) if Dv <= 64 else (16, 8)
+    return (16 if Dk <= 16 else 64), cpt, tc
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  state: torch.Tensor | None, dy: torch.Tensor,
+                  d_state_out: torch.Tensor | None = None, *,
+                  chunk: int = 64) -> tuple[torch.Tensor, ...]:
+    """The gradients ``(dr, dk, dv, dw, du, d_state)`` of :func:`wkv6` at
+    ``(r, k, v, w, u, state)`` for ``dy`` ``(B, H, T, Dv)``, the output's
+    gradient, and ``d_state_out``, the final state's (zeros when None).
+
+    A reverse scan from t = T − 1 down to 0 carrying G = ∂L/∂S_t (fp32;
+    ``d_state_out`` at the start), with ``c_t = v_t·dy_t`` and the forward's
+    bonus ``a_t = r_t·(u ⊙ k_t)``::
+
+        dr_t = S_{t−1}·dy_t + c_t (u ⊙ k_t)      dk_t = G v_t + c_t (u ⊙ r_t)
+        dv_t = Gᵀ k_t + a_t dy_t                  dw_t = Σ_j G[:, j] S_{t−1}[:, j]
+        du  += c_t (r_t ⊙ k_t)                    G ← diag(w_t) G + r_tᵀ dy_t
+
+    and after step 0, ``d_state = G``.  ``S_{t−1}`` is recomputed forward
+    from a state kept every ``chunk`` steps (the bits do not depend on
+    ``chunk``).  Returns dr, dk, dv in r's type, dw in w's, du in u's and
+    d_state fp32 (float64 inputs compute in float64 throughout: the
+    error model of ``testing.WKV_GRAD_TOL``).
+
+    The arithmetic is the CUDA kernel's, operation for operation, so the
+    two agree to the bit: the state padded to DKP × DVP
+    (:func:`wkv6_bwd_tile`); a sum over columns as TC lanes each adding its
+    CPT columns in order, then a pairwise tree over the lanes; a sum over
+    rows (Gᵀ k) as a tree over the 32 / TC rows of a warp, then the warps
+    in order; ``a_t`` and ``c_t`` as 32 lanes then a tree; du over t from
+    T − 1 down, then over b in order; every product rounded before its add
+    (no fused multiply-add).  The model path never calls it: on the card
+    ``ops.wkv6``'s backward launches the kernel."""
+    B, H, T, Dk = r.shape
+    Dv = v.shape[-1]
+    DKP, CPT, TC = wkv6_bwd_tile(Dk, Dv)
+    DVP, RPW = CPT * TC, WKV_WARP // TC
+    NW = DKP // RPW
+    acc = torch.float64 if r.dtype == torch.float64 else torch.float32
+    dev = r.device
+
+    def pad(x, n):
+        x = x.to(acc)
+        return torch.cat([x, x.new_zeros(x.shape[:-1] + (n - x.shape[-1],))],
+                         dim=-1)
+
+    def square(s):
+        out = torch.zeros((B, H, DKP, DVP), dtype=acc, device=dev)
+        if s is not None:
+            out[:, :, :Dk, :Dv] = s.to(acc)
+        return out
+
+    def rows(x):
+        """(..., DKP, DVP) summed over the columns in the kernel's order."""
+        x = x.reshape(x.shape[:-1] + (TC, CPT))
+        s = x[..., 0]
+        for c in range(1, CPT):
+            s = s + x[..., c]
+        return _lane_tree(s, -1)
+
+    def cols(x):
+        """(..., DKP, DVP) summed over the rows in the kernel's order."""
+        x = _lane_tree(x.reshape(x.shape[:-2] + (NW, RPW, DVP)), -2)
+        s = x[..., 0, :]
+        for i in range(1, NW):
+            s = s + x[..., i, :]
+        return s
+
+    r32, k32, w32 = pad(r, DKP), pad(k, DKP), pad(w, DKP)
+    v32, dy32 = pad(v, DVP), pad(dy, DVP)
+    u32 = pad(u, DKP)[None, :, None, :]                     # (1, H, 1, DKP)
+    a = _lane_tree(_slab_sum(r32 * u32 * k32, WKV_WARP, -1), -1)  # (B, H, T)
+    c = _lane_tree(_slab_sum(v32 * dy32, WKV_WARP, -1), -1)
+
+    def step(S, t):
+        return (w32[:, :, t, :, None] * S
+                + k32[:, :, t, :, None] * v32[:, :, t, None, :])
+
+    S = square(state)
+    kept = []
+    for t in range(T):
+        if t % chunk == 0:
+            kept.append(S)
+        S = step(S, t)
+    G = square(d_state_out)
+    dr, dk, dw = (torch.empty((B, H, T, DKP), dtype=acc, device=dev)
+                  for _ in range(3))
+    dv = torch.empty((B, H, T, DVP), dtype=acc, device=dev)
+    for i in reversed(range(len(kept))):
+        t0, t1 = i * chunk, min(T, (i + 1) * chunk)
+        S, prev = kept[i], []
+        for t in range(t0, t1):
+            prev.append(S)
+            S = step(S, t)
+        Gs = [None] * (t1 - t0)
+        for t in reversed(range(t0, t1)):
+            Gs[t - t0] = G
+            G = (w32[:, :, t, :, None] * G
+                 + r32[:, :, t, :, None] * dy32[:, :, t, None, :])
+        Sp, Gt = torch.stack(prev, 2), torch.stack(Gs, 2)  # (B, H, L, ...)
+        sl = slice(t0, t1)
+        ct = c[:, :, sl, None]
+        dr[:, :, sl] = (rows(Sp * dy32[:, :, sl, None, :])
+                        + ct * (u32 * k32[:, :, sl]))
+        dk[:, :, sl] = (rows(Gt * v32[:, :, sl, None, :])
+                        + ct * (u32 * r32[:, :, sl]))
+        dw[:, :, sl] = rows(Gt * Sp)
+        dv[:, :, sl] = (cols(Gt * k32[:, :, sl, :, None])
+                        + a[:, :, sl, None] * dy32[:, :, sl])
+        del prev, Gs, Sp, Gt
+    p = c[..., None] * (r32 * k32)                          # (B, H, T, DKP)
+    du_b = torch.zeros((B, H, DKP), dtype=acc, device=dev)
+    for t in reversed(range(T)):
+        du_b = du_b + p[:, :, t]
+    du = du_b[0]
+    for b in range(1, B):
+        du = du + du_b[b]
+    return (dr[..., :Dk].to(r.dtype), dk[..., :Dk].to(r.dtype),
+            dv[..., :Dv].to(r.dtype), dw[..., :Dk].to(w.dtype),
+            du[:, :Dk].to(u.dtype), G[:, :, :Dk, :Dv].contiguous())

@@ -62,11 +62,14 @@ The plain version is :func:`repro_torch.kernels.ref.wkv6`; the dispatch in
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import _bhs
 from repro_torch.kernels.ref import wkv6 as plain  # noqa: F401
+from repro_torch.kernels.ref import wkv6_bwd_tile
 
 MAX_DK = 64          # the largest instantiation of csrc/wkv6.cu and
                      # csrc/wkv6_decode.cu
@@ -86,10 +89,8 @@ def _state(s, shape, device, what: str):
     return s
 
 
-def _operands(r, k, v, w, u, state, state_out, out_dtype):
-    """Check a call; returns (shape (B, H, T, Dk, Dv), state, state_out —
-    allocated when not given —, y (B, H, T, Dv) as a view of (B, T, H,
-    Dv))."""
+def _shape(r, k, v, w, u) -> tuple[int, int, int, int, int]:
+    """Check the operands of a call; returns (B, H, T, Dk, Dv)."""
     dev = r.device
     if (dev.type != "cuda" or any(t.device != dev for t in (k, v, w, u))
             or r.dim() != 4 or v.dim() != 4 or r.dtype not in _OPERANDS
@@ -117,6 +118,15 @@ def _operands(r, k, v, w, u, state, state_out, out_dtype):
                          f"{per16} (16-byte rows)")
     if not (0 < B <= _GRID_YZ and 0 < H <= _GRID_YZ and T > 0):
         raise ValueError(f"wkv6 kernel: unsupported shape B={B} H={H} T={T}")
+    return B, H, T, Dk, Dv
+
+
+def _operands(r, k, v, w, u, state, state_out, out_dtype):
+    """Check a call; returns (shape (B, H, T, Dk, Dv), state, state_out —
+    allocated when not given —, y (B, H, T, Dv) as a view of (B, T, H,
+    Dv))."""
+    B, H, T, Dk, Dv = _shape(r, k, v, w, u)
+    dev = r.device
     if out_dtype not in (None, r.dtype, torch.float32):
         raise ValueError(f"wkv6 kernel: y in {out_dtype}: it writes r's "
                          "type or fp32")
@@ -238,6 +248,82 @@ def launch_chunked(r, k, v, w, u, state=None, *, state_out=None,
         _build.launch_counts["wkv6_prefill"] += 1
     _build.launch_counts["wkv6_chunked"] += 3
     return y, state_out
+
+
+def launch_backward(r, k, v, w, u, state, dy, d_state_out=None
+                    ) -> tuple[torch.Tensor, ...]:
+    """``(dr, dk, dv, dw, du, d_state)`` of :func:`launch`'s function at
+    ``(r, k, v, w, u, state)`` for the output's gradient ``dy`` ``(B, H, T,
+    Dv)`` (fp32 or r's type) and the final state's ``d_state_out`` (zeros
+    when None), on the backward kernel (``csrc/wkv6_bwd.cu``), Dk ≤ 64 and
+    Dv ≤ 128.  dr, dk, dv in r's type and dw fp32, each allocated ``(B, T,
+    H, D)`` in memory and returned as its ``(B, H, T, D)`` view (the
+    model's layout); du ``(H, Dk)`` in u's type; d_state ``(B, H, Dk,
+    Dv)`` fp32.  Two launches (the scan, then du's sum over b) and fp32
+    scratch of ``(B, H, ⌈T/C⌉)`` states (:func:`backward_chunk`)."""
+    B, H, T, Dk, Dv = _shape(r, k, v, w, u)
+    dkp, cpt, tc = wkv6_bwd_tile(Dk, Dv)
+    dev = r.device
+    state = _state(state, (B, H, Dk, Dv), dev, "state")
+    if (dy.device != dev or tuple(dy.shape) != (B, H, T, Dv)
+            or dy.dtype not in (r.dtype, torch.float32)):
+        raise ValueError(f"wkv6 backward: dy {dy.dtype} {tuple(dy.shape)} "
+                         f"on {dy.device}: it takes (B, H, T, Dv) = "
+                         f"{(B, H, T, Dv)} in {r.dtype} or fp32 on {dev}")
+    if d_state_out is not None:
+        if (d_state_out.device != dev or d_state_out.dtype != torch.float32
+                or tuple(d_state_out.shape) != (B, H, Dk, Dv)):
+            raise ValueError(f"wkv6 backward: d_state_out "
+                             f"{d_state_out.dtype} "
+                             f"{tuple(d_state_out.shape)}: it takes fp32 "
+                             f"{(B, H, Dk, Dv)} on {dev}")
+        d_state_out = d_state_out.contiguous()
+    lib = _build.load("wkv6_bwd")
+    nc = -(-T // int(lib.wkv6_bwd_chunk(dkp, cpt, tc)))
+
+    def out(D, dtype):
+        return torch.empty((B, T, H, D), dtype=dtype,
+                           device=dev).transpose(1, 2)
+
+    dr, dk, dv = out(Dk, r.dtype), out(Dk, r.dtype), out(Dv, r.dtype)
+    dw = out(Dk, torch.float32)
+    du = torch.empty((H, Dk), dtype=u.dtype, device=dev)
+    d_state = torch.empty((B, H, Dk, Dv), dtype=torch.float32, device=dev)
+    dup = torch.empty((B, H, Dk), dtype=torch.float32, device=dev)
+    ck = torch.empty((B, H, nc, dkp * cpt * tc), dtype=torch.float32,
+                     device=dev)
+    ops = [_bhs(t) for t in (r, k, v, w, dy)]
+    strides = [s for _, *st in ops for s in st]
+    for t in (dr, dk, dv, dw):
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    (r, k, v, w, dy) = (t for t, *_ in ops)
+    u = u.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(lib.wkv6_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        0 if state is None else state.data_ptr(), dy.data_ptr(),
+        0 if d_state_out is None else d_state_out.data_ptr(), dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        d_state.data_ptr(), dup.data_ptr(), ck.data_ptr(),
+        (ctypes.c_longlong * len(strides))(*strides), B, H, T, Dk, Dv, dkp,
+        cpt, tc, int(r.dtype == torch.bfloat16),
+        int(u.dtype == torch.bfloat16), int(dy.dtype == torch.bfloat16),
+        stream), "wkv6 backward")
+    _build.launch_counts["wkv6_bwd"] += 1
+    _build.launch_counts["wkv6_bwd_du"] += 1
+    return dr, dk, dv, dw, du, d_state
+
+
+def backward_chunk(Dk: int, Dv: int) -> int:
+    """Steps between the backward kernel's kept states at a ``(Dk, Dv)``
+    state, read from the built kernel."""
+    return int(_build.load("wkv6_bwd").wkv6_bwd_chunk(*wkv6_bwd_tile(Dk, Dv)))
+
+
+def backward_smem_bytes(Dk: int, Dv: int) -> int:
+    """Dynamic shared memory of one backward CTA, read from the built
+    kernel."""
+    return int(_build.load("wkv6_bwd").wkv6_bwd_smem(*wkv6_bwd_tile(Dk, Dv)))
 
 
 def smem_bytes(Dk: int, bf16: bool) -> int:

@@ -15,9 +15,9 @@ Batches are a function of (seed, step) and a step a function of its state
 and batch to the bit, so a run resumed from a step checkpoint (every 25
 steps, the last 3 kept) equals the uninterrupted run.  ``--use-mesh`` and
 ``--multi-pod`` (the production mesh, tensor- and data-parallel) are not
-ported: they raise ``NotImplementedError`` (ROADMAP item 15).  On the card
-RWKV-6 and the hybrid raise ``NotImplementedError`` at their first
-backward (no ``wkv6`` backward kernel yet).
+ported: they raise ``NotImplementedError`` (ROADMAP item 15).  Every
+family trains on the card, RWKV-6 and the hybrid on the ``wkv6`` backward
+kernel.
 """
 from __future__ import annotations
 

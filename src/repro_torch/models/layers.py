@@ -568,7 +568,9 @@ def gla_chunked(r, k, v, w_log, u=None, *, chunk: int = 64, state_out=None):
     ``state_out`` when given.
 
     It runs the recurrence through :func:`repro_torch.kernels.ops.wkv6`
-    (u = 0 where None, which gives ``r_t S_{t-1}`` exactly), over any T.
+    (u = 0 where None, which gives ``r_t S_{t-1}`` exactly, and takes no
+    gradient), over any T; on the card its gradient comes from the
+    ``wkv6`` backward kernel.
     The JAX function's chunked form is a TPU adaptation that clips its
     decay factorisation at exp(±30) from each chunk's start, and parts
     from the recurrence where the decay is strong (ROADMAP queue 3);

@@ -44,8 +44,10 @@ def device_ms(fn, runs: int, warmup: int = 1) -> float:
 
 def kernel_trace(fn, runs: int) -> dict:
     """Launches and device microseconds per launch of each kernel name over
-    ``runs`` calls of ``fn``."""
+    ``runs`` calls of ``fn`` (the device's events only: the host ops that
+    launched them carry the same device time and are left out)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -57,7 +59,7 @@ def kernel_trace(fn, runs: int) -> dict:
     for e in prof.key_averages():
         dev = getattr(e, "self_device_time_total",
                       getattr(e, "self_cuda_time_total", 0))
-        if dev > 0 and e.count:
+        if dev > 0 and e.count and e.device_type != DeviceType.CPU:
             kernels[e.key] = {"count": e.count,
                               "us_per_launch": dev / e.count}
     return kernels

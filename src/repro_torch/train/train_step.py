@@ -8,9 +8,9 @@ runs on ``layers.serving_view`` of them — the casts the JAX package makes
 at every call — so their gradients come back through the casts in fp32.
 Each layer runs under ``layers.run_layer`` (``cfg.remat``).
 
-On the card attention's gradients come from the hand-written backward
-(``ops.flash_attention``); ``wkv6`` has no backward kernel yet, so RWKV-6
-and the hybrid raise ``NotImplementedError`` there at the backward.  The
+On the card attention's and ``wkv6``'s gradients come from their
+hand-written backward kernels (``ops.flash_attention``, ``ops.wkv6``), so
+every family trains there, RWKV-6 and the hybrid included.  The
 embedding's gradient is summed by ``F.embedding``'s backward
 (``layers.embed``), whose CUDA kernel sums each row in a fixed order, and
 no other op of the path accumulates with atomics: a step is a function of

@@ -198,6 +198,7 @@ def test_launch_counts_untouched_by_plain_path():
     ops.wkv6(q, q, q, q, q[0, :, 0])
     ops.wkv6(q[:, :, :1], q[:, :, :1], q[:, :, :1], q[:, :, :1], q[0, :, 0],
              torch.zeros((1, 2, 16, 16)))
+    ops.wkv6(qg, q, q, q, q[0, :, 0])[0].sum().backward()
     Xq = torch.from_numpy(X).to(torch.int8)
     ones = torch.ones((2, 20))
     ops.greedy_select(Xq, torch.from_numpy(E), torch.ones(7),
@@ -222,7 +223,8 @@ def test_launch_counts_untouched_by_plain_path():
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv_wgmma": 0,
         "flash_attention_bwd_dq_wgmma": 0,
         "wkv6_prefill": 0, "wkv6_decode": 0,
-        "wkv6_recurrent": 0, "wkv6_chunked": 0}
+        "wkv6_recurrent": 0, "wkv6_chunked": 0, "wkv6_bwd": 0,
+        "wkv6_bwd_du": 0}
 
 
 @pytest.mark.parametrize("M,n,m,d", [(1, 300, 70, 6), (7, 333, 130, 17),

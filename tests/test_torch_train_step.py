@@ -98,10 +98,20 @@ def test_every_parameter_has_a_gradient_on_card(cuda, arch):  # noqa: F811
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
-def test_recurrent_families_refused_on_card(cuda, arch):  # noqa: F811
+def test_recurrent_families_train_on_card(cuda, arch):  # noqa: F811
+    """On the card RWKV-6's and the hybrid's wkv6 gradients come from the
+    hand-written backward: after a step every master has a non-zero
+    gradient, and the backward launched."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
     cfg = get_config(arch).reduced()
     opt = topt.OptConfig()
     state = tts.init_train_state(cfg, opt, 0, device=cuda)
-    tokens = torch.zeros((2, 16), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="wkv6"):
-        tts.make_train_step(cfg, opt)(state, {"tokens": tokens})
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                  global_batch=2, d_model=cfg.d_model), cuda)
+    ops.reset_launch_counts()
+    grads = []
+    tts.make_train_step(cfg, opt)(state, data.batch(0), keep_grads=grads)
+    torch.cuda.synchronize()
+    assert grads and all(bool(torch.any(g != 0)) for g in grads)
+    assert ops.launch_counts["wkv6_bwd"] > 0
