@@ -126,16 +126,21 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    in both types, a given state in place) equal to the plain version and
    to the recurrent kernel with ``torch.equal``, counted under
    wkv6_decode, ptxas's registers and spills of the decode kernel; then
-   the wkv6 backward (``csrc/wkv6_bwd.cu``) against the plain version
-   (``ref.wkv6_backward``, the kernel's order of sums) in 57 cases: fp32
+   the wkv6 backward against the plain version (``ref.wkv6_backward``,
+   the recurrence's order of sums) in 65 cases, each on the route
+   ``wkv6.bwd_route`` names (the model's states on the chunked kernel,
+   ``csrc/wkv6_bwd_chunked.cu``; the rest on the recurrent one,
+   ``csrc/wkv6_bwd.cu``), held to that route's launch counters: fp32
    and bf16, Dk = Dv ∈ {16, 64}, Jamba's 16 × 128 scan with u = 0, Dk ≠
-   Dv both ways, B × H = 1 and 256, T = 1, T on and past a chunk
-   boundary, ragged T and T = 2,100, every decay,
+   Dv both ways, B × H = 1 and 256, T = 1, T on and past either kernel's
+   chunk boundary, ragged T and T = 2,100, every decay,
    strided views, from zeros and from S_0 with dS_T, dy in fp32; each to
-   the bit where it agrees so (counted), else within
-   ``testing.WKV_GRAD_TOL``, a second call to the bit, at T ≤ 100 also
-   against autograd of ``ref.wkv6``; the shapes it does not take raise;
-   ptxas's registers and spills of its instantiations;
+   the bit where it agrees so (counted; the recurrent kernel), else
+   within ``testing.WKV_GRAD_TOL``, a second call to the bit, at T ≤ 100
+   also against autograd of ``ref.wkv6`` (and the recurrent kernel at
+   the chunked cases' states to the bit); the shapes neither takes
+   raise; ptxas's registers and spills of their instantiations; the HMMA
+   in the chunked library's SASS;
 11. RWKV parity — rwkv6-1.6b at full width and 2 layers, card against the
    CPU's plain path, as phase 8;
 12. RWKV serving — rwkv6-1.6b at full width, 12 of its 24 layers
@@ -209,9 +214,11 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    CPU's plain path (Qwen3-8B and rwkv6-1.6b at full width and 2 layers
    in bf16, rwkv6-1.6b's once more in fp32, the MoE, VLM,
    encoder-decoder, RWKV-6 and hybrid families at ``reduced()`` in fp32,
-   the hybrid also at Jamba's 16 × 128 scan tile): loss, grad_norm, lr,
-   every gradient (none missing), the update and moments, the wkv6
-   backward once a layer and microbatch; whisper-tiny whole for a step;
+   the hybrid also at Jamba's 16 × 128 scan tile, there against the same
+   step on the card with the plain backward within the fp32 bound and
+   twice to the bit): loss, grad_norm, lr, every gradient (none
+   missing), the update and moments, the wkv6 backward once a layer and
+   microbatch on its route's kernels; whisper-tiny whole for a step;
    the training cell (Qwen3-8B at full width, 4 of 36 layers, 8 ×
    2,048 tokens in 8 microbatches, remat, bf16 moments): step time,
    tokens/s, share of the bf16 peak, memory peak, launches a step, a
@@ -224,8 +231,8 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    tokens/s, share of the bf16 peak, memory peak, launches a step; the
    attention backward timed at the training shapes beside its bound, its
    plain version and SDPA's backward, and the wkv6 backward at
-   rwkv6-1.6b's training microbatch and Jamba's scan beside its bound
-   and plain version.
+   rwkv6-1.6b's training microbatch and Jamba's scan, on both routes,
+   beside its bound and plain version.
 
 Ends with one JSON line per kernel table and the ``ok`` line.  Imports
 nothing of the JAX package.
@@ -5008,9 +5015,10 @@ def wkv6_bwd_cases() -> list[tuple]:
     :func:`phase_kernels_wkv6_bwd`: rwkv6-1.6b's head (Dk = Dv = 64) and
     ``reduced()``'s (16), Jamba's scan (Dk = 16, Dv = 128, u = 0), Dk ≠ Dv
     both ways, the narrowest rows, B × H = 1 and 256, T = 1, T on a chunk
-    boundary (16 = 2 chunks of 8 at 64 × 64) and one past it (33 at 16 ×
-    16, chunks of 32), ragged T and T = 2,100, each decay, strided views
-    and contiguous; fp32 and bf16."""
+    boundary and one past it (the recurrent kernel's: 16 = 2 chunks of 8
+    at 64 × 64, 33 at 16 × 16, chunks of 32; the chunked kernel's: 64 at
+    64 × 64, 65 at 16 × 128), ragged T and T = 2,100, each decay, strided
+    views and contiguous; fp32 and bf16."""
     import torch
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -5026,6 +5034,8 @@ def wkv6_bwd_cases() -> list[tuple]:
             (1, 2, 1, 64, 64, "fast", True, False),
             (2, 2, 16, 64, 64, "model", True, False),
             (1, 2, 33, 16, 16, "fast", True, False),
+            (2, 2, 64, 64, 64, "model", True, False),
+            (1, 2, 65, 16, 128, "fast", False, False),
             (2, 4, 2100, 64, 64, "model", True, False))]
         cases += [(dtype, 2, 3, 300, 64, 64, decay, True, False)
                   for decay in (0.5, 0.05, 1e-6)]
@@ -5059,38 +5069,51 @@ WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "d_state")
 
 
 def phase_kernels_wkv6_bwd() -> None:
-    """The wkv6 backward (``csrc/wkv6_bwd.cu``) on the card against the
-    plain version (``ref.wkv6_backward``, which repeats its order): every
-    case of :func:`wkv6_bwd_cases` from zeros and from a given S_0 with a
-    given dS_T, and one bf16 case with dy in fp32 (the decode output's
-    type).  Each case: the six gradients to the bit of the plain version
-    where they agree so (counted), else within ``testing.WKV_GRAD_TOL``;
-    a second call equal to the first to the bit; one launch of each of
-    its two kernels; the types and shapes of the gradients.  At T ≤ 100
-    also against autograd of the plain forward (``ref.wkv6``), within
-    ``WKV_GRAD_TOL``.  Then the shapes it does not take raise, and
-    ptxas's registers and spills of each instantiation."""
+    """The wkv6 backward on the card against the plain version
+    (``ref.wkv6_backward``, the recurrence's order): every case of
+    :func:`wkv6_bwd_cases` from zeros and from a given S_0 with a given
+    dS_T, and one bf16 case with dy in fp32 (the decode output's type),
+    each through ``wkv6.launch_backward`` on the route ``wkv6.bwd_route``
+    names: the chunked kernel (``csrc/wkv6_bwd_chunked.cu``) for the
+    model's states (64 × 64, 16 × 16, 16 × 128), the recurrent kernel
+    (``csrc/wkv6_bwd.cu``) for the rest.  Each case: its launches those of
+    its route and no other (three chunked launches and a du sum, or a scan
+    and a du sum), the cases counted by route; the six gradients to the
+    bit of the plain version where they agree so (counted; the recurrent
+    kernel repeats its order), else within ``testing.WKV_GRAD_TOL``; a
+    second call equal to the first to the bit; the types and shapes of the
+    gradients.  At T ≤ 100 also against autograd of the plain forward
+    (``ref.wkv6``), within ``WKV_GRAD_TOL``, and on the chunked route the
+    recurrent kernel at the same state to the bit of the plain version.
+    Then the shapes neither takes raise; ptxas's registers and spills of
+    each instantiation of both; the HMMA (mma.sync) instructions in the
+    chunked library's SASS (none fails the phase, where cuobjdump
+    exists)."""
     import torch
     from repro_torch import testing
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import wkv6 as wk
-    n = same = n_autograd = 0
+    n = same = n_autograd = n_rec = 0
+    by_route: dict[str, int] = {}
     worst: dict[str, float] = {}
     worst_autograd: dict[str, float] = {}
     seed = 300
 
     def grads(args):
+        r, v = args[0], args[2]
+        route = wk.bwd_route(r.shape[2], r.shape[3], v.shape[3], r.dtype)
         ops.reset_launch_counts()
         out = wk.launch_backward(*args)
         torch.cuda.synchronize()
-        counts = {key: ops.launch_counts[key]
-                  for key in ("wkv6_bwd", "wkv6_bwd_du")}
-        if counts != {"wkv6_bwd": 1, "wkv6_bwd_du": 1}:
-            fail(f"wkv6 backward: launches {counts}")
-        return out
+        counts = {key: ops.launch_counts[key] for key in WKV_BWD_ALL}
+        want = WKV_BWD_ROUTE_LAUNCHES[route]
+        if counts != want:
+            fail(f"wkv6 backward on the {route} route: launches {counts}, "
+                 f"expected {want}")
+        return out, route
 
     def check(case, given, dy_dtype=None):
-        nonlocal n, same, n_autograd, seed
+        nonlocal n, same, n_autograd, n_rec, seed
         dtype, B, H, T, Dk, Dv, decay, strided, u_zero = case
         seed += 1
         args = wkv6_bwd_inputs(B, H, T, Dk, Dv, dtype, seed, decay, strided,
@@ -5099,7 +5122,8 @@ def phase_kernels_wkv6_bwd() -> None:
         what = (f"wkv6 backward {dtype} B={B} H={H} T={T} Dk={Dk} Dv={Dv} "
                 f"{decay} strided={strided} state={given} u=0 {u_zero} "
                 f"dy {dy.dtype}")
-        got = grads(args)
+        got, route = grads(args)
+        by_route[route] = by_route.get(route, 0) + 1
         want = ref.wkv6_backward(*args)
         types = (dtype, dtype, dtype, torch.float32, u.dtype, torch.float32)
         for name, a, b, t in zip(WKV_GRADS, got, want, types):
@@ -5113,11 +5137,17 @@ def phase_kernels_wkv6_bwd() -> None:
                     a, b, a.dtype, f"{what}: {name}", testing.WKV_GRAD_TOL)
             except AssertionError as e:
                 fail(str(e))
-            key = f"{a.dtype} {name}"
+            key = f"{route} {a.dtype} {name}"
             worst[key] = max(worst.get(key, 0.0), share)
-        again = grads(args)
+        again, _ = grads(args)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"{what}: a second call gives other bits")
+        if route == "chunked" and T <= 100:
+            rec = wk.launch_backward_recurrent(*args)
+            if not all(torch.equal(a, b) for a, b in zip(rec, want)):
+                fail(f"{what}: the recurrent kernel parts from the plain "
+                     "version")
+            n_rec += 1
         if T <= 100:
             with torch.enable_grad():
                 xs = [t.detach().clone().requires_grad_(True)
@@ -5138,7 +5168,7 @@ def phase_kernels_wkv6_bwd() -> None:
                         testing.WKV_GRAD_TOL)
                 except AssertionError as e:
                     fail(str(e))
-                key = f"{a.dtype} {name}"
+                key = f"{route} {a.dtype} {name}"
                 worst_autograd[key] = max(worst_autograd.get(key, 0.0),
                                           share)
             n_autograd += 1
@@ -5176,24 +5206,39 @@ def phase_kernels_wkv6_bwd() -> None:
         except ValueError:
             continue
         fail(f"the wkv6 backward took {label}")
-    for line in _ptxas_report(_build.build_log.get("wkv6_bwd", ""),
-                              "wkv6_bwd"):
-        log(f"  ptxas {line}")
+    for lib in ("wkv6_bwd", "wkv6_bwd_chunked"):
+        for line in _ptxas_report(_build.build_log.get(lib, ""), "wkv6_bwd"):
+            log(f"  ptxas {line}")
     tiles = {f"{Dk}x{Dv}": (wk.backward_chunk(Dk, Dv),
                             wk.backward_smem_bytes(Dk, Dv))
              for Dk, Dv in ((16, 16), (16, 64), (16, 128), (64, 16),
                             (64, 64), (64, 128))}
-    log(f"  backward (steps a chunk, shared memory per CTA) by state: "
-        f"{tiles}")
-    log(f"wkv6 backward vs plain: {n} cases, {same} of them to the bit in "
-        f"all six gradients, the rest within testing.WKV_GRAD_TOL "
+    log(f"  recurrent backward (steps a chunk, shared memory per CTA) by "
+        f"state: {tiles}")
+    log("  chunked backward, shared memory of a gradient CTA by state and "
+        "type: " + ", ".join(
+            f"{Dk}x{Dv} {t} {wk.backward_smem_bytes_chunked(Dk, Dv, t == 'bf16')}"
+            for Dk, Dv in wk.BWD_CHUNKED_SHAPES for t in ("fp32", "bf16")))
+    hmma = sass_count("wkv6_bwd_chunked", "HMMA")
+    if hmma is None:
+        log("  cuobjdump not found: HMMA not counted")
+    elif hmma == 0:
+        fail("wkv6_bwd_chunked: no HMMA instruction in the built library's "
+             "SASS (its products run on no tensor core)")
+    else:
+        log(f"  HMMA in the chunked backward's SASS: {hmma}")
+    log(f"wkv6 backward vs plain: {n} cases by route {by_route}, {same} of "
+        f"them to the bit in all six gradients, the rest within "
+        f"testing.WKV_GRAD_TOL "
         f"{ {str(k): v for k, v in testing.WKV_GRAD_TOL.items()} }; worst "
         f"share by type and gradient: " + ", ".join(
             f"{key} {worst[key]:.3g}" for key in sorted(worst))
         + f"; each second call to the bit; {n_autograd} cases against "
         f"autograd of ref.wkv6, worst: " + ", ".join(
             f"{key} {worst_autograd[key]:.3g}"
-            for key in sorted(worst_autograd)))
+            for key in sorted(worst_autograd))
+        + f"; the recurrent kernel at {n_rec} chunked cases' states to the "
+        f"bit of the plain version")
 
 
 def times_wkv6(serve: dict, chunked_serve: dict) -> list[dict]:
@@ -5390,11 +5435,12 @@ TRAIN_PARITY = dict(layers=2, batch=2, seq=32, micro=2)
 #: the other families, at reduced() (D = 16: the CUDA-core attention route,
 #: the 16 × 16 wkv6 state), in fp32 compute, two microbatches; the hybrid
 #: once more with its Mamba heads at Jamba's width (hd = 128: one head of
-#: a 16 × 128 state, the scan's backward instantiation), held to the bit
-#: against the same step on the card with the plain backward (against the
-#: CPU its A_log leaf, 12 values each a sum of 1,024 terms that cancel,
-#: read 2.1e-5 of its norm, past TRAIN_STEP_TOL's 2e-5 a leaf, and 2.9e-5
-#: with the plain versions run on the card instead of the kernels
+#: a 16 × 128 state, the chunked backward's instantiation), held against
+#: the same step on the card with the plain backward within
+#: TRAIN_STEP_TOL[fp32] and twice to the bit (:func:`check_train_bits`;
+#: against the CPU its A_log leaf, 12 values each a sum of 1,024 terms that
+#: cancel, read 2.1e-5 of its norm, past TRAIN_STEP_TOL's 2e-5 a leaf, and
+#: 2.9e-5 with the plain versions run on the card instead of the kernels
 #: (:func:`train_leaf_drift`): the card's arithmetic outside the kernels;
 #: the wkv6 backward's order of sums alone moves it by 1.4e-6 on the CPU)
 TRAIN_PARITY_ARCHS = ("deepseek-moe-16b", "internvl2-76b", ENCDEC_ARCH,
@@ -5529,12 +5575,19 @@ def wkv6_bwd_shape(r, k, v, *args) -> tuple:
 
 def check_train_bits(name: str, cfg, batch: int, seq: int) -> dict:
     """One fp32 train step of ``cfg`` on the card, from one set of masters
-    on one SyntheticLM batch, twice: with the wkv6 backward kernel, and
-    with its plain version (``ref.wkv6_backward`` on the card) in its
-    place; the loss, grad_norm and every gradient to the bit, every
-    parameter with a non-zero gradient, the wkv6 launches of
+    on one SyntheticLM batch, three times: with the wkv6 backward kernels
+    twice, and with the plain backward (``ref.wkv6_backward`` on the card)
+    in their place.  The kernels' two steps equal to the bit (loss,
+    grad_norm, every gradient); the kernels' step against the plain one
+    within ``testing.TRAIN_STEP_TOL[fp32]`` (loss, grad_norm, lr, the
+    gradients and the worst leaf, the update, the moments: the standing
+    bound of every fp32 card-vs-CPU step; the chunked kernel sums in
+    another order than the plain version, so the two no longer agree to
+    the bit); the A_log and dt_bias leaves' readings logged; every
+    parameter with a non-zero gradient; the wkv6 launches of
     :func:`wkv6_train_launches`."""
     import torch
+    from repro_torch import testing
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import wkv6 as wk
@@ -5549,37 +5602,63 @@ def check_train_bits(name: str, cfg, batch: int, seq: int) -> dict:
     TL.COMPUTE_DTYPE = torch.float32
     runs = []
     try:
-        for plain in (False, True):
+        for plain in (False, False, True):
             state = ts.init_train_state(cfg, opt, SEED, device="cuda")
+            p0 = [t.clone() for t in opt_lib.tree_leaves(state["params"])]
             if plain:
                 wk.launch_backward = ref.wkv6_backward
             ops.reset_launch_counts()
             grads = []
-            _, m = step_fn(state, SyntheticLM(dc, "cuda").batch(0),
-                           keep_grads=grads)
+            state, m = step_fn(state, SyntheticLM(dc, "cuda").batch(0),
+                               keep_grads=grads)
             torch.cuda.synchronize()
             wk.launch_backward = real
-            runs.append((grads, m, dict(ops.launch_counts)))
+            upd = [a - b for a, b in
+                   zip(opt_lib.tree_leaves(state["params"]), p0)]
+            runs.append({"grads": grads, "m": m, "upd": upd,
+                         "opt": state["opt"],
+                         "counts": dict(ops.launch_counts)})
+            names = [".".join(k) for k in _leaf_names(state["params"])]
+            del state, p0
     finally:
         TL.COMPUTE_DTYPE, wk.launch_backward = saved, real
-    (gk, mk, counts), (gp, mp, _) = runs
+    k1, k2, pl = runs
     want = wkv6_train_launches(cfg)
-    if {k: counts[k] for k in want} != want:
-        fail(f"train step {name}: wkv6 launches {counts}, expected {want}")
-    if not all(bool(torch.any(g != 0)) for g in gk):
+    got_launches = {k: k1["counts"][k] for k in want}
+    if got_launches != want:
+        fail(f"train step {name}: wkv6 launches {got_launches}, expected "
+             f"{want}")
+    if not all(bool(torch.any(g != 0)) for g in k1["grads"]):
         fail(f"train step {name}: a parameter without a gradient")
-    same = (all(torch.equal(a, b) for a, b in zip(gk, gp))
-            and float(mk["loss"]) == float(mp["loss"])
-            and float(mk["grad_norm"]) == float(mp["grad_norm"]))
+    same = (all(torch.equal(a, b) for a, b in zip(k1["grads"], k2["grads"]))
+            and float(k1["m"]["loss"]) == float(k2["m"]["loss"])
+            and float(k1["m"]["grad_norm"]) == float(k2["m"]["grad_norm"]))
     if not same:
-        fail(f"train step {name}: the wkv6 backward kernel's step differs "
-             "from the plain backward's on the card")
+        fail(f"train step {name}: the kernels' step twice gives other bits")
+    got = {key: abs(float(k1["m"][key]) - float(pl["m"][key]))
+           / abs(float(pl["m"][key])) for key in ("loss", "grad_norm", "lr")}
+    got["grads"], got["grad_leaf"], at = rel_norms(k1["grads"], pl["grads"])
+    got["update"] = rel_norms(k1["upd"], pl["upd"])[0]
+    for key in ("mu", "nu"):
+        got[key] = rel_norms(opt_lib.tree_leaves(k1["opt"][key]),
+                             opt_lib.tree_leaves(pl["opt"][key]))[0]
+    tol = testing.TRAIN_STEP_TOL[torch.float32]
+    bad = {k: v for k, v in got.items() if not v <= tol[k]}
+    if bad:
+        fail(f"train step {name}: the kernels' step against the plain "
+             f"backward's on the card: {bad} past {tol} (worst gradient "
+             f"leaf {names[at]})")
+    leaves = {n: rel_norms([a], [b])[0] for n, a, b in
+              zip(names, k1["grads"], pl["grads"])
+              if "A_log" in n or "dt_bias" in n}
     log(f"train step {name} (fp32, B={batch} S={seq}, {cfg.microbatches} "
-        f"microbatches, {len(gk)} parameters, all with a gradient): the "
-        f"kernel's step equals the plain backward's on the card to the bit; "
-        f"loss {float(mk['loss']):.6f}; wkv6 launches "
-        f"{ {k: counts[k] for k in want} }")
-    return {"launches": {k: counts[k] for k in want}}
+        f"microbatches, {len(names)} parameters, all with a gradient): the "
+        f"kernels' step twice to the bit; against the plain backward's on "
+        f"the card {got} (worst leaf {names[at]}); A_log and dt_bias "
+        f"gradients: " + ", ".join(f"{n} {v:.3g}" for n, v in leaves.items())
+        + f"; loss {float(k1['m']['loss']):.6f}; wkv6 launches "
+        f"{got_launches}")
+    return {"launches": got_launches, "diffs": got, "leaves": leaves}
 
 
 def check_train_parity(name: str, cfg, mode: str, batch: int, seq: int
@@ -5656,7 +5735,7 @@ def check_train_parity(name: str, cfg, mode: str, batch: int, seq: int
     if bad:
         fail(f"train step {name} ({mode}) card vs CPU: {bad} past {tol} "
              f"(worst gradient leaf {names[at]})")
-    bwd = {k: counts[k] for k in BWD_KERNELS + BWD_WGMMA + WKV_BWD}
+    bwd = {k: counts[k] for k in BWD_KERNELS + BWD_WGMMA + WKV_BWD_ALL}
     calls = bwd[BWD_CALL[0]]
     wg = fa.bwd_route(dtype, cfg.hd) == "wgmma"
     if "flash_attention" in family_kernels(cfg) and (
@@ -5685,8 +5764,26 @@ def check_train_parity(name: str, cfg, mode: str, batch: int, seq: int
     return {"diffs": got, "launches": bwd}
 
 
-#: the wkv6 backward's launch counters (one each a call)
+#: the wkv6 backward's launch counters, by route: the recurrent kernel's
+#: (one each a call) and the chunked kernel's (three launches and a du sum
+#: a call)
 WKV_BWD = ("wkv6_bwd", "wkv6_bwd_du")
+WKV_BWD_CHUNKED = ("wkv6_bwd_chunked", "wkv6_bwd_chunked_du")
+WKV_BWD_ALL = WKV_BWD + WKV_BWD_CHUNKED
+#: the launches of one backward call on each route
+WKV_BWD_ROUTE_LAUNCHES = {
+    "recurrent": {"wkv6_bwd": 1, "wkv6_bwd_du": 1, "wkv6_bwd_chunked": 0,
+                  "wkv6_bwd_chunked_du": 0},
+    "chunked": {"wkv6_bwd": 0, "wkv6_bwd_du": 0, "wkv6_bwd_chunked": 3,
+                "wkv6_bwd_chunked_du": 1}}
+
+
+def wkv6_state(cfg) -> tuple[int, int]:
+    """(Dk, Dv) of the model's ``ops.wkv6`` calls: RWKV-6's head, the
+    hybrid's Mamba head (d_state × hd)."""
+    if cfg.family == "ssm":
+        return cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    return cfg.ssm_state_dim, cfg.hd
 
 
 def wkv6_layers(cfg) -> int:
@@ -5700,14 +5797,20 @@ def wkv6_layers(cfg) -> int:
 
 
 def wkv6_train_launches(cfg) -> dict:
-    """wkv6 launches of one train step of ``cfg`` on the card: a backward
-    (scan and du sum) a wkv6 layer and microbatch, and the forward twice
-    under remat (``run_layer`` runs it again in the backward)."""
+    """wkv6 launches of one train step of ``cfg`` on the card: a backward a
+    wkv6 layer and microbatch, on the route ``wkv6.bwd_route`` names for
+    the model's state (:data:`WKV_BWD_ROUTE_LAUNCHES`; none on the other),
+    and the forward twice under remat (``run_layer`` runs it again in the
+    backward)."""
+    import torch
+    from repro_torch.kernels import wkv6 as wk
     calls = wkv6_layers(cfg) * max(cfg.microbatches, 1)
     if not calls:
         return {}
-    return {"wkv6_bwd": calls, "wkv6_bwd_du": calls,
-            "wkv6_prefill": calls * (2 if cfg.remat else 1)}
+    route = wk.bwd_route(2, *wkv6_state(cfg), torch.bfloat16)
+    out = {k: n * calls for k, n in WKV_BWD_ROUTE_LAUNCHES[route].items()}
+    out["wkv6_prefill"] = calls * (2 if cfg.remat else 1)
+    return out
 
 
 def _leaf_names(tree, prefix=()) -> list:
@@ -5974,7 +6077,11 @@ def phase_train_cell_rwkv(trace: bool = False) -> dict:
 
 
 #: kernel-name substrings of each part of a training step's device time
-STEP_PARTS = (("wkv6 backward", ("wkv6_bwd",)),
+STEP_PARTS = (("wkv6 backward", ("wkv6_bwd_chunk_kernel",
+                                  "wkv6_bwd_scan_kernel",
+                                  "wkv6_bwd_grad_kernel",
+                                  "wkv6_bwd_chunked_du_kernel",
+                                  "wkv6_bwd_kernel", "wkv6_bwd_du_kernel")),
               ("wkv6 forward", ("wkv6_kernel",)),
               ("matrix products", ("gemm", "nvjet", "xmma", "cutlass")),
               ("optimizer", ("multi_tensor", "foreach")))
@@ -6043,36 +6150,50 @@ WKV_BWD_SHAPES = [
 def times_wkv6_bwd(parity: dict, cell: dict) -> list[dict]:
     """The wkv6 backward at rwkv6-1.6b's training microbatch (B = 4, H =
     32, T = 2,048, Dk = Dv = 64) and at Jamba's scan (B = 8, H = 128, T =
-    2,048, Dk = 16, Dv = 128, u = 0), bf16, from zeros: held against the
-    plain version there (its run, timed once, is the plain time), timed
-    beside the bound (:func:`wkv6_bwd_bound`).  Launches: the cell's a step
-    at rwkv6-1.6b's shape (two a call: the scan and du's sum); at Jamba's
-    the training parity's on the 16 × 128 instantiation (no full-width
-    Jamba trains on one card).  No PyTorch call computes this function
-    (library_ms null)."""
+    2,048, Dk = 16, Dv = 128, u = 0), bf16, from zeros, on each route: the
+    chunked kernel (``csrc/wkv6_bwd_chunked.cu``, which ``bwd_route`` sends
+    these states to) and the recurrent one (``csrc/wkv6_bwd.cu``, timed
+    beside it in turns, chunked / recurrent / chunked); each held against
+    the plain version there (its run, timed once, is the plain time)
+    within ``WKV_GRAD_TOL``, timed beside the bound
+    (:func:`wkv6_bwd_bound`).  Launches: the cell's a step at rwkv6-1.6b's
+    shape (four a call on the chunked route: three and du's sum); at
+    Jamba's the training parity's on the 16 × 128 instantiation (no
+    full-width Jamba trains on one card); the recurrent kernel's none (no
+    call of the main path takes it at these states).  No PyTorch call
+    computes this function (library_ms null)."""
     import torch
     from repro_torch import testing
     from repro_torch.kernels import ref
     from repro_torch.kernels import wkv6 as wk
     cfg_b = cell["wkv6_shapes"]
     rows = []
+    src = "src/repro_torch/kernels/csrc/"
     for what, B, H, T, Dk, Dv, decay, u_zero in WKV_BWD_SHAPES:
         args = wkv6_bwd_inputs(B, H, T, Dk, Dv, torch.bfloat16, 41, decay,
                                True, False, u_zero)
-        got = wk.launch_backward(*args)
         plain, plain_ms = timed_once(lambda: ref.wkv6_backward(*args))
-        bits = all(torch.equal(a, b) for a, b in zip(got, plain))
-        for name, a, b in zip(WKV_GRADS, got, plain):
-            try:
-                testing.assert_grad_close(a, b, a.dtype,
-                                          f"backward at {what}: {name}",
-                                          testing.WKV_GRAD_TOL)
-            except AssertionError as e:
-                fail(str(e))
-        err = max(testing.max_abs_err(a, b) for a, b in zip(got, plain))
-        del got, plain
+        fns = {"chunked": wk.launch_backward_chunked,
+               "recurrent": wk.launch_backward_recurrent}
+        errs, bits = {}, {}
+        for route, fn in fns.items():
+            got = fn(*args)
+            bits[route] = all(torch.equal(a, b) for a, b in zip(got, plain))
+            for name, a, b in zip(WKV_GRADS, got, plain):
+                try:
+                    testing.assert_grad_close(
+                        a, b, a.dtype, f"backward at {what} ({route}): {name}",
+                        testing.WKV_GRAD_TOL)
+                except AssertionError as e:
+                    fail(str(e))
+            errs[route] = max(testing.max_abs_err(a, b)
+                              for a, b in zip(got, plain))
+            del got
+        del plain
         torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: wk.launch_backward(*args), runs=5)
+        ms = {"chunked": cuda_ms(lambda: fns["chunked"](*args), runs=5)}
+        ms["recurrent"] = cuda_ms(lambda: fns["recurrent"](*args), runs=5)
+        again = cuda_ms(lambda: fns["chunked"](*args), runs=5)
         b, by, b32 = wkv6_bwd_bound(B, H, T, Dk, Dv, 2, 2, False)
         if u_zero:
             calls = sum(n for (_, _, _, k, v), n in
@@ -6082,21 +6203,27 @@ def times_wkv6_bwd(parity: dict, cell: dict) -> list[dict]:
         share = ""
         if not u_zero:
             share = (f"; {calls} calls a training step: "
-                     f"{ms * calls / cell['step_ms']:.1%} of the cell's step "
-                     f"({cell['step_ms']:.1f} ms)")
+                     f"{ms['chunked'] * calls / cell['step_ms']:.1%} of the "
+                     f"cell's step ({cell['step_ms']:.1f} ms)")
         log(f"wkv6 backward {what}: B={B} H={H} T={T} Dk={Dk} Dv={Dv}, bf16"
-            f", {decay} decay{', u = 0' if u_zero else ''}: {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms (the check's run, "
-            f"{'to the bit' if bits else 'within WKV_GRAD_TOL'}), bound "
-            f"{b:.4f} ms by {by} (fp32-only {b32:.4f}){share}")
-        rows.append({"name": f"wkv6 backward ({what})", "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
-                     "replaces": "src/repro/kernels/wkv6.py:69 (no TPU "
-                                 "backward: jax.grad of src/repro/models/"
-                                 "layers.py:375)",
-                     "launches": 2 * calls, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                     "bound_fp32_ms": b32, "library_ms": None})
+            f", {decay} decay{', u = 0' if u_zero else ''}: chunked "
+            f"{ms['chunked']:.4f} ms (again {again:.4f}), recurrent "
+            f"{ms['recurrent']:.4f} ms, plain {plain_ms:.4f} ms (the check's "
+            f"run; the recurrent kernel "
+            f"{'to the bit' if bits['recurrent'] else 'within WKV_GRAD_TOL'}"
+            f", the chunked within WKV_GRAD_TOL), bound {b:.4f} ms by {by} "
+            f"(fp32-only {b32:.4f}){share}")
+        for route in ("chunked", "recurrent"):
+            rows.append({
+                "name": f"wkv6 backward, {route} ({what})", "route": "cuda",
+                "source": src + ("wkv6_bwd_chunked.cu" if route == "chunked"
+                                 else "wkv6_bwd.cu"),
+                "replaces": "src/repro/kernels/wkv6.py:69 (no TPU backward: "
+                            "jax.grad of src/repro/models/layers.py:375)",
+                "launches": 4 * calls if route == "chunked" else 0,
+                "max_abs_err": errs[route], "ms": ms[route],
+                "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                "bound_fp32_ms": b32, "library_ms": None})
         del args
         torch.cuda.empty_cache()
     return rows
@@ -6177,7 +6304,7 @@ def phase_train_cli(cli=None) -> dict:
     with contextlib.redirect_stdout(out):
         res = launch_train.main(TRAIN_CLI_RWKV)
     torch.cuda.synchronize()
-    wkv = {k: ops.launch_counts[k] for k in WKV_BWD}
+    wkv = {k: ops.launch_counts[k] for k in WKV_BWD_CHUNKED}
     losses = [m["loss"] for m in res["metrics"]]
     if len(losses) != 10 or not all(map(math.isfinite, losses)) \
             or min(wkv.values()) < 1:

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("exemplar_gains", "greedy_select", "threshold_select",
            "rbf_kernel", "flash_attention", "flash_attention_bwd", "wkv6",
-           "wkv6_decode", "wkv6_chunked", "wkv6_bwd")
+           "wkv6_decode", "wkv6_chunked", "wkv6_bwd", "wkv6_bwd_chunked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -70,6 +70,8 @@ ARGTYPES = {
     "wkv6_bwd_launch": [_P] * 17 + [_I] * 11 + [_P],
     "wkv6_bwd_chunk": [_I, _I, _I],
     "wkv6_bwd_smem": [_I, _I, _I],
+    "wkv6_bwd_chunked_launch": [_P] * 19 + [_I] * 7 + [_P],
+    "wkv6_bwd_chunked_smem": [_I, _I, _I],
 }
 #: entry points that return a size rather than an error code
 RESTYPES = {"exemplar_tile_smem": _LL, "greedy_select_grid": _LL}
@@ -95,8 +97,11 @@ RESTYPES = {"exemplar_tile_smem": _LL, "greedy_select_grid": _LL}
 #: decode kernel's launches (wkv6_decode), its recurrent kernel's
 #: (wkv6_recurrent), every call of
 #: T > 1 on either prefill kernel (wkv6_prefill), the chunked kernel's
-#: launches (three a call, wkv6_chunked) and its backward's (wkv6_bwd, the
-#: scan, and wkv6_bwd_du, the sum of du over b: one each a call).  The
+#: launches (three a call, wkv6_chunked) and its backward's: the recurrent
+#: kernel's (wkv6_bwd, the scan, and wkv6_bwd_du, the sum of du over b: one
+#: each a call) and the chunked kernel's (wkv6_bwd_chunked: three a call,
+#: each chunk's own states, the scans, each chunk's gradients;
+#: wkv6_bwd_chunked_du, du's sum over the chunks and b: one a call).  The
 #: three gain-tile kernels' launches on narrow rows or with the bf16 x·e
 #: contraction are counted once more under <kernel>_bf16 (bf16 rows),
 #: <kernel>_q8 (int8 rows with scale and zero-point) and <kernel>_bf16dot
@@ -118,7 +123,8 @@ launch_counts: dict[str, int] = {
         "flash_attention_bwd_dq", "flash_attention_bwd_dkdv_wgmma",
         "flash_attention_bwd_dq_wgmma",
         "wkv6_prefill", "wkv6_decode", "wkv6_recurrent", "wkv6_chunked",
-        "wkv6_bwd", "wkv6_bwd_du")}
+        "wkv6_bwd", "wkv6_bwd_du", "wkv6_bwd_chunked",
+        "wkv6_bwd_chunked_du")}
 #: ptxas register/shared-memory report of each library built in this process
 build_log: dict[str, str] = {}
 #: wall seconds from the start of a build to the end of each library's nvcc

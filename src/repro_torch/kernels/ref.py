@@ -893,3 +893,206 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (dr[..., :Dk].to(r.dtype), dk[..., :Dk].to(r.dtype),
             dv[..., :Dv].to(r.dtype), dw[..., :Dk].to(w.dtype),
             du[:, :Dk].to(u.dtype), G[:, :, :Dk, :Dv].contiguous())
+
+
+def _bf16_pieces(x: torch.Tensor) -> list[torch.Tensor]:
+    """fp32 ``x`` as three bf16 pieces h = bf16(x), m = bf16(x − h), l =
+    bf16(x − h − m) (held as fp32 values), which hold its 24 bits."""
+    out = []
+    for _ in range(3):
+        p = x.to(torch.bfloat16).float()
+        out.append(p)
+        x = x - p
+    return out
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the chunked backward kernel's tensor-core products run
+    it: in fp32, each operand split in three bf16 pieces and the products
+    of the piece pairs whose orders sum to at most 2 added, smallest first
+    (a bf16 operand's lower pieces are zero); float64 operands plainly."""
+    if a.dtype == torch.float64:
+        return a @ b
+    pa, pb = _bf16_pieces(a), _bf16_pieces(b)
+    out = None
+    for s in (2, 1, 0):
+        for i in range(s + 1):
+            t = pa[i] @ pb[s - i]
+            out = t if out is None else out + t
+    return out
+
+
+#: steps a chunk and a sub-chunk of the chunked ``wkv6`` backward
+#: (``csrc/wkv6_bwd_chunked.cu``)
+WKV_BWD_CHUNK = 64
+WKV_BWD_SUB = 16
+
+
+def wkv6_backward_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          w: torch.Tensor, u: torch.Tensor,
+                          state: torch.Tensor | None, dy: torch.Tensor,
+                          d_state_out: torch.Tensor | None = None, *,
+                          chunk: int = WKV_BWD_CHUNK,
+                          sub: int = WKV_BWD_SUB
+                          ) -> tuple[torch.Tensor, ...]:
+    """:func:`wkv6_backward`'s function by the chunked kernel's formulas
+    (``csrc/wkv6_bwd_chunked.cu``), written out in PyTorch: what the tests
+    hold against autograd, the recurrent backward and ``jax.grad`` (float64
+    inputs compute in float64, with plain products; fp32 and bf16 inputs in
+    fp32, each product as the kernel's tensor cores run it, :func:`_mm`).
+    The model path never calls it.
+
+    Steps run in chunks of ``chunk`` (steps past T: w = 1, the rest zero),
+    each cut in sub-chunks of ``sub``.  Every decay factor is a product of
+    w's taken outward from one step, so it is ≤ 1, with no division and no
+    clip.  Per sub-chunk, with ``A_s = Π_{p<s} w_p`` (from its start), ``B_s
+    = Π_{s<p} w_p`` (to its end) and ``g`` the whole product:
+
+    1. per chunk, its own state ``U = Σ_n`` (sub-chunks in order, ``U ←
+       diag(g) U + (k∘B)ᵀ V``), its own gradient-state ``Y = (r∘P)ᵀ dY``
+       (P the prefix product over the chunk) and its decay;
+    2. the scans: each chunk's entry state ``E_c`` from S_0 (``E ← diag(g)
+       E + U``), each chunk's exit gradient-state ``X_c`` from dS_T in
+       reverse (``X ← diag(g) X + Y``), d_state the last;
+    3. per chunk, the sub-chunks' entry states forward from ``E_c`` and
+       their exit gradient-states in reverse from ``X_c``; in a sub-chunk
+       with entry E and exit X, ``F_m = S_{s−1}·dy_m`` walked from ``E
+       dyᵀ`` (``F ← w_s F + k_s (v_s·dy_m)``) and ``F_X = S_{s−1}·X`` from
+       ``E∘X`` summed over the columns, ``rd_m = r_m Π_{s<p<m} w_p``::
+
+           dr_s = F_s + c_s (u∘k_s)
+           dk_s = B_s (X v_s) + Σ_{m>s} (v_s·dy_m) rd_m + c_s (u∘r_s)
+           dw_s = B_s F_X + Σ_{m>s} rd_m F_m          (Σ_j G_s[:, j] S_{s−1}[:, j])
+           dv   = (k∘B) X + Pᵀ dY,  P_ms = Σ_i k_s rd_m (m > s), P_ss = a_s
+
+       with ``c_s = v_s·dy_s`` and ``a_s = r_s·(u∘k_s)``; then ``X ←
+       diag(g) X + (r∘A)ᵀ dY``;
+    4. du: each chunk's ``Σ_s c_s (r_s∘k_s)``, summed over the chunks, then
+       over b, in order."""
+    B, H, T, Dk = r.shape
+    Dv = v.shape[-1]
+    acc = torch.float64 if r.dtype == torch.float64 else torch.float32
+    dev = r.device
+    nc = -(-T // chunk)
+    ns = chunk // sub
+    pad = nc * chunk - T
+
+    def steps(x, fill=0.0):
+        x = x.to(acc)
+        if pad:
+            x = torch.cat([x, x.new_full(x.shape[:2] + (pad, x.shape[-1]),
+                                         fill)], dim=2)
+        return x.reshape(B, H, nc, ns, sub, x.shape[-1])
+
+    r6, k6, v6, dy6 = steps(r), steps(k), steps(v), steps(dy)
+    w6 = steps(w, 1.0)
+    uu = u.to(acc)[None, :, None, None, :]            # (1, H, 1, 1, Dk)
+    u4 = uu[:, :, :, 0]                               # (1, H, 1, Dk)
+
+    def prefix(x):
+        """Π_{p<s} x_p along the steps (dim −2), from 1."""
+        out = [torch.ones_like(x[..., 0, :])]
+        for s in range(x.shape[-2] - 1):
+            out.append(out[-1] * x[..., s, :])
+        return torch.stack(out, -2)
+
+    def suffix(x):
+        """Π_{s<p} x_p along the steps (dim −2), to 1."""
+        n = x.shape[-2]
+        out = [torch.ones_like(x[..., 0, :])]
+        for s in range(n - 1, 0, -1):
+            out.append(out[-1] * x[..., s, :])
+        return torch.stack(out[::-1], -2)
+
+    def T_(x):
+        return x.transpose(-1, -2)
+
+    # 1. each chunk's own state, gradient-state and decay
+    U = torch.zeros((B, H, nc, Dk, Dv), dtype=acc, device=dev)
+    Y = torch.zeros_like(U)
+    pc = torch.ones((B, H, nc, Dk), dtype=acc, device=dev)
+    for n in range(ns):
+        wn = w6[:, :, :, n]
+        A, Bs = prefix(wn), suffix(wn)
+        g = A[..., -1, :] * wn[..., -1, :]
+        U = g[..., None] * U + _mm(T_(k6[:, :, :, n] * Bs), v6[:, :, :, n])
+        Y = Y + _mm(T_(r6[:, :, :, n] * (pc[..., None, :] * A)),
+                    dy6[:, :, :, n])
+        pc = pc * g
+    gc = pc
+    # 2. the scans over the chunks
+    E = torch.zeros((B, H, Dk, Dv), dtype=acc, device=dev)
+    if state is not None:
+        E = state.to(acc).clone()
+    Es = []
+    for c in range(nc):
+        Es.append(E)
+        E = gc[:, :, c, :, None] * E + U[:, :, c]
+    X = torch.zeros((B, H, Dk, Dv), dtype=acc, device=dev)
+    if d_state_out is not None:
+        X = d_state_out.to(acc).clone()
+    Xs = [None] * nc
+    for c in reversed(range(nc)):
+        Xs[c] = X
+        X = gc[:, :, c, :, None] * X + Y[:, :, c]
+    d_state = X
+    E, X = torch.stack(Es, 2), torch.stack(Xs, 2)       # (B, H, nc, Dk, Dv)
+    # 3. the chunks' gradients
+    En = [E]
+    for n in range(ns - 1):
+        wn = w6[:, :, :, n]
+        g = prefix(wn)[..., -1, :] * wn[..., -1, :]
+        En.append(g[..., None] * En[-1]
+                  + _mm(T_(k6[:, :, :, n] * suffix(wn)), v6[:, :, :, n]))
+    shape = (B, H, nc, ns, sub)
+    dr, dk, dw = (torch.empty(shape + (Dk,), dtype=acc, device=dev)
+                  for _ in range(3))
+    dv = torch.empty(shape + (Dv,), dtype=acc, device=dev)
+    du_c = torch.zeros((B, H, nc, Dk), dtype=acc, device=dev)
+    upper = torch.ones((sub, sub), dtype=torch.bool, device=dev).triu(1)
+    for n in reversed(range(ns)):
+        rn, kn, wn = r6[:, :, :, n], k6[:, :, :, n], w6[:, :, :, n]
+        vn, dyn = v6[:, :, :, n], dy6[:, :, :, n]
+        A, Bs = prefix(wn), suffix(wn)
+        g = A[..., -1, :] * wn[..., -1, :]
+        ED = _mm(En[n], T_(dyn))                      # (.., Dk, sub): E dy_m
+        XV = _mm(X, T_(vn))                           # (.., Dk, sub): X v_s
+        EX = (En[n] * X).sum(-1)                      # (.., Dk)
+        Q = _mm(dyn, T_(vn))                          # Q[m, j] = v_j·dy_m
+        c = torch.diagonal(Q, dim1=-2, dim2=-1)       # (.., sub)
+        a = (rn * uu * kn).sum(-1)
+        # Dm[s, m] = Π_{s<p<m} w_p (m > s), built outward from s
+        Dm = torch.zeros(shape[:3] + (sub, sub, Dk), dtype=acc, device=dev)
+        for s in range(sub - 1):
+            x = torch.ones_like(wn[..., 0, :])
+            for m in range(s + 1, sub):
+                Dm[..., s, m, :] = x
+                x = x * wn[..., m, :]
+        rd = rn[..., None, :, :] * Dm                 # rd[s, m] = r_m D_sm
+        F, FX = T_(ED), EX                            # F[.., m, i] at s = 0
+        for s in range(sub):
+            cs = c[..., s, None]
+            q = Q[..., :, s, None]                    # (v_s·dy_m) by m
+            dr[:, :, :, n, s] = F[..., s, :] + cs * u4 * kn[..., s, :]
+            dk[:, :, :, n, s] = (Bs[..., s, :] * XV[..., s]
+                                 + (q * rd[..., s, :, :]).sum(-2)
+                                 + cs * u4 * rn[..., s, :])
+            dw[:, :, :, n, s] = (Bs[..., s, :] * FX
+                                 + (rd[..., s, :, :] * F).sum(-2))
+            du_c = du_c + cs * rn[..., s, :] * kn[..., s, :]
+            F = wn[..., s, None, :] * F + kn[..., s, None, :] * q
+            FX = wn[..., s, :] * FX + kn[..., s, :] * XV[..., s]
+        P = torch.einsum("...si,...smi->...ms", kn, rd)
+        P = P * upper.T.to(acc) + torch.diag_embed(a)
+        dv[:, :, :, n] = _mm(kn * Bs, X) + _mm(T_(P), dyn)
+        X = g[..., None] * X + _mm(T_(rn * A), dyn)
+
+    def out(x):
+        return x.reshape(B, H, nc * chunk, x.shape[-1])[:, :, :T]
+
+    du = du_c[0, :, 0]
+    for b in range(B):
+        for c in range(int(b == 0), nc):
+            du = du + du_c[b, :, c]
+    return (out(dr).to(r.dtype), out(dk).to(r.dtype), out(dv).to(r.dtype),
+            out(dw).to(w.dtype), du.to(u.dtype), d_state)

@@ -52,10 +52,21 @@ from the plain version by more than they allow, from T = 70 at B × H =
 256 on (``tests/test_torch_wkv6_chunked.py``).  Only the kernels that
 repeat the plain version's order meet them at the model's shapes.
 
+The backward (:func:`launch_backward`, which ``ops.wkv6``'s autograd
+Function takes on the card) is sent by :func:`bwd_route`: the model's
+states (:data:`BWD_CHUNKED_SHAPES`: 64 × 64, 16 × 16, 16 × 128) to the
+chunked backward (``csrc/wkv6_bwd_chunked.cu``: chunks of 64 steps in
+parallel, their products on the tensor cores, held to the recurrence
+within ``testing.WKV_GRAD_TOL``), any other state to the recurrent one
+(``csrc/wkv6_bwd.cu``, which repeats ``ref.wkv6_backward``'s order to the
+bit).
+
 Launches are counted under ``wkv6_decode`` (the decode kernel),
 ``wkv6_recurrent`` (the recurrent kernel), ``wkv6_prefill`` (every call of
-T > 1, on either prefill kernel) and ``wkv6_chunked`` (three a chunked
-call).
+T > 1, on either prefill kernel), ``wkv6_chunked`` (three a chunked
+call), ``wkv6_bwd`` and ``wkv6_bwd_du`` (one each a recurrent backward
+call) and ``wkv6_bwd_chunked`` and ``wkv6_bwd_chunked_du`` (three and one
+a chunked backward call).
 
 The plain version is :func:`repro_torch.kernels.ref.wkv6`; the dispatch in
 :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
@@ -75,6 +86,9 @@ MAX_DK = 64          # the largest instantiation of csrc/wkv6.cu and
                      # csrc/wkv6_decode.cu
 CHUNK = 64           # steps per chunk of csrc/wkv6_chunked.cu
 CHUNKED_MAX_D = 64   # Dk and Dv the chunked kernel takes
+#: the states (Dk, Dv) the chunked backward (csrc/wkv6_bwd_chunked.cu) has
+#: an instantiation of: rwkv6-1.6b's head, reduced()'s, Jamba's Mamba scan
+BWD_CHUNKED_SHAPES = ((64, 64), (16, 16), (16, 128))
 _GRID_YZ = 65535
 _OPERANDS = (torch.float32, torch.bfloat16)
 
@@ -250,19 +264,22 @@ def launch_chunked(r, k, v, w, u, state=None, *, state_out=None,
     return y, state_out
 
 
-def launch_backward(r, k, v, w, u, state, dy, d_state_out=None
-                    ) -> tuple[torch.Tensor, ...]:
-    """``(dr, dk, dv, dw, du, d_state)`` of :func:`launch`'s function at
-    ``(r, k, v, w, u, state)`` for the output's gradient ``dy`` ``(B, H, T,
-    Dv)`` (fp32 or r's type) and the final state's ``d_state_out`` (zeros
-    when None), on the backward kernel (``csrc/wkv6_bwd.cu``), Dk ≤ 64 and
-    Dv ≤ 128.  dr, dk, dv in r's type and dw fp32, each allocated ``(B, T,
-    H, D)`` in memory and returned as its ``(B, H, T, D)`` view (the
-    model's layout); du ``(H, Dk)`` in u's type; d_state ``(B, H, Dk,
-    Dv)`` fp32.  Two launches (the scan, then du's sum over b) and fp32
-    scratch of ``(B, H, ⌈T/C⌉)`` states (:func:`backward_chunk`)."""
+def bwd_route(T: int, Dk: int, Dv: int, dtype: torch.dtype) -> str:
+    """The backward kernel a call takes: ``"chunked"`` (``csrc/
+    wkv6_bwd_chunked.cu``) for a state of :data:`BWD_CHUNKED_SHAPES` with
+    fp32 or bf16 operands, at any T ≥ 1 (a partial chunk is masked);
+    ``"recurrent"`` (``csrc/wkv6_bwd.cu``) for the other states it takes
+    (Dk ≤ 64, Dv ≤ 128)."""
+    if T < 1:
+        raise ValueError(f"wkv6 backward: T={T}")
+    return ("chunked" if (Dk, Dv) in BWD_CHUNKED_SHAPES
+            and dtype in _OPERANDS else "recurrent")
+
+
+def _backward_operands(r, k, v, w, u, state, dy, d_state_out):
+    """Check a backward call; returns (B, H, T, Dk, Dv), the state and
+    ``d_state_out`` (contiguous), each checked."""
     B, H, T, Dk, Dv = _shape(r, k, v, w, u)
-    dkp, cpt, tc = wkv6_bwd_tile(Dk, Dv)
     dev = r.device
     state = _state(state, (B, H, Dk, Dv), dev, "state")
     if (dy.device != dev or tuple(dy.shape) != (B, H, T, Dv)
@@ -278,25 +295,118 @@ def launch_backward(r, k, v, w, u, state, dy, d_state_out=None
                              f"{tuple(d_state_out.shape)}: it takes fp32 "
                              f"{(B, H, Dk, Dv)} on {dev}")
         d_state_out = d_state_out.contiguous()
+    return (B, H, T, Dk, Dv), state, d_state_out
+
+
+def _backward_outputs(B, H, T, Dk, Dv, dtype, u_dtype, dev):
+    """dr, dk, dv in ``dtype`` and dw fp32, each ``(B, T, H, D)`` in memory
+    as its ``(B, H, T, D)`` view; du ``(H, Dk)`` in u's type; d_state."""
+    def out(D, dt):
+        return torch.empty((B, T, H, D), dtype=dt, device=dev).transpose(1, 2)
+
+    return (out(Dk, dtype), out(Dk, dtype), out(Dv, dtype),
+            out(Dk, torch.float32),
+            torch.empty((H, Dk), dtype=u_dtype, device=dev),
+            torch.empty((B, H, Dk, Dv), dtype=torch.float32, device=dev))
+
+
+def _strides(ins, outs) -> ctypes.Array:
+    """The (b, head, position) strides of the operands (already through
+    ``_bhs``) and of the outputs, in the kernels' order."""
+    strides = [s for t in ins for s in (t.stride(0), t.stride(1),
+                                        t.stride(2))]
+    for t in outs:
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
+def launch_backward(r, k, v, w, u, state, dy, d_state_out=None
+                    ) -> tuple[torch.Tensor, ...]:
+    """``(dr, dk, dv, dw, du, d_state)`` of :func:`launch`'s function at
+    ``(r, k, v, w, u, state)`` for the output's gradient ``dy`` ``(B, H, T,
+    Dv)`` (fp32 or r's type) and the final state's ``d_state_out`` (zeros
+    when None), on the backward kernel :func:`bwd_route` names for the
+    call, Dk ≤ 64 and Dv ≤ 128.  dr, dk, dv in r's type and dw fp32, each
+    allocated ``(B, T, H, D)`` in memory and returned as its ``(B, H, T,
+    D)`` view (the model's layout); du ``(H, Dk)`` in u's type; d_state
+    ``(B, H, Dk, Dv)`` fp32.  No fallback: a kernel that fails to build or
+    launch raises."""
+    T = r.shape[2] if r.dim() == 4 else 0
+    Dk = r.shape[3] if r.dim() == 4 else 0
+    Dv = v.shape[3] if v.dim() == 4 else 0
+    fn = (launch_backward_chunked if bwd_route(T, Dk, Dv, r.dtype)
+          == "chunked" else launch_backward_recurrent)
+    return fn(r, k, v, w, u, state, dy, d_state_out)
+
+
+def launch_backward_chunked(r, k, v, w, u, state, dy, d_state_out=None
+                            ) -> tuple[torch.Tensor, ...]:
+    """:func:`launch_backward`'s function on the chunked kernel
+    (``csrc/wkv6_bwd_chunked.cu``), for the states of
+    :data:`BWD_CHUNKED_SHAPES`: four launches (each chunk's own state and
+    gradient-state, the scans, each chunk's gradients, du's sum), with fp32
+    scratch of two ``(B, H, ⌈T/64⌉, Dk, Dv)`` states and two ``(B, H,
+    ⌈T/64⌉, Dk)`` vectors.  bf16 operands with an fp32 dy go in as fp32
+    (exact), and dr, dk, dv come back rounded to bf16 once."""
+    (B, H, T, Dk, Dv), state, d_state_out = _backward_operands(
+        r, k, v, w, u, state, dy, d_state_out)
+    if (Dk, Dv) not in BWD_CHUNKED_SHAPES:
+        raise ValueError(f"wkv6 chunked backward: Dk={Dk}, Dv={Dv}: it "
+                         f"takes {BWD_CHUNKED_SHAPES}")
+    out_dtype = r.dtype
+    if dy.dtype != r.dtype:
+        r, k, v = r.float(), k.float(), v.float()
+    dev = r.device
+    dr, dk, dv, dw, du, d_state = _backward_outputs(B, H, T, Dk, Dv,
+                                                    r.dtype, u.dtype, dev)
+    nc = -(-T // CHUNK)
+    se, sx = torch.empty((2, B, H, nc, Dk, Dv), dtype=torch.float32,
+                         device=dev)
+    dc, dup = torch.empty((2, B, H, nc, Dk), dtype=torch.float32,
+                          device=dev)
+    ins = [_bhs(t)[0] for t in (r, k, v, w, dy)]
+    strides = _strides(ins, (dr, dk, dv, dw))
+    r, k, v, w, dy = ins
+    u = u.contiguous()
+    lib = _build.load("wkv6_bwd_chunked")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(lib.wkv6_bwd_chunked_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        0 if state is None else state.data_ptr(), dy.data_ptr(),
+        0 if d_state_out is None else d_state_out.data_ptr(), dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        d_state.data_ptr(), se.data_ptr(), sx.data_ptr(), dc.data_ptr(),
+        dup.data_ptr(), strides, B, H, T, Dk, Dv,
+        int(r.dtype == torch.bfloat16), int(u.dtype == torch.bfloat16),
+        stream), "wkv6 chunked backward")
+    _build.launch_counts["wkv6_bwd_chunked"] += 3
+    _build.launch_counts["wkv6_bwd_chunked_du"] += 1
+    if out_dtype != r.dtype:
+        dr, dk, dv = (t.to(out_dtype) for t in (dr, dk, dv))
+    return dr, dk, dv, dw, du, d_state
+
+
+def launch_backward_recurrent(r, k, v, w, u, state, dy, d_state_out=None
+                              ) -> tuple[torch.Tensor, ...]:
+    """:func:`launch_backward`'s function on the recurrent kernel
+    (``csrc/wkv6_bwd.cu``), any state it takes (Dk ≤ 64, Dv ≤ 128): two
+    launches (the scan, then du's sum over b) and fp32 scratch of ``(B, H,
+    ⌈T/C⌉)`` states (:func:`backward_chunk`).  It repeats
+    ``ref.wkv6_backward``'s order of sums, so the two agree to the bit."""
+    (B, H, T, Dk, Dv), state, d_state_out = _backward_operands(
+        r, k, v, w, u, state, dy, d_state_out)
+    dkp, cpt, tc = wkv6_bwd_tile(Dk, Dv)
+    dev = r.device
     lib = _build.load("wkv6_bwd")
     nc = -(-T // int(lib.wkv6_bwd_chunk(dkp, cpt, tc)))
-
-    def out(D, dtype):
-        return torch.empty((B, T, H, D), dtype=dtype,
-                           device=dev).transpose(1, 2)
-
-    dr, dk, dv = out(Dk, r.dtype), out(Dk, r.dtype), out(Dv, r.dtype)
-    dw = out(Dk, torch.float32)
-    du = torch.empty((H, Dk), dtype=u.dtype, device=dev)
-    d_state = torch.empty((B, H, Dk, Dv), dtype=torch.float32, device=dev)
+    dr, dk, dv, dw, du, d_state = _backward_outputs(B, H, T, Dk, Dv,
+                                                    r.dtype, u.dtype, dev)
     dup = torch.empty((B, H, Dk), dtype=torch.float32, device=dev)
     ck = torch.empty((B, H, nc, dkp * cpt * tc), dtype=torch.float32,
                      device=dev)
-    ops = [_bhs(t) for t in (r, k, v, w, dy)]
-    strides = [s for _, *st in ops for s in st]
-    for t in (dr, dk, dv, dw):
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
-    (r, k, v, w, dy) = (t for t, *_ in ops)
+    ins = [_bhs(t)[0] for t in (r, k, v, w, dy)]
+    strides = _strides(ins, (dr, dk, dv, dw))
+    r, k, v, w, dy = ins
     u = u.contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib.wkv6_bwd_launch(
@@ -304,14 +414,20 @@ def launch_backward(r, k, v, w, u, state, dy, d_state_out=None
         0 if state is None else state.data_ptr(), dy.data_ptr(),
         0 if d_state_out is None else d_state_out.data_ptr(), dr.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-        d_state.data_ptr(), dup.data_ptr(), ck.data_ptr(),
-        (ctypes.c_longlong * len(strides))(*strides), B, H, T, Dk, Dv, dkp,
-        cpt, tc, int(r.dtype == torch.bfloat16),
+        d_state.data_ptr(), dup.data_ptr(), ck.data_ptr(), strides, B, H, T,
+        Dk, Dv, dkp, cpt, tc, int(r.dtype == torch.bfloat16),
         int(u.dtype == torch.bfloat16), int(dy.dtype == torch.bfloat16),
         stream), "wkv6 backward")
     _build.launch_counts["wkv6_bwd"] += 1
     _build.launch_counts["wkv6_bwd_du"] += 1
     return dr, dk, dv, dw, du, d_state
+
+
+def backward_smem_bytes_chunked(Dk: int, Dv: int, bf16: bool) -> int:
+    """Dynamic shared memory of one gradient CTA of the chunked backward,
+    read from the built kernel."""
+    return int(_build.load("wkv6_bwd_chunked").wkv6_bwd_chunked_smem(
+        Dk, Dv, int(bf16)))
 
 
 def backward_chunk(Dk: int, Dv: int) -> int:

@@ -224,7 +224,7 @@ def test_launch_counts_untouched_by_plain_path():
         "flash_attention_bwd_dq_wgmma": 0,
         "wkv6_prefill": 0, "wkv6_decode": 0,
         "wkv6_recurrent": 0, "wkv6_chunked": 0, "wkv6_bwd": 0,
-        "wkv6_bwd_du": 0}
+        "wkv6_bwd_du": 0, "wkv6_bwd_chunked": 0, "wkv6_bwd_chunked_du": 0}
 
 
 @pytest.mark.parametrize("M,n,m,d", [(1, 300, 70, 6), (7, 333, 130, 17),
