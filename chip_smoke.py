@@ -232,7 +232,21 @@ Phases, each failing the run (non-zero exit, no ``ok`` line) on any error:
    attention backward timed at the training shapes beside its bound, its
    plain version and SDPA's backward, and the wkv6 backward at
    rwkv6-1.6b's training microbatch and Jamba's scan, on both routes,
-   beside its bound and plain version.
+   beside its bound and plain version;
+18. dry run (run after phase 17) — ``repro_torch.launch.dryrun`` (the
+   card's path on meta tensors, each kernel counted by
+   ``kernels/cost.py``) against the card: the facts its dry branches copy
+   (the card's memory, shared memory and SMs, the tile's shared memory,
+   threshold_select's group room, the recurrent wkv6 backward's chunk)
+   equal to the card's; the Qwen3-8B and
+   RWKV-6 training cells, one step each, their launches by counter equal
+   to the cell's first step and their predicted peak within 10% of
+   ``max_memory_allocated``; the paper's submod cell (one machine of
+   65,536 × 1,024, 8,192 eval rows, greedy at k = 64 of its 256) through
+   ``distributed.run_round``, held the same way and timed once, its first
+   8 selections against the plain greedy (the tile's chunked path at
+   d = 1,024) under the near-tie rule; the CLI (``--only-submod``; ``--arch
+   qwen3-8b --shape decode_32k``) exiting 0 with records that parse.
 
 Ends with one JSON line per kernel table and the ``ok`` line.  Imports
 nothing of the JAX package.
@@ -253,12 +267,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense bf16 on
-# the tensor cores, HBM3 rate
-PEAK_FP32 = 67e12
-PEAK_TF32 = 495e12
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
+# the kernels' work and the H100's rates (kernels/cost.py): each time row's
+# bound is the least time the card could take for its kernel's work
+from repro_torch.kernels import cost  # noqa: E402
+
 SEED = 0
 WEBSCOPE = dict(n=45_000_000, d=6, k=50, mu=22_500, n_eval=512)
 N_GROUPS = 8
@@ -322,25 +334,11 @@ def cuda_ms(fn, runs: int, warmup: int = 1) -> float:
     return device_ms(fn, runs, warmup)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def tile_bound(pairs: float, d: int, nbytes: float, epilogue: int
-               ) -> tuple[float, str, float]:
-    """The bound of a kernel on the gain tile, with the distances on the
-    tensor cores: the larger of the 2d-flop products per (row, eval
-    column) pair at the TF32 rate and the ``epilogue`` remaining operations
-    a pair (3; 4 with eval weights) at the fp32 rate, against the bytes.
-    Returns (bound ms, what bounds it, the fp32-only bound of the CUDA-core
-    tile: all 2d + epilogue operations at the fp32 rate)."""
-    t_ops = max(pairs * 2 * d / PEAK_TF32, pairs * epilogue / PEAK_FP32)
-    t_bytes = nbytes / PEAK_BYTES
-    fp32_only, _ = bound_ms(pairs * (2 * d + epilogue), nbytes)
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", fp32_only)
+def bounds(work) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, the bound with every operation at the
+    fp32 rate) of a kernel's ``cost.Work`` on the H100."""
+    b, by = work.bound_ms(cost.H100)
+    return b, by, work.fp32_only_ms(cost.H100)
 
 
 def check_step_launches(name: str, fn, k: int) -> None:
@@ -1187,9 +1185,8 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
     check_step_launches("greedy_select_constrained", lambda: ops.greedy_select(
         blocks, E, seed, bmask, k, **kw), k)
     calls = int(torch.sum(obj.fused_select(blocks, bmask, k, **kw)[3]))
-    b, by, b32 = tile_bound(calls * m, d,
-                            4 * M * mu * d + 4 * m * d + 4 * m + M * mu
-                            + 8 * M * mu + 4 * M * k + 4 * M * m, 3)
+    b, by, b32 = bounds(cost.greedy_select(M, mu, d, m, k, calls=calls,
+                                           constrained=True))
     launches = constrained["launches"]["greedy_select_constrained"]
     rows.append({"name": "greedy_select (knapsack ∩ partition)",
                  "route": "cuda",
@@ -1285,9 +1282,8 @@ def times_constrained(main: dict, constrained: dict, blocks, bmask, part
         f"ops call {ms_ops:.4f} ms; unconstrained, whole ops call "
         f"{ms_u:.4f} ms; level 1, kernel {ms1:.4f} ms")
     n_rows = int(bmask.sum())
-    b, by, b32 = tile_bound(n_rows * m, d,
-                            M * mu * (4 * d + 4 + 4 + 1 + 1) + 4 * m * d
-                            + 8 * M * m + 16 * M, 3)
+    b, by, b32 = bounds(cost.threshold_select(M, mu, d, m, rows=n_rows,
+                                              constrained=True))
     rows.append({"name": "threshold_select", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/threshold_select.cu",
                  "replaces": "src/repro/kernels/threshold_select.py:238",
@@ -2773,9 +2769,7 @@ def times_new(main: dict, active: dict, facility: dict, weighted: dict,
         fail("rbf_kernel K(x, x) outside [1 - tol, 1] at the round-0 update")
     del K, K_p
     ms = cuda_ms(lambda: ops.rbf_kernel(x, blocks, 0.5), runs=20)
-    # each operand read once, the output written once; dot (2d), norms of
-    # the pair (3), scale, clamp and exp (3) per output element, fp32
-    b, by = bound_ms(M * mu * (2 * d + 6), 4 * (M * d + M * mu * d + M * mu))
+    b, by = cost.rbf_kernel(M, 1, M, mu, d).bound_ms(cost.H100)
     rows.append({"name": "rbf_kernel (ActiveSetSelection update)",
                  "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/rbf_kernel.cu",
@@ -2794,8 +2788,7 @@ def times_new(main: dict, active: dict, facility: dict, weighted: dict,
     err = testing.max_abs_err(K, K_p)
     del K, K_p
     ms = cuda_ms(lambda: ops.rbf_kernel(E, Y, 1.0), runs=10)
-    b, by = bound_ms(M * m * c * (2 * d + 6),
-                     4 * (m * d + M * c * d + M * m * c))
+    b, by = cost.rbf_kernel(1, m, M, c, d).bound_ms(cost.H100)
     log(f"rbf_kernel FacilityLocation chunk: (M, n_eval, chunk) = "
         f"({M}, {m}, {c}), {4 * M * m * c / 1e9:.2f} GB out")
     rows.append({"name": "rbf_kernel (FacilityLocation gains)",
@@ -2841,9 +2834,8 @@ def times_new(main: dict, active: dict, facility: dict, weighted: dict,
     n_avail = torch.sum(bmask.long(), dim=1, keepdim=True)
     calls = int(torch.sum(torch.clamp_min(
         n_avail - torch.arange(k, device="cuda"), 0)))
-    b, by, b32 = tile_bound(calls * m, d,
-                            4 * M * mu * d + 4 * m * d + 8 * m + M * mu
-                            + 4 * M * k + 4 * M * m, 4)
+    b, by, b32 = bounds(cost.greedy_select(M, mu, d, m, k, calls=calls,
+                                           weighted=True))
     rows.append({"name": "greedy_select (eval weights)", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/greedy_select.cu",
                  "replaces": "src/repro/kernels/greedy_select.py:265",
@@ -2933,9 +2925,8 @@ def times_exemplar(main: dict, constrained: dict, weighted: dict,
         del g, g_p
         ms = cuda_ms(lambda: _eg.launch(X, Ep, cmp_, ewp),
                      runs=10 if M > 1 else 50)
-        b, by, b32 = tile_bound(M * n * m, d, 4 * (M * n * d + m * d + M * m
-                                                   + M * n), 3 if ew is None
-                                else 4)
+        b, by, b32 = bounds(cost.exemplar_gains(M, n, d, m,
+                                                weighted=ew is not None))
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/"
                                "exemplar_gains.cu",
@@ -2999,8 +2990,8 @@ def times_narrow(main: dict, streaming: dict, blocks, bmask) -> list[dict]:
         err = testing.max_abs_err(g, g_p)
         ms = cuda_ms(lambda: _eg.launch(X, Ep, cmp_, bf16dot=dot, **card),
                      runs=10)
-        b, by, b32 = tile_bound(M * mu * m, d, M * mu * row_b + 4 * m * d
-                                + 4 * M * m + 4 * M * mu, 3)
+        b, by, b32 = bounds(cost.exemplar_gains(M, mu, d, m,
+                                                row_bytes=row_b))
         rows.append({"name": f"exemplar_gains{tag}", "route": "cuda",
                      "source": src + "exemplar_gains.cu",
                      "replaces": "src/repro/kernels/exemplar_gains.py:107",
@@ -3024,8 +3015,8 @@ def times_narrow(main: dict, streaming: dict, blocks, bmask) -> list[dict]:
             f"plain, near-tie steps {n_tie}, max|dcm| {err:.3g}")
         ms = cuda_ms(lambda: ops.greedy_select(X, E, seed, bmask, k, **kw),
                      runs=3)
-        b, by, b32 = tile_bound(calls * m, d, M * mu * row_b + 4 * m * d
-                                + 4 * m + M * mu + 4 * M * k + 4 * M * m, 3)
+        b, by, b32 = bounds(cost.greedy_select(M, mu, d, m, k, calls=calls,
+                                               row_bytes=row_b))
         rows.append({"name": f"greedy_select{tag}", "route": "cuda",
                      "source": src + "greedy_select.cu",
                      "replaces": "src/repro/kernels/greedy_select.py:265",
@@ -3048,8 +3039,8 @@ def times_narrow(main: dict, streaming: dict, blocks, bmask) -> list[dict]:
                  f"compared in full")
         ms = cuda_ms(lambda: ops.threshold_select(X, E, seed, bmask, tau, k,
                                                   **kw), runs=5)
-        b, by, b32 = tile_bound(n_rows * m, d, M * mu * (row_b + 2)
-                                + 4 * m * d + 8 * M * m + 16 * M, 3)
+        b, by, b32 = bounds(cost.threshold_select(M, mu, d, m, rows=n_rows,
+                                                  row_bytes=row_b))
         rows.append({"name": f"threshold_select{tag}", "route": "cuda",
                      "source": src + "threshold_select.cu",
                      "replaces": "src/repro/kernels/threshold_select.py:238",
@@ -3089,7 +3080,7 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
     ms_ops = cuda_ms(lambda: ops.exemplar_gains(T, E, cm), runs=50)
     log(f"exemplar_gains at the scan block: kernel {ms:.4f} ms, whole ops "
         f"call (padding, launch, division) {ms_ops:.4f} ms")
-    b, by, b32 = tile_bound(n * m, d, 4 * (n * d + m * d + m + n), 3)
+    b, by, b32 = bounds(cost.exemplar_gains(1, n, d, m))
     rows.append({"name": "exemplar_gains", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/exemplar_gains.cu",
                  "replaces": "src/repro/kernels/exemplar_gains.py:107",
@@ -3120,9 +3111,7 @@ def phase_times(scan: dict, main: dict, constrained: dict, active: dict,
     n_avail = torch.sum(bmask.long(), dim=1, keepdim=True)
     steps = torch.arange(k, device="cuda")
     calls = int(torch.sum(torch.clamp_min(n_avail - steps, 0)))
-    b, by, b32 = tile_bound(calls * m, d,
-                            4 * M * mu * d + 4 * m * d + 4 * m + M * mu
-                            + 4 * M * k + 4 * M * m, 3)
+    b, by, b32 = bounds(cost.greedy_select(M, mu, d, m, k, calls=calls))
     launches = main["launches"]["greedy_select"]
     rows.append({"name": "greedy_select", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/greedy_select.cu",
@@ -3511,27 +3500,6 @@ def _qkv(B, H, Hkv, S, T, D, dtype, seed, strided=False):
                                         (B, Hkv, T, D)))
     return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
                  for shape in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
-
-
-def visible_pairs(S: int, T: int, causal: bool, kv) -> int:
-    """(query, key) pairs that take part: each query row sees the keys
-    below kv_valid_len and, causal, at or before its own position."""
-    kv = T if kv is None else min(kv, T)
-    if not causal:
-        return S * kv
-    return sum(min(kv, r + 1 + T - S) for r in range(S))
-
-
-def attention_bound(B, H, Hkv, S, T, D, causal, kv, itemsize):
-    """(bound ms, by): the products (4 operations per visible pair and
-    feature) on the bf16 tensor cores, or the bytes of q, the valid K/V
-    and the output, each moved once."""
-    flops = 4 * B * H * D * visible_pairs(S, T, causal, kv)
-    kvn = T if kv is None else min(kv, T)
-    nbytes = itemsize * D * (2 * B * H * S + 2 * B * Hkv * kvn)
-    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
 
 
 def _ptxas_report(log: str, marker: str) -> list[str]:
@@ -3936,11 +3904,8 @@ def times_attention_bwd(launches: dict, cell: dict | None = None
                                                  enable_gqa=True)
         lib = cuda_ms(lambda: torch.autograd.grad(
             o_l, (qs, ks, vs), do, retain_graph=True), runs=10)
-        flops = 5 * 2 * B * H * D * visible_pairs(S, T, causal, None)
-        nbytes = 2 * D * (4 * B * H * S + 4 * B * Hkv * T) + 4 * B * H * S
-        t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
-        b = 1e3 * max(t_ops, t_bytes)
-        by = "operations" if t_ops >= t_bytes else "bytes"
+        b, by = cost.attention_backward(B, H, Hkv, S, T, D, causal,
+                                        2).bound_ms(cost.H100)
         calls = launches.get(what, 0)
         n = calls * per_call
         share = ""
@@ -4683,7 +4648,8 @@ def times_attention(serve: dict, arch: str = LM_ARCH) -> list[dict]:
             mask = (torch.arange(T, device="cuda") < kv)[None, None, None]
             lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=True), runs=runs)
-        b, by = attention_bound(B, H, Hkv, S, T, D, causal, kv, 2)
+        b, by = cost.attention(B, H, Hkv, S, T, D, causal, kv,
+                               2).bound_ms(cost.H100)
         log(f"flash_attention {what}: B={B} H={H} Hkv={Hkv} S={S} T={T} "
             f"D={D} causal={causal} kv_valid_len={kv}, bf16")
         rows.append({"name": f"flash_attention ({what})", "route": "cuda",
@@ -4731,24 +4697,6 @@ def _wkv_inputs(B, H, T, Dk, Dv, dtype, seed, decay="model", strided=True):
         w = torch.full_like(n, float(decay))
     u = (0.1 * torch.randn((H, Dk), generator=g, device="cuda")).to(dtype)
     return r, k, v, w, u
-
-
-def wkv6_bound(B, H, T, Dk, Dv, itemsize, state_in, y_itemsize):
-    """(bound ms, by, fp32-only bound ms): the bytes of r, k, v and u
-    (``itemsize``), w (fp32), y (``y_itemsize``) and the fp32 state, read
-    where given and written, each moved once, against 5·Dk·Dv + 3·Dk + 2·Dv
-    operations per step and head (the state update w·S + k·v, r·S, the
-    bonus (r·u)·k and v·a) at the TF32 tensor-core rate; the fp32-only
-    bound takes the operations at the fp32 rate (the recurrent kernel's
-    CUDA cores)."""
-    steps = B * H * T
-    flops = steps * (5 * Dk * Dv + 3 * Dk + 2 * Dv)
-    nbytes = (steps * ((2 * Dk + Dv) * itemsize + 4 * Dk + Dv * y_itemsize)
-              + H * Dk * itemsize + 4 * B * H * Dk * Dv * (1 + int(state_in)))
-    t_tc, t_bytes = flops / PEAK_TF32, nbytes / PEAK_BYTES
-    fp32_only, _ = bound_ms(flops, nbytes)
-    return (1e3 * max(t_tc, t_bytes),
-            "operations" if t_tc >= t_bytes else "bytes", fp32_only)
 
 
 def wkv6_readings(y, st, y_p, st_p, terms, bf16) -> dict:
@@ -5291,7 +5239,8 @@ def times_wkv6(serve: dict, chunked_serve: dict) -> list[dict]:
         testing.assert_close(st, st_p, f"wkv6 at the {what} shape: state")
         err = max(testing.max_abs_err(y, y_p), testing.max_abs_err(st, st_p))
         ms = cuda_ms(kernel, runs=runs)
-        b, by, b32 = wkv6_bound(B, H, T, D, D, 2, given, 4 if given else 2)
+        b, by, b32 = bounds(cost.wkv6(B, H, T, D, D, 2, given,
+                                      4 if given else 2))
         log(f"wkv6 {what}: B={B} H={H} T={T} Dk=Dv={D}, bf16 r/k/v/u, fp32 "
             f"w, state {'in and out' if given else 'out'}; the check's "
             f"plain run {plain_ms / 1e3:.1f} s")
@@ -5407,7 +5356,8 @@ def times_mamba_scan(serve: dict) -> list[dict]:
                              f"wkv6 at the Mamba {what} shape: state")
         err = max(testing.max_abs_err(y, y_p), testing.max_abs_err(st, st_p))
         ms = cuda_ms(kernel, runs=50 if given else 10)
-        b, by, b32 = wkv6_bound(B, H, T, Dk, Dv, 2, given, 4 if given else 2)
+        b, by, b32 = bounds(cost.wkv6(B, H, T, Dk, Dv, 2, given,
+                                      4 if given else 2))
         log(f"wkv6 Mamba {what}: B={B} H={H} T={T} Dk={Dk} Dv={Dv}, bf16 "
             f"r/k/v, u = 0, fp32 w = 0.5, state "
             f"{'in and out' if given else 'out'}")
@@ -5900,6 +5850,7 @@ def phase_train_cell() -> dict:
     opt = opt_lib.OptConfig(total_steps=100, moment_dtype=cfg.moment_dtype)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    other = torch.cuda.memory_allocated()
     state = ts.init_train_state(cfg, opt, SEED, device="cuda")
     leaves = opt_lib.tree_leaves(state["params"])
     n_params = sum(t.numel() for t in leaves)
@@ -5921,8 +5872,13 @@ def phase_train_cell() -> dict:
     for step in range(c["steps"]):
         batch = data.batch(step)
         ops.reset_launch_counts()
+        if step == 0:
+            init_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         (state, m), ms = timed_once(lambda: step_fn(state, batch))
         counts = dict(ops.launch_counts)
+        if step == 0:
+            step1 = step_reading(other, counts)
         if step + 1 == c["steps"]:
             # the timed steps are done: the CLI's run (phase 17c) starts
             # here, its start-up beside this phase's checkpoint I/O
@@ -5945,18 +5901,19 @@ def phase_train_cell() -> dict:
                  f"tensor cores: {counts}")
         log(f"train cell step {step + 1}: {hist[-1]}; checkpoint "
             f"{ckpt_s[-1]:.1f} s")
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(init_peak, torch.cuda.max_memory_allocated())
     step_ms = statistics.median(h["ms"] for h in hist[1:])
     tokens = c["batch"] * c["seq"]
-    attn = 3 * 4 * c["batch"] * cfg.n_heads * cfg.hd * visible_pairs(
+    attn = 3 * 4 * c["batch"] * cfg.n_heads * cfg.hd * cost.visible_pairs(
         c["seq"], c["seq"], True, None) * cfg.n_layers
     flops = 6 * (n_params - n_emb) * tokens + attn
     out = {"cli": cli,
            "step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
-           "model_flops": flops, "mfu": flops / (step_ms / 1e3) / PEAK_BF16,
+           "model_flops": flops,
+           "mfu": flops / (step_ms / 1e3) / cost.H100.rate("bf16"),
            "peak_mem": peak, "init_mem": init_mem, "n_params": n_params,
            "launches": hist[-1]["launches"], "ckpt_s": ckpt_s,
-           "history": hist}
+           "history": hist, "step1": step1}
     # resume: the step-2 checkpoint into a fresh state, steps 3-4 again
     t0 = time.perf_counter()
     resumed = ckpt.restore(str(ckdir), c["ckpt_every"], state)
@@ -6021,6 +5978,7 @@ def phase_train_cell_rwkv(trace: bool = False) -> dict:
     opt = opt_lib.OptConfig(total_steps=100, moment_dtype=cfg.moment_dtype)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    other = torch.cuda.memory_allocated()
     state = ts.init_train_state(cfg, opt, SEED, device="cuda")
     n_params = sum(t.numel() for t in opt_lib.tree_leaves(state["params"]))
     n_emb = state["params"]["emb"].numel()
@@ -6035,8 +5993,13 @@ def phase_train_cell_rwkv(trace: bool = False) -> dict:
         for step in range(c["steps"]):
             batch = data.batch(step)
             ops.reset_launch_counts()
+            if step == 0:
+                init_peak = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
             (state, m), ms = timed_once(lambda: step_fn(state, batch))
             counts = {k: v for k, v in ops.launch_counts.items() if v}
+            if step == 0:
+                step1 = step_reading(other, counts)
             hist.append({"loss": float(m["loss"]),
                          "grad_norm": float(m["grad_norm"]), "ms": ms,
                          "launches": counts})
@@ -6048,16 +6011,18 @@ def phase_train_cell_rwkv(trace: bool = False) -> dict:
                 fail(f"rwkv train cell step {step + 1}: wkv6 launches {got}, "
                      f"expected {want}")
             log(f"rwkv train cell step {step + 1}: {hist[-1]}")
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(init_peak, torch.cuda.max_memory_allocated())
     step_ms = statistics.median(h["ms"] for h in hist[1:])
     tokens = c["batch"] * c["seq"]
     flops = 6 * (n_params - n_emb) * tokens
     out = {"step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
-           "model_flops": flops, "mfu": flops / (step_ms / 1e3) / PEAK_BF16,
+           "model_flops": flops,
+           "mfu": flops / (step_ms / 1e3) / cost.H100.rate("bf16"),
            "peak_mem": peak, "init_mem": init_mem, "n_params": n_params,
            "launches": hist[-1]["launches"], "history": hist,
            "wkv6_shapes": {k: v // c["steps"]
-                           for k, v in shapes.calls.items()}}
+                           for k, v in shapes.calls.items()},
+           "step1": step1}
     log(f"rwkv train cell ({RWKV_ARCH} whole, {cfg.n_layers} layers, "
         f"{n_params:,} parameters, {c['batch']} x {c['seq']} tokens, "
         f"{cfg.microbatches} microbatches, remat, bf16 moments): step "
@@ -6074,6 +6039,249 @@ def phase_train_cell_rwkv(trace: bool = False) -> dict:
     del state
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The dry run against the card
+# ---------------------------------------------------------------------------
+
+#: the selections of the submod cell held against the plain greedy
+SUBMOD_CHECK_STEPS = 8
+#: the submod cell's k on the card: the paper's k = 256 took 18.3 s in one
+#: call on an H100 80GB HBM3 at 700 W (the gain tile at d = 1,024 reads
+#: about 1% of its bound), past the 15 s this phase may spend on it, so
+#: the card runs the same cell at k = 64 (the dry run counts it at both)
+SUBMOD_CARD_K = 64
+#: the predicted peak against torch.cuda.max_memory_allocated()
+DRY_PEAK_TOL = 0.10
+
+
+def step_reading(other: int, counts: dict) -> dict:
+    """A training cell's first step: its memory peak above ``other`` (what
+    the card held before the cell's state; the state, batch and step
+    counted, as the dry run counts them) and its launches by counter."""
+    import torch
+    return {"peak": torch.cuda.max_memory_allocated() - other,
+            "launches": {k: v for k, v in counts.items() if v}}
+
+
+def dry_facts() -> None:
+    """The dry branches' copies of what torch and the built kernels report
+    on the card (``cost.H100``'s memory, shared memory and SMs, the gain
+    tile's shared memory, threshold_select's group room, the recurrent
+    wkv6 backward's chunk), each held equal to the card's."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import exemplar_gains as eg
+    from repro_torch.kernels import threshold_select as ts
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.kernels.ref import wkv6_bwd_tile
+    p = torch.cuda.get_device_properties(0)
+    got = {"memory_bytes": p.total_memory,
+           "smem_optin": p.shared_memory_per_block_optin,
+           "sms": p.multi_processor_count}
+    bad = []
+    if got != {k: getattr(cost.H100, k) for k in got}:
+        bad.append(f"the card reports {got}")
+    lib = _build.load("exemplar_gains")
+    n = 0
+    for d in (6, 17, 64, 1024, 3072):
+        for mp in (64, 512, 1024, 1088, 8192):
+            for w in (False, True):
+                card = lib.exemplar_tile_smem(d, mp, int(w))
+                n += 1
+                if card != eg.tile_smem(d, mp, w):
+                    bad.append(f"tile smem d={d} mp={mp} w={w}: card {card}")
+    room = {}
+    for w in (False, True):
+        for d, mp in ((6, 64), (17, 1152), (1024, 8192)):
+            card = ts.max_groups(torch.device("cuda", 0), w, d, mp)
+            room[(w, d, mp)] = card
+            static = (p.shared_memory_per_block_optin - card * 4
+                      - eg.tile_smem(d, mp, w))
+            if card != ts.max_groups(torch.device("meta"), w, d, mp):
+                bad.append(f"threshold_select groups w={w} d={d} mp={mp}: "
+                           f"card {card} (static shared memory {static})")
+    wlib = _build.load("wkv6_bwd")
+    chunks = {}
+    for Dk, Dv in ((16, 16), (64, 64), (16, 128), (40, 72), (64, 128),
+                   (8, 16)):
+        tile = wkv6_bwd_tile(Dk, Dv)
+        chunks[tile] = wlib.wkv6_bwd_chunk(*tile)
+        if chunks[tile] != wk.bwd_chunk_steps(*tile):
+            bad.append(f"wkv6 backward chunk at {tile}: card {chunks[tile]}")
+    log(f"dry-run facts: {got}; {n} tile shared-memory sizes; "
+        f"threshold_select groups {room}; wkv6 backward chunks {chunks}")
+    if bad:
+        fail("the dry branches' facts differ from the card: "
+             + "; ".join(bad))
+
+
+def hold_dry(what: str, rec: dict, launches: dict, peak: int) -> None:
+    """A dry-run record against the real run of the same cell: the kernel
+    launches by counter equal, the predicted peak within
+    ``DRY_PEAK_TOL`` of ``max_memory_allocated``."""
+    dry = {k: v["launches"] for k, v in rec["kernels"].items()
+           if v["launches"]}
+    rel = rec["peak_bytes"] / peak - 1
+    log(f"dry run of {what} ({rec['trace_s']} s on the host): launches "
+        f"{dry}, the card's {launches}; peak predicted "
+        f"{rec['peak_bytes']:,} B, max_memory_allocated {peak:,} B "
+        f"({rel:+.2%}); {rec['flops_per_dev']:.4g} flops, "
+        f"{rec['bytes_per_dev']:.4g} bytes")
+    if dry != launches:
+        fail(f"dry run of {what}: launches {dry}, the card's {launches}")
+    if abs(rel) > DRY_PEAK_TOL:
+        fail(f"dry run of {what}: peak {rec['peak_bytes']:,} B against the "
+             f"card's {peak:,} B ({rel:+.2%})")
+
+
+def clustered_rows(n: int, d: int, seed: int):
+    """``n`` rows of ``d`` features on the card, drawn as
+    ``datasets.tiny`` draws its rows (50 clusters of spread 0.5, zero-mean
+    unit-norm rows), so that greedy's gains are not all zero."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    centers = torch.randn((50, d), generator=g, device="cuda")
+    assign = torch.randint(0, 50, (n,), generator=g, device="cuda")
+    X = centers[assign] + 0.5 * torch.randn((n, d), generator=g,
+                                            device="cuda")
+    X -= X.mean(0)
+    return X / torch.clamp_min(torch.linalg.vector_norm(X, dim=1,
+                                                         keepdim=True), 1e-9)
+
+
+def phase_dryrun(cell: dict, rwkv_cell: dict) -> list[dict]:
+    """Phase 18: the dry run (``repro_torch.launch.dryrun``: the card's
+    path on meta tensors, each kernel counted by ``kernels/cost.py``)
+    against the card.  The facts its dry branches copy (:func:`dry_facts`);
+    the two training cells, one step each with the state resident, against
+    their first steps on the card (``step1`` of :func:`phase_train_cell`
+    and :func:`phase_train_cell_rwkv`) by :func:`hold_dry`; the paper's
+    submod cell at its per-device shape (``configs/paper_submod``: one
+    machine of 65,536 × 1,024, 8,192 eval rows, fp32 greedy, at k =
+    ``SUBMOD_CARD_K`` of the paper's 256) through ``distributed.run_round``
+    on the card, its launches and peak held the same way, timed once
+    beside its bound; its first
+    ``SUBMOD_CHECK_STEPS`` selections against the plain greedy on the card
+    (the tile's chunked path at d = 1,024) under the near-tie rule, each
+    step's top-2 gain gap logged; the CLI with ``--only-submod`` and with
+    ``--arch qwen3-8b --shape decode_32k``, each to exit 0 with records
+    that parse.  Returns the kernel table's submod row."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.paper_submod import CONFIG as scfg
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.objectives import ExemplarClustering
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import dryrun
+    outs = {"submod": ROOT / "build" / "dryrun_submod.json",
+            "decode": ROOT / "build" / "dryrun_decode.json"}
+    for f in outs.values():
+        f.unlink(missing_ok=True)
+    cli = {"submod": _module_start("repro_torch.launch.dryrun",
+                                   "--only-submod", "--out",
+                                   str(outs["submod"])),
+           "decode": _module_start("repro_torch.launch.dryrun", "--arch",
+                                   LM_ARCH, "--shape", "decode_32k", "--out",
+                                   str(outs["decode"]))}
+    dry_facts()
+    for what, arch, c, real, cut in (
+            ("the train cell", LM_ARCH, TRAIN_CELL, cell["step1"],
+             dict(n_layers=TRAIN_CELL["layers"])),
+            ("the rwkv train cell", RWKV_ARCH, TRAIN_CELL_RWKV,
+             rwkv_cell["step1"], {})):
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        rec = dryrun.dryrun_cell(arch, "train_cell", cfg=cfg,
+                                 shape=ShapeConfig("train_cell", c["seq"],
+                                                   c["batch"], "train"))
+        hold_dry(f"{what} ({arch}, {cfg.n_layers} layers, {c['batch']} x "
+                 f"{c['seq']})", rec, real["launches"], real["peak"])
+
+    # the submod cell on the card, at its full width
+    card_cfg = dataclasses.replace(scfg, k=SUBMOD_CARD_K)
+    M, cap, d, m, k = 1, scfg.capacity, scfg.d, scfg.n_eval, card_cfg.k
+    rec = dryrun.dryrun_submod("greedy", scfg=card_cfg)
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    other = torch.cuda.memory_allocated()
+    X = clustered_rows(cap + m, d, SEED)
+    blocks = X[:cap].reshape(M, cap, d).contiguous()
+    E = X[cap:].contiguous()
+    del X
+    bmask = torch.ones((M, cap), dtype=torch.bool, device="cuda")
+    obj = ExemplarClustering(E)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res, ms = timed_once(lambda: dist.run_round(obj, blocks, bmask, k=k,
+                                                alg="greedy", eps=0.5))
+    peak = torch.cuda.max_memory_allocated() - other
+    launches = {n: v for n, v in ops.launch_counts.items() if v}
+    hold_dry(f"the submod cell (μ = {cap}, d = {d}, m = {m}, k = {k} of "
+             f"the paper's {scfg.k})", rec, launches, peak)
+    if not (bool(torch.isfinite(res.values).all())
+            and int(res.sol_mask.sum()) == k):
+        fail(f"submod cell: values {res.values.tolist()}, "
+             f"{int(res.sol_mask.sum())} of {k} selections")
+    b_k, by_k = cost.greedy_select(M, cap, d, m, k).bound_ms(cost.H100)
+    log(f"submod cell: run_round {ms:.1f} ms for k = {k} "
+        f"({launches.get('greedy_select', 0)} greedy_select launches), "
+        f"bound {b_k:.1f} ms by {by_k} ({b_k / ms:.1%} of bound), value "
+        f"{float(res.values[0]):.6g}")
+
+    # its first steps against the plain greedy on the card
+    s = SUBMOD_CHECK_STEPS
+    e0 = torch.sum(E * E, dim=-1)
+    trace, plain_ms = timed_once(lambda: ref.greedy_select_trace(
+        blocks, E, e0, bmask, s))
+    sel, cm_out = ops.greedy_select(blocks, E, e0, bmask, s)
+    n_tie, same, err = check_greedy(sel, cm_out, blocks, E, e0, trace,
+                                    f"greedy_select at the submod cell's "
+                                    f"first {s} steps")
+    gaps = [f"{float(g):.3g}" for g in trace[2].reshape(-1)]
+    log(f"submod cell: the first {s} selections {sel.reshape(-1).tolist()} "
+        f"against plain {trace[0].reshape(-1).tolist()}: {same}/{M} "
+        f"machines select as plain, near-tie steps {n_tie}, max|dcm| "
+        f"{err:.3g}; top-2 gain gap by step {gaps}, best gains "
+        f"{[f'{float(g):.4g}' for g in trace[3].reshape(-1)]}")
+    ms_s = cuda_ms(lambda: ops.greedy_select(blocks, E, e0, bmask, s),
+                   runs=3)
+    b, by, b32 = bounds(cost.greedy_select(M, cap, d, m, s))
+    row = {"name": f"greedy_select (paper submod cell, {s} steps; the card "
+                   f"runs k = {k} of its {scfg.k})", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/greedy_select.cu",
+           "replaces": "src/repro/kernels/greedy_select.py:265",
+           "launches": launches.get("greedy_select", 0),
+           "max_abs_err": err, "ms": ms_s, "plain_ms": plain_ms,
+           "bound_ms": b, "bound_by": by, "bound_fp32_ms": b32,
+           "library_ms": None}
+    log(f"time {row['name']}: {ms_s:.4f} ms (plain {plain_ms:.4f} ms, "
+        f"bound {b:.4f} ms by {by}, {b / ms_s:.1%} of bound; fp32-only "
+        f"bound {b32:.4f} ms), launches {row['launches']}")
+    del blocks, E, e0, bmask, obj, res, trace, sel, cm_out
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+
+    for name, finish in cli.items():
+        done = finish()
+        if done.returncode != 0:
+            fail(f"python -m repro_torch.launch.dryrun ({name}): exit "
+                 f"{done.returncode}: {done.stderr[-2000:]}")
+        data = json.loads(outs[name].read_text())
+        want = len(dryrun.SUBMOD_VARIANTS) if name == "submod" else 1
+        if len(data["records"]) != want or data["failures"]:
+            fail(f"python -m repro_torch.launch.dryrun ({name}): "
+                 f"{len(data['records'])} records, failures "
+                 f"{data['failures']}")
+        for r in data["records"]:
+            kernels = {n: v["launches"] for n, v in r["kernels"].items()}
+            log(f"  dryrun CLI record {r['arch']} x {r['shape']}: peak "
+                f"{r['peak_bytes']:,} B, fits {r['fits']}, flops "
+                f"{r['flops_per_dev']:.4g}, bytes {r['bytes_per_dev']:.4g}, "
+                f"kernels {kernels}")
+    return [row]
 
 
 #: kernel-name substrings of each part of a training step's device time
@@ -6119,28 +6327,6 @@ def step_breakdown(kernels: dict, step_ms: float) -> dict:
     return out
 
 
-def wkv6_bwd_bound(B, H, T, Dk, Dv, itemsize, dy_itemsize, state_in):
-    """(bound ms, by, fp32-only bound ms) of the wkv6 backward: the bytes
-    of r, k, v and dy read and dr, dk, dv written (``itemsize``,
-    ``dy_itemsize``), w read and dw written (fp32), u read and du written,
-    the fp32 S_0 and dS_T read and dS_0 written where ``state_in``, each
-    moved once, against 14·Dk·Dv + 12·Dk + 4·Dv operations a step and
-    head (the state S_{t−1} (w·S + k·v, 3), S·dy, G·v, G ⊙ S and Gᵀ·k
-    each a product and a sum (8), the update w·G + r·dy (3); the bonus
-    a_t and c_t, the u terms of dr and dk, and du) at the TF32
-    tensor-core rate, as :func:`wkv6_bound`; the fp32-only bound takes
-    them at the fp32 rate."""
-    steps = B * H * T
-    flops = steps * (14 * Dk * Dv + 12 * Dk + 4 * Dv)
-    nbytes = (steps * (2 * (2 * Dk + Dv) * itemsize + Dv * dy_itemsize
-                       + 8 * Dk) + 2 * H * Dk * itemsize
-              + 4 * B * H * Dk * Dv * (3 if state_in else 0))
-    t_tc, t_bytes = flops / PEAK_TF32, nbytes / PEAK_BYTES
-    fp32_only, _ = bound_ms(flops, nbytes)
-    return (1e3 * max(t_tc, t_bytes),
-            "operations" if t_tc >= t_bytes else "bytes", fp32_only)
-
-
 #: (what, B, H, T, Dk, Dv, decay, u = 0) of the wkv6 backward's time rows
 WKV_BWD_SHAPES = [
     (f"train {RWKV_ARCH}", 4, 32, 2048, 64, 64, "model", False),
@@ -6156,7 +6342,7 @@ def times_wkv6_bwd(parity: dict, cell: dict) -> list[dict]:
     beside it in turns, chunked / recurrent / chunked); each held against
     the plain version there (its run, timed once, is the plain time)
     within ``WKV_GRAD_TOL``, timed beside the bound
-    (:func:`wkv6_bwd_bound`).  Launches: the cell's a step at rwkv6-1.6b's
+    (``cost.wkv6_backward``).  Launches: the cell's a step at rwkv6-1.6b's
     shape (four a call on the chunked route: three and du's sum); at
     Jamba's the training parity's on the 16 × 128 instantiation (no
     full-width Jamba trains on one card); the recurrent kernel's none (no
@@ -6194,7 +6380,7 @@ def times_wkv6_bwd(parity: dict, cell: dict) -> list[dict]:
         ms = {"chunked": cuda_ms(lambda: fns["chunked"](*args), runs=5)}
         ms["recurrent"] = cuda_ms(lambda: fns["recurrent"](*args), runs=5)
         again = cuda_ms(lambda: fns["chunked"](*args), runs=5)
-        b, by, b32 = wkv6_bwd_bound(B, H, T, Dk, Dv, 2, 2, False)
+        b, by, b32 = bounds(cost.wkv6_backward(B, H, T, Dk, Dv, 2, 2, False))
         if u_zero:
             calls = sum(n for (_, _, _, k, v), n in
                         parity["wkv6_shapes"].items() if (k, v) == (Dk, Dv))
@@ -6390,6 +6576,7 @@ def main() -> None:
     cell = timed("train_cell", phase_train_cell)
     timed("train_cli", phase_train_cli, cell.pop("cli"))
     rwkv_cell = timed("train_cell_rwkv", phase_train_cell_rwkv)
+    dry_rows = timed("dryrun", phase_dryrun, cell, rwkv_cell)
     attn_rows += timed("train_times", times_attention_bwd,
                        train_launches(parity, cell), cell)
     wkv_rows += timed("train_times", times_wkv6_bwd, parity, rwkv_cell)
@@ -6410,7 +6597,7 @@ def main() -> None:
     timed("cli", phase_cli)
     rows = timed("times", phase_times, scan, main_path, constrained, active,
                  facility, weighted, streaming)
-    rows += attn_rows + wkv_rows
+    rows += dry_rows + attn_rows + wkv_rows
     for r in attn_rows + wkv_rows:
         lib = ("no library call" if r["library_ms"] is None
                else f"SDPA {r['library_ms']:.4f} ms")

@@ -7,7 +7,8 @@ edited kernel is rebuilt and a stale library is never loaded.  All missing
 libraries are compiled together, one ``nvcc`` process per source.
 
 Every entry point returns ``cudaGetLastError()`` after its launches; the
-wrappers raise when it is not 0.
+wrappers raise when it is not 0.  On ``meta`` operands (the dry run,
+:func:`dry`) a wrapper loads nothing.
 """
 from __future__ import annotations
 
@@ -227,3 +228,19 @@ def load(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def dry(t) -> bool:
+    """Whether a wrapper's operand is the dry run's stand-in for a card
+    tensor: a tensor on the ``meta`` device (shape, type and strides, no
+    data).  The wrapper then runs its checks, allocates its outputs and
+    scratch, bumps its launch counters and reports its call's work
+    (:func:`repro_torch.kernels.cost.report`), and builds, loads and
+    launches nothing.  The branch follows the operands alone: a CUDA
+    tensor launches (or raises), never the dry branch."""
+    return t.device.type == "meta"
+
+
+def on_card(t) -> bool:
+    """A tensor on the card, or on the dry run's stand-in for it."""
+    return t.device.type in ("cuda", "meta")

@@ -30,6 +30,10 @@ dot.  A row moves ``d·itemsize`` bytes (+ 8 of scale and zero-point at
 int8); the operations do not change.  Their launches are counted once
 more under ``exemplar_gains_bf16``, ``_q8`` and ``_bf16dot``.
 
+On the dry run's ``meta`` operands (``_build.dry``) each launch runs its
+checks, allocates its outputs and scratch, bumps its counters and reports
+``cost.exemplar_gains``'s work; it builds, loads and launches nothing.
+
 The plain version is :func:`repro_torch.kernels.ref.exemplar_gains`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
 """
@@ -37,11 +41,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import exemplar_gains as plain  # noqa: F401
 
 BN = 128   # candidate rows per block (csrc/exemplar_tile.cuh)
 BM = 64    # E and cur_min are zero-padded to a multiple of it
+BMT = 64   # eval columns per column tile
+RESIDENT_MP = 1024  # e~ resident in shared memory up to this mp (d <= 6)
 
 #: the candidate row types the tile takes (its ``xtype`` codes)
 XTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -80,15 +86,36 @@ def count_launches(kernel: str, name: str, xtype: int, bf16dot: bool,
         _build.launch_counts[kernel + "_bf16dot"] += n
 
 
+def row_bytes(X: torch.Tensor, xtype: int) -> int:
+    """Bytes a candidate row moves: d·itemsize, + 8 of scale and
+    zero-point at int8."""
+    return X.shape[-1] * X.element_size() + (8 if xtype == 2 else 0)
+
+
+def tile_smem(d: int, mp: int, weighted: bool) -> int:
+    """``csrc/exemplar_tile.cuh``'s ``Layout(d, mp, weighted).end``, the
+    tile's shared memory in bytes: e~ (every column's where d ≤ 6 and mp ≤
+    :data:`RESIDENT_MP`, else one column tile's), two row tiles, cur_min
+    and, weighted, the eval weights (``exemplar_tile_smem`` of the built
+    library; ``chip_smoke.py`` holds the two equal)."""
+    resident = (d + 2 + 7) // 8 == 1 and mp <= RESIDENT_MP
+    xs = (mp // 8 if resident else BMT // 8) * 32 * 16
+    return xs + 2 * BN * 8 * 4 + mp * 4 + (mp * 4 if weighted else 0)
+
+
 def check_tile(device: torch.device, d: int, mp: int, weighted: bool,
                what: str) -> None:
     """Raise ValueError where the tile's shared memory at ``(d, mp)``
     (``csrc/exemplar_tile.cuh``'s ``Layout``, linear in mp) exceeds what a
-    block of ``device`` may opt in to."""
-    need = _build.load("exemplar_gains").exemplar_tile_smem(d, mp,
-                                                            int(weighted))
-    have = torch.cuda.get_device_properties(
-        device).shared_memory_per_block_optin
+    block of ``device`` may opt in to; on the dry run's ``meta`` device,
+    :func:`tile_smem` against the H100's (``cost.H100``)."""
+    if device.type == "meta":
+        need, have = tile_smem(d, mp, weighted), cost.H100.smem_optin
+    else:
+        need = _build.load("exemplar_gains").exemplar_tile_smem(
+            d, mp, int(weighted))
+        have = torch.cuda.get_device_properties(
+            device).shared_memory_per_block_optin
     if need > have:
         raise ValueError(f"{what} kernel: d={d} mp={mp} needs {need} B of "
                          f"shared memory, the card gives a block {have}")
@@ -111,11 +138,11 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     checks = [(E, (mp, d)), (cur_min, (M, mp))]
     if ew is not None:
         checks.append((ew, (mp,)))
-    if X.device.type != "cuda" or not X.is_contiguous():
+    if not _build.on_card(X) or not X.is_contiguous():
         raise ValueError(f"exemplar_gains kernel takes contiguous CUDA rows, "
                          f"got {X.device}")
     for t, shape in checks:
-        if (t.device.type != "cuda" or t.device != X.device
+        if (not _build.on_card(t) or t.device != X.device
                 or t.dtype != torch.float32 or not t.is_contiguous()
                 or tuple(t.shape) != shape):
             raise ValueError(f"exemplar_gains kernel takes contiguous fp32 "
@@ -128,6 +155,13 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     if n == 0:
         return out
     check_tile(X.device, d, mp, ew is not None, "exemplar_gains")
+    name = "exemplar_gains" if ew is None else "exemplar_gains_weighted"
+    if _build.dry(X):
+        count_launches("exemplar_gains", name, xtype, bf16dot)
+        cost.report(name, cost.exemplar_gains(
+            M, n, d, mp, row_bytes=row_bytes(X, xtype),
+            weighted=ew is not None))
+        return out
     fn = _build.load("exemplar_gains").exemplar_gains_launch
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _build.check(fn(X.data_ptr(), xtype,
@@ -136,6 +170,5 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                     E.data_ptr(), cur_min.data_ptr(), out.data_ptr(), M, n,
                     d, mp, None if ew is None else ew.data_ptr(), stream),
                  "exemplar_gains")
-    count_launches("exemplar_gains", "exemplar_gains" if ew is None
-                   else "exemplar_gains_weighted", xtype, bf16dot)
+    count_launches("exemplar_gains", name, xtype, bf16dot)
     return out

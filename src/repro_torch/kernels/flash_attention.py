@@ -37,6 +37,11 @@ the same bits every call), on the route
 on the CUDA cores.  No TPU kernel precedes the backward: the JAX package
 differentiates its jnp reference.
 
+On the dry run's ``meta`` operands (``_build.dry``) each launch runs its
+checks, allocates its outputs and scratch, bumps its counters and reports
+``cost.attention`` and ``cost.attention_backward``'s work; it builds, loads
+and launches nothing.
+
 The plain version is :func:`repro_torch.kernels.ref.flash_attention`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
 """
@@ -47,7 +52,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import flash_attention as plain  # noqa: F401
 
 HEAD_DIMS = (16, 64, 128, 256)   # the instantiations of csrc/flash_attention.cu
@@ -122,7 +127,7 @@ def _bhs(t: torch.Tensor) -> tuple[torch.Tensor, int, int, int]:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if (q.device.type != "cuda" or k.device != q.device
+    if (not _build.on_card(q) or k.device != q.device
             or v.device != q.device or q.dim() != 4 or k.dim() != 4
             or v.shape != k.shape or q.dtype not in (torch.float32,
                                                      torch.bfloat16)
@@ -179,12 +184,17 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     so = [out.stride(0), out.stride(1), out.stride(2)]
     scale32 = float(np.float32(scale))
     bf16 = int(q.dtype == torch.bfloat16)
+    route = ("decode" if S == 1 and not with_lse
+             else "prefill_wgmma" if prefill_route(q.dtype, D) == "wgmma"
+             else "prefill")
+    if _build.dry(q):
+        return _dry_launch(q, out, lse, Hkv, T, kv, causal, route, with_lse)
     lib = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *sq, *sk, *sv, *so)
     lse_ptr = None if lse is None else lse.data_ptr()
-    if S == 1 and not with_lse:
+    if route == "decode":
         dev = q.device.index
         G = H // Hkv
         if dev not in _sm_count:
@@ -213,8 +223,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             *ptrs, B, H, Hkv, D, kv, chunk, nsplit, scale32, bf16,
             *(None if t is None else t.data_ptr() for t in scratch), stream),
             "flash_attention (decode)")
-        _build.launch_counts["flash_attention_decode"] += 1
-    elif prefill_route(q.dtype, D) == "wgmma":
+    elif route == "prefill_wgmma":
         # TMA takes a stride only where the dim is longer than one
         dims = {"q": (B, H, S), "k": (B, Hkv, T), "v": (B, Hkv, T)}
         for name, st in (("q", sq), ("k", sk), ("v", sv)):
@@ -223,17 +232,48 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *sq, *sk, *sv, *so, B, H, Hkv, S, T, D, kv, int(bool(causal)),
             scale32, lse_ptr, stream), "flash_attention (prefill, wgmma)")
-        _build.launch_counts["flash_attention_prefill"] += 1
-        _build.launch_counts["flash_attention_prefill_wgmma"] += 1
     else:
         _build.check(lib.flash_attention_prefill_launch(
             *ptrs, B, H, Hkv, S, T, D, kv, int(bool(causal)), scale32, bf16,
             lse_ptr, stream), "flash_attention (prefill)")
-        _build.launch_counts["flash_attention_prefill"] += 1
+    _count_forward(route, with_lse)
+    return (out, lse) if with_lse else out
+
+
+def _count_forward(route: str, with_lse: bool) -> None:
+    """A forward call's launches on ``route`` (``"decode"``,
+    ``"prefill"``, ``"prefill_wgmma"``): one under its kernel, once more
+    under ``_wgmma`` and under ``_lse`` where they apply."""
+    counts = _build.launch_counts
+    counts["flash_attention_decode" if route == "decode"
+           else "flash_attention_prefill"] += 1
+    if route == "prefill_wgmma":
+        counts["flash_attention_prefill_wgmma"] += 1
     if with_lse:
-        _build.launch_counts["flash_attention_prefill_lse"] += 1
-        return out, lse
-    return out
+        counts["flash_attention_prefill_lse"] += 1
+
+
+def _dry_launch(q, out, lse, Hkv: int, T: int, kv: int, causal: bool,
+                route: str, with_lse: bool):
+    """:func:`launch` on the dry run's ``meta`` operands: the decode
+    launch's split scratch (its splits cut for one CTA of four warps an
+    SM, as greedy_select's dry grid takes one CTA an SM: the card's
+    occupancy needs the built kernel, and the scratch is a few MB either
+    way), its counters and its work (``cost.attention``)."""
+    B, H, S, D = q.shape
+    if route == "decode":
+        nsplit, _ = decode_splits(B, Hkv, H // Hkv, kv, cost.H100.sms, 1)
+        if nsplit > 1:
+            torch.empty((nsplit, B, H, D), dtype=torch.float32,
+                        device=q.device)
+            torch.empty((nsplit, B, H, 2), dtype=torch.float32,
+                        device=q.device)
+    _count_forward(route, with_lse)
+    cost.report("flash_attention_decode" if route == "decode"
+                else "flash_attention_prefill",
+                cost.attention(B, H, Hkv, S, T, D, bool(causal), kv,
+                               q.element_size()))
+    return (out, lse) if with_lse else out
 
 
 def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -284,42 +324,55 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     st = (ctypes.c_longlong * 24)(*strides)
     scale32 = float(np.float32(scale))
     bf16 = int(q.dtype == torch.bfloat16)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    route = bwd_route(q.dtype, D)
+    if _build.dry(q):
+        _count_backward(route)
+        cost.report("flash_attention_bwd_dkdv", cost.attention_backward(
+            B, H, Hkv, S, T, D, bool(causal), q.element_size()))
+        return dq, dk, dv
     lib = _build.load("flash_attention_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counts = _build.launch_counts
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     causal = int(bool(causal))
-    if bwd_route(q.dtype, D) == "wgmma":
+    if route == "wgmma":
         # dQ first: its kernel also writes Δ, which the dK/dV kernel reads
         _build.check(lib.flash_attention_bwd_dq_wgmma_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             st, B, H, Hkv, S, T, D, causal, scale32, stream),
             "flash_attention backward (dq and delta, wgmma)")
-        counts["flash_attention_bwd_dq"] += 1
-        counts["flash_attention_bwd_dq_wgmma"] += 1
         _build.check(lib.flash_attention_bwd_dkdv_wgmma_launch(
             *args, dk.data_ptr(), dv.data_ptr(), st, B, H, Hkv, S, T, D,
             causal, scale32, stream),
             "flash_attention backward (dk, dv, wgmma)")
-        counts["flash_attention_bwd_dkdv"] += 1
-        counts["flash_attention_bwd_dkdv_wgmma"] += 1
-        return dq, dk, dv
-    _build.check(lib.flash_attention_bwd_delta_launch(
-        o.data_ptr(), do.data_ptr(), delta.data_ptr(), *so, *sd, B, H, S, D,
-        bf16, stream), "flash_attention backward (delta)")
-    counts["flash_attention_bwd_delta"] += 1
-    shape = (B, H, Hkv, S, T, D, causal, scale32, bf16, stream)
-    _build.check(lib.flash_attention_bwd_dkdv_launch(
-        *args, dk.data_ptr(), dv.data_ptr(), st, *shape),
-        "flash_attention backward (dk, dv)")
-    counts["flash_attention_bwd_dkdv"] += 1
-    _build.check(lib.flash_attention_bwd_dq_launch(
-        *args, dq.data_ptr(), st, *shape), "flash_attention backward (dq)")
-    counts["flash_attention_bwd_dq"] += 1
+    else:
+        _build.check(lib.flash_attention_bwd_delta_launch(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(), *so, *sd, B, H,
+            S, D, bf16, stream), "flash_attention backward (delta)")
+        shape = (B, H, Hkv, S, T, D, causal, scale32, bf16, stream)
+        _build.check(lib.flash_attention_bwd_dkdv_launch(
+            *args, dk.data_ptr(), dv.data_ptr(), st, *shape),
+            "flash_attention backward (dk, dv)")
+        _build.check(lib.flash_attention_bwd_dq_launch(
+            *args, dq.data_ptr(), st, *shape),
+            "flash_attention backward (dq)")
+    _count_backward(route)
     return dq, dk, dv
+
+
+def _count_backward(route: str) -> None:
+    """A backward call's launches on ``route``: dQ and dK/dV, once more
+    under ``_wgmma`` on the tensor cores, and the Δ pre-pass on the CUDA
+    cores."""
+    counts = _build.launch_counts
+    for part in ("dq", "dkdv"):
+        counts[f"flash_attention_bwd_{part}"] += 1
+        if route == "wgmma":
+            counts[f"flash_attention_bwd_{part}_wgmma"] += 1
+    if route != "wgmma":
+        counts["flash_attention_bwd_delta"] += 1
 
 
 def _ticket_buffer(device: torch.device, stream: int, n: int

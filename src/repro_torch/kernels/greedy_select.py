@@ -47,6 +47,10 @@ dequantized rows, the commit refreshes ``cur_min`` from the winner's
 dequantized fp32 row.  Their launches count once more as
 ``greedy_select_bf16``, ``_q8`` and ``_bf16dot``.
 
+On the dry run's ``meta`` operands (``_build.dry``) each launch runs its
+checks, allocates its outputs and scratch, bumps its counters and reports
+``cost.greedy_select``'s work; it builds, loads and launches nothing.
+
 The plain version is :func:`repro_torch.kernels.ref.greedy_select`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
 """
@@ -54,9 +58,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.exemplar_gains import (BM, check_tile,
-                                                count_launches, row_operand)
+from repro_torch.kernels import _build, cost
+from repro_torch.kernels.exemplar_gains import (BM, BN, check_tile,
+                                                count_launches, row_bytes,
+                                                row_operand)
 from repro_torch.kernels.ref import greedy_select as plain  # noqa: F401
 
 
@@ -97,7 +102,7 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     if ew is not None:
         checks.append((ew, (mp,), torch.float32))
     for t, shape, dtype in checks:
-        if (t.device.type != "cuda" or t.device != X.device
+        if (not _build.on_card(t) or t.device != X.device
                 or t.dtype != dtype or not t.is_contiguous()
                 or tuple(t.shape) != shape):
             raise ValueError(f"greedy_select kernel takes contiguous {dtype} "
@@ -112,11 +117,17 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
         return sel, cur_min
     constrained = w is not None or gid is not None
     check_tile(X.device, d, mp, ew is not None, "greedy_select")
-    lib = _build.load("greedy_select")
-    P = lib.greedy_select_grid(M, n, d, mp, int(constrained),
-                               int(ew is not None), xtype, int(bf16dot))
-    if P <= 0:
-        raise RuntimeError("greedy_select: occupancy query failed")
+    dry = _build.dry(X)
+    if dry:
+        # the occupancy query needs the built kernel: one CTA an SM here
+        # (the winners' scratch is 8·(M + P) bytes, a few KB either way)
+        P = min(cost.H100.sms, M * -(-n // BN))
+    else:
+        lib = _build.load("greedy_select")
+        P = lib.greedy_select_grid(M, n, d, mp, int(constrained),
+                                   int(ew is not None), xtype, int(bf16dot))
+        if P <= 0:
+            raise RuntimeError("greedy_select: occupancy query failed")
     # one winner per (CTA, machine segment): segment (c, mach) has slot
     # c + mach; the tickets start at 0 and every commit sets its back to 0
     win_v = torch.empty((M + P,), dtype=torch.float32, device=X.device)
@@ -126,6 +137,15 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
         used = torch.zeros((M,), dtype=torch.float32, device=X.device)
         counts = torch.zeros((M, max(G, 1)), dtype=torch.int32,
                              device=X.device)
+    name = ("greedy_select_weighted" if ew is not None
+            else "greedy_select_constrained" if constrained
+            else "greedy_select")
+    if dry:
+        count_launches("greedy_select", name, xtype, bf16dot, k)
+        cost.report(name, cost.greedy_select(
+            M, n, d, mp, k, row_bytes=row_bytes(X, xtype),
+            constrained=constrained, weighted=ew is not None))
+        return sel, cur_min
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _build.check(lib.greedy_select_launch(
                     X.data_ptr(), xtype,
@@ -142,8 +162,5 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                     counts.data_ptr() if constrained else None, G,
                     None if ew is None else ew.data_ptr(), stream),
                  "greedy_select")
-    name = ("greedy_select_weighted" if ew is not None
-            else "greedy_select_constrained" if constrained
-            else "greedy_select")
     count_launches("greedy_select", name, xtype, bf16dot, k)
     return sel, cur_min

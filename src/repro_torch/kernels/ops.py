@@ -69,12 +69,17 @@ gradient for each input that requires one.  A kernel that fails to build
 or launch raises: no gradient falls back to the plain version or is
 dropped silently.
 
+The dry run (``repro_torch.launch.op_analyzer``) passes ``meta`` tensors
+as the card's: they take the card's path, and each wrapper's dry branch
+checks, allocates and counts as a launch would, reports its call's work
+(:mod:`repro_torch.kernels.cost`) and launches nothing.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import exemplar_gains as _eg
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import greedy_select as _gs
@@ -95,9 +100,12 @@ def reset_launch_counts() -> None:
 
 
 def _on_card(t: torch.Tensor) -> bool:
+    """CPU tensors take the plain version; CUDA tensors the kernel, and
+    ``meta`` tensors (the dry run's stand-in for the card) the kernel
+    wrapper's dry branch (``_build.dry``)."""
     if t.device.type == "cpu":
         return False
-    if t.device.type == "cuda":
+    if _build.on_card(t):
         return True
     raise RuntimeError(f"no kernel for tensors on {t.device}: pass CPU "
                        "tensors for the plain version or CUDA tensors")

@@ -23,6 +23,10 @@ which its caller scores in candidate chunks), and at the
 ``ActiveSetSelection`` update shape it reads every candidate row once; the
 ``exp`` rate on the SFUs is the next limit.
 
+On the dry run's ``meta`` operands (``_build.dry``) each launch runs its
+checks, allocates its outputs and scratch, bumps its counters and reports
+``cost.rbf_kernel``'s work; it builds, loads and launches nothing.
+
 The plain version is :func:`repro_torch.kernels.ref.rbf_kernel`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
 """
@@ -31,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import rbf_kernel as plain  # noqa: F401
 
 ROWS = 32     # X rows per output tile (csrc/rbf_kernel.cu)
@@ -52,7 +56,7 @@ def rowvec(n: int, d: int) -> bool:
 def _rows_operand(t: torch.Tensor, M: int, what: str):
     """(tensor, machine stride in elements) of a ``(Mt, r, d)`` operand whose
     rows are contiguous; stride 0 where one machine's rows are shared."""
-    if (t.device.type != "cuda" or t.dtype != torch.float32
+    if (not _build.on_card(t) or t.dtype != torch.float32
             or t.dim() != 3 or t.shape[0] not in (1, M)):
         raise ValueError(f"rbf_kernel kernel takes fp32 CUDA tensors "
                          f"(Mt, rows, d) with Mt in (1, {M}), got {what} "
@@ -85,13 +89,22 @@ def launch(X: torch.Tensor, Y: torch.Tensor, h: float) -> torch.Tensor:
     out = torch.empty((M, n, m), dtype=torch.float32, device=X.device)
     if n == 0 or m == 0:
         return out
+    if _build.dry(X):
+        _count(vec)
+        cost.report("rbf_kernel", cost.rbf_kernel(X.shape[0], n, Y.shape[0],
+                                                  m, d))
+        return out
     inv_h2 = float(np.float32(1.0 / (float(h) * float(h))))
     fn = _build.load("rbf_kernel").rbf_kernel_launch
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _build.check(fn(X.data_ptr(), Y.data_ptr(), out.data_ptr(), sx, sy, M, n,
                     m, d, inv_h2, int(vec), stream), "rbf_kernel")
+    _count(vec)
+    return out
+
+
+def _count(vec: bool) -> None:
     _build.launch_counts["rbf_kernel"] += 1
     if vec:
         _build.launch_counts["rbf_kernel_rowvec"] += 1
-    return out
 

@@ -53,6 +53,10 @@ rows and, under the bf16 dot, takes their x·e in bf16 as the gains do.
 Their heads count once more as ``threshold_select_bf16``, ``_q8`` and
 ``_bf16dot``.
 
+On the dry run's ``meta`` operands (``_build.dry``) each launch runs its
+checks, allocates its outputs and scratch, bumps its counters and reports
+``cost.threshold_select``'s work; it builds, loads and launches nothing.
+
 The plain version is :func:`repro_torch.kernels.ref.threshold_select`; the
 dispatch in :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
 """
@@ -60,13 +64,18 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.exemplar_gains import (BM, check_tile,
-                                                count_launches, row_operand)
+                                                count_launches, row_bytes,
+                                                row_operand, tile_smem)
 from repro_torch.kernels.ref import threshold_select as plain  # noqa: F401
 
 MAX_BN = 256  # rows per block the kernel takes (its block buffers)
 HEAD_EMPTIES = 2  # csrc/threshold_select.cu's kHeadEmpties
+#: the walk kernel's static shared memory in bytes, weighted or not, as
+#: the built kernel reports it on an H100 80GB HBM3 (the dry run's
+#: :func:`max_groups`; ``chip_smoke.py`` holds it against the card's)
+WALK_STATIC_SMEM = 2320
 
 _max_groups: dict[tuple[int, bool, int, int], int] = {}
 
@@ -78,6 +87,12 @@ def max_groups(device: torch.device, weighted: bool = False, d: int = 6,
     the block's opt-in shared memory less the kernel's static shared memory
     and the gain tile's (which grows with mp, and with the eval weights'
     stage where ``weighted``), as the built kernel reports them."""
+    if torch.device(device).type == "meta":
+        # csrc/threshold_select.cu's walk_smem: the tile, the walk's
+        # static shared memory (WALK_STATIC_SMEM) and 4 bytes a group
+        room = (cost.H100.smem_optin - WALK_STATIC_SMEM
+                - tile_smem(d, mp, weighted))
+        return max(room, 0) // 4
     key = (torch.device(device).index or 0, bool(weighted), int(d), int(mp))
     if key not in _max_groups:
         got = _build.load("threshold_select").threshold_select_max_groups(
@@ -134,7 +149,7 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     if ew is not None:
         checks.append((ew, (mp,), torch.float32))
     for t, shape, dtype in checks:
-        if (t.device.type != "cuda" or t.device != X.device
+        if (not _build.on_card(t) or t.device != X.device
                 or t.dtype != dtype or not t.is_contiguous()
                 or tuple(t.shape) != shape):
             raise ValueError(f"threshold_select kernel takes contiguous "
@@ -165,6 +180,13 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
     mid = [torch.empty((M,), dtype=dt, device=X.device)
            for dt in (torch.int32, torch.int32, torch.float32)]
     counts_mid = torch.empty_like(counts)
+    name = "threshold_select" if ew is None else "threshold_select_weighted"
+    if _build.dry(X):
+        _count(name, xtype, bf16dot)
+        cost.report(name, cost.threshold_select(
+            M, n, d, mp, row_bytes=row_bytes(X, xtype),
+            constrained=w is not None or gid is not None))
+        return accept
     fn = _build.load("threshold_select").threshold_select_launch
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _build.check(fn(X.data_ptr(), xtype,
@@ -182,8 +204,13 @@ def launch(X: torch.Tensor, E: torch.Tensor, cur_min: torch.Tensor,
                     None if w is None else limit.data_ptr(),
                     None if ew is None else ew.data_ptr(), stream),
                  "threshold_select")
-    count_launches("threshold_select", "threshold_select" if ew is None
-                   else "threshold_select_weighted", xtype, bf16dot)
+    _count(name, xtype, bf16dot)
+    return accept
+
+
+def _count(name: str, xtype: int, bf16dot: bool) -> None:
+    """One level's three launches: the head under ``name`` (and its row
+    type's and the bf16 dot's counters), the pre-pass and the tail."""
+    count_launches("threshold_select", name, xtype, bf16dot)
     _build.launch_counts["threshold_select_prepass"] += 1
     _build.launch_counts["threshold_select_tail"] += 1
-    return accept

@@ -68,6 +68,11 @@ call), ``wkv6_bwd`` and ``wkv6_bwd_du`` (one each a recurrent backward
 call) and ``wkv6_bwd_chunked`` and ``wkv6_bwd_chunked_du`` (three and one
 a chunked backward call).
 
+On the dry run's ``meta`` operands (``_build.dry``) each launch runs its
+checks, allocates its outputs and scratch, bumps its counters and reports
+``cost.wkv6`` and ``cost.wkv6_backward``'s work; it builds, loads and
+launches nothing.
+
 The plain version is :func:`repro_torch.kernels.ref.wkv6`; the dispatch in
 :mod:`repro_torch.kernels.ops` takes it for CPU tensors only.
 """
@@ -77,7 +82,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.flash_attention import _bhs
 from repro_torch.kernels.ref import wkv6 as plain  # noqa: F401
 from repro_torch.kernels.ref import wkv6_bwd_tile
@@ -106,7 +111,7 @@ def _state(s, shape, device, what: str):
 def _shape(r, k, v, w, u) -> tuple[int, int, int, int, int]:
     """Check the operands of a call; returns (B, H, T, Dk, Dv)."""
     dev = r.device
-    if (dev.type != "cuda" or any(t.device != dev for t in (k, v, w, u))
+    if (not _build.on_card(r) or any(t.device != dev for t in (k, v, w, u))
             or r.dim() != 4 or v.dim() != 4 or r.dtype not in _OPERANDS
             or k.dtype != r.dtype or v.dtype != r.dtype
             or w.dtype != torch.float32 or u.dtype not in _OPERANDS):
@@ -184,6 +189,8 @@ def launch_recurrent(r, k, v, w, u, state=None, *, state_out=None,
     v, *sv = _bhs(v)
     w, *sw = _bhs(w)
     u = u.contiguous()
+    if _build.dry(r):
+        return _dry_forward("wkv6_recurrent", r, u, state, y, state_out)
     lib = _build.load("wkv6")
     stream = torch.cuda.current_stream(r.device).cuda_stream
     _build.check(lib.wkv6_launch(
@@ -193,9 +200,25 @@ def launch_recurrent(r, k, v, w, u, state=None, *, state_out=None,
         y.stride(0), y.stride(1), y.stride(2), B, H, T, Dk, Dv,
         int(r.dtype == torch.bfloat16), int(u.dtype == torch.bfloat16),
         int(y.dtype == torch.float32), stream), "wkv6")
-    _build.launch_counts["wkv6_recurrent"] += 1
+    _count_forward("wkv6_recurrent", T)
+    return y, state_out
+
+
+def _count_forward(name: str, T: int) -> None:
+    """A forward call's launches: one under ``name`` (three for the
+    chunked kernel), and the call once under wkv6_prefill where T > 1."""
+    _build.launch_counts[name] += 3 if name == "wkv6_chunked" else 1
     if T > 1:
         _build.launch_counts["wkv6_prefill"] += 1
+
+
+def _dry_forward(name, r, u, state, y, state_out):
+    """A forward launch on the dry run's ``meta`` operands: its counters
+    and its work (``cost.wkv6``), no launch."""
+    B, H, T, Dk = r.shape
+    _count_forward(name, T)
+    cost.report(name, cost.wkv6(B, H, T, Dk, y.shape[3], r.element_size(),
+                                state is not None, y.element_size()))
     return y, state_out
 
 
@@ -212,6 +235,8 @@ def launch_decode(r, k, v, w, u, state=None, *, state_out=None,
     v, *sv = _bhs(v)
     w, *sw = _bhs(w)
     u = u.contiguous()
+    if _build.dry(r):
+        return _dry_forward("wkv6_decode", r, u, state, y, state_out)
     lib = _build.load("wkv6_decode")
     stream = torch.cuda.current_stream(r.device).cuda_stream
     _build.check(lib.wkv6_decode_launch(
@@ -221,7 +246,7 @@ def launch_decode(r, k, v, w, u, state=None, *, state_out=None,
         *sw[:2], y.stride(0), y.stride(1), B, H, Dk, Dv,
         int(r.dtype == torch.bfloat16), int(u.dtype == torch.bfloat16),
         int(y.dtype == torch.float32), stream), "wkv6 decode")
-    _build.launch_counts["wkv6_decode"] += 1
+    _count_forward("wkv6_decode", T)
     return y, state_out
 
 
@@ -247,6 +272,8 @@ def launch_chunked(r, k, v, w, u, state=None, *, state_out=None,
     v, *sv = _bhs(v)
     w, *sw = _bhs(w)
     u = u.contiguous()
+    if _build.dry(r):
+        return _dry_forward("wkv6_chunked", r, u, state, y, state_out)
     lib = _build.load("wkv6_chunked")
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib.wkv6_chunked_launch(
@@ -258,9 +285,7 @@ def launch_chunked(r, k, v, w, u, state=None, *, state_out=None,
         Dk, Dv, int(r.dtype == torch.bfloat16),
         int(u.dtype == torch.bfloat16), int(y.dtype == torch.float32),
         stream), "wkv6 chunked")
-    if T > 1:
-        _build.launch_counts["wkv6_prefill"] += 1
-    _build.launch_counts["wkv6_chunked"] += 3
+    _count_forward("wkv6_chunked", T)
     return y, state_out
 
 
@@ -368,6 +393,9 @@ def launch_backward_chunked(r, k, v, w, u, state, dy, d_state_out=None
     strides = _strides(ins, (dr, dk, dv, dw))
     r, k, v, w, dy = ins
     u = u.contiguous()
+    if _build.dry(r):
+        _dry_backward("wkv6_bwd_chunked", r, dy, state, Dv)
+        return _chunked_grads(out_dtype, dr, dk, dv, dw, du, d_state)
     lib = _build.load("wkv6_bwd_chunked")
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib.wkv6_bwd_chunked_launch(
@@ -379,11 +407,33 @@ def launch_backward_chunked(r, k, v, w, u, state, dy, d_state_out=None
         dup.data_ptr(), strides, B, H, T, Dk, Dv,
         int(r.dtype == torch.bfloat16), int(u.dtype == torch.bfloat16),
         stream), "wkv6 chunked backward")
-    _build.launch_counts["wkv6_bwd_chunked"] += 3
-    _build.launch_counts["wkv6_bwd_chunked_du"] += 1
-    if out_dtype != r.dtype:
+    _count_backward("wkv6_bwd_chunked")
+    return _chunked_grads(out_dtype, dr, dk, dv, dw, du, d_state)
+
+
+def _chunked_grads(out_dtype, dr, dk, dv, dw, du, d_state):
+    """The chunked backward's gradients, dr, dk, dv rounded to the
+    operands' type once where they were computed in fp32."""
+    if out_dtype != dr.dtype:
         dr, dk, dv = (t.to(out_dtype) for t in (dr, dk, dv))
     return dr, dk, dv, dw, du, d_state
+
+
+def _count_backward(name: str) -> None:
+    """A backward call's launches: the chunked kernel's three and its
+    du's sum, or the recurrent kernel's scan and its du's sum."""
+    _build.launch_counts[name] += 3 if name == "wkv6_bwd_chunked" else 1
+    _build.launch_counts[name + "_du"] += 1
+
+
+def _dry_backward(name, r, dy, state, Dv) -> None:
+    """A backward launch on the dry run's ``meta`` operands: its counters
+    and its work (``cost.wkv6_backward``), no launch."""
+    B, H, T, Dk = r.shape
+    _count_backward(name)
+    cost.report(name, cost.wkv6_backward(B, H, T, Dk, Dv, r.element_size(),
+                                         dy.element_size(),
+                                         state is not None))
 
 
 def launch_backward_recurrent(r, k, v, w, u, state, dy, d_state_out=None
@@ -397,8 +447,12 @@ def launch_backward_recurrent(r, k, v, w, u, state, dy, d_state_out=None
         r, k, v, w, u, state, dy, d_state_out)
     dkp, cpt, tc = wkv6_bwd_tile(Dk, Dv)
     dev = r.device
-    lib = _build.load("wkv6_bwd")
-    nc = -(-T // int(lib.wkv6_bwd_chunk(dkp, cpt, tc)))
+    dry = _build.dry(r)
+    if dry:
+        lib, nc = None, -(-T // bwd_chunk_steps(dkp, cpt, tc))
+    else:
+        lib = _build.load("wkv6_bwd")
+        nc = -(-T // int(lib.wkv6_bwd_chunk(dkp, cpt, tc)))
     dr, dk, dv, dw, du, d_state = _backward_outputs(B, H, T, Dk, Dv,
                                                     r.dtype, u.dtype, dev)
     dup = torch.empty((B, H, Dk), dtype=torch.float32, device=dev)
@@ -408,6 +462,9 @@ def launch_backward_recurrent(r, k, v, w, u, state, dy, d_state_out=None
     strides = _strides(ins, (dr, dk, dv, dw))
     r, k, v, w, dy = ins
     u = u.contiguous()
+    if dry:
+        _dry_backward("wkv6_bwd", r, dy, state, Dv)
+        return dr, dk, dv, dw, du, d_state
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib.wkv6_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
@@ -418,9 +475,18 @@ def launch_backward_recurrent(r, k, v, w, u, state, dy, d_state_out=None
         Dk, Dv, dkp, cpt, tc, int(r.dtype == torch.bfloat16),
         int(u.dtype == torch.bfloat16), int(dy.dtype == torch.bfloat16),
         stream), "wkv6 backward")
-    _build.launch_counts["wkv6_bwd"] += 1
-    _build.launch_counts["wkv6_bwd_du"] += 1
+    _count_backward("wkv6_bwd")
     return dr, dk, dv, dw, du, d_state
+
+
+def bwd_chunk_steps(dkp: int, cpt: int, tc: int) -> int:
+    """``csrc/wkv6_bwd.cu``'s ``Tile<DKP, CPT, TC>::C``, the steps between
+    the recurrent backward's kept states: as many (DKP × CPT·TC) fp32
+    states as fit 128 KB (DKP = 64) or 64 KB of shared memory, at most 32
+    (``wkv6_bwd_chunk`` of the built library; ``chip_smoke.py`` holds the
+    two equal)."""
+    budget = 32768 if dkp == 64 else 16384
+    return min(budget // (dkp * cpt * tc), 32)
 
 
 def backward_smem_bytes_chunked(Dk: int, Dv: int, bf16: bool) -> int:

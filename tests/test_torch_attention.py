@@ -134,9 +134,14 @@ def test_card_tensors_go_to_the_kernel_and_raise_without_one(monkeypatch):
 
 
 def test_non_cpu_tensor_never_falls_back_to_plain_attention():
-    q = torch.empty((1, 2, 4, 16), device="meta")
+    """Neither on the CPU nor on a card (nor ``meta``, the dry run's
+    stand-in for the card): a fake tensor on another device raises."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        q = torch.empty((1, 2, 4, 16), device="xla")
+        k = torch.empty((1, 1, 4, 16), device="xla")
     with pytest.raises(RuntimeError, match="no kernel"):
-        ops.flash_attention(q, q[:, :1], q[:, :1])
+        ops.flash_attention(q, k, k)
 
 
 @pytest.mark.parametrize("per_sm,warps", [(2, 4), (1, 1), (3, 2)])

@@ -156,15 +156,18 @@ def test_unported_arguments_name_their_roadmap_item(kw, item):
 
 
 def test_non_cpu_tensor_never_falls_back_to_plain():
-    """A tensor that is neither on the CPU nor on a card raises."""
-    X = torch.empty((4, 3), device="meta")
-    E = torch.empty((2, 3), device="meta")
+    """A tensor that is neither on the CPU nor on a card raises (``meta``
+    is the dry run's stand-in for the card, so the tensors here are fake
+    ones on another device)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        X, E, cm = (torch.empty(s, device="xla")
+                    for s in ((4, 3), (2, 3), (2,)))
+        mask = torch.empty((4,), dtype=torch.bool, device="xla")
     with pytest.raises(RuntimeError, match="no kernel"):
-        ops.exemplar_gains(X, E, torch.empty((2,), device="meta"))
+        ops.exemplar_gains(X, E, cm)
     with pytest.raises(RuntimeError, match="no kernel"):
-        ops.greedy_select(X, E, torch.empty((2,), device="meta"),
-                          torch.empty((4,), dtype=torch.bool, device="meta"),
-                          1)
+        ops.greedy_select(X, E, cm, mask, 1)
 
 
 def test_kernel_launchers_refuse_cpu_tensors():

@@ -86,8 +86,12 @@ def test_rbf_chunks_give_the_same_bits(monkeypatch):
 
 
 def test_rbf_dispatch_refuses_other_devices():
-    X = torch.zeros((2, 3), device="meta")
-    with pytest.raises(RuntimeError, match="no kernel for tensors on meta"):
+    """Neither on the CPU nor on a card (nor ``meta``, the dry run's
+    stand-in for the card): a fake tensor on another device raises."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        X = torch.zeros((2, 3), device="xla")
+    with pytest.raises(RuntimeError, match="no kernel for tensors on xla"):
         ops.rbf_kernel(X, X, 0.5)
     with pytest.raises(ValueError, match="do not pair up"):
         ref.rbf_kernel(torch.zeros((2, 4, 3)), torch.zeros((3, 5, 3)), 0.5)
